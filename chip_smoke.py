@@ -6,7 +6,8 @@ Run from the repository root on a machine with one CUDA card and nvcc. It
 imports nothing of JAX or disn_tpu. Phases, each fatal on failure:
 
 1. build every kernel of the port from csrc/ (nvcc, sm_90a) and report the
-   build seconds and the compiler's register/shared-memory report;
+   build seconds and the compiler's register/shared-memory/wgmma report;
+   a wgmma the compiler serialised fails the run;
 2. drive the main path, pipeline.image_to_mesh at sdf_res=256 on the
    full-width VGG-16 two-stream net (analytic octahedron head, r=0.6, the
    demo camera): a warm-up image and 3 fresh seeded u8 images in bf16, then
@@ -21,6 +22,10 @@ imports nothing of JAX or disn_tpu. Phases, each fatal on failure:
    full-width head weights and a random map, which exercise the feature
    sampling and the local stream that the analytic head zeroes, in float32
    and bfloat16, with the demo camera and one whose w=0 plane cuts the box;
+   (c) at ragged cell counts (1, 3, 5 and the fine pass's count minus one,
+   which the bf16 wrapper pads to whole clusters), the same way; then time
+   the bf16 launches at each cluster size and print each one's share of its
+   bound and the weight bytes it moves from L2;
 4. print per-stage times, the card, and the kernel table as JSON.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
@@ -44,6 +49,11 @@ H100_BYTES_PER_S = 3.35e12
 # and f32 accumulation order decides ties)
 F32_REL_TOL = 1e-4
 BF16_MAX_REL, BF16_MEAN_REL = 0.02, 0.003
+# the bf16 kernel's weight stream per fetch: w2, w3, wp, w4 of both streams
+# in bf16 plus small_params' f32 biases, w1 and w5
+K1_WEIGHT_BYTES = 2 * 2 * (64 * 256 + 256 * 512 + 512 * 512 + 512 * 256) \
+    + 2 * 2308 * 4
+RAGGED_CELLS = (1, 3, 5)
 # vertex distance from the octahedron surface |x|+|y|+|z| = 0.6. Grid
 # coordinates k/128 - 1 are exact in bf16, and near the surface their sum
 # (in [0.5, 1), a multiple of 1/128) is too, so the analytic head's field
@@ -107,15 +117,19 @@ def phase_build() -> None:
     secs = fused_decode.build_seconds()
     print(f"[build] fused_decode.cu built and loaded in {secs:.2f} s")
     log = fused_decode.build().with_suffix(".log").read_text()
+    keys = ("registers", "spill", "smem", "wgmma", "Performance",
+            "setmaxnreg")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(k in line for k in keys):
             print(f"[build] {line.strip()}")
+    check("serialized" not in log,
+          "the compiler serialised wgmma instructions (see the build log)")
 
 
-def hold_k1(label: str, args, kw) -> dict:
+def hold_k1(label: str, args, kw, timed: bool = True) -> dict:
     """One K1 call against fused_decode_plain on the same inputs: check the
-    tolerance, time both. These launches are made after the main path's
-    counts were read."""
+    tolerance, and time both unless `timed` is false. These launches are
+    made after the main path's counts were read."""
     import torch
     from disn_tpu_torch.ops import fused_decode
 
@@ -132,8 +146,9 @@ def hold_k1(label: str, args, kw) -> dict:
     else:
         ok = (max_err <= BF16_MAX_REL * scale
               and mean_err <= BF16_MEAN_REL * scale)
-    ms = cuda_ms(lambda: k1(*args, **kw), 5)
-    plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
+    ms = cuda_ms(lambda: k1(*args, **kw), 5) if timed else float("nan")
+    plain_ms = (cuda_ms(lambda: plain(*args, **kw), 2) if timed
+                else float("nan"))
     bound_ms, bound_by = k1_bound(args, kw)
     print(f"[k1] {label} cells={args[4].numel()} fine_r={kw['fine_r']} "
           f"max_abs_err={max_err:.3e} mean_abs_err={mean_err:.3e} "
@@ -184,6 +199,8 @@ def phase_k1_check(kept: dict) -> dict:
             res[(dt, "main", pass_)] = hold_k1(f"{dt} main-path {pass_}",
                                                args, kw)
     args_by_pass = dict(zip(("coarse", "fine"), kept["bf16"]))
+    fine_args, fine_kw = args_by_pass["fine"]
+    n_fine = fine_args[4].numel()
     for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for cam_name, cam in (("demo", synthetic.demo_trans_mat()),
                               ("w0_plane_in_box", TRANS_W0_IN_BOX)):
@@ -191,7 +208,46 @@ def phase_k1_check(kept: dict) -> dict:
                 args = random_k1_args(dtype, cam, margs)
                 res[(dt, cam_name, pass_)] = hold_k1(
                     f"{dt} random camera={cam_name} {pass_}", args, kw)
+                if pass_ != "fine":
+                    continue
+                for n in (*RAGGED_CELLS, n_fine - 1):
+                    ragged = (*args[:4], args[4][:n].contiguous())
+                    hold_k1(f"{dt} random camera={cam_name} ragged n={n}",
+                            ragged, kw, timed=False)
     return res
+
+
+def phase_k1_clusters(kept: dict) -> dict:
+    """Time K1's bf16 main-path launches at each cluster size (1 is one
+    block per weight fetch, no multicast) and print each launch's share of
+    its bound and the weight bytes it moves from L2. Returns ms by size."""
+    from disn_tpu_torch.ops import fused_decode
+
+    default = fused_decode.CLUSTER
+    out = {}
+    try:
+        for cluster in (1, 2, 4):
+            fused_decode.CLUSTER = cluster
+            total = 0.0
+            l2_bytes = 0
+            for (args, kw), pass_ in zip(kept["bf16"], ("coarse", "fine")):
+                ms = cuda_ms(lambda: fused_decode.fused_cell_decode(
+                    *args, **kw), 5)
+                bound_ms, _ = k1_bound(args, kw)
+                blocks = -(-args[4].numel() // cluster) * cluster
+                nbytes = blocks // cluster * K1_WEIGHT_BYTES
+                total += ms
+                l2_bytes += nbytes
+                print(f"[k1 cluster={cluster}] bf16 {pass_} "
+                      f"cells={args[4].numel()} ms={ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} share_of_bound="
+                      f"{bound_ms / ms:.4f} l2_weight_bytes={nbytes}")
+            out[cluster] = total
+            print(f"[k1 cluster={cluster}] bf16 per image ms={total:.4f} "
+                  f"l2_weight_bytes_per_image={l2_bytes}")
+    finally:
+        fused_decode.CLUSTER = default
+    return out
 
 
 def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
@@ -287,6 +343,7 @@ def main() -> int:
         phase_build()
         launches, runs, kept = phase_main_path()
         k1 = phase_k1_check(kept)
+        phase_k1_clusters(kept)
         timed = runs[1:4]
         for key in ("encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
                     "extraction_ms", "wall_ms", "k1_ms"):
@@ -305,6 +362,9 @@ def main() -> int:
         # K1 per bf16 image: its coarse + fine launch on the main path's
         # own inputs (image 1); no single PyTorch call computes K1
         ref = [k1[("bf16", "main", p)] for p in ("coarse", "fine")]
+        for r, p in zip(ref, ("coarse", "fine")):
+            print(f"[k1] bf16 main-path {p}: share of bound "
+                  f"{r['bound_ms'] / r['ms']:.4f}")
         print(json.dumps({"kernels": [{
             "name": "fused_cell_decode", "route": "cuda",
             "source": "disn_tpu_torch/csrc/fused_decode.cu",

@@ -12,33 +12,60 @@
 // Bound. One point costs 2 streams x (3*64 + 64*256 + 256*512 + 512*512 +
 // 512*256 + 256*out) = 1,082,240 MACs (~2.16 MFLOP); the map (19 MB in
 // bf16) and the weights (2.2 MB) are read once per launch, so at any
-// realistic cell count the kernel is bound by tensor-core operations
-// (989 TFLOP/s dense bf16 on an H100 SXM), not by bytes.
+// realistic cell count the kernel is bound by tensor-core operations: at
+// 989 TFLOP/s dense bf16 (H100 SXM), 3.079 ms for the 4,096 + 17,888 cells
+// of one bf16 image at 257^3.
 //
-// Design against that bound (a first, simple version):
-//  * one block per 64 points (one cell) in bf16, 32 points in f32; the
-//    block's activations stay in shared memory for the whole MLP chain
-//    (two [M, 512] ping-pong buffers), so no activation touches device
-//    memory;
-//  * each layer is a block GEMM: [M, K] activations x [K, N] weights
-//    streamed from L2 in double-buffered 32x128 tiles; bf16 runs on the
-//    tensor cores through WMMA (16x16x16, f32 accumulation), f32 runs on
-//    the FMA units (f32 is the exactness reference, not the fast path);
-//  * the sampled features are added in the epilogue of the W_p layer
-//    straight from the map, so no [M, 512] feature buffer is kept;
-//  * the TPU kernel's VMEM tile and its per-cell escape count are gone:
-//    the whole map sits in device memory (and fits the 50 MB L2), so no
-//    tap can escape and no rescue pass exists.
+// bf16, the path users time: one 64-point cell per block, 384 threads.
+//  * Tensor cores through wgmma (m64n128k16). Two consumer warpgroups each
+//    compute 128 output columns for all 64 rows per pass: one pass for the
+//    256-wide layers, two for the 512-wide ones. A is the activation
+//    buffer, B a weight tile, both read by descriptor from shared memory;
+//    the f32 sums stay in registers, 64 a thread. (One m64n256 pass of 128
+//    sums a thread made ptxas serialise the wgmmas for want of registers.)
+//  * One [64, 512] bf16 activation buffer (64 KB) in the K-major
+//    128-byte-swizzled layout a descriptor reads. A first pass's output
+//    waits in registers packed to bf16 while the second pass reads the
+//    input; once both warpgroups are done (named barrier) the epilogue
+//    writes the layer over its input: no second buffer, no f32 staging.
+//  * Weights stream through a ring of 4 stages of 32 KB, one tile = 64
+//    rows x 256 columns of a layer, laid out on the host by tile_weights in
+//    consumption order and already in the MN-major swizzled layout wgmma
+//    reads. One thread of a producer warpgroup keeps 4 tiles in flight
+//    with cp.async.bulk and full/empty mbarriers (~4 x 512 clocks of
+//    tensor work, more than an L2 round trip); setmaxnreg gives the
+//    consumers 232 registers and the producer 40.
+//  * A cluster of CS blocks (CLUSTER in ops/fused_decode.py) shares each
+//    tile: every block copies 1/CS of it with .multicast::cluster into all
+//    CS blocks, so one fetch from L2 serves 64*CS points (weight traffic
+//    per bf16 image at 257^3: 48 GB at one block per fetch, 24 GB at two).
+//    Each block's empty barrier counts the consumer warpgroups of all CS
+//    blocks before its stage is refilled; the producer waits for the last
+//    releases before it exits, so no arrive lands on a finished block.
+//    Measured on an H100, the weight traffic is not what bounds the kernel
+//    (CS = 1, 2 and 4 give the same time per block; 4 leaves 12 of 132 SMs
+//    idle), so the default is 2: no SM idle, half the traffic.
+//  * The epilogue stays in registers: f32 bias and the small weights come
+//    from shared memory (small_params, copied once per block), then the
+//    sampled feature (the local stream's fold2/conv1, 4-byte gathers of the
+//    four taps from the L2-resident map), NaN-keeping ReLU, bf16, stored
+//    straight into the swizzled buffer. The last layer (256 -> out) runs in
+//    the epilogue of the layer before it, on values never stored.
+//  * fold1/conv1 (K = 3) runs on the FMA units into the swizzled buffer.
+// What still holds it near 40% of the bound (per-phase stamps of the
+// K1_TRACE build, ops/k1_trace.py): the MMA loops run at ~73% of the tensor
+// peak, and the epilogues, the feature gather, the first layer and the
+// set-up leave the tensor cores idle for ~40% of a block's time.
+// f32 is the exactness reference, not the timed path: it keeps a SIMT
+// block GEMM (32 points per block, two [32, 516] ping-pong buffers,
+// double-buffered 32x128 weight tiles, FMA units), unchanged.
 // Rounding follows _fused_kernel: bilinear weights are cast to the compute
 // type, sampled features are stored in the compute type, every ReLU output
 // is cast to the compute type, biases are f32 and added after the f32
-// accumulation.
+// accumulation, then the feature.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -47,26 +74,6 @@ using bf16 = __nv_bfloat16;
 constexpr int PTS_PER_CELL = 64;  // stride 4, 4^3 points
 constexpr int STRIDE = 4;
 constexpr int C_FEAT = 512;
-constexpr int THREADS = 256;
-constexpr int NT = 128;  // output columns per GEMM pass
-constexpr int KT = 32;   // reduction depth of one staged weight tile
-
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int M = 32;    // points per block
-  static constexpr int LD = 516;  // activation row stride (padded)
-  static constexpr int WLD = NT;  // weight tile row stride
-  static constexpr int SLD = 0;   // no accumulator staging
-};
-template <>
-struct Tile<bf16> {
-  static constexpr int M = 64;
-  static constexpr int LD = 520;
-  static constexpr int WLD = NT + 8;
-  static constexpr int SLD = NT + 4;
-};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -94,6 +101,8 @@ struct StreamW {
 
 struct Args {
   StreamW s[2];  // 0: global stream (g_contrib folded into b[3]), 1: local
+  const void* tiles;  // bf16: w[1..4] of both streams as ring tiles
+  const float* params;  // bf16: small_params, [2, P_STREAM] f32
   const void* map;
   const float* trans;  // [4,3]
   const float* geom;   // [6] lo_xyz, hi_xyz
@@ -102,288 +111,224 @@ struct Args {
   int n_cells, fine_r, coarse_c, img_w, img_h, out_dim;
 };
 
-constexpr size_t align(size_t x) { return (x + 127) / 128 * 128; }
-
-// dynamic shared memory layout, every region 128-byte aligned
+// Points, projection and bilinear taps of point `i` of the block whose
+// first point is p0 (one thread per point).
 template <typename T>
-struct Smem {
-  static constexpr int M = Tile<T>::M;
-  static constexpr size_t act = align(sizeof(T) * M * Tile<T>::LD);
-  static constexpr size_t wtile = align(sizeof(T) * KT * Tile<T>::WLD);
-  static constexpr size_t stage = align(sizeof(float) * M * Tile<T>::SLD);
-  static constexpr size_t off_a = 0;
-  static constexpr size_t off_b = off_a + act;
-  static constexpr size_t off_w = off_b + act;
-  static constexpr size_t off_stage = off_w + 2 * wtile;
-  static constexpr size_t off_pts = off_stage + stage;
-  static constexpr size_t off_tidx = off_pts + align(sizeof(float) * M * 3);
-  static constexpr size_t off_tw = off_tidx + align(sizeof(int) * M * 4);
-  static constexpr size_t off_pred = off_tw + align(sizeof(float) * M * 4);
-  static constexpr size_t total = off_pred + align(sizeof(float) * M * 2);
-};
-
-// Sampled feature of point m at channels [col, col + 16/sizeof(T)): four
-// taps, weights already rounded to the compute type, summed in f32, then
-// stored in the compute type (returned as f32).
-template <typename T>
-__device__ __forceinline__ void sample_feat(const T* __restrict__ map,
-                                            const int* tidx, const float* tw,
-                                            int m, int col, float* f) {
-  constexpr int V = 16 / sizeof(T);
+__device__ __forceinline__ void point_taps(const Args& args, size_t p0, int i,
+                                           float* pts, int* tidx, float* tw) {
+  const size_t gp = p0 + i;
+  const int cell = args.cells[gp / PTS_PER_CELL];
+  const int off = (int)(gp % PTS_PER_CELL);
+  const int c = args.coarse_c;
+  const int cz = cell / (c * c), cy = (cell / c) % c, cx = cell % c;
+  const int f[3] = {cx * STRIDE + off % STRIDE,
+                    cy * STRIDE + (off / STRIDE) % STRIDE,
+                    cz * STRIDE + off / (STRIDE * STRIDE)};
+  const float denom = (float)(args.fine_r - 1);
+  float xyz[3];
 #pragma unroll
-  for (int j = 0; j < V; ++j) f[j] = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float wt = tw[m * 4 + t];
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-        map + (size_t)tidx[m * 4 + t] * C_FEAT + col));
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < V; ++j) f[j] = fmaf(wt, to_f(v[j]), f[j]);
+  for (int d = 0; d < 3; ++d) {
+    const float lo = args.geom[d];
+    const float span = __fsub_rn(args.geom[3 + d], lo);
+    // lo + f / denom * span, each step rounded (no contraction)
+    xyz[d] = __fadd_rn(lo, __fmul_rn(__fdiv_rn((float)f[d], denom), span));
+    pts[i * 3 + d] = xyz[d];
   }
+  const float* t = args.trans;
+  float uvw[3];
 #pragma unroll
-  for (int j = 0; j < V; ++j) f[j] = round_cd<T>(f[j]);
+  for (int j = 0; j < 3; ++j) {
+    float s = __fmul_rn(xyz[0], t[0 * 3 + j]);
+    s = __fadd_rn(s, __fmul_rn(xyz[1], t[1 * 3 + j]));
+    s = __fadd_rn(s, __fmul_rn(xyz[2], t[2 * 3 + j]));
+    uvw[j] = __fadd_rn(s, t[3 * 3 + j]);
+  }
+  // IEEE divide, then clamp; NaN passes through as in torch.clamp
+  // (fminf/fmaxf would swallow it)
+  const float wmax = (float)(args.img_w - 1), hmax = (float)(args.img_h - 1);
+  float px = __fdiv_rn(uvw[0], uvw[2]);
+  float py = __fdiv_rn(uvw[1], uvw[2]);
+  px = (px != px) ? px : (px < 0.f ? 0.f : (px > wmax ? wmax : px));
+  py = (py != py) ? py : (py < 0.f ? 0.f : (py > hmax ? hmax : py));
+  const float x0f = floorf(px), y0f = floorf(py);
+  const float wx = __fsub_rn(px, x0f), wy = __fsub_rn(py, y0f);
+  const bool vx1 = x0f + 1.f <= wmax, vy1 = y0f + 1.f <= hmax;
+  const int x0 = (x0f >= 0.f && x0f <= wmax) ? (int)x0f : 0;
+  const int y0 = (y0f >= 0.f && y0f <= hmax) ? (int)y0f : 0;
+  const float ux = __fsub_rn(1.f, wx), uy = __fsub_rn(1.f, wy);
+  const int base = y0 * args.img_w + x0;
+  tidx[i * 4 + 0] = base;
+  tidx[i * 4 + 1] = vx1 ? base + 1 : base;
+  tidx[i * 4 + 2] = vy1 ? base + args.img_w : base;
+  tidx[i * 4 + 3] = (vx1 && vy1) ? base + args.img_w + 1 : base;
+  tw[i * 4 + 0] = round_cd<T>(__fmul_rn(ux, uy));
+  tw[i * 4 + 1] = vx1 ? round_cd<T>(__fmul_rn(wx, uy)) : 0.f;
+  tw[i * 4 + 2] = vy1 ? round_cd<T>(__fmul_rn(ux, wy)) : 0.f;
+  tw[i * 4 + 3] = (vx1 && vy1) ? round_cd<T>(__fmul_rn(wx, wy)) : 0.f;
 }
 
-// act_out[:, :N] = cd(relu(act_in[:, :K] @ W + bias (+ feat))) for the
-// block's M points. W is [K, N] row-major in device memory. Ends with the
+// ===================== f32: SIMT block GEMM (reference) =====================
+
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int M = 32;     // points per block
+constexpr int LD = 516;   // activation row stride (padded)
+constexpr int NT = 128;   // output columns per GEMM pass
+constexpr int KT = 32;    // reduction depth of one staged weight tile
+constexpr int WLD = NT;   // weight tile row stride
+
+constexpr size_t align(size_t x) { return (x + 127) / 128 * 128; }
+constexpr size_t act = align(sizeof(float) * M * LD);
+constexpr size_t wtile = align(sizeof(float) * KT * WLD);
+constexpr size_t off_a = 0;
+constexpr size_t off_b = off_a + act;
+constexpr size_t off_w = off_b + act;
+constexpr size_t off_pts = off_w + 2 * wtile;
+constexpr size_t off_tidx = off_pts + align(sizeof(float) * M * 3);
+constexpr size_t off_tw = off_tidx + align(sizeof(int) * M * 4);
+constexpr size_t off_pred = off_tw + align(sizeof(float) * M * 4);
+constexpr size_t smem_total = off_pred + align(sizeof(float) * M * 2);
+
+// act_out[:, :N] = relu(act_in[:, :K] @ W + bias (+ feat)) for the block's
+// M points. W is [K, N] row-major in device memory. Ends with the
 // epilogue's writes issued; callers sync before reading act_out.
-template <typename T, bool ADD_FEAT>
-__device__ void gemm_layer(const T* act_in, int K, const T* __restrict__ W,
-                           int N, const float* __restrict__ bias, T* act_out,
-                           T* wbuf, float* stage, const T* __restrict__ map,
+template <bool ADD_FEAT>
+__device__ void gemm_layer(const float* act_in, int K,
+                           const float* __restrict__ W, int N,
+                           const float* __restrict__ bias, float* act_out,
+                           float* wbuf, const float* __restrict__ map,
                            const int* tidx, const float* tw) {
-  constexpr int M = Tile<T>::M;
-  constexpr int LD = Tile<T>::LD;
-  constexpr int WLD = Tile<T>::WLD;
-  constexpr int VROW = NT * sizeof(T) / 16;  // 16-byte vectors per tile row
-  constexpr int PER = KT * VROW / THREADS;   // vectors per thread per tile
+  constexpr int VROW = NT / 4;              // 16-byte vectors per tile row
+  constexpr int PER = KT * VROW / THREADS;  // vectors per thread per tile
   static_assert(PER * THREADS == KT * VROW, "tile split");
   const int tid = threadIdx.x;
   const int nk = K / KT;
 
   for (int n0 = 0; n0 < N; n0 += NT) {
-    uint4 regs[PER];
+    float4 regs[PER];
     auto load = [&](int k0) {
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int v = tid + i * THREADS;
-        const int r = v / VROW, c = (v % VROW) * (16 / sizeof(T));
-        regs[i] = __ldg(reinterpret_cast<const uint4*>(
+        const int r = v / VROW, c = (v % VROW) * 4;
+        regs[i] = __ldg(reinterpret_cast<const float4*>(
             W + (size_t)(k0 + r) * N + n0 + c));
       }
     };
-    auto store = [&](T* buf) {
+    auto store = [&](float* buf) {
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
         const int v = tid + i * THREADS;
-        const int r = v / VROW, c = (v % VROW) * (16 / sizeof(T));
-        *reinterpret_cast<uint4*>(buf + r * WLD + c) = regs[i];
+        const int r = v / VROW, c = (v % VROW) * 4;
+        *reinterpret_cast<float4*>(buf + r * WLD + c) = regs[i];
       }
     };
     load(0);
     store(wbuf);
     __syncthreads();
 
-    if constexpr (std::is_same<T, float>::value) {
-      // SIMT: thread (tr, tc) owns rows tr*4..+4, columns tc*4..+4
-      const int tr = tid / 32, tc = tid % 32;
-      float acc[4][4] = {};
-      for (int kt = 0; kt < nk; ++kt) {
-        const float* cur = wbuf + (kt & 1) * KT * WLD;
-        if (kt + 1 < nk) load((kt + 1) * KT);
+    // thread (tr, tc) owns rows tr*4..+4, columns tc*4..+4
+    const int tr = tid / 32, tc = tid % 32;
+    float acc[4][4] = {};
+    for (int kt = 0; kt < nk; ++kt) {
+      const float* cur = wbuf + (kt & 1) * KT * WLD;
+      if (kt + 1 < nk) load((kt + 1) * KT);
 #pragma unroll 8
-        for (int kk = 0; kk < KT; ++kk) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              cur + kk * WLD + tc * 4);
+      for (int kk = 0; kk < KT; ++kk) {
+        const float4 w = *reinterpret_cast<const float4*>(cur + kk * WLD +
+                                                          tc * 4);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float a = act_in[(tr * 4 + i) * LD + kt * KT + kk];
-            acc[i][0] = fmaf(a, w.x, acc[i][0]);
-            acc[i][1] = fmaf(a, w.y, acc[i][1]);
-            acc[i][2] = fmaf(a, w.z, acc[i][2]);
-            acc[i][3] = fmaf(a, w.w, acc[i][3]);
-          }
-        }
-        if (kt + 1 < nk) store(wbuf + ((kt + 1) & 1) * KT * WLD);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = tr * 4 + i;
-        const int n = n0 + tc * 4;
-        float f[4] = {0.f, 0.f, 0.f, 0.f};
-        if (ADD_FEAT) sample_feat<T>(map, tidx, tw, m, n, f);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = acc[i][j] + bias[n + j];
-          if (ADD_FEAT) v += f[j];
-          act_out[m * LD + n + j] = relu(v);
+        for (int i = 0; i < 4; ++i) {
+          const float a = act_in[(tr * 4 + i) * LD + kt * KT + kk];
+          acc[i][0] = fmaf(a, w.x, acc[i][0]);
+          acc[i][1] = fmaf(a, w.y, acc[i][1]);
+          acc[i][2] = fmaf(a, w.z, acc[i][2]);
+          acc[i][3] = fmaf(a, w.w, acc[i][3]);
         }
       }
-    } else {
-      // WMMA: warp (wr, wc) owns rows wr*16..+16, columns wc*64..+64
-      using namespace nvcuda;
-      constexpr int SLD = Tile<T>::SLD;
-      const int warp = tid / 32;
-      const int wr = warp % 4, wc = warp / 4;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-      for (int kt = 0; kt < nk; ++kt) {
-        const T* cur = wbuf + (kt & 1) * KT * WLD;
-        if (kt + 1 < nk) load((kt + 1) * KT);
-#pragma unroll
-        for (int kk = 0; kk < KT; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, act_in + (wr * 16) * LD + kt * KT + kk,
-                                 LD);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                b;
-            wmma::load_matrix_sync(b, cur + kk * WLD + wc * 64 + j * 16, WLD);
-            wmma::mma_sync(acc[j], a, b, acc[j]);
-          }
-        }
-        if (kt + 1 < nk) store(wbuf + ((kt + 1) & 1) * KT * WLD);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(stage + (wr * 16) * SLD + wc * 64 + j * 16,
-                                acc[j], SLD, wmma::mem_row_major);
+      if (kt + 1 < nk) store(wbuf + ((kt + 1) & 1) * KT * WLD);
       __syncthreads();
-      // epilogue: 8 consecutive columns per step, M*NT/8 groups
-      for (int g = tid; g < M * NT / 8; g += THREADS) {
-        const int m = g / (NT / 8);
-        const int c = (g % (NT / 8)) * 8;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (ADD_FEAT) sample_feat<T>(map, tidx, tw, m, n0 + c, f);
-        __align__(16) T o[8];
+    }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float v = stage[m * SLD + c + j] + bias[n0 + c + j];
-          if (ADD_FEAT) v += f[j];
-          o[j] = from_f<T>(relu(v));
+    for (int i = 0; i < 4; ++i) {
+      const int m = tr * 4 + i;
+      const int n = n0 + tc * 4;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (ADD_FEAT) {
+        // four taps summed in f32 (f32 is the compute type: no rounding)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(
+              map + (size_t)tidx[m * 4 + t] * C_FEAT + n));
+          const float wt = tw[m * 4 + t];
+          f[0] = fmaf(wt, v.x, f[0]);
+          f[1] = fmaf(wt, v.y, f[1]);
+          f[2] = fmaf(wt, v.z, f[2]);
+          f[3] = fmaf(wt, v.w, f[3]);
         }
-        *reinterpret_cast<uint4*>(act_out + m * LD + n0 + c) =
-            *reinterpret_cast<const uint4*>(o);
       }
-      // the stage buffer is rewritten only after the next pass's k loop,
-      // whose barriers order it after these reads
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[i][j] + bias[n + j];
+        if (ADD_FEAT) v += f[j];
+        act_out[m * LD + n + j] = relu(v);
+      }
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-    fused_decode_kernel(const Args args) {
-  constexpr int M = Tile<T>::M;
-  constexpr int LD = Tile<T>::LD;
-  using S = Smem<T>;
+__global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* act_a = reinterpret_cast<T*>(smem + S::off_a);
-  T* act_b = reinterpret_cast<T*>(smem + S::off_b);
-  T* wbuf = reinterpret_cast<T*>(smem + S::off_w);
-  float* stage = reinterpret_cast<float*>(smem + S::off_stage);
-  float* pts = reinterpret_cast<float*>(smem + S::off_pts);
-  int* tidx = reinterpret_cast<int*>(smem + S::off_tidx);
-  float* tw = reinterpret_cast<float*>(smem + S::off_tw);
-  float* pred = reinterpret_cast<float*>(smem + S::off_pred);
-  const T* map = reinterpret_cast<const T*>(args.map);
+  float* act_a = reinterpret_cast<float*>(smem + off_a);
+  float* act_b = reinterpret_cast<float*>(smem + off_b);
+  float* wbuf = reinterpret_cast<float*>(smem + off_w);
+  float* pts = reinterpret_cast<float*>(smem + off_pts);
+  int* tidx = reinterpret_cast<int*>(smem + off_tidx);
+  float* tw = reinterpret_cast<float*>(smem + off_tw);
+  float* pred = reinterpret_cast<float*>(smem + off_pred);
+  const float* map = reinterpret_cast<const float*>(args.map);
   const int tid = threadIdx.x;
   const size_t p0 = (size_t)blockIdx.x * M;  // first point of this block
 
-  // ---- points, projection, bilinear taps (one thread per point) ----
-  if (tid < M) {
-    const size_t gp = p0 + tid;
-    const int cell = args.cells[gp / PTS_PER_CELL];
-    const int off = (int)(gp % PTS_PER_CELL);
-    const int c = args.coarse_c;
-    const int cz = cell / (c * c), cy = (cell / c) % c, cx = cell % c;
-    const int f[3] = {cx * STRIDE + off % STRIDE,
-                      cy * STRIDE + (off / STRIDE) % STRIDE,
-                      cz * STRIDE + off / (STRIDE * STRIDE)};
-    const float denom = (float)(args.fine_r - 1);
-    float xyz[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float lo = args.geom[i];
-      const float span = __fsub_rn(args.geom[3 + i], lo);
-      // lo + f / denom * span, each step rounded (no contraction)
-      xyz[i] = __fadd_rn(lo, __fmul_rn(__fdiv_rn((float)f[i], denom), span));
-      pts[tid * 3 + i] = xyz[i];
-    }
-    const float* t = args.trans;
-    float uvw[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float s = __fmul_rn(xyz[0], t[0 * 3 + j]);
-      s = __fadd_rn(s, __fmul_rn(xyz[1], t[1 * 3 + j]));
-      s = __fadd_rn(s, __fmul_rn(xyz[2], t[2 * 3 + j]));
-      uvw[j] = __fadd_rn(s, t[3 * 3 + j]);
-    }
-    // IEEE divide, then clamp; NaN passes through as in torch.clamp
-    // (fminf/fmaxf would swallow it)
-    const float wmax = (float)(args.img_w - 1), hmax = (float)(args.img_h - 1);
-    float px = __fdiv_rn(uvw[0], uvw[2]);
-    float py = __fdiv_rn(uvw[1], uvw[2]);
-    px = (px != px) ? px : (px < 0.f ? 0.f : (px > wmax ? wmax : px));
-    py = (py != py) ? py : (py < 0.f ? 0.f : (py > hmax ? hmax : py));
-    const float x0f = floorf(px), y0f = floorf(py);
-    const float wx = __fsub_rn(px, x0f), wy = __fsub_rn(py, y0f);
-    const bool vx1 = x0f + 1.f <= wmax, vy1 = y0f + 1.f <= hmax;
-    const int x0 = (x0f >= 0.f && x0f <= wmax) ? (int)x0f : 0;
-    const int y0 = (y0f >= 0.f && y0f <= hmax) ? (int)y0f : 0;
-    const float ux = __fsub_rn(1.f, wx), uy = __fsub_rn(1.f, wy);
-    const int base = y0 * args.img_w + x0;
-    tidx[tid * 4 + 0] = base;
-    tidx[tid * 4 + 1] = vx1 ? base + 1 : base;
-    tidx[tid * 4 + 2] = vy1 ? base + args.img_w : base;
-    tidx[tid * 4 + 3] = (vx1 && vy1) ? base + args.img_w + 1 : base;
-    tw[tid * 4 + 0] = round_cd<T>(__fmul_rn(ux, uy));
-    tw[tid * 4 + 1] = vx1 ? round_cd<T>(__fmul_rn(wx, uy)) : 0.f;
-    tw[tid * 4 + 2] = vy1 ? round_cd<T>(__fmul_rn(ux, wy)) : 0.f;
-    tw[tid * 4 + 3] = (vx1 && vy1) ? round_cd<T>(__fmul_rn(wx, wy)) : 0.f;
-  }
+  if (tid < M) point_taps<float>(args, p0, tid, pts, tidx, tw);
   __syncthreads();
 
   for (int s = 0; s < 2; ++s) {
     const StreamW& sw = args.s[s];
-    const T* w1 = reinterpret_cast<const T*>(sw.w[0]);
-    // fold1 conv1, 3 -> 64: points rounded to the compute type first
+    const float* w1 = reinterpret_cast<const float*>(sw.w[0]);
+    // fold1 conv1, 3 -> 64
     for (int e = tid; e < M * 64; e += THREADS) {
       const int m = e / 64, n = e % 64;
       float v = 0.f;
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-        v = fmaf(round_cd<T>(pts[m * 3 + i]), to_f(w1[i * 64 + n]), v);
-      act_a[m * LD + n] = from_f<T>(relu(v + sw.b[0][n]));
+      for (int i = 0; i < 3; ++i) v = fmaf(pts[m * 3 + i], w1[i * 64 + n], v);
+      act_a[m * LD + n] = relu(v + sw.b[0][n]);
     }
     __syncthreads();
-    gemm_layer<T, false>(act_a, 64, reinterpret_cast<const T*>(sw.w[1]), 256,
-                         sw.b[1], act_b, wbuf, stage, map, tidx, tw);
-    gemm_layer<T, false>(act_b, 256, reinterpret_cast<const T*>(sw.w[2]),
-                         512, sw.b[2], act_a, wbuf, stage, map, tidx, tw);
+    auto w = [&](int l) { return reinterpret_cast<const float*>(sw.w[l]); };
+    gemm_layer<false>(act_a, 64, w(1), 256, sw.b[1], act_b, wbuf, map, tidx,
+                      tw);
+    gemm_layer<false>(act_b, 256, w(2), 512, sw.b[2], act_a, wbuf, map, tidx,
+                      tw);
     if (s == 0)
-      gemm_layer<T, false>(act_a, 512, reinterpret_cast<const T*>(sw.w[3]),
-                           512, sw.b[3], act_b, wbuf, stage, map, tidx, tw);
+      gemm_layer<false>(act_a, 512, w(3), 512, sw.b[3], act_b, wbuf, map,
+                        tidx, tw);
     else
-      gemm_layer<T, true>(act_a, 512, reinterpret_cast<const T*>(sw.w[3]),
-                          512, sw.b[3], act_b, wbuf, stage, map, tidx, tw);
-    gemm_layer<T, false>(act_b, 512, reinterpret_cast<const T*>(sw.w[4]),
-                         256, sw.b[4], act_a, wbuf, stage, map, tidx, tw);
+      gemm_layer<true>(act_a, 512, w(3), 512, sw.b[3], act_b, wbuf, map,
+                       tidx, tw);
+    gemm_layer<false>(act_b, 512, w(4), 256, sw.b[4], act_a, wbuf, map, tidx,
+                      tw);
     __syncthreads();
     // fold2 last, 256 -> out: one warp per point, lanes split K
-    const T* w5 = reinterpret_cast<const T*>(sw.w[5]);
+    const float* w5 = w(5);
     const int O = args.out_dim;
     const int warp = tid / 32, lane = tid % 32;
     for (int m = warp; m < M; m += THREADS / 32) {
       for (int o = 0; o < O; ++o) {
         float v = 0.f;
         for (int k = lane; k < 256; k += 32)
-          v = fmaf(to_f(act_a[m * LD + k]), to_f(w5[k * O + o]), v);
+          v = fmaf(act_a[m * LD + k], w5[k * O + o], v);
 #pragma unroll
         for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffff, v, d);
         if (lane == 0) {
@@ -399,30 +344,617 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T>
+}  // namespace f32
+
+// ================ bf16: wgmma, bulk-copy weight ring, cluster ================
+
+namespace hop {
+
+// Phase stamps for the trace build (-DK1_TRACE, disn_tpu_torch/ops/
+// k1_trace.py): thread 0 of each consumer warpgroup writes clock64() at the
+// end of each phase into k1_trace[(block * 2 + warpgroup) * TRACE_EVENTS].
+// Events: 0 entry, 1 set-up done, then per stream s at 2 + 9 s: +0 first
+// layer, +1/+2 MMA loop / epilogue of w2, +3/+4 w3, +5/+6 wp, +7/+8 w4
+// (its epilogue runs the last layer).
+#ifdef K1_TRACE
+constexpr int TRACE_EVENTS = 20;
+__device__ long long* k1_trace;
+#define K1_STAMP(e)                                                     \
+  do {                                                                  \
+    if ((threadIdx.x & 127) == 0 && threadIdx.x < 256)                  \
+      k1_trace[((size_t)blockIdx.x * 2 + (threadIdx.x >> 7)) *          \
+                   TRACE_EVENTS + (e)] = clock64();                     \
+  } while (0)
+#else
+#define K1_STAMP(e) \
+  do {              \
+  } while (0)
+#endif
+
+constexpr int M = 64;           // points per block (one cell)
+constexpr int CONSUMERS = 256;  // two consumer warpgroups
+constexpr int THREADS = 384;    // + one producer warpgroup
+constexpr int STAGES = 4;
+// setmaxnreg moves registers between the warpgroups within the block's
+// launch allocation (384 threads x 168)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= THREADS * 168,
+              "register split exceeds the launch allocation");
+constexpr int TILE_K = 64, TILE_N = 256;  // one ring tile of a weight
+constexpr int TILE_BYTES = TILE_K * TILE_N * 2;
+constexpr int TILES_PER_STREAM = 33;  // 1 + 8 + 16 + 8 (w2, w3, wp, w4)
+constexpr int TILES = 2 * TILES_PER_STREAM;
+constexpr int KBLOCK_BYTES = M * 128;  // 64 activation columns, all rows
+
+// per stream, as f32 (small_params in ops/fused_decode.py lays them out):
+// biases b1..b6 (b6 padded to 4), w1 [3, 64] and w5 [256, out] (padded to
+// [256, 2])
+constexpr int P_B1 = 0, P_B2 = 64, P_B3 = 320, P_B4 = 832, P_B5 = 1344,
+              P_B6 = 1600, P_W1 = 1604, P_W5 = 1796, P_STREAM = 2308;
+
+// shared memory, from a 1024-byte-aligned base (swizzle atoms are 1 KB)
+constexpr uint32_t off_act = 0;
+constexpr uint32_t off_ring = off_act + 8 * KBLOCK_BYTES;
+constexpr uint32_t off_par = off_ring + STAGES * TILE_BYTES;
+constexpr uint32_t off_pts = off_par + 2 * P_STREAM * 4;
+constexpr uint32_t off_tidx = off_pts + M * 3 * 4;
+constexpr uint32_t off_tw = off_tidx + M * 4 * 4;
+constexpr uint32_t off_pred = off_tw + M * 4 * 4;
+constexpr uint32_t off_red = off_pred + M * 2 * 4;
+constexpr uint32_t off_bar = off_red + M * 2 * 4;  // full[STAGES], empty[..]
+constexpr uint32_t smem_total = off_bar + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// byte offset of activation (row m, column k) in the K-major 128-byte
+// swizzle: 64-column blocks of [64 rows][128 B], 16-byte chunk ^ (m % 8)
+__device__ __forceinline__ uint32_t act_off(int m, int k) {
+  return (k >> 6) * KBLOCK_BYTES + m * 128 +
+         ((((k >> 3) & 7) ^ (m & 7)) << 4) + ((k & 7) << 1);
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// ---- mbarriers, bulk copies, cluster ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// Spins until the phase of parity `parity` has completed. A wait that no
+// arrival can end (a broken ring) traps after 2^35 clocks (~20 s) instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    if (clock64() - t0 > (1ll << 35)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_local(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// arrive on the barrier at the same offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
+          "r"(bar),
+      "r"(rank)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
+                                         uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// the same bytes into every block of `mask`, at the same offsets
+__device__ __forceinline__ void bulk_g2s_multicast(uint32_t dst,
+                                                   const void* src,
+                                                   uint32_t bytes,
+                                                   uint32_t bar,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::
+          : "memory");
+}
+// generic-proxy shared-memory writes -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+// the two consumer warpgroups only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// ---- wgmma ----
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define D8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// D[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major), f32 sums
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef D8
+
+// What a consumer thread needs across layers.
+struct Ctx {
+  unsigned char* act;  // generic pointer to the activation buffer
+  uint32_t act_s;      // its shared address
+  uint32_t ring_s;     // shared address of stage 0
+  uint32_t full, empty;
+  int wg;              // consumer warpgroup, 0 or 1
+  const bf16* map;
+  const int* tidx;     // [64, 4] bilinear taps: map rows
+  const float* tw;     // [64, 4] and their weights, rounded to bf16
+};
+
+// The last layer, 256 -> out, fused into the epilogue of the layer before.
+struct Last {
+  const float* w5;  // [256, 2] in shared memory
+  const float* b6;
+  int O;
+  float* pred;  // [64, 2] shared: the global stream's output
+  float* red;   // [64, 2] shared: warpgroup 1's partial sums
+  float* out;   // the block's first output row
+  bool to_out;  // local stream: write pred + this to out
+};
+
+// Hand stage `s` back: lane 0 of warp q of the warpgroup arrives on block
+// q's empty barrier, for q < CS (each block's barrier counts the consumer
+// warpgroups of all CS blocks, whose multicast refills it).
+template <int CS>
+__device__ __forceinline__ void release(const Ctx& c, int s) {
+  const uint32_t q = (threadIdx.x >> 5) & 3;
+  if ((threadIdx.x & 31) == 0 && q < CS) {
+    if constexpr (CS == 1)
+      mbar_arrive_local(c.empty + 8 * s);
+    else
+      mbar_arrive_cluster(c.empty + 8 * s, q);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// bf16(relu(a)), bf16(relu(b)): rounding first and then a NaN-keeping max
+// with 0 gives the same values in two instructions
+__device__ __forceinline__ uint32_t relu2(float a, float b) {
+  const __nv_bfloat162 h = __hmax2_nan(__floats2bfloat162_rn(a, b),
+                                       __float2bfloat162_rn(0.f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float lo_f(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// One pass of a layer on the tensor cores: this warpgroup's 128 output
+// columns for all 64 rows, from k_tiles ring tiles of 64 weight rows.
+template <int CS>
+__device__ __forceinline__ void mma_pass(const Ctx& c, int k_tiles, int& it,
+                                         float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  int prev = 0;
+  for (int t = 0; t < k_tiles; ++t, ++it) {
+    const int s = it % STAGES;
+    mbar_wait(c.full + 8 * s, (it / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < TILE_K / 16; ++j) {
+      const uint64_t da =
+          sw128_desc(c.act_s + t * KBLOCK_BYTES + j * 32, 16, 1024);
+      const uint64_t db = sw128_desc(
+          c.ring_s + s * TILE_BYTES + c.wg * (TILE_BYTES / 2) + j * 2048,
+          TILE_K / 8 * 1024, 1024);
+      wgmma_m64n128(d, da, db);
+    }
+    wgmma_commit();
+    if (t > 0) {  // the previous tile's products are done: free its stage
+      wgmma_wait<1>();
+      release<CS>(c, prev);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  release<CS>(c, prev);
+}
+
+enum Epilogue { STORE, FEAT, LAST };
+
+// Sampled feature of row m at columns (col, col + 1): four taps summed in
+// f32, stored as bf16 (returned as f32).
+__device__ __forceinline__ float2 feat2(const Ctx& c, int m, int col) {
+  float f0 = 0.f, f1 = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
+        c.map + (size_t)c.tidx[m * 4 + t] * C_FEAT + col));
+    f0 = fmaf(c.tw[m * 4 + t], lo_f(v), f0);
+    f1 = fmaf(c.tw[m * 4 + t], hi_f(v), f1);
+  }
+  return make_float2(round_cd<bf16>(f0), round_cd<bf16>(f1));
+}
+
+// bf16(relu(sum + bias (+ feature))) of accumulator group j, rows r0 and
+// r1 at columns (col, col + 1), as two words
+template <Epilogue EPI>
+__device__ __forceinline__ void out_pair(const Ctx& c, const float (&d)[64],
+                                         int j, int col, const float* bias,
+                                         int r0, int r1, uint32_t& o0,
+                                         uint32_t& o1) {
+  const float2 b = *reinterpret_cast<const float2*>(bias + col);
+  float v00 = d[4 * j] + b.x, v01 = d[4 * j + 1] + b.y;
+  float v10 = d[4 * j + 2] + b.x, v11 = d[4 * j + 3] + b.y;
+  if constexpr (EPI == FEAT) {
+    const float2 f0 = feat2(c, r0, col), f1 = feat2(c, r1, col);
+    v00 += f0.x;
+    v01 += f0.y;
+    v10 += f1.x;
+    v11 += f1.y;
+  }
+  o0 = relu2(v00, v01);
+  o1 = relu2(v10, v11);
+}
+
+// One layer, [64, K] @ [K, 256 * PASSES], bias in shared memory. Pass p
+// gives this warpgroup columns 256 p + 128 wg + [0, 128): 64 accumulators
+// a thread. The first pass's output waits packed in bf16 (32 words) while
+// the second pass still reads the input. Then, over the input,
+// act[:, :256 * PASSES] = bf16(relu(sum + bias)) (STORE), with the sampled
+// feature added after the bias (FEAT); LAST instead feeds those values
+// straight into the last layer and writes the block's output.
+template <int PASSES, Epilogue EPI, int CS>
+__device__ __forceinline__ void wg_layer(const Ctx& c, int k_tiles, int& it,
+                                         const float* bias, int ev,
+                                         const Last& last) {
+  // accumulator d[4j + e]: row r0 (e < 2) or r1, column cb + 8j + (e & 1)
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int r0 = wq * 16 + (lane >> 2), r1 = r0 + 8;
+  const int x = lane >> 2;  // r0 % 8 == r1 % 8
+  auto col_of = [&](int p, int j) {
+    return 256 * p + 128 * c.wg + 8 * j + 2 * (lane & 3);
+  };
+  // byte offset of (r0, col_of(p, j)) in the swizzled activations
+  auto off_of = [&](int p, int j) {
+    return (4 * p + 2 * c.wg + (j >> 3)) * KBLOCK_BYTES + r0 * 128 +
+           (((j & 7) ^ x) << 4) + (lane & 3) * 4;
+  };
+  static_assert(PASSES == 1 || PASSES == 2, "one or two passes");
+  uint32_t keep[32];
+  float d[64];
+  mma_pass<CS>(c, k_tiles, it, d);
+  if constexpr (PASSES == 2) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      out_pair<EPI>(c, d, j, col_of(0, j), bias, r0, r1, keep[2 * j],
+                    keep[2 * j + 1]);
+    mma_pass<CS>(c, k_tiles, it, d);
+  }
+  K1_STAMP(ev);
+  consumer_sync();  // both warpgroups are done reading the activations
+
+  if constexpr (EPI == LAST) {
+    float s0[2] = {0.f, 0.f}, s1[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col_of(0, j);
+      uint32_t h0, h1;
+      out_pair<STORE>(c, d, j, col, bias, r0, r1, h0, h1);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        if (o < last.O) {
+          const float wa = last.w5[col * 2 + o];
+          const float wb = last.w5[(col + 1) * 2 + o];
+          s0[o] = fmaf(hi_f(h0), wb, fmaf(lo_f(h0), wa, s0[o]));
+          s1[o] = fmaf(hi_f(h1), wb, fmaf(lo_f(h1), wa, s1[o]));
+        }
+      }
+    }
+    // the four lanes of a row hold its 8-column groups; warpgroup 1 hands
+    // its half of K to warpgroup 0, which adds the bias and writes
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+#pragma unroll
+      for (int dd = 1; dd < 4; dd <<= 1) {
+        s0[o] += __shfl_xor_sync(0xffffffff, s0[o], dd);
+        s1[o] += __shfl_xor_sync(0xffffffff, s1[o], dd);
+      }
+    }
+    const bool writer = (lane & 3) == 0;
+    if (c.wg == 1 && writer) {
+      for (int o = 0; o < last.O; ++o) {
+        last.red[r0 * 2 + o] = s0[o];
+        last.red[r1 * 2 + o] = s1[o];
+      }
+    }
+    consumer_sync();
+    if (c.wg == 0 && writer) {
+      for (int o = 0; o < last.O; ++o) {
+        const float v0 = (s0[o] + last.red[r0 * 2 + o]) + last.b6[o];
+        const float v1 = (s1[o] + last.red[r1 * 2 + o]) + last.b6[o];
+        if (last.to_out) {
+          last.out[r0 * last.O + o] = last.pred[r0 * 2 + o] + v0;
+          last.out[r1 * last.O + o] = last.pred[r1 * 2 + o] + v1;
+        } else {
+          last.pred[r0 * 2 + o] = v0;
+          last.pred[r1 * 2 + o] = v1;
+        }
+      }
+    }
+    K1_STAMP(ev + 1);
+    return;  // no activations written: the next writer syncs before wgmma
+  } else {
+    if constexpr (PASSES > 1) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        *reinterpret_cast<uint32_t*>(c.act + off_of(0, j)) = keep[2 * j];
+        *reinterpret_cast<uint32_t*>(c.act + off_of(0, j) + 8 * 128) =
+            keep[2 * j + 1];
+      }
+    }
+    constexpr int P = PASSES - 1;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      uint32_t o0, o1;
+      out_pair<EPI>(c, d, j, col_of(P, j), bias, r0, r1, o0, o1);
+      *reinterpret_cast<uint32_t*>(c.act + off_of(P, j)) = o0;
+      *reinterpret_cast<uint32_t*>(c.act + off_of(P, j) + 8 * 128) = o1;
+    }
+  }
+  fence_proxy_async();
+  consumer_sync();  // the output is complete before the next layer reads it
+  K1_STAMP(ev + 1);
+}
+
+template <int CS>
+__device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
+                                             const float* par,
+                                             const float* pts, float* pred,
+                                             float* red, size_t p0) {
+  const int tid = threadIdx.x;
+  int it = 0;  // ring position
+#pragma unroll 1
+  for (int s = 0; s < 2; ++s) {
+    const float* ps = par + s * P_STREAM;
+    // fold1 conv1, 3 -> 64, points rounded to bf16 first: thread owns
+    // column n for rows tid / 64 + 4 i
+    {
+      const int n = tid & 63;
+      const float wa = ps[P_W1 + n], wb = ps[P_W1 + 64 + n];
+      const float wc = ps[P_W1 + 128 + n], bn = ps[P_B1 + n];
+      for (int m = tid >> 6; m < M; m += CONSUMERS / 64) {
+        float v = fmaf(round_cd<bf16>(pts[m * 3]), wa, 0.f);
+        v = fmaf(round_cd<bf16>(pts[m * 3 + 1]), wb, v);
+        v = fmaf(round_cd<bf16>(pts[m * 3 + 2]), wc, v);
+        *reinterpret_cast<bf16*>(c.act + act_off(m, n)) =
+            from_f<bf16>(relu(v + bn));
+      }
+    }
+    fence_proxy_async();
+    consumer_sync();
+    const int ev = 2 + 9 * s;
+    K1_STAMP(ev);
+    const Last last = {ps + P_W5, ps + P_B6, args.out_dim, pred, red,
+                       args.out + p0 * args.out_dim, s == 1};
+    wg_layer<1, STORE, CS>(c, 1, it, ps + P_B2, ev + 1, last);  // 64->256
+    wg_layer<2, STORE, CS>(c, 4, it, ps + P_B3, ev + 3, last);  // 256->512
+    if (s == 0)                                                 // 512->512
+      wg_layer<2, STORE, CS>(c, 8, it, ps + P_B4, ev + 5, last);
+    else
+      wg_layer<2, FEAT, CS>(c, 8, it, ps + P_B4, ev + 5, last);
+    // 512 -> 256 -> out
+    wg_layer<1, LAST, CS>(c, 8, it, ps + P_B5, ev + 7, last);
+  }
+}
+
+template <int CS>
+__global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the same offset in every block of the cluster, so multicast copies
+  // land at the same place
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* par = reinterpret_cast<float*>(smem + off_par);
+  float* pts = reinterpret_cast<float*>(smem + off_pts);
+  int* tidx = reinterpret_cast<int*>(smem + off_tidx);
+  float* tw = reinterpret_cast<float*>(smem + off_tw);
+  float* pred = reinterpret_cast<float*>(smem + off_pred);
+  float* red = reinterpret_cast<float*>(smem + off_red);
+  const uint32_t full = smem_u32(smem + off_bar);
+  const uint32_t empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
+  const size_t p0 = (size_t)blockIdx.x * M;
+  K1_STAMP(0);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * CS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (CS > 1) cluster_sync();  // peers' barriers are initialised
+
+  if (tid >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    if (tid == CONSUMERS) {  // one thread keeps the ring full
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(args.tiles);
+      const uint32_t ring = smem_u32(smem + off_ring);
+      constexpr uint32_t SLICE = TILE_BYTES / CS;
+      const uint32_t rank = CS > 1 ? cluster_rank() : 0;
+      for (int i = 0; i < TILES; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        mbar_expect_tx(full + 8 * s, TILE_BYTES);
+        const uint32_t dst = ring + s * TILE_BYTES + rank * SLICE;
+        const unsigned char* from = src + (size_t)i * TILE_BYTES + rank * SLICE;
+        if constexpr (CS == 1)
+          bulk_g2s(dst, from, SLICE, full + 8 * s);
+        else
+          bulk_g2s_multicast(dst, from, SLICE, full + 8 * s,
+                             (uint16_t)((1u << CS) - 1));
+      }
+      // the last releases, some of them remote, land before this block ends
+      for (int i = TILES; i < TILES + STAGES; ++i)
+        mbar_wait(empty + 8 * (i % STAGES), ((i / STAGES) - 1) & 1);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS)
+                 : "memory");
+    // set-up while the first tiles are on their way
+    if (tid < M) point_taps<bf16>(args, p0, tid, pts, tidx, tw);
+    for (int i = tid; i < 2 * P_STREAM / 4; i += CONSUMERS)
+      reinterpret_cast<float4*>(par)[i] =
+          __ldg(reinterpret_cast<const float4*>(args.params) + i);
+    consumer_sync();
+    K1_STAMP(1);
+    Ctx c;
+    c.act = smem + off_act;
+    c.act_s = smem_u32(c.act);
+    c.ring_s = smem_u32(smem + off_ring);
+    c.full = full;
+    c.empty = empty;
+    c.wg = tid >> 7;
+    c.map = static_cast<const bf16*>(args.map);
+    c.tidx = tidx;
+    c.tw = tw;
+    run_consumer<CS>(args, c, par, pts, pred, red, p0);
+  }
+}
+
+template <int CS>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = Smem<T>::total;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      decode_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_total);
   if (err != cudaSuccess) return (int)err;
-  const size_t n_pts = (size_t)a.n_cells * PTS_PER_CELL;
-  const unsigned grid = (unsigned)(n_pts / Tile<T>::M);
-  fused_decode_kernel<T><<<grid, THREADS, smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.n_cells);  // one block per cell
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_kernel<CS>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace hop
+
+int launch_f32(const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      f32::decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)f32::smem_total);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)(a.n_cells * (PTS_PER_CELL / f32::M));
+  f32::decode_kernel<<<grid, f32::THREADS, f32::smem_total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+#ifdef K1_TRACE
+extern "C" int fused_decode_set_trace(void* buf) {
+  long long* p = static_cast<long long*>(buf);
+  return (int)cudaMemcpyToSymbol(hop::k1_trace, &p, sizeof(p));
+}
+#endif
+
 // tensors: 24 device pointers, per stream (global, then local) w1 b1 w2 b2
 // w3 b3 wp bp w4 b4 w5 b5; weights in the compute type, biases f32.
-// Returns a cudaError_t code (0 on success); launches on `stream`.
+// bf16 only: tiles, tile_weights' layout of w2..w4 of both streams;
+// params, small_params' f32 biases, w1 and w5 of both streams; cluster, blocks per cluster (1, 2 or 4), which n_cells must be a
+// multiple of. Returns a cudaError_t code (0 on success); launches on
+// `stream`.
 extern "C" int fused_decode_launch(int is_bf16, const void* map,
                                    const void* const* tensors,
-                                   const void* trans, const void* geom,
-                                   const void* cells, int n_cells, int fine_r,
-                                   int coarse_c, int img_w, int img_h,
-                                   int out_dim, void* out, void* stream) {
+                                   const void* tiles, const void* params,
+                                   const void* trans,
+                                   const void* geom, const void* cells,
+                                   int n_cells, int fine_r, int coarse_c,
+                                   int img_w, int img_h, int out_dim,
+                                   int cluster, void* out, void* stream) {
   if (n_cells <= 0) return 0;
   Args a;
   for (int s = 0; s < 2; ++s)
@@ -430,6 +962,8 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
       a.s[s].w[l] = tensors[s * 12 + 2 * l];
       a.s[s].b[l] = static_cast<const float*>(tensors[s * 12 + 2 * l + 1]);
     }
+  a.tiles = tiles;
+  a.params = static_cast<const float*>(params);
   a.map = map;
   a.trans = static_cast<const float*>(trans);
   a.geom = static_cast<const float*>(geom);
@@ -442,5 +976,13 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
   a.img_h = img_h;
   a.out_dim = out_dim;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(a, st) : launch<float>(a, st);
+  if (!is_bf16) return launch_f32(a, st);
+  if (!tiles || !params || n_cells % cluster != 0)
+    return (int)cudaErrorInvalidValue;
+  switch (cluster) {
+    case 1: return hop::launch<1>(a, st);
+    case 2: return hop::launch<2>(a, st);
+    case 4: return hop::launch<4>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

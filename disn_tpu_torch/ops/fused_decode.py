@@ -16,6 +16,14 @@ a (start, end) pair of CUDA events recorded around it, for timing, and when
 ``fused_cell_decode.inputs`` is a list, each launch appends its (args,
 kwargs), so that a caller can hold a launch against the plain version.
 
+The bf16 kernel streams the GEMM weights of both streams from one buffer
+laid out by ``tile_weights`` (ring tiles in consumption order, already in
+the swizzled layout its tensor-core instructions read) and copies the
+biases and the small first and last weights from ``small_params``; the
+wrapper builds both for each launch. It runs in clusters of ``CLUSTER``
+blocks that share each weight tile: the wrapper pads the cell ids to a
+multiple of it with ``pad_cells`` and keeps the first n*64 rows.
+
 The kernel is built with nvcc into ``build/kernels/`` under the repository
 root at first use (``build()``), named by a hash of its source, and loaded
 with ctypes.
@@ -39,6 +47,11 @@ STRIDE = 4
 K = STRIDE ** 3  # points per cell
 C_FEAT = 512
 CHUNK_CELLS = 1024  # cells per step of the plain version (bounds memory)
+CLUSTER = 2  # bf16 blocks (cells) per cluster sharing each weight tile
+# bf16 weight ring: a tile is 64 rows x 256 columns of one [K, N] weight
+TILE_K, TILE_N = 64, 256
+TILE_ELEMS = TILE_K * TILE_N
+GEMM_SHAPES = ((64, 256), (256, 512), (512, 512), (512, 256))  # w2..w4
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_decode.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -94,6 +107,67 @@ def pack_weights(params: dict, g_contrib: torch.Tensor,
             out.append(w.to(compute_dtype).contiguous())
             out.append(b.float().reshape(-1).contiguous())
     return tuple(out)
+
+
+def tile_layout(k: int, n: int) -> torch.Tensor:
+    """[k*n] int64: position in the tiled buffer of W[k, n] (flattened
+    row-major) for a [k, n] weight, in the order the kernel consumes it:
+    for each 256-column half h, for each 64-row block t, one tile. A tile
+    is [4 column blocks][8 row groups][8 rows][64 columns], each 8x64
+    block a 1 KB atom in the 128-byte swizzle: the 16-byte chunk c of row
+    r sits at chunk c ^ r."""
+    kk = torch.arange(k)[:, None]
+    nn = torch.arange(n)[None, :]
+    tile = (nn // TILE_N) * (k // TILE_K) + kk // TILE_K
+    kg, r = (kk % TILE_K) // 8, kk % 8
+    nb, chunk, e = (nn % TILE_N) // 64, (nn % 64) // 8, nn % 8
+    pos = (tile * TILE_ELEMS + nb * (TILE_K * 64) + kg * 512 + r * 64
+           + (chunk ^ r) * 8 + e)
+    return pos.reshape(-1)
+
+
+def tile_weights(weights: tuple) -> torch.Tensor:
+    """pack_weights' bf16 output -> the bf16 kernel's weight stream: w2, w3,
+    wp, w4 of the global stream then of the local one, each laid out by
+    tile_layout, concatenated ([2 * 33 * TILE_ELEMS])."""
+    r = torch.arange(8, device=weights[0].device)
+    swz = (r[:, None] ^ r[None, :]).reshape(1, 1, 1, 1, 8, 8, 1)
+    parts = []
+    for s in range(2):
+        for layer, (k, n) in enumerate(GEMM_SHAPES, start=1):
+            w = weights[s * 12 + 2 * layer]
+            # [t, kg, r, h, nb, chunk, e] -> [h, t, nb, kg, r, chunk ^ r, e]
+            x = w.reshape(k // TILE_K, TILE_K // 8, 8, n // TILE_N,
+                          TILE_N // 64, 8, 8).permute(3, 0, 4, 1, 2, 5, 6)
+            x = torch.gather(x, 5, swz.expand(x.shape))
+            parts.append(x.reshape(-1))
+    return torch.cat(parts)
+
+
+def small_params(weights: tuple) -> torch.Tensor:
+    """pack_weights' output -> the bf16 kernel's small parameters, f32
+    [2 * 2308]: per stream (global, local) the biases b1..b6 (b6 padded to
+    4), w1 [3, 64] and w5 [256, out] padded to [256, 2]."""
+    parts = []
+    for s in range(2):
+        ws = weights[s * 12:(s + 1) * 12]
+        w5 = ws[10].float()
+        parts += [*(b.float() for b in ws[1:10:2]),
+                  torch.nn.functional.pad(ws[11].float(), (0, 4 - w5.shape[1])),
+                  ws[0].float().reshape(-1),
+                  torch.nn.functional.pad(w5, (0, 2 - w5.shape[1])
+                                          ).reshape(-1)]
+    return torch.cat(parts)
+
+
+def pad_cells(cell_ids: torch.Tensor, multiple: int) -> torch.Tensor:
+    """cell_ids padded to a multiple of `multiple` by repeating its last id,
+    so that every block of a cluster decodes a valid cell; the rows of the
+    padding follow the first len(cell_ids)*64 rows of the output."""
+    extra = -cell_ids.shape[0] % multiple
+    if extra == 0:
+        return cell_ids
+    return torch.cat([cell_ids, cell_ids[-1:].expand(extra)])
 
 
 def _plain_chunk(fmap, weights, trans_mat, geom, cells, fine_r, coarse_c,
@@ -156,13 +230,14 @@ def fused_decode_plain(fmap: torch.Tensor, weights: tuple, trans_mat:
     return torch.cat(outs)
 
 
-def build() -> Path:
-    """Compile csrc/fused_decode.cu (once per source hash) and return the
-    shared library's path. The compiler's register/shared-memory report is
-    kept beside it as ``<lib>.log``."""
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile csrc/fused_decode.cu (once per source hash and `defines`,
+    e.g. ("K1_TRACE",)) and return the shared library's path. The
+    compiler's register/shared-memory report is kept beside it as
+    ``<lib>.log``."""
     src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:12]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"libfused_decode-{digest}.so"
     if lib.exists():
         return lib
@@ -170,7 +245,7 @@ def build() -> Path:
     nvcc = (os.environ.get("NVCC") or shutil.which("nvcc")
             or "/usr/local/cuda/bin/nvcc")
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(_SRC)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
@@ -179,12 +254,13 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+@functools.lru_cache(maxsize=None)
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_decode_launch.argtypes = [ci, vp, ctypes.POINTER(vp), vp, vp,
-                                        vp, ci, ci, ci, ci, ci, ci, vp, vp]
+                                        vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                        ci, vp, vp]
     lib.fused_decode_launch.restype = ci
     return lib
 
@@ -237,6 +313,11 @@ def _check(fmap, weights, trans_mat, geom, cell_ids, fine_r, coarse_c,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
+    # the kernel reads the map and the weights in 16-byte vectors
+    for t in (fmap, *weights[0::2]) if dev.type == "cuda" else ():
+        if t.data_ptr() % 16:
+            raise ValueError("the map and the weights must be 16-byte "
+                             "aligned")
     return out_dim
 
 
@@ -259,10 +340,9 @@ def fused_cell_decode(fmap: torch.Tensor, weights: tuple,
     if fmap.device.type != "cuda":
         raise ValueError(f"unsupported device {fmap.device}")
     n = cell_ids.shape[0]
-    out = torch.empty((n * K, out_dim), dtype=torch.float32,
-                      device=fmap.device)
     if n == 0:
-        return out
+        return torch.empty((0, out_dim), dtype=torch.float32,
+                           device=fmap.device)
     if fused_cell_decode.inputs is not None:
         fused_cell_decode.inputs.append(
             ((fmap, weights, trans_mat, geom, cell_ids),
@@ -274,11 +354,22 @@ def fused_cell_decode(fmap: torch.Tensor, weights: tuple,
     if timed:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(cur)
+    bf16 = fmap.dtype == torch.bfloat16
+    cluster = CLUSTER if bf16 else 1
+    cells = pad_cells(cell_ids, cluster)
+    tiles = params = None
+    if bf16:
+        tiles = tile_weights(weights)
+        params = small_params(weights)
+    out = torch.empty((cells.shape[0] * K, out_dim), dtype=torch.float32,
+                      device=fmap.device)
     err = _lib().fused_decode_launch(
-        int(fmap.dtype == torch.bfloat16), fmap.data_ptr(), ptrs,
-        trans_mat.data_ptr(), geom.data_ptr(), cell_ids.data_ptr(), n,
-        fine_r, coarse_c, img_w, img_h, out_dim, out.data_ptr(),
-        cur.cuda_stream)
+        int(bf16), fmap.data_ptr(), ptrs,
+        None if tiles is None else tiles.data_ptr(),
+        None if params is None else params.data_ptr(),
+        trans_mat.data_ptr(), geom.data_ptr(), cells.data_ptr(),
+        cells.shape[0], fine_r, coarse_c, img_w, img_h, out_dim, cluster,
+        out.data_ptr(), cur.cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -286,7 +377,7 @@ def fused_cell_decode(fmap: torch.Tensor, weights: tuple,
         end.record(cur)
         fused_cell_decode.events.append((start, end))
     fused_cell_decode.launches += 1
-    return out
+    return out[:n * K]
 
 
 fused_cell_decode.launches = 0

@@ -12,13 +12,16 @@ from disn_tpu_torch.models import sdfnet
 from disn_tpu_torch.ops import fused_decode
 
 FINE_R, COARSE_C = 49, 12
+# ragged cell counts: a bf16 launch is padded to whole clusters; the last is
+# the 257^3 main path's fine count (17,888 on the demo image) minus one
+RAGGED = [(1, 49, 12), (3, 49, 12), (5, 49, 12), (17887, 257, 64)]
 CAMERAS = {
     "w0_plane_in_box": np.vstack([np.eye(3) * 60, [68.0, 68.0, 2.0]]),
     "demo": None,
 }
 
 
-def _inputs(dtype, cam):
+def _inputs(dtype, cam, n_cells=200, coarse_c=COARSE_C):
     from disn_tpu_torch.data import synthetic
 
     dev = torch.device("cuda")
@@ -31,27 +34,21 @@ def _inputs(dtype, cam):
             ).to(dtype)
     w = fused_decode.pack_weights(params, g_contrib.to(dtype), dtype)
     trans = synthetic.demo_trans_mat() if cam is None else cam
-    cells = torch.randperm(COARSE_C ** 3, generator=gen, device=dev
-                           )[:200].sort().values.int()
+    cells = torch.randperm(coarse_c ** 3, generator=gen, device=dev
+                           )[:n_cells].sort().values.int()
     geom = torch.tensor([-1, -1, -1, 1, 1, 1.0], device=dev)
     return (fmap, w, torch.tensor(np.ascontiguousarray(trans),
                                   dtype=torch.float32, device=dev),
             geom, cells)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("cam", list(CAMERAS))
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_gpu(dtype, cam):
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    args = _inputs(dtype, CAMERAS[cam])
-    kw = dict(fine_r=FINE_R, coarse_c=COARSE_C)
+def _hold(args, kw, dtype):
     before = fused_decode.fused_cell_decode.launches
     got = fused_decode.fused_cell_decode(*args, **kw)
     want = fused_decode.fused_decode_plain(*args, **kw)
     torch.cuda.synchronize()
     assert fused_decode.fused_cell_decode.launches == before + 1
+    assert got.shape == want.shape
     assert torch.isfinite(got).all()
     scale = want.abs().max().item()
     err = (got - want).abs()
@@ -60,3 +57,27 @@ def test_kernel_matches_plain_on_gpu(dtype, cam):
     else:  # tests/test_fused.py's bf16 bounds
         assert err.max().item() <= 0.02 * scale
         assert err.mean().item() <= 0.003 * scale
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cam", list(CAMERAS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_gpu(dtype, cam):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    _hold(_inputs(dtype, CAMERAS[cam]),
+          dict(fine_r=FINE_R, coarse_c=COARSE_C), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", RAGGED, ids=lambda r: f"n{r[0]}")
+@pytest.mark.parametrize("cam", list(CAMERAS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_at_ragged_counts(dtype, cam, ragged):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n, fine_r, coarse_c = ragged
+    args = _inputs(dtype, CAMERAS[cam], n, coarse_c)
+    out = _hold(args, dict(fine_r=fine_r, coarse_c=coarse_c), dtype)
+    assert out.shape == (n * 64, 1)
