@@ -778,13 +778,14 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int k_tiles, int& it,
   K1_STAMP(ev + 1);
 }
 
+// Both streams of the cell whose first point is p0; `it` is the ring
+// position, carried from cell to cell.
 template <int CS>
 __device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
                                              const float* par,
                                              const float* pts, float* pred,
-                                             float* red, size_t p0) {
+                                             float* red, size_t p0, int& it) {
   const int tid = threadIdx.x;
-  int it = 0;  // ring position
 #pragma unroll 1
   for (int s = 0; s < 2; ++s) {
     const float* ps = par + s * P_STREAM;
@@ -835,8 +836,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
   const uint32_t full = smem_u32(smem + off_bar);
   const uint32_t empty = full + 8 * STAGES;
   const int tid = threadIdx.x;
-  const size_t p0 = (size_t)blockIdx.x * M;
-  K1_STAMP(0);
+  // Persistent: cluster k of the grid's n_clusters decodes the groups of CS
+  // cells k, k + n_clusters, ...; its block of rank r the cell g * CS + r.
+  const int n_clusters = gridDim.x / CS;
+  const int rank = CS > 1 ? (int)cluster_rank() : 0;
+  const int groups = args.n_cells / CS;
+  const int first = blockIdx.x / CS;
+  const int n_mine = first < groups ? (groups - first - 1) / n_clusters + 1
+                                    : 0;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -856,13 +863,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
           reinterpret_cast<const unsigned char*>(args.tiles);
       const uint32_t ring = smem_u32(smem + off_ring);
       constexpr uint32_t SLICE = TILE_BYTES / CS;
-      const uint32_t rank = CS > 1 ? cluster_rank() : 0;
-      for (int i = 0; i < TILES; ++i) {
+      const int n = n_mine * TILES;  // the same weights for every cell
+      for (int i = 0; i < n; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
         mbar_expect_tx(full + 8 * s, TILE_BYTES);
         const uint32_t dst = ring + s * TILE_BYTES + rank * SLICE;
-        const unsigned char* from = src + (size_t)i * TILE_BYTES + rank * SLICE;
+        const unsigned char* from =
+            src + (size_t)(i % TILES) * TILE_BYTES + rank * SLICE;
         if constexpr (CS == 1)
           bulk_g2s(dst, from, SLICE, full + 8 * s);
         else
@@ -870,19 +878,16 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
                              (uint16_t)((1u << CS) - 1));
       }
       // the last releases, some of them remote, land before this block ends
-      for (int i = TILES; i < TILES + STAGES; ++i)
-        mbar_wait(empty + 8 * (i % STAGES), ((i / STAGES) - 1) & 1);
+      for (int i = n; i < n + STAGES; ++i)
+        if (i >= STAGES)
+          mbar_wait(empty + 8 * (i % STAGES), ((i / STAGES) - 1) & 1);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS)
                  : "memory");
-    // set-up while the first tiles are on their way
-    if (tid < M) point_taps<bf16>(args, p0, tid, pts, tidx, tw);
     for (int i = tid; i < 2 * P_STREAM / 4; i += CONSUMERS)
       reinterpret_cast<float4*>(par)[i] =
           __ldg(reinterpret_cast<const float4*>(args.params) + i);
-    consumer_sync();
-    K1_STAMP(1);
     Ctx c;
     c.act = smem + off_act;
     c.act_s = smem_u32(c.act);
@@ -893,7 +898,16 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
     c.map = static_cast<const bf16*>(args.map);
     c.tidx = tidx;
     c.tw = tw;
-    run_consumer<CS>(args, c, par, pts, pred, red, p0);
+    int it = 0;
+    for (int k = 0; k < n_mine; ++k) {
+      const size_t p0 = ((size_t)(first + k * n_clusters) * CS + rank) * M;
+      K1_STAMP(0);
+      // the previous cell's last reads of the taps are behind a barrier
+      if (tid < M) point_taps<bf16>(args, p0, tid, pts, tidx, tw);
+      consumer_sync();
+      K1_STAMP(1);
+      run_consumer<CS>(args, c, par, pts, pred, red, p0, it);
+    }
   }
 }
 
@@ -904,7 +918,7 @@ int launch(const Args& a, cudaStream_t stream) {
       (int)smem_total);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)a.n_cells);  // one block per cell
+  cfg.gridDim = dim3((unsigned)(CS * 132));  // for the occupancy query
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem_total;
   cfg.stream = stream;
@@ -915,6 +929,15 @@ int launch(const Args& a, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // persistent: as many clusters as fit at once, or one per group of cells
+  static int clusters = 0;
+  if (clusters == 0) {
+    err = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<CS>, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters <= 0) return (int)cudaErrorInvalidConfiguration;
+  }
+  const int groups = a.n_cells / CS;
+  cfg.gridDim = dim3((unsigned)(CS * (groups < clusters ? groups : clusters)));
   err = cudaLaunchKernelEx(&cfg, decode_kernel<CS>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -6,7 +6,8 @@ Builds csrc/fused_decode.cu a second time with -DK1_TRACE (the default
 build has no stamps), runs the bf16 kernel on N random cells of the 257^3
 grid with seeded random full-width head weights and map (the demo camera),
 and prints for each phase the median over blocks of the SM clocks that
-consumer warpgroup 0 spent in it, beside the tensor-core floor of each
+consumer warpgroup 0 spent in it (in each block's last cell: the kernel is
+persistent), beside the tensor-core floor of each
 layer's product (64 x K x N MACs at 2,048 dense bf16 MACs per clock per
 SM: 989 TFLOP/s over 132 SMs at 1.83 GHz). It needs one CUDA card.
 """
@@ -92,6 +93,7 @@ def main() -> None:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
     stamps = buf.reshape(n_blocks, 2, EVENTS)[:, 0].cpu().numpy()
+    stamps = stamps[stamps[:, EVENTS - 1] != 0]  # blocks of the grid
     total = np.median(stamps[:, EVENTS - 1] - stamps[:, 0])
     rows = []
     for name, e0, e1, macs in phases():
