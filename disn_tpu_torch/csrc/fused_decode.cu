@@ -599,14 +599,16 @@ __device__ __forceinline__ float hi_f(uint32_t u) {
 }
 
 // One pass of a layer on the tensor cores: this warpgroup's 128 output
-// columns for all 64 rows, from k_tiles ring tiles of 64 weight rows.
-template <int CS>
-__device__ __forceinline__ void mma_pass(const Ctx& c, int k_tiles, int& it,
-                                         float (&d)[64]) {
+// columns for all 64 rows, from K_TILES ring tiles of 64 weight rows.
+// hook(t) runs while tile t's products are in flight.
+template <int K_TILES, int CS, typename Hook>
+__device__ __forceinline__ void mma_pass(const Ctx& c, int& it,
+                                         float (&d)[64], Hook&& hook) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
   int prev = 0;
-  for (int t = 0; t < k_tiles; ++t, ++it) {
+#pragma unroll
+  for (int t = 0; t < K_TILES; ++t, ++it) {
     const int s = it % STAGES;
     mbar_wait(c.full + 8 * s, (it / STAGES) & 1);
     wgmma_fence();
@@ -620,6 +622,7 @@ __device__ __forceinline__ void mma_pass(const Ctx& c, int k_tiles, int& it,
       wgmma_m64n128(d, da, db);
     }
     wgmma_commit();
+    hook(t);
     if (t > 0) {  // the previous tile's products are done: free its stage
       wgmma_wait<1>();
       release<CS>(c, prev);
@@ -675,8 +678,8 @@ __device__ __forceinline__ void out_pair(const Ctx& c, const float (&d)[64],
 // act[:, :256 * PASSES] = bf16(relu(sum + bias)) (STORE), with the sampled
 // feature added after the bias (FEAT); LAST instead feeds those values
 // straight into the last layer and writes the block's output.
-template <int PASSES, Epilogue EPI, int CS>
-__device__ __forceinline__ void wg_layer(const Ctx& c, int k_tiles, int& it,
+template <int PASSES, int K_TILES, Epilogue EPI, int CS>
+__device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
                                          const float* bias, int ev,
                                          const Last& last) {
   // accumulator d[4j + e]: row r0 (e < 2) or r1, column cb + 8j + (e & 1)
@@ -694,13 +697,22 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int k_tiles, int& it,
   static_assert(PASSES == 1 || PASSES == 2, "one or two passes");
   uint32_t keep[32];
   float d[64];
-  mma_pass<CS>(c, k_tiles, it, d);
-  if constexpr (PASSES == 2) {
+  if constexpr (PASSES == 1) {
+    mma_pass<K_TILES, CS>(c, it, d, [](int) {});
+  } else {
+    // the first pass's epilogue values are computed in slices while the
+    // second pass's products run
+    float d0[64];
+    mma_pass<K_TILES, CS>(c, it, d0, [](int) {});
+    constexpr int SLICE = 16 / K_TILES;
+    mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      out_pair<EPI>(c, d, j, col_of(0, j), bias, r0, r1, keep[2 * j],
-                    keep[2 * j + 1]);
-    mma_pass<CS>(c, k_tiles, it, d);
+      for (int jj = 0; jj < SLICE; ++jj) {
+        const int j = SLICE * t + jj;
+        out_pair<EPI>(c, d0, j, col_of(0, j), bias, r0, r1, keep[2 * j],
+                      keep[2 * j + 1]);
+      }
+    });
   }
   K1_STAMP(ev);
   consumer_sync();  // both warpgroups are done reading the activations
@@ -809,14 +821,14 @@ __device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
     K1_STAMP(ev);
     const Last last = {ps + P_W5, ps + P_B6, args.out_dim, pred, red,
                        args.out + p0 * args.out_dim, s == 1};
-    wg_layer<1, STORE, CS>(c, 1, it, ps + P_B2, ev + 1, last);  // 64->256
-    wg_layer<2, STORE, CS>(c, 4, it, ps + P_B3, ev + 3, last);  // 256->512
+    wg_layer<1, 1, STORE, CS>(c, it, ps + P_B2, ev + 1, last);  // 64->256
+    wg_layer<2, 4, STORE, CS>(c, it, ps + P_B3, ev + 3, last);  // 256->512
     if (s == 0)                                                 // 512->512
-      wg_layer<2, STORE, CS>(c, 8, it, ps + P_B4, ev + 5, last);
+      wg_layer<2, 8, STORE, CS>(c, it, ps + P_B4, ev + 5, last);
     else
-      wg_layer<2, FEAT, CS>(c, 8, it, ps + P_B4, ev + 5, last);
+      wg_layer<2, 8, FEAT, CS>(c, it, ps + P_B4, ev + 5, last);
     // 512 -> 256 -> out
-    wg_layer<1, LAST, CS>(c, 8, it, ps + P_B5, ev + 7, last);
+    wg_layer<1, 8, LAST, CS>(c, it, ps + P_B5, ev + 7, last);
   }
 }
 
