@@ -699,6 +699,70 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
   float d[64];
   if constexpr (PASSES == 1) {
     mma_pass<K_TILES, CS>(c, it, d, [](int) {});
+  } else if constexpr (EPI == FEAT) {
+    // The first pass's features are gathered under its own products: each
+    // tile's hook loads the taps of a slice of columns and sums the slice
+    // before, so the loads run while the tensor cores work. Its values
+    // (sum, bias, feature) then pack in slices under the second pass.
+    constexpr int SLICE = 16 / K_TILES;
+    float d0[64];
+    uint32_t raw[2][SLICE][2][4];  // [tile parity][slice column][row][tap]
+    uint32_t fw[32];               // feature pairs, rows r0, r1 per group j
+    int ti[2][4];
+    float wt[2][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      ti[0][t] = c.tidx[r0 * 4 + t];
+      ti[1][t] = c.tidx[r1 * 4 + t];
+      wt[0][t] = c.tw[r0 * 4 + t];
+      wt[1][t] = c.tw[r1 * 4 + t];
+    }
+    auto issue = [&](int t) {
+#pragma unroll
+      for (int jj = 0; jj < SLICE; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int tp = 0; tp < 4; ++tp)
+            raw[t & 1][jj][i][tp] = __ldg(reinterpret_cast<const unsigned*>(
+                c.map + (size_t)ti[i][tp] * C_FEAT +
+                col_of(0, SLICE * t + jj)));
+    };
+    auto sum = [&](int t) {
+#pragma unroll
+      for (int jj = 0; jj < SLICE; ++jj)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float f0 = 0.f, f1 = 0.f;
+#pragma unroll
+          for (int tp = 0; tp < 4; ++tp) {
+            f0 = fmaf(wt[i][tp], lo_f(raw[t & 1][jj][i][tp]), f0);
+            f1 = fmaf(wt[i][tp], hi_f(raw[t & 1][jj][i][tp]), f1);
+          }
+          fw[2 * (SLICE * t + jj) + i] = pack2(f0, f1);  // bf16 features
+        }
+    };
+    mma_pass<K_TILES, CS>(c, it, d0, [&](int t) {
+      if (t > 0) sum(t - 1);
+      issue(t);
+    });
+    sum(K_TILES - 1);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(bias + col_of(0, j));
+      d0[4 * j] = d0[4 * j] + b.x + lo_f(fw[2 * j]);
+      d0[4 * j + 1] = d0[4 * j + 1] + b.y + hi_f(fw[2 * j]);
+      d0[4 * j + 2] = d0[4 * j + 2] + b.x + lo_f(fw[2 * j + 1]);
+      d0[4 * j + 3] = d0[4 * j + 3] + b.y + hi_f(fw[2 * j + 1]);
+    }
+    mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
+#pragma unroll
+      for (int jj = 0; jj < SLICE; ++jj) {
+        const int j = SLICE * t + jj;
+        keep[2 * j] = relu2(d0[4 * j], d0[4 * j + 1]);
+        keep[2 * j + 1] = relu2(d0[4 * j + 2], d0[4 * j + 3]);
+      }
+    });
   } else {
     // the first pass's epilogue values are computed in slices while the
     // second pass's products run
