@@ -636,39 +636,14 @@ __device__ __forceinline__ void mma_pass(const Ctx& c, int& it,
 
 enum Epilogue { STORE, FEAT, LAST };
 
-// Sampled feature of row m at columns (col, col + 1): four taps summed in
-// f32, stored as bf16 (returned as f32).
-__device__ __forceinline__ float2 feat2(const Ctx& c, int m, int col) {
-  float f0 = 0.f, f1 = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
-        c.map + (size_t)c.tidx[m * 4 + t] * C_FEAT + col));
-    f0 = fmaf(c.tw[m * 4 + t], lo_f(v), f0);
-    f1 = fmaf(c.tw[m * 4 + t], hi_f(v), f1);
-  }
-  return make_float2(round_cd<bf16>(f0), round_cd<bf16>(f1));
-}
-
-// bf16(relu(sum + bias (+ feature))) of accumulator group j, rows r0 and
-// r1 at columns (col, col + 1), as two words
-template <Epilogue EPI>
-__device__ __forceinline__ void out_pair(const Ctx& c, const float (&d)[64],
-                                         int j, int col, const float* bias,
-                                         int r0, int r1, uint32_t& o0,
-                                         uint32_t& o1) {
+// bf16(relu(sum + bias)) of accumulator group j, rows r0 and r1 at
+// columns (col, col + 1), as two words
+__device__ __forceinline__ void out_pair(const float (&d)[64], int j,
+                                         int col, const float* bias,
+                                         uint32_t& o0, uint32_t& o1) {
   const float2 b = *reinterpret_cast<const float2*>(bias + col);
-  float v00 = d[4 * j] + b.x, v01 = d[4 * j + 1] + b.y;
-  float v10 = d[4 * j + 2] + b.x, v11 = d[4 * j + 3] + b.y;
-  if constexpr (EPI == FEAT) {
-    const float2 f0 = feat2(c, r0, col), f1 = feat2(c, r1, col);
-    v00 += f0.x;
-    v01 += f0.y;
-    v10 += f1.x;
-    v11 += f1.y;
-  }
-  o0 = relu2(v00, v01);
-  o1 = relu2(v10, v11);
+  o0 = relu2(d[4 * j] + b.x, d[4 * j + 1] + b.y);
+  o1 = relu2(d[4 * j + 2] + b.x, d[4 * j + 3] + b.y);
 }
 
 // One layer, [64, K] @ [K, 256 * PASSES], bias in shared memory. Pass p
@@ -700,14 +675,15 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
   if constexpr (PASSES == 1) {
     mma_pass<K_TILES, CS>(c, it, d, [](int) {});
   } else if constexpr (EPI == FEAT) {
-    // The first pass's features are gathered under its own products: each
+    // Each pass's features are gathered under its own products: each
     // tile's hook loads the taps of a slice of columns and sums the slice
-    // before, so the loads run while the tensor cores work. Its values
-    // (sum, bias, feature) then pack in slices under the second pass.
+    // before, so the loads run while the tensor cores work. The first
+    // pass's values (sum, bias, feature) then pack in slices under the
+    // second pass.
     constexpr int SLICE = 16 / K_TILES;
     float d0[64];
     uint32_t raw[2][SLICE][2][4];  // [tile parity][slice column][row][tap]
-    uint32_t fw[32];               // feature pairs, rows r0, r1 per group j
+    uint32_t fw[32];  // a pass's feature pairs, rows r0, r1 per group j
     int ti[2][4];
     float wt[2][4];
 #pragma unroll
@@ -717,7 +693,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
       wt[0][t] = c.tw[r0 * 4 + t];
       wt[1][t] = c.tw[r1 * 4 + t];
     }
-    auto issue = [&](int t) {
+    auto issue = [&](int p, int t) {
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj)
 #pragma unroll
@@ -726,7 +702,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
           for (int tp = 0; tp < 4; ++tp)
             raw[t & 1][jj][i][tp] = __ldg(reinterpret_cast<const unsigned*>(
                 c.map + (size_t)ti[i][tp] * C_FEAT +
-                col_of(0, SLICE * t + jj)));
+                col_of(p, SLICE * t + jj)));
     };
     auto sum = [&](int t) {
 #pragma unroll
@@ -744,7 +720,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
     };
     mma_pass<K_TILES, CS>(c, it, d0, [&](int t) {
       if (t > 0) sum(t - 1);
-      issue(t);
+      issue(0, t);
     });
     sum(K_TILES - 1);
 #pragma unroll
@@ -756,6 +732,8 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
       d0[4 * j + 3] = d0[4 * j + 3] + b.y + hi_f(fw[2 * j + 1]);
     }
     mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
+      if (t > 0) sum(t - 1);
+      issue(1, t);
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj) {
         const int j = SLICE * t + jj;
@@ -763,6 +741,15 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
         keep[2 * j + 1] = relu2(d0[4 * j + 2], d0[4 * j + 3]);
       }
     });
+    sum(K_TILES - 1);  // fw: the second pass's features
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {  // its values get the feature here
+      const float2 b = *reinterpret_cast<const float2*>(bias + col_of(1, j));
+      d[4 * j] = d[4 * j] + b.x + lo_f(fw[2 * j]);
+      d[4 * j + 1] = d[4 * j + 1] + b.y + hi_f(fw[2 * j]);
+      d[4 * j + 2] = d[4 * j + 2] + b.x + lo_f(fw[2 * j + 1]);
+      d[4 * j + 3] = d[4 * j + 3] + b.y + hi_f(fw[2 * j + 1]);
+    }
   } else {
     // the first pass's epilogue values are computed in slices while the
     // second pass's products run
@@ -773,8 +760,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj) {
         const int j = SLICE * t + jj;
-        out_pair<EPI>(c, d0, j, col_of(0, j), bias, r0, r1, keep[2 * j],
-                      keep[2 * j + 1]);
+        out_pair(d0, j, col_of(0, j), bias, keep[2 * j], keep[2 * j + 1]);
       }
     });
   }
@@ -787,7 +773,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
     for (int j = 0; j < 16; ++j) {
       const int col = col_of(0, j);
       uint32_t h0, h1;
-      out_pair<STORE>(c, d, j, col, bias, r0, r1, h0, h1);
+      out_pair(d, j, col, bias, h0, h1);
 #pragma unroll
       for (int o = 0; o < 2; ++o) {
         if (o < last.O) {
@@ -844,7 +830,12 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       uint32_t o0, o1;
-      out_pair<EPI>(c, d, j, col_of(P, j), bias, r0, r1, o0, o1);
+      if constexpr (EPI == FEAT) {  // d holds sum + bias + feature
+        o0 = relu2(d[4 * j], d[4 * j + 1]);
+        o1 = relu2(d[4 * j + 2], d[4 * j + 3]);
+      } else {
+        out_pair(d, j, col_of(P, j), bias, o0, o1);
+      }
       *reinterpret_cast<uint32_t*>(c.act + off_of(P, j)) = o0;
       *reinterpret_cast<uint32_t*>(c.act + off_of(P, j) + 8 * 128) = o1;
     }
