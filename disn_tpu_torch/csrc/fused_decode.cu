@@ -111,8 +111,8 @@ struct Args {
   int n_cells, fine_r, coarse_c, img_w, img_h, out_dim;
 };
 
-// Points, projection and bilinear taps of point `i` of the block whose
-// first point is p0 (one thread per point).
+// Points (rounded to the compute type), projection and bilinear taps of
+// point `i` of the block whose first point is p0 (one thread per point).
 template <typename T>
 __device__ __forceinline__ void point_taps(const Args& args, size_t p0, int i,
                                            float* pts, int* tidx, float* tw) {
@@ -132,7 +132,7 @@ __device__ __forceinline__ void point_taps(const Args& args, size_t p0, int i,
     const float span = __fsub_rn(args.geom[3 + d], lo);
     // lo + f / denom * span, each step rounded (no contraction)
     xyz[d] = __fadd_rn(lo, __fmul_rn(__fdiv_rn((float)f[d], denom), span));
-    pts[i * 3 + d] = xyz[d];
+    pts[i * 3 + d] = round_cd<T>(xyz[d]);  // the first layer's input
   }
   const float* t = args.trans;
   float uvw[3];
@@ -856,16 +856,18 @@ __device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
 #pragma unroll 1
   for (int s = 0; s < 2; ++s) {
     const float* ps = par + s * P_STREAM;
-    // fold1 conv1, 3 -> 64, points rounded to bf16 first: thread owns
+    // fold1 conv1, 3 -> 64 (points already rounded to bf16): thread owns
     // column n for rows tid / 64 + 4 i
     {
       const int n = tid & 63;
       const float wa = ps[P_W1 + n], wb = ps[P_W1 + 64 + n];
       const float wc = ps[P_W1 + 128 + n], bn = ps[P_B1 + n];
-      for (int m = tid >> 6; m < M; m += CONSUMERS / 64) {
-        float v = fmaf(round_cd<bf16>(pts[m * 3]), wa, 0.f);
-        v = fmaf(round_cd<bf16>(pts[m * 3 + 1]), wb, v);
-        v = fmaf(round_cd<bf16>(pts[m * 3 + 2]), wc, v);
+#pragma unroll
+      for (int i = 0; i < M / 4; ++i) {
+        const int m = (tid >> 6) + 4 * i;
+        float v = fmaf(pts[m * 3], wa, 0.f);
+        v = fmaf(pts[m * 3 + 1], wb, v);
+        v = fmaf(pts[m * 3 + 2], wc, v);
         *reinterpret_cast<bf16*>(c.act + act_off(m, n)) =
             from_f<bf16>(relu(v + bn));
       }
