@@ -16,7 +16,9 @@
 // 989 TFLOP/s dense bf16 (H100 SXM), 3.079 ms for the 4,096 + 17,888 cells
 // of one bf16 image at 257^3.
 //
-// bf16, the path users time: one 64-point cell per block, 384 threads.
+// bf16, the path users time: 384 threads per block, one 64-point cell at
+// a time; the grid is persistent (as many blocks as fit, one per SM), each
+// block walking its cells.
 //  * Tensor cores through wgmma (m64n128k16). Two consumer warpgroups each
 //    compute 128 output columns for all 64 rows per pass: one pass for the
 //    256-wide layers, two for the 512-wide ones. A is the activation
@@ -24,17 +26,20 @@
 //    the f32 sums stay in registers, 64 a thread. (One m64n256 pass of 128
 //    sums a thread made ptxas serialise the wgmmas for want of registers.)
 //  * One [64, 512] bf16 activation buffer (64 KB) in the K-major
-//    128-byte-swizzled layout a descriptor reads. A first pass's output
-//    waits in registers packed to bf16 while the second pass reads the
-//    input; once both warpgroups are done (named barrier) the epilogue
-//    writes the layer over its input: no second buffer, no f32 staging.
+//    128-byte-swizzled layout a descriptor reads. The first pass's output
+//    is packed to bf16 in slices while the second pass's products run, and
+//    waits in registers while that pass still reads the input; once both
+//    warpgroups are done (named barrier) the epilogue writes the layer
+//    over its input: no second buffer, no f32 staging.
 //  * Weights stream through a ring of 4 stages of 32 KB, one tile = 64
 //    rows x 256 columns of a layer, laid out on the host by tile_weights in
 //    consumption order and already in the MN-major swizzled layout wgmma
 //    reads. One thread of a producer warpgroup keeps 4 tiles in flight
 //    with cp.async.bulk and full/empty mbarriers (~4 x 512 clocks of
-//    tensor work, more than an L2 round trip); setmaxnreg gives the
-//    consumers 232 registers and the producer 40.
+//    tensor work, more than an L2 round trip); the stream runs on from one
+//    cell to the next (every cell reads the same weights), so the ring
+//    never drains. setmaxnreg gives the consumers 232 registers and the
+//    producer 40.
 //  * A cluster of CS blocks (CLUSTER in ops/fused_decode.py) shares each
 //    tile: every block copies 1/CS of it with .multicast::cluster into all
 //    CS blocks, so one fetch from L2 serves 64*CS points (weight traffic
@@ -43,19 +48,23 @@
 //    blocks before its stage is refilled; the producer waits for the last
 //    releases before it exits, so no arrive lands on a finished block.
 //    Measured on an H100, the weight traffic is not what bounds the kernel
-//    (CS = 1, 2 and 4 give the same time per block; 4 leaves 12 of 132 SMs
-//    idle), so the default is 2: no SM idle, half the traffic.
-//  * The epilogue stays in registers: f32 bias and the small weights come
-//    from shared memory (small_params, copied once per block), then the
-//    sampled feature (the local stream's fold2/conv1, 4-byte gathers of the
-//    four taps from the L2-resident map), NaN-keeping ReLU, bf16, stored
-//    straight into the swizzled buffer. The last layer (256 -> out) runs in
-//    the epilogue of the layer before it, on values never stored.
+//    (CS = 1 and 2 take about the same time, 4 a little more), so the
+//    default is 2: half the traffic of 1.
+//  * The epilogue stays in registers: f32 bias and the small weights from
+//    shared memory (small_params, copied once per block), the sampled
+//    feature (the local stream's fold2/conv1: each tile's hook in that
+//    layer loads the four taps of a slice of columns and sums the slice
+//    before, so the gathers run under the products), NaN-keeping ReLU,
+//    bf16, stored straight into the swizzled buffer. The last layer (256
+//    -> out) runs in the epilogue of the layer before it.
 //  * fold1/conv1 (K = 3) runs on the FMA units into the swizzled buffer.
-// What still holds it near 40% of the bound (per-phase stamps of the
-// K1_TRACE build, ops/k1_trace.py): the MMA loops run at ~73% of the tensor
-// peak, and the epilogues, the feature gather, the first layer and the
-// set-up leave the tensor cores idle for ~40% of a block's time.
+// What still holds it under half the bound (phase stamps of the K1_TRACE
+// build, ops/k1_trace.py; PERF.md): the MMA loops run near 80% of the
+// tensor peak, close to what shared memory can feed them (the tiles'
+// writes, their reads and the two passes' reads of the activations are
+// ~5 MB a cell at 128 B a clock), the feature gathers stretch the local
+// stream's 512-wide layer, and the epilogues, the first layer and the
+// set-up leave the tensor cores idle for ~30% of a cell's time.
 // f32 is the exactness reference, not the timed path: it keeps a SIMT
 // block GEMM (32 points per block, two [32, 516] ping-pong buffers,
 // double-buffered 32x128 weight tiles, FMA units), unchanged.
@@ -657,7 +666,8 @@ template <int PASSES, int K_TILES, Epilogue EPI, int CS>
 __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
                                          const float* bias, int ev,
                                          const Last& last) {
-  // accumulator d[4j + e]: row r0 (e < 2) or r1, column cb + 8j + (e & 1)
+  // accumulator d[4j + e]: row r0 (e < 2) or r1, column col_of(p, j) +
+  // (e & 1)
   const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
   const int r0 = wq * 16 + (lane >> 2), r1 = r0 + 8;
   const int x = lane >> 2;  // r0 % 8 == r1 % 8

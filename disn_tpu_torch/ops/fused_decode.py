@@ -126,22 +126,28 @@ def tile_layout(k: int, n: int) -> torch.Tensor:
     return pos.reshape(-1)
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_index(device: torch.device) -> torch.Tensor:
+    """Gather index from the 8 GEMM weights, flattened and concatenated in
+    stream order, to tile_weights' layout (one per device)."""
+    parts, offset = [], 0
+    for _ in range(2):
+        for k, n in GEMM_SHAPES:
+            src = torch.empty(k * n, dtype=torch.int64)
+            src[tile_layout(k, n)] = torch.arange(offset, offset + k * n)
+            parts.append(src)
+            offset += k * n
+    return torch.cat(parts).to(device)
+
+
 def tile_weights(weights: tuple) -> torch.Tensor:
     """pack_weights' bf16 output -> the bf16 kernel's weight stream: w2, w3,
     wp, w4 of the global stream then of the local one, each laid out by
-    tile_layout, concatenated ([2 * 33 * TILE_ELEMS])."""
-    r = torch.arange(8, device=weights[0].device)
-    swz = (r[:, None] ^ r[None, :]).reshape(1, 1, 1, 1, 8, 8, 1)
-    parts = []
-    for s in range(2):
-        for layer, (k, n) in enumerate(GEMM_SHAPES, start=1):
-            w = weights[s * 12 + 2 * layer]
-            # [t, kg, r, h, nb, chunk, e] -> [h, t, nb, kg, r, chunk ^ r, e]
-            x = w.reshape(k // TILE_K, TILE_K // 8, 8, n // TILE_N,
-                          TILE_N // 64, 8, 8).permute(3, 0, 4, 1, 2, 5, 6)
-            x = torch.gather(x, 5, swz.expand(x.shape))
-            parts.append(x.reshape(-1))
-    return torch.cat(parts)
+    tile_layout, concatenated ([2 * 33 * TILE_ELEMS]). One gather, so that
+    the wrapper adds two operations per launch."""
+    flat = torch.cat([weights[s * 12 + 2 * layer].reshape(-1)
+                      for s in range(2) for layer in range(1, 5)])
+    return flat[_tile_index(flat.device)]
 
 
 def small_params(weights: tuple) -> torch.Tensor:
