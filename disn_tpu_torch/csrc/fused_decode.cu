@@ -703,7 +703,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
       wt[0][t] = c.tw[r0 * 4 + t];
       wt[1][t] = c.tw[r1 * 4 + t];
     }
-    auto issue = [&](int p, int t) {
+    auto load_slice = [&](int p, int t) {
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj)
 #pragma unroll
@@ -730,7 +730,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
     };
     mma_pass<K_TILES, CS>(c, it, d0, [&](int t) {
       if (t > 0) sum(t - 1);
-      issue(0, t);
+      load_slice(0, t);
     });
     sum(K_TILES - 1);
 #pragma unroll
@@ -743,7 +743,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
     }
     mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
       if (t > 0) sum(t - 1);
-      issue(1, t);
+      load_slice(1, t);
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj) {
         const int j = SLICE * t + jj;
@@ -997,7 +997,7 @@ int launch(const Args& a, cudaStream_t stream) {
       (int)smem_total);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(CS * 132));  // for the occupancy query
+  cfg.gridDim = dim3(CS);  // one cluster, for the occupancy query
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem_total;
   cfg.stream = stream;
