@@ -23,10 +23,12 @@ imports nothing of JAX or disn_tpu. Phases, each fatal on failure:
    sampling and the local stream that the analytic head zeroes, in float32
    and bfloat16, with the demo camera and one whose w=0 plane cuts the box;
    (c) at ragged cell counts (1, 3, 5 and the fine pass's count minus one,
-   which the bf16 wrapper pads to whole clusters), the same way; then time
-   the bf16 launches at each cluster size and print each one's share of its
-   bound and the weight bytes it moves from L2;
-4. print per-stage times, the card, and the kernel table as JSON.
+   which the bf16 wrapper pads to whole clusters), the same way; (d) on 200
+   random cells of a 49^3 grid, whose spacing 2/48 is inexact in f32 (the
+   main path's 2/64 and 2/256 are exact), the same way;
+4. print per-stage times, each bf16 main-path launch's share of its bound
+   and the weight bytes it moves from L2, the card, and the kernel table as
+   JSON.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before printing it.
@@ -188,8 +190,9 @@ def random_k1_args(dtype, cam, main_args, seed: int = 0):
 
 
 def phase_k1_check(kept: dict) -> dict:
-    """Hold K1 against its plain version on the main path's own inputs and
-    at its shapes with random weights. Returns the results by label."""
+    """Hold K1 against its plain version on the main path's own inputs, and
+    with random weights at its shapes, at ragged counts and on a 49^3 grid.
+    Returns the timed results by label."""
     import torch
     from disn_tpu_torch.data import synthetic
 
@@ -214,40 +217,42 @@ def phase_k1_check(kept: dict) -> dict:
                     ragged = (*args[:4], args[4][:n].contiguous())
                     hold_k1(f"{dt} random camera={cam_name} ragged n={n}",
                             ragged, kw, timed=False)
+            args = random_k1_args(dtype, cam, (*fine_args[:3], *grid49()))
+            hold_k1(f"{dt} random camera={cam_name} grid 49^3", args,
+                    dict(fine_r=49, coarse_c=12, img_w=137, img_h=137),
+                    timed=False)
     return res
 
 
-def phase_k1_clusters(kept: dict) -> dict:
-    """Time K1's bf16 main-path launches at each cluster size (1 is one
-    block per weight fetch, no multicast) and print each launch's share of
-    its bound and the weight bytes it moves from L2. Returns ms by size."""
+def grid49() -> tuple:
+    """(geom, cell ids): the box [-1, 1]^3 and 200 seeded random cells of
+    the 12^3 coarse grid of a 49^3 fine grid."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cells = torch.randperm(12 ** 3, generator=gen, device=dev)[:200]
+    return (torch.tensor([-1, -1, -1, 1, 1, 1.0], device=dev),
+            cells.sort().values.int())
+
+
+def print_k1_shares(kept: dict, ref: list) -> None:
+    """Each bf16 main-path launch's share of its bound and the weight bytes
+    the design moves from L2 for it: one fetch per cluster of cells."""
     from disn_tpu_torch.ops import fused_decode
 
-    default = fused_decode.CLUSTER
-    out = {}
-    try:
-        for cluster in (1, 2, 4):
-            fused_decode.CLUSTER = cluster
-            total = 0.0
-            l2_bytes = 0
-            for (args, kw), pass_ in zip(kept["bf16"], ("coarse", "fine")):
-                ms = cuda_ms(lambda: fused_decode.fused_cell_decode(
-                    *args, **kw), 5)
-                bound_ms, _ = k1_bound(args, kw)
-                blocks = -(-args[4].numel() // cluster) * cluster
-                nbytes = blocks // cluster * K1_WEIGHT_BYTES
-                total += ms
-                l2_bytes += nbytes
-                print(f"[k1 cluster={cluster}] bf16 {pass_} "
-                      f"cells={args[4].numel()} ms={ms:.4f} "
-                      f"bound_ms={bound_ms:.4f} share_of_bound="
-                      f"{bound_ms / ms:.4f} l2_weight_bytes={nbytes}")
-            out[cluster] = total
-            print(f"[k1 cluster={cluster}] bf16 per image ms={total:.4f} "
-                  f"l2_weight_bytes_per_image={l2_bytes}")
-    finally:
-        fused_decode.CLUSTER = default
-    return out
+    cluster = fused_decode._lib().fused_decode_cluster()
+    l2_total = 0
+    for (args, kw), r, pass_ in zip(kept["bf16"], ref, ("coarse", "fine")):
+        l2 = -(-args[4].numel() // cluster) * K1_WEIGHT_BYTES
+        l2_total += l2
+        print(f"[k1] bf16 main-path {pass_}: share of bound "
+              f"{r['bound_ms'] / r['ms']:.4f}, l2_weight_bytes={l2} "
+              f"(cluster of {cluster})")
+    print(f"[k1] bf16 main-path per image: share of bound "
+          f"{sum(r['bound_ms'] for r in ref) / sum(r['ms'] for r in ref):.4f}"
+          f", l2_weight_bytes={l2_total}")
 
 
 def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
@@ -343,7 +348,6 @@ def main() -> int:
         phase_build()
         launches, runs, kept = phase_main_path()
         k1 = phase_k1_check(kept)
-        phase_k1_clusters(kept)
         timed = runs[1:4]
         for key in ("encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
                     "extraction_ms", "wall_ms", "k1_ms"):
@@ -362,9 +366,7 @@ def main() -> int:
         # K1 per bf16 image: its coarse + fine launch on the main path's
         # own inputs (image 1); no single PyTorch call computes K1
         ref = [k1[("bf16", "main", p)] for p in ("coarse", "fine")]
-        for r, p in zip(ref, ("coarse", "fine")):
-            print(f"[k1] bf16 main-path {p}: share of bound "
-                  f"{r['bound_ms'] / r['ms']:.4f}")
+        print_k1_shares(kept, ref)
         print(json.dumps({"kernels": [{
             "name": "fused_cell_decode", "route": "cuda",
             "source": "disn_tpu_torch/csrc/fused_decode.cu",

@@ -40,16 +40,16 @@
 //    cell to the next (every cell reads the same weights), so the ring
 //    never drains. setmaxnreg gives the consumers 232 registers and the
 //    producer 40.
-//  * A cluster of CS blocks (CLUSTER in ops/fused_decode.py) shares each
-//    tile: every block copies 1/CS of it with .multicast::cluster into all
-//    CS blocks, so one fetch from L2 serves 64*CS points (weight traffic
-//    per bf16 image at 257^3: 48 GB at one block per fetch, 24 GB at two).
-//    Each block's empty barrier counts the consumer warpgroups of all CS
-//    blocks before its stage is refilled; the producer waits for the last
-//    releases before it exits, so no arrive lands on a finished block.
-//    Measured on an H100, the weight traffic is not what bounds the kernel
-//    (CS = 1 and 2 take about the same time, 4 a little more), so the
-//    default is 2: half the traffic of 1.
+//  * A cluster of CS = 2 blocks shares each tile: every block copies half
+//    of it with .multicast::cluster into both, so one fetch from L2 serves
+//    128 points (weight traffic per bf16 image at 257^3: 24 GB, against
+//    48 GB at one block per fetch). Each block's empty barrier counts the
+//    consumer warpgroups of all CS blocks before its stage is refilled; the
+//    producer waits for the last releases before it exits, so no arrive
+//    lands on a finished block. The wrapper pads a launch's cells to whole
+//    clusters (fused_decode_cluster() gives CS). Measured on an H100, the
+//    weight traffic is not what bounds the kernel: clusters of 1, 2 and 4
+//    blocks took 6.3, 6.1 and 6.8 ms per image (PERF.md), hence 2.
 //  * The epilogue stays in registers: f32 bias and the small weights from
 //    shared memory (small_params, copied once per block), the sampled
 //    feature (the local stream's fold2/conv1: each tile's hook in that
@@ -381,6 +381,8 @@ __device__ long long* k1_trace;
 #endif
 
 constexpr int M = 64;           // points per block (one cell)
+constexpr int CS = 2;           // blocks (cells) per cluster sharing a tile
+static_assert(CS == 2 || CS == 4, "the ring multicasts within a cluster");
 constexpr int CONSUMERS = 256;  // two consumer warpgroups
 constexpr int THREADS = 384;    // + one producer warpgroup
 constexpr int STAGES = 4;
@@ -460,10 +462,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "r"(bytes)
       : "memory");
 }
-__device__ __forceinline__ void mbar_arrive_local(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
 // arrive on the barrier at the same offset in block `rank` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
                                                     uint32_t rank) {
@@ -473,14 +471,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
           "r"(bar),
       "r"(rank)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src,
-                                         uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 // the same bytes into every block of `mask`, at the same offsets
@@ -578,15 +568,10 @@ struct Last {
 // Hand stage `s` back: lane 0 of warp q of the warpgroup arrives on block
 // q's empty barrier, for q < CS (each block's barrier counts the consumer
 // warpgroups of all CS blocks, whose multicast refills it).
-template <int CS>
 __device__ __forceinline__ void release(const Ctx& c, int s) {
   const uint32_t q = (threadIdx.x >> 5) & 3;
-  if ((threadIdx.x & 31) == 0 && q < CS) {
-    if constexpr (CS == 1)
-      mbar_arrive_local(c.empty + 8 * s);
-    else
-      mbar_arrive_cluster(c.empty + 8 * s, q);
-  }
+  if ((threadIdx.x & 31) == 0 && q < CS)
+    mbar_arrive_cluster(c.empty + 8 * s, q);
 }
 
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
@@ -610,7 +595,7 @@ __device__ __forceinline__ float hi_f(uint32_t u) {
 // One pass of a layer on the tensor cores: this warpgroup's 128 output
 // columns for all 64 rows, from K_TILES ring tiles of 64 weight rows.
 // hook(t) runs while tile t's products are in flight.
-template <int K_TILES, int CS, typename Hook>
+template <int K_TILES, typename Hook>
 __device__ __forceinline__ void mma_pass(const Ctx& c, int& it,
                                          float (&d)[64], Hook&& hook) {
 #pragma unroll
@@ -634,13 +619,13 @@ __device__ __forceinline__ void mma_pass(const Ctx& c, int& it,
     hook(t);
     if (t > 0) {  // the previous tile's products are done: free its stage
       wgmma_wait<1>();
-      release<CS>(c, prev);
+      release(c, prev);
     }
     prev = s;
   }
   wgmma_wait<0>();
   fence_acc(d);
-  release<CS>(c, prev);
+  release(c, prev);
 }
 
 enum Epilogue { STORE, FEAT, LAST };
@@ -662,7 +647,7 @@ __device__ __forceinline__ void out_pair(const float (&d)[64], int j,
 // act[:, :256 * PASSES] = bf16(relu(sum + bias)) (STORE), with the sampled
 // feature added after the bias (FEAT); LAST instead feeds those values
 // straight into the last layer and writes the block's output.
-template <int PASSES, int K_TILES, Epilogue EPI, int CS>
+template <int PASSES, int K_TILES, Epilogue EPI>
 __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
                                          const float* bias, int ev,
                                          const Last& last) {
@@ -683,7 +668,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
   uint32_t keep[32];
   float d[64];
   if constexpr (PASSES == 1) {
-    mma_pass<K_TILES, CS>(c, it, d, [](int) {});
+    mma_pass<K_TILES>(c, it, d, [](int) {});
   } else if constexpr (EPI == FEAT) {
     // Each pass's features are gathered under its own products: each
     // tile's hook loads the taps of a slice of columns and sums the slice
@@ -728,7 +713,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
           fw[2 * (SLICE * t + jj) + i] = pack2(f0, f1);  // bf16 features
         }
     };
-    mma_pass<K_TILES, CS>(c, it, d0, [&](int t) {
+    mma_pass<K_TILES>(c, it, d0, [&](int t) {
       if (t > 0) sum(t - 1);
       load_slice(0, t);
     });
@@ -741,7 +726,7 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
       d0[4 * j + 2] = d0[4 * j + 2] + b.x + lo_f(fw[2 * j + 1]);
       d0[4 * j + 3] = d0[4 * j + 3] + b.y + hi_f(fw[2 * j + 1]);
     }
-    mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
+    mma_pass<K_TILES>(c, it, d, [&](int t) {
       if (t > 0) sum(t - 1);
       load_slice(1, t);
 #pragma unroll
@@ -764,9 +749,9 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
     // the first pass's epilogue values are computed in slices while the
     // second pass's products run
     float d0[64];
-    mma_pass<K_TILES, CS>(c, it, d0, [](int) {});
+    mma_pass<K_TILES>(c, it, d0, [](int) {});
     constexpr int SLICE = 16 / K_TILES;
-    mma_pass<K_TILES, CS>(c, it, d, [&](int t) {
+    mma_pass<K_TILES>(c, it, d, [&](int t) {
 #pragma unroll
       for (int jj = 0; jj < SLICE; ++jj) {
         const int j = SLICE * t + jj;
@@ -857,7 +842,6 @@ __device__ __forceinline__ void wg_layer(const Ctx& c, int& it,
 
 // Both streams of the cell whose first point is p0; `it` is the ring
 // position, carried from cell to cell.
-template <int CS>
 __device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
                                              const float* par,
                                              const float* pts, float* pred,
@@ -888,18 +872,17 @@ __device__ __forceinline__ void run_consumer(const Args& args, const Ctx& c,
     K1_STAMP(ev);
     const Last last = {ps + P_W5, ps + P_B6, args.out_dim, pred, red,
                        args.out + p0 * args.out_dim, s == 1};
-    wg_layer<1, 1, STORE, CS>(c, it, ps + P_B2, ev + 1, last);  // 64->256
-    wg_layer<2, 4, STORE, CS>(c, it, ps + P_B3, ev + 3, last);  // 256->512
+    wg_layer<1, 1, STORE>(c, it, ps + P_B2, ev + 1, last);  // 64->256
+    wg_layer<2, 4, STORE>(c, it, ps + P_B3, ev + 3, last);  // 256->512
     if (s == 0)                                                 // 512->512
-      wg_layer<2, 8, STORE, CS>(c, it, ps + P_B4, ev + 5, last);
+      wg_layer<2, 8, STORE>(c, it, ps + P_B4, ev + 5, last);
     else
-      wg_layer<2, 8, FEAT, CS>(c, it, ps + P_B4, ev + 5, last);
+      wg_layer<2, 8, FEAT>(c, it, ps + P_B4, ev + 5, last);
     // 512 -> 256 -> out
-    wg_layer<1, 8, LAST, CS>(c, it, ps + P_B5, ev + 7, last);
+    wg_layer<1, 8, LAST>(c, it, ps + P_B5, ev + 7, last);
   }
 }
 
-template <int CS>
 __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the same offset in every block of the cluster, so multicast copies
@@ -918,7 +901,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
   // Persistent: cluster k of the grid's n_clusters decodes the groups of CS
   // cells k, k + n_clusters, ...; its block of rank r the cell g * CS + r.
   const int n_clusters = gridDim.x / CS;
-  const int rank = CS > 1 ? (int)cluster_rank() : 0;
+  const int rank = (int)cluster_rank();
   const int groups = args.n_cells / CS;
   const int first = blockIdx.x / CS;
   const int n_mine = first < groups ? (groups - first - 1) / n_clusters + 1
@@ -932,7 +915,7 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if constexpr (CS > 1) cluster_sync();  // peers' barriers are initialised
+  cluster_sync();  // peers' barriers are initialised
 
   if (tid >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS)
@@ -950,11 +933,8 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
         const uint32_t dst = ring + s * TILE_BYTES + rank * SLICE;
         const unsigned char* from =
             src + (size_t)(i % TILES) * TILE_BYTES + rank * SLICE;
-        if constexpr (CS == 1)
-          bulk_g2s(dst, from, SLICE, full + 8 * s);
-        else
-          bulk_g2s_multicast(dst, from, SLICE, full + 8 * s,
-                             (uint16_t)((1u << CS) - 1));
+        bulk_g2s_multicast(dst, from, SLICE, full + 8 * s,
+                           (uint16_t)((1u << CS) - 1));
       }
       // the last releases, some of them remote, land before this block ends
       for (int i = n; i < n + STAGES; ++i)
@@ -985,15 +965,14 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
       if (tid < M) point_taps<bf16>(args, p0, tid, pts, tidx, tw);
       consumer_sync();
       K1_STAMP(1);
-      run_consumer<CS>(args, c, par, pts, pred, red, p0, it);
+      run_consumer(args, c, par, pts, pred, red, p0, it);
     }
   }
 }
 
-template <int CS>
 int launch(const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<CS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_total);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
@@ -1011,13 +990,13 @@ int launch(const Args& a, cudaStream_t stream) {
   // persistent: as many clusters as fit at once, or one per group of cells
   static int clusters = 0;
   if (clusters == 0) {
-    err = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel<CS>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (clusters <= 0) return (int)cudaErrorInvalidConfiguration;
   }
   const int groups = a.n_cells / CS;
   cfg.gridDim = dim3((unsigned)(CS * (groups < clusters ? groups : clusters)));
-  err = cudaLaunchKernelEx(&cfg, decode_kernel<CS>, a);
+  err = cudaLaunchKernelEx(&cfg, decode_kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1046,9 +1025,9 @@ extern "C" int fused_decode_set_trace(void* buf) {
 // tensors: 24 device pointers, per stream (global, then local) w1 b1 w2 b2
 // w3 b3 wp bp w4 b4 w5 b5; weights in the compute type, biases f32.
 // bf16 only: tiles, tile_weights' layout of w2..w4 of both streams;
-// params, small_params' f32 biases, w1 and w5 of both streams; cluster, blocks per cluster (1, 2 or 4), which n_cells must be a
-// multiple of. Returns a cudaError_t code (0 on success); launches on
-// `stream`.
+// params, small_params' f32 biases, w1 and w5 of both streams; n_cells a
+// multiple of fused_decode_cluster(). Returns a cudaError_t code (0 on
+// success); launches on `stream`.
 extern "C" int fused_decode_launch(int is_bf16, const void* map,
                                    const void* const* tensors,
                                    const void* tiles, const void* params,
@@ -1056,7 +1035,7 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
                                    const void* geom, const void* cells,
                                    int n_cells, int fine_r, int coarse_c,
                                    int img_w, int img_h, int out_dim,
-                                   int cluster, void* out, void* stream) {
+                                   void* out, void* stream) {
   if (n_cells <= 0) return 0;
   Args a;
   for (int s = 0; s < 2; ++s)
@@ -1079,12 +1058,11 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
   a.out_dim = out_dim;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return launch_f32(a, st);
-  if (!tiles || !params || n_cells % cluster != 0)
+  if (!tiles || !params || n_cells % hop::CS != 0)
     return (int)cudaErrorInvalidValue;
-  switch (cluster) {
-    case 1: return hop::launch<1>(a, st);
-    case 2: return hop::launch<2>(a, st);
-    case 4: return hop::launch<4>(a, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return hop::launch(a, st);
 }
+
+// blocks per cluster of the bf16 kernel: a bf16 launch's cell count must be
+// a multiple of it
+extern "C" int fused_decode_cluster() { return hop::CS; }

@@ -20,9 +20,12 @@ The bf16 kernel streams the GEMM weights of both streams from one buffer
 laid out by ``tile_weights`` (ring tiles in consumption order, already in
 the swizzled layout its tensor-core instructions read) and copies the
 biases and the small first and last weights from ``small_params``; the
-wrapper builds both for each launch. It runs in clusters of ``CLUSTER``
-blocks that share each weight tile: the wrapper pads the cell ids to a
-multiple of it with ``pad_cells`` and keeps the first n*64 rows.
+wrapper builds both once per ``pack_weights`` result (``pack_weights``
+gives back the same tuple for the same unchanged parameters, so the coarse
+and the fine launch of an image share them). It runs in clusters of
+blocks that share each weight tile (the library's
+``fused_decode_cluster()`` blocks): the wrapper pads the cell ids to a
+multiple of that with ``pad_cells`` and keeps the first n*64 rows.
 
 The kernel is built with nvcc into ``build/kernels/`` under the repository
 root at first use (``build()``), named by a hash of its source, and loaded
@@ -37,6 +40,7 @@ import os
 import shutil
 import subprocess
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -47,7 +51,6 @@ STRIDE = 4
 K = STRIDE ** 3  # points per cell
 C_FEAT = 512
 CHUNK_CELLS = 1024  # cells per step of the plain version (bounds memory)
-CLUSTER = 2  # bf16 blocks (cells) per cluster sharing each weight tile
 # bf16 weight ring: a tile is 64 rows x 256 columns of one [K, N] weight
 TILE_K, TILE_N = 64, 256
 TILE_ELEMS = TILE_K * TILE_N
@@ -76,9 +79,61 @@ def cell_points(cell_ids: torch.Tensor, coarse_c: int, fine_r: int,
                      cz * STRIDE + off // (STRIDE * STRIDE)], dim=-1)
     sp = sdf_params.float()
     lo, span = sp[0:3], sp[3:6] - sp[0:3]
-    pts = lo + f.float() / float(fine_r - 1) * span
+    # an IEEE divide, as the kernel and the JAX reference do: on CUDA,
+    # dividing by a Python float multiplies by its reciprocal instead,
+    # which is off by an ulp where fine_r - 1 is not a power of two (a
+    # filled device scalar: torch.tensor would copy from the host and wait)
+    denom = torch.full((), float(fine_r - 1), dtype=torch.float32,
+                       device=dev)
+    pts = lo + f.float() / denom * span
     flat = (f[:, 2] * fine_r + f[:, 1]) * fine_r + f[:, 0]
     return pts, flat
+
+
+class _LastCall:
+    """One-entry memo of make(tensors, *extra): called again with the very
+    same tensor objects, none changed in place since (their version
+    counters), and the same extra arguments, it gives back the last value.
+    It holds the tensors weakly, so that a freed tensor's id cannot stand
+    for a new one. Inference-mode tensors keep no version: never memoised."""
+
+    def __init__(self, make):
+        self._make = make
+        self._refs: tuple = ()
+        self._key = None
+        self._value = None
+
+    def __call__(self, tensors: tuple, *extra):
+        try:
+            key = (extra, tuple((id(t), t._version) for t in tensors))
+        except RuntimeError:
+            return self._make(tensors, *extra)
+        if key != self._key or any(r() is not t
+                                   for r, t in zip(self._refs, tensors)):
+            self._value = self._make(tensors, *extra)
+            self._refs = tuple(weakref.ref(t) for t in tensors)
+            self._key = key
+        return self._value
+
+
+def _pack(tensors: tuple, compute_dtype: torch.dtype) -> tuple:
+    """pack_weights on its inputs flattened: per stream the six layers'
+    (weights, biases), then g_contrib."""
+    out = []
+    for s in range(2):
+        for layer in range(6):
+            w, b = tensors[s * 12 + 2 * layer:s * 12 + 2 * layer + 2]
+            b = b.float().reshape(-1)
+            if layer == 3:  # fold2/conv1: the point part of W, + g_contrib
+                w = w[:512]
+                if s == 0:
+                    b = b + tensors[24][0].float()
+            out.append(w.to(compute_dtype).contiguous())
+            out.append(b.contiguous())
+    return tuple(out)
+
+
+_pack_last = _LastCall(_pack)
 
 
 def pack_weights(params: dict, g_contrib: torch.Tensor,
@@ -86,27 +141,19 @@ def pack_weights(params: dict, g_contrib: torch.Tensor,
     """The two point-MLP param trees -> the kernel's 24 arrays: per stream
     (global, local) w1 b1 w2 b2 w3 b3 wp bp w4 b4 w5 b5. The per-image
     global contribution g_contrib [1,512] is folded into the global
-    stream's fold2/conv1 bias. Weights in the compute type, biases f32."""
-    out = []
-    for scope, extra in (("sdfprediction", g_contrib[0]),
-                         ("sdfprediction_imgfeat", None)):
+    stream's fold2/conv1 bias. Weights in the compute type, biases f32.
+    Packing the same unchanged tensors again gives back the same tuple, so
+    that the bf16 wrapper lays out the weights once for both launches of
+    an image; the arrays may be shared, so do not modify them in place."""
+    srcs = []
+    for scope in ("sdfprediction", "sdfprediction_imgfeat"):
         p = params[scope]
         last = "conv5_bi" if "conv5_bi" in p["fold2"] else "conv5"
-        bp = p["fold2"]["conv1"]["biases"].float()
-        if extra is not None:
-            bp = bp + extra.float()
-        pairs = [
-            (p["fold1"]["conv1"]["weights"], p["fold1"]["conv1"]["biases"]),
-            (p["fold1"]["conv2"]["weights"], p["fold1"]["conv2"]["biases"]),
-            (p["fold1"]["conv3"]["weights"], p["fold1"]["conv3"]["biases"]),
-            (p["fold2"]["conv1"]["weights"][:512], bp),
-            (p["fold2"]["conv2"]["weights"], p["fold2"]["conv2"]["biases"]),
-            (p["fold2"][last]["weights"], p["fold2"][last]["biases"]),
-        ]
-        for w, b in pairs:
-            out.append(w.to(compute_dtype).contiguous())
-            out.append(b.float().reshape(-1).contiguous())
-    return tuple(out)
+        for fold, conv in (("fold1", "conv1"), ("fold1", "conv2"),
+                           ("fold1", "conv3"), ("fold2", "conv1"),
+                           ("fold2", "conv2"), ("fold2", last)):
+            srcs += [p[fold][conv]["weights"], p[fold][conv]["biases"]]
+    return _pack_last((*srcs, g_contrib), compute_dtype)
 
 
 def tile_layout(k: int, n: int) -> torch.Tensor:
@@ -143,8 +190,7 @@ def _tile_index(device: torch.device) -> torch.Tensor:
 def tile_weights(weights: tuple) -> torch.Tensor:
     """pack_weights' bf16 output -> the bf16 kernel's weight stream: w2, w3,
     wp, w4 of the global stream then of the local one, each laid out by
-    tile_layout, concatenated ([2 * 33 * TILE_ELEMS]). One gather, so that
-    the wrapper adds two operations per launch."""
+    tile_layout, concatenated ([2 * 33 * TILE_ELEMS]), with one gather."""
     flat = torch.cat([weights[s * 12 + 2 * layer].reshape(-1)
                       for s in range(2) for layer in range(1, 5)])
     return flat[_tile_index(flat.device)]
@@ -164,6 +210,10 @@ def small_params(weights: tuple) -> torch.Tensor:
                   torch.nn.functional.pad(w5, (0, 2 - w5.shape[1])
                                           ).reshape(-1)]
     return torch.cat(parts)
+
+
+# the bf16 kernel's weight stream and small parameters, once per packing
+_kernel_weights = _LastCall(lambda w: (tile_weights(w), small_params(w)))
 
 
 def pad_cells(cell_ids: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -236,11 +286,15 @@ def fused_decode_plain(fmap: torch.Tensor, weights: tuple, trans_mat:
     return torch.cat(outs)
 
 
-def build(defines: tuple[str, ...] = ()) -> Path:
-    """Compile csrc/fused_decode.cu (once per source hash and `defines`,
-    e.g. ("K1_TRACE",)) and return the shared library's path. The
-    compiler's register/shared-memory report is kept beside it as
-    ``<lib>.log``."""
+def build() -> Path:
+    """Compile csrc/fused_decode.cu (once per source hash) and return the
+    shared library's path. The compiler's register/shared-memory report is
+    kept beside it as ``<lib>.log``."""
+    return _build(())
+
+
+def _build(defines: tuple[str, ...]) -> Path:
+    """build() with preprocessor defines, e.g. ("K1_TRACE",)."""
     src = _SRC.read_bytes()
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
@@ -262,12 +316,14 @@ def build(defines: tuple[str, ...] = ()) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build(defines)))
+    lib = ctypes.CDLL(str(_build(defines)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_decode_launch.argtypes = [ci, vp, ctypes.POINTER(vp), vp, vp,
                                         vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                        ci, vp, vp]
+                                        vp, vp]
     lib.fused_decode_launch.restype = ci
+    lib.fused_decode_cluster.argtypes = []
+    lib.fused_decode_cluster.restype = ci
     return lib
 
 
@@ -354,36 +410,45 @@ def fused_cell_decode(fmap: torch.Tensor, weights: tuple,
             ((fmap, weights, trans_mat, geom, cell_ids),
              dict(fine_r=fine_r, coarse_c=coarse_c, img_w=img_w,
                   img_h=img_h)))
-    ptrs = (ctypes.c_void_p * 24)(*[w.data_ptr() for w in weights])
     cur = torch.cuda.current_stream(fmap.device)
     timed = fused_cell_decode.events is not None
     if timed:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(cur)
-    bf16 = fmap.dtype == torch.bfloat16
-    cluster = CLUSTER if bf16 else 1
-    cells = pad_cells(cell_ids, cluster)
-    tiles = params = None
-    if bf16:
-        tiles = tile_weights(weights)
-        params = small_params(weights)
-    out = torch.empty((cells.shape[0] * K, out_dim), dtype=torch.float32,
-                      device=fmap.device)
-    err = _lib().fused_decode_launch(
-        int(bf16), fmap.data_ptr(), ptrs,
-        None if tiles is None else tiles.data_ptr(),
-        None if params is None else params.data_ptr(),
-        trans_mat.data_ptr(), geom.data_ptr(), cells.data_ptr(),
-        cells.shape[0], fine_r, coarse_c, img_w, img_h, out_dim, cluster,
-        out.data_ptr(), cur.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_decode kernel launch failed: CUDA error "
-                           f"{err}")
+    out = _launch(_lib(), fmap, weights, trans_mat, geom, cell_ids,
+                  fine_r, coarse_c, img_w, img_h)
     if timed:
         end.record(cur)
         fused_cell_decode.events.append((start, end))
     fused_cell_decode.launches += 1
-    return out[:n * K]
+    return out
+
+
+def _launch(lib: ctypes.CDLL, fmap, weights, trans_mat, geom, cell_ids,
+            fine_r, coarse_c, img_w, img_h) -> torch.Tensor:
+    """One launch of `lib`'s kernel on checked, non-empty CUDA inputs, on
+    the current stream: [n*64, out_dim] f32."""
+    ptrs = (ctypes.c_void_p * 24)(*[w.data_ptr() for w in weights])
+    bf16 = fmap.dtype == torch.bfloat16
+    tiles = params = None
+    cells = cell_ids
+    if bf16:
+        tiles, params = _kernel_weights(weights)
+        cells = pad_cells(cell_ids, lib.fused_decode_cluster())
+    out_dim = weights[10].shape[-1]
+    out = torch.empty((cells.shape[0] * K, out_dim), dtype=torch.float32,
+                      device=fmap.device)
+    err = lib.fused_decode_launch(
+        int(bf16), fmap.data_ptr(), ptrs,
+        None if tiles is None else tiles.data_ptr(),
+        None if params is None else params.data_ptr(),
+        trans_mat.data_ptr(), geom.data_ptr(), cells.data_ptr(),
+        cells.shape[0], fine_r, coarse_c, img_w, img_h, out_dim,
+        out.data_ptr(), torch.cuda.current_stream(fmap.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    return out[:cell_ids.shape[0] * K]
 
 
 fused_cell_decode.launches = 0

@@ -1,6 +1,6 @@
 """Where K1's bf16 kernel spends its time, phase by phase, on the card.
 
-    python -m disn_tpu_torch.ops.k1_trace [--cells 17888] [--cluster 4]
+    python -m disn_tpu_torch.ops.k1_trace [--cells 17888] [--reps 3]
 
 Builds csrc/fused_decode.cu a second time with -DK1_TRACE (the default
 build has no stamps), runs the bf16 kernel on N random cells of the 257^3
@@ -16,7 +16,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-from unittest import mock
 
 import numpy as np
 import torch
@@ -67,31 +66,27 @@ def phases() -> list[tuple[str, int, int, int]]:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cells", type=int, default=17888)
-    ap.add_argument("--cluster", type=int, default=fused_decode.CLUSTER)
     ap.add_argument("--reps", type=int, default=3)
     a = ap.parse_args()
-    fused_decode.CLUSTER = a.cluster
     if not torch.cuda.is_available():
         raise SystemExit("k1_trace needs a CUDA card")
     lib = fused_decode._lib(("K1_TRACE",))
     lib.fused_decode_set_trace.argtypes = [ctypes.c_void_p]
+    cluster = lib.fused_decode_cluster()
     args = random_inputs(a.cells)
-    n_blocks = -(-a.cells // fused_decode.CLUSTER) * fused_decode.CLUSTER
+    n_blocks = -(-a.cells // cluster) * cluster
     buf = torch.zeros(n_blocks * 2 * EVENTS, dtype=torch.int64, device="cuda")
     if lib.fused_decode_set_trace(buf.data_ptr()) != 0:
         raise RuntimeError("could not set the trace buffer")
-    kw = dict(fine_r=257, coarse_c=64)
-    k1 = fused_decode.fused_cell_decode
-    with mock.patch.object(fused_decode, "_lib", lambda *_: lib):
-        times = []
-        for _ in range(a.reps + 1):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            k1(*args, **kw)
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
+    times = []
+    for _ in range(a.reps + 1):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fused_decode._launch(lib, *args, fine_r=257, coarse_c=64, img_w=137,
+                             img_h=137)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
     stamps = buf.reshape(n_blocks, 2, EVENTS)[:, 0].cpu().numpy()
     stamps = stamps[stamps[:, EVENTS - 1] != 0]  # blocks of the grid
     total = np.median(stamps[:, EVENTS - 1] - stamps[:, 0])
@@ -109,7 +104,7 @@ def main() -> None:
           f"{mma:.0f} clk vs floor {floor:.0f}, kernel ms "
           f"{[round(t, 3) for t in times[1:]]}")
     print(json.dumps({"k1_trace": rows, "block_clocks": float(total),
-                      "cells": a.cells, "cluster": fused_decode.CLUSTER,
+                      "cells": a.cells, "cluster": cluster,
                       "kernel_ms": times[1:]}))
 
 

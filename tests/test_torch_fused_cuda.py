@@ -29,6 +29,11 @@ def _inputs(dtype, cam, n_cells=200, coarse_c=COARSE_C):
     gen.manual_seed(0)
     params = {"sdfprediction": sdfnet.init_global_head(gen, dev, 1024),
               "sdfprediction_imgfeat": sdfnet.init_local_head(gen, dev, 1472)}
+    for scope in params.values():  # seeded non-zero biases
+        for layer in scope.values():
+            for p in layer.values():
+                p["biases"] = 0.1 * torch.randn(p["biases"].shape,
+                                                generator=gen, device=dev)
     g_contrib = torch.randn(1, 512, generator=gen, device=dev)
     fmap = (0.5 * torch.randn(137, 137, 512, generator=gen, device=dev)
             ).to(dtype)
@@ -81,3 +86,18 @@ def test_kernel_matches_plain_at_ragged_counts(dtype, cam, ragged):
     args = _inputs(dtype, CAMERAS[cam], n, coarse_c)
     out = _hold(args, dict(fine_r=fine_r, coarse_c=coarse_c), dtype)
     assert out.shape == (n * 64, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fine_r", [49, 65, 97, 257])
+def test_cell_points_divide_exactly_on_gpu(fine_r):
+    """The plain version's grid points on the card are the IEEE quotients
+    the kernel computes (not a multiply by the reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    c = (fine_r - 1) // fused_decode.STRIDE
+    cells = torch.arange(c ** 3, dtype=torch.int32)
+    geom = torch.tensor([-1, -1, -1, 1, 1, 1.0])
+    want, _ = fused_decode.cell_points(cells, c, fine_r, geom)  # CPU
+    got, _ = fused_decode.cell_points(cells.cuda(), c, fine_r, geom.cuda())
+    assert torch.equal(got.cpu(), want)

@@ -1,11 +1,13 @@
 """Layouts that the bf16 K1 kernel reads, checked on the CPU: the weight ring
 tiles of tile_weights (tile order and the 128-byte swizzle, stated here
-again in numpy), the small-parameter block of small_params, and the
-cluster padding of pad_cells."""
+again in numpy), the small-parameter block of small_params, the cluster
+padding of pad_cells, and that the wrapper lays them out once per
+pack_weights result."""
 import numpy as np
 import pytest
 import torch
 
+from disn_tpu_torch.models import sdfnet
 from disn_tpu_torch.ops import fused_decode
 
 SHAPES = [(64, 256), (256, 512), (512, 512), (512, 256)]  # w2, w3, wp, w4
@@ -49,6 +51,9 @@ def test_tile_weights_layout(shape):
     assert tiled.numel() == 2 * sum(k * n for k, n in SHAPES)
     tile_u16 = tiled.view(torch.int16).numpy().view(np.uint16)
     pos = _np_position(*shape)
+    # every (k, n) has its own place in the layer's span of the buffer
+    assert np.array_equal(np.sort(pos.reshape(-1)),
+                          np.arange(shape[0] * shape[1]))
     layer = SHAPES.index(shape)
     for s in range(2):
         offset = (s * sum(k * n for k, n in SHAPES)
@@ -62,13 +67,6 @@ def test_tile_weights_layout(shape):
         assert torch.equal(back, w)
         assert np.array_equal(back.view(torch.int16).numpy(),
                               w.view(torch.int16).numpy())
-
-
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_tile_layout_matches_numpy_statement(shape):
-    pos = fused_decode.tile_layout(*shape).numpy()
-    np.testing.assert_array_equal(pos, _np_position(*shape).reshape(-1))
-    assert np.array_equal(np.sort(pos), np.arange(shape[0] * shape[1]))
 
 
 @pytest.mark.parametrize("out_dim", [1, 2])
@@ -105,28 +103,70 @@ def test_pad_cells_to_whole_clusters(n):
     assert bool((padded[n:] == ids[-1]).all())  # padding repeats a valid id
 
 
-def test_padded_decode_keeps_the_first_rows():
-    """Decoding the padded ids and keeping the first n*64 rows gives the
-    rows of the unpadded ids (the plain version, on the CPU)."""
-    weights = _pack(1)
-    weights = tuple(w if i % 2 else (0.05 * w.float()).bfloat16()
-                    for i, w in enumerate(weights))
-    weights = weights[:10] + (weights[10][:, :1].contiguous(),
-                              weights[11][:1].contiguous()) \
-        + weights[12:22] + (weights[22][:, :1].contiguous(),
-                            weights[23][:1].contiguous())
-    gen = np.random.RandomState(2)
-    fmap = torch.from_numpy(gen.randn(137, 137, 512).astype(np.float32)
-                            ).bfloat16()
-    trans = torch.from_numpy(np.vstack([np.eye(3) * 60, [68.0, 68.0, 2.0]]
-                                       ).astype(np.float32))
-    geom = torch.tensor([-1, -1, -1, 1, 1, 1.0])
-    ids = torch.tensor([5, 17, 300], dtype=torch.int32)
-    kw = dict(fine_r=49, coarse_c=12)
-    want = fused_decode.fused_decode_plain(fmap, weights, trans, geom, ids,
-                                           **kw)
-    padded = fused_decode.pad_cells(ids, 4)
-    got = fused_decode.fused_decode_plain(fmap, weights, trans, geom,
-                                          padded, **kw)
-    assert got.shape[0] == 4 * 64
-    assert torch.equal(got[:3 * 64], want)
+def _params(seed: int = 0) -> tuple[dict, torch.Tensor]:
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    cpu = torch.device("cpu")
+    params = {"sdfprediction": sdfnet.init_global_head(gen, cpu, 1024),
+              "sdfprediction_imgfeat": sdfnet.init_local_head(gen, cpu, 1472)}
+    return params, torch.randn(1, 512, generator=gen)
+
+
+def _reference_pack(params: dict, g: torch.Tensor, dtype) -> list:
+    """pack_weights' 24 arrays, stated again layer by layer."""
+    out = []
+    for scope in ("sdfprediction", "sdfprediction_imgfeat"):
+        p = params[scope]
+        for fold, conv in (("fold1", "conv1"), ("fold1", "conv2"),
+                           ("fold1", "conv3"), ("fold2", "conv1"),
+                           ("fold2", "conv2"), ("fold2", "conv5")):
+            w, b = p[fold][conv]["weights"], p[fold][conv]["biases"]
+            if conv == "conv1" and fold == "fold2":
+                w = w[:512]
+                if scope == "sdfprediction":
+                    b = b + g[0]
+            out += [w.to(dtype), b.float()]
+    return out
+
+
+@pytest.mark.parametrize("change", ["none", "weight_in_place",
+                                    "bias_in_place", "new_g_contrib",
+                                    "dtype"])
+def test_pack_weights_reused_while_unchanged(change):
+    """pack_weights gives back its last tuple for the same unchanged
+    tensors, and packs afresh after any change, with the right values."""
+    params, g = _params()
+    first = fused_decode.pack_weights(params, g, torch.bfloat16)
+    dtype = torch.bfloat16
+    if change == "weight_in_place":
+        params["sdfprediction"]["fold1"]["conv2"]["weights"].mul_(2)
+    elif change == "bias_in_place":
+        params["sdfprediction_imgfeat"]["fold2"]["conv1"]["biases"].add_(1)
+    elif change == "new_g_contrib":
+        g = g + 1
+    elif change == "dtype":
+        dtype = torch.float32
+    again = fused_decode.pack_weights(params, g, dtype)
+    assert (again is first) == (change == "none")
+    want = _reference_pack(params, g, dtype)
+    assert len(again) == len(want) == 24
+    for got, ref in zip(again, want):
+        assert got.dtype == ref.dtype and got.is_contiguous()
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("change", ["none", "weight_in_place", "new_pack"])
+def test_kernel_weights_laid_out_once_per_packing(change):
+    """The wrapper's tiles and small parameters are made once per packed
+    tuple and made again when a packed array changes."""
+    weights = _pack(3)
+    tiles, small = fused_decode._kernel_weights(weights)
+    if change == "weight_in_place":
+        weights[4].mul_(2)
+    elif change == "new_pack":
+        weights = tuple(w.clone() for w in weights)
+    tiles2, small2 = fused_decode._kernel_weights(weights)
+    assert (tiles2 is tiles) == (change == "none")
+    assert (small2 is small) == (change == "none")
+    assert torch.equal(tiles2, fused_decode.tile_weights(weights))
+    assert torch.equal(small2, fused_decode.small_params(weights))
