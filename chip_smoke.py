@@ -2,18 +2,21 @@
 
     python3 chip_smoke.py
 
-Run from the repository root on a machine with one CUDA card and nvcc. It
-imports nothing of JAX or disn_tpu. Phases, each fatal on failure:
+Run from the repository root on a machine with one CUDA card, nvcc and a
+host C++ compiler. It imports nothing of JAX or disn_tpu. Phases, each fatal
+on failure:
 
-1. build every kernel of the port from csrc/ (nvcc, sm_90a) and report the
-   build seconds and the compiler's register/shared-memory/wgmma report;
+1. build every kernel of the port from csrc/ (nvcc, sm_90a) and, beside it,
+   the host mesh assembler from native/meshassemble.cpp (g++), and report
+   the build seconds and the compiler's register/shared-memory/wgmma report;
    a wgmma the compiler serialised fails the run;
 2. drive the main path, pipeline.image_to_mesh at sdf_res=256 on the
    full-width VGG-16 two-stream net (analytic octahedron head, r=0.6, the
    demo camera): a warm-up image and 3 fresh seeded u8 images in bf16, then
    one image in f32 with TF32 off. Checks: > 1000 faces, every vertex on
-   |x|+|y|+|z| = 0.6, and K1 launched in both the coarse and the fine pass.
-   The inputs of K1's two launches for one bf16 image and the f32 image are
+   |x|+|y|+|z| = 0.6, K1 launched in both the coarse and the fine pass, and
+   the mesh came welded from the device (route owned_ids, guard 0). The
+   inputs of K1's two launches for one bf16 image and the f32 image are
    kept;
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
@@ -26,7 +29,20 @@ imports nothing of JAX or disn_tpu. Phases, each fatal on failure:
    which the bf16 wrapper pads to whole clusters), the same way; (d) on 200
    random cells of a 49^3 grid, whose spacing 2/48 is inexact in f32 (the
    main path's 2/64 and 2/256 are exact), the same way;
-4. print per-stage times, each bf16 main-path launch's share of its bound
+4. hold the extraction routes against each other on the card, on the volume
+   and scan of one bf16 main-path image (257^3) and of an f32 image at
+   sdf_res=48 (49^3): the candidate scan's ids equal the full scan's; the
+   full-scan owned route equals the owned_ids route exactly; owned against
+   marching_tets + weld as vertex and triangle sets, with the Euler
+   characteristic; the record route through the C++ passes (faces
+   identical, vertices within the quantisation bound); the C++ passes
+   against assemble_mesh_np on the same records. At 49^3 also: grid-point
+   coordinates (plane_points, _world) and extracted vertices against an
+   IEEE f32 evaluation on the host (equal) and a float64 one (1 ulp);
+5. time every part of both routes and of marching_tets + weld at 257^3
+   (median of 5 after a warm-up; CUDA events around device parts, the host
+   clock around host parts and copies) beside a bound from the run's sizes;
+6. print per-stage times, each bf16 main-path launch's share of its bound
    and the weight bytes it moves from L2, the card, and the kernel table as
    JSON.
 
@@ -35,6 +51,7 @@ before printing it.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -115,9 +132,25 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build() -> None:
+    """nvcc on the kernel and the host compiler on the mesh assembler, both
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from disn_tpu_torch import native
     from disn_tpu_torch.ops import fused_decode
+
+    def timed(build):
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        k1_s, asm_s = pool.map(timed, (fused_decode.build, native.build))
     secs = fused_decode.build_seconds()
-    print(f"[build] fused_decode.cu built and loaded in {secs:.2f} s")
+    native._lib()
+    print(f"[build] fused_decode.cu built in {k1_s:.2f} s (loaded in "
+          f"{secs:.2f} s); meshassemble.cpp built in {asm_s:.2f} s -> "
+          f"{native.build().parent.name}/{native.build().name}")
     log = fused_decode.build().with_suffix(".log").read_text()
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg")
@@ -256,9 +289,10 @@ def print_k1_shares(kept: dict, ref: list) -> None:
 
 
 def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
-                  kept: dict) -> list[dict]:
+                  kept: dict, meshes: dict) -> list[dict]:
     """image_to_mesh on each image; returns per-image stats. The inputs of
-    image `keep`'s K1 launches go into kept[label]."""
+    image `keep`'s K1 launches go into kept[label], its mesh into
+    meshes[label]."""
     import torch
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.ops import fused_decode
@@ -296,13 +330,21 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
               f"{label} image {i}: expected K1 in the coarse and the fine "
               f"pass (2 launches, no dense fallback), got {launches} "
               f"launches, fallback={stats['dense_fallback']}")
+        check(stats["route"] == "owned_ids" and stats["guard"] == 0,
+              f"{label} image {i}: expected the device's welded mesh from "
+              f"the candidate scan, got route {stats['route']} with guard "
+              f"{stats.get('guard')}")
+        if i == keep:
+            meshes[label] = (verts, faces)
         out.append(stats)
     return out
 
 
-def phase_main_path() -> tuple[int, list[dict], dict]:
+def phase_main_path() -> tuple[int, list[dict], dict, dict]:
     """The main path with K1's launch count set to 0 just before it and
-    read just after. Returns (launches, per-image stats, kept inputs)."""
+    read just after. Returns (launches, per-image stats, kept K1 inputs,
+    and for the extraction holds the kept bf16 image's mesh with its volume
+    and scan, and those of an f32 image on a 49^3 grid)."""
     import torch
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
@@ -315,13 +357,369 @@ def phase_main_path() -> tuple[int, list[dict], dict]:
     cfg = Config(sdf_res=256, compute_dtype="bfloat16")
     params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
     kept: dict = {}
+    held: dict = {}
     torch.cuda.synchronize()
     fused_decode.fused_cell_decode.launches = 0
-    runs = run_main_path(cfg, params, imgs[:4], trans, "bf16", 1, kept)
+    runs = run_main_path(cfg, params, imgs[:4], trans, "bf16", 1, kept,
+                         held)
     cfg32 = cfg.replace(compute_dtype="float32")
-    runs += run_main_path(cfg32, params, imgs[4:], trans, "f32", 0, kept)
+    runs += run_main_path(cfg32, params, imgs[4:], trans, "f32", 0, kept,
+                          held)
     launches = fused_decode.fused_cell_decode.launches
-    return launches, runs, kept
+    # made after the counts were read
+    held["257"] = volume_and_scan(cfg, params, imgs[1], trans)
+    held["49"] = volume_and_scan(cfg32.replace(sdf_res=48), params, imgs[1],
+                                 trans)
+    return launches, runs, kept, held
+
+
+def volume_and_scan(cfg, params, img, trans) -> dict:
+    """phase_a and phase_b_mesh of one image, as image_to_mesh runs them:
+    the volume, the active coarse cells and the candidate scan."""
+    import torch
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.infer import dense, pipeline, sparse
+
+    dev = torch.device("cuda")
+    params = device_mod.tree_to(params, dev)
+    img_t, trans_t, sdfp = dense.as_inputs(img, trans, pipeline.UNIT_BOX, dev)
+    _, endpoints, vol_c, coarse_ids, _ = sparse.phase_a(
+        params, img_t, trans_t, sdfp, cfg)
+    vol, ids, n, guard, blk = sparse.phase_b_mesh(
+        params, endpoints, vol_c, coarse_ids, trans_t, sdfp, cfg, cfg.iso)
+    return dict(vol=vol, coarse_ids=coarse_ids, ids=ids, n=n, guard=guard,
+                blk=blk, sdfp=sdfp, iso=float(cfg.iso))
+
+
+def median_ms(fn, device_clock: bool, reps: int = 5) -> float:
+    """Median over `reps` calls after one warm-up: CUDA events around each
+    call (the device's timeline, idle gaps at host syncs included), or the
+    host clock with the device synchronised on both sides."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        if device_clock:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def mesh_sets(v: np.ndarray, f: np.ndarray):
+    """Order-free form of a mesh: sorted vertices, sorted triangle rows."""
+    tris = np.sort(np.sort(v[f].reshape(len(f), 9), axis=1), axis=0)
+    return np.sort(v, axis=0), tris
+
+
+def euler(v: np.ndarray, f: np.ndarray) -> int:
+    edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
+                                    f[:, [2, 0]]]), axis=1)
+    return len(v) - len(np.unique(edges, axis=0)) + len(f)
+
+
+def drop_degenerate(f: np.ndarray) -> np.ndarray:
+    """weld's rule: a triangle with a repeated welded vertex goes."""
+    return f[(f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2])
+             & (f[:, 0] != f[:, 2])]
+
+
+def hold_routes(label: str, k: dict, main_mesh=None) -> None:
+    """The extraction routes against each other on one volume and scan."""
+    import torch
+    from disn_tpu_torch.ops import marching as m
+
+    vol, sdfp, iso, ids, n, blk = (k[x] for x in
+                                   ("vol", "sdfp", "iso", "ids", "n", "blk"))
+    R = int(vol.shape[0])
+    box = sdfp.cpu().numpy()
+    tag = f"[routes {label}]"
+    check(k["guard"] == 0, f"{tag} candidate scan guard {k['guard']}")
+    # (e) the candidate scan's ids are the full scan's
+    full_ids, n_full = m._active_cells_ext(vol, iso)
+    check(n_full == n and torch.equal(full_ids, ids),
+          f"{tag} candidate scan ids differ from the full scan's "
+          f"({n} vs {n_full} cells)")
+    # (a) the full-scan owned route equals the owned_ids route
+    ov, of_ = m.extract_mesh_from_ids(vol, sdfp, ids, iso=iso)
+    sv, sf = m.extract_mesh_owned(vol, sdfp, iso=iso)
+    check(np.array_equal(sv, ov) and np.array_equal(sf, of_),
+          f"{tag} extract_mesh_owned differs from the owned_ids route")
+    if main_mesh is not None:
+        check(np.array_equal(main_mesh[0], ov)
+              and np.array_equal(main_mesh[1], of_),
+              f"{tag} the main path's mesh is not the owned_ids route's")
+    print(f"{tag} (e) scan ids equal, {n} cells in {len(blk)} blocks; "
+          f"(a) full-scan route equal: {len(ov)} verts, {len(of_)} faces")
+    # (b) owned against marching_tets + weld
+    tv, tf_ = m.extract_mesh(vol, sdfp, iso=iso)
+    check(len(tv) == len(ov), f"{tag} {len(ov)} owned vs {len(tv)} welded "
+                              "vertices")
+    check(len(drop_degenerate(of_)) == len(tf_),
+          f"{tag} {len(drop_degenerate(of_))} owned vs {len(tf_)} welded "
+          "faces")
+    (ovs, ots), (tvs, tts) = mesh_sets(ov, of_), mesh_sets(tv, tf_)
+    dv = float(np.abs(ovs - tvs).max())
+    dt = (float(np.abs(ots - tts).max()) if len(ots) == len(tts)
+          else float("inf"))
+    chi_o, chi_t = euler(ov, of_), euler(tv, tf_)
+    print(f"{tag} (b) owned vs tets+weld: vertex sets max diff {dv:.3e}, "
+          f"triangle sets max diff {dt:.3e} (limit 1e-6), Euler "
+          f"{chi_o} vs {chi_t}")
+    check(dv <= 1e-6 and dt <= 1e-6 and chi_o == chi_t,
+          f"{tag} owned and tets+weld meshes differ")
+    # (c) the record route through the C++ passes
+    rv, rf = m.extract_mesh_records(vol, sdfp, ids, n, blk=blk, iso=iso)
+    span = float((box[3:] - box[:3]).max())
+    quant = 510 if m._tq_bits(R) == 8 else 131070
+    bound = span / (R - 1) / quant + 1e-6
+    dr = float(np.abs(rv - ov).max())
+    print(f"{tag} (c) record route: faces equal="
+          f"{np.array_equal(rf, of_)}, vertices max diff {dr:.6e} (bound "
+          f"{bound:.6e} = span/(R-1)/{quant} + 1e-6)")
+    check(np.array_equal(rf, of_) and dr <= bound,
+          f"{tag} the record route's mesh is outside its bound")
+    # (d) the C++ passes against assemble_mesh_np on the same records.
+    # Faces must be equal bit for bit. Vertices cannot be: the C++ passes
+    # interpolate in double and round once, numpy in f32 step by step, so
+    # they may differ in the last place of the coordinate scale.
+    rec, tq = m._records_to_host(*m._extract_records(vol, ids, iso))
+    nv_, nf_ = m.assemble_mesh_np(ids.cpu().numpy(), rec, tq, n, R, box)
+    dn = float(np.abs(nv_ - rv).max())
+    lim = 2e-7 * float(np.abs(box).max())
+    print(f"{tag} (d) C++ vs assemble_mesh_np: faces equal="
+          f"{np.array_equal(nf_, rf)}, vertices differ in "
+          f"{int((nv_ != rv).any(1).sum())} of {len(rv)} rows, max "
+          f"{dn:.3e} (limit {lim:.1e}: double vs f32 interpolation)")
+    check(np.array_equal(nf_, rf) and dn <= lim,
+          f"{tag} the C++ passes and assemble_mesh_np disagree")
+
+
+def hold_divisions(k: dict) -> None:
+    """Grid index -> world coordinate on the card, at a spacing that is
+    inexact in f32: plane_points, _world and the extracted vertices equal
+    the IEEE f32 evaluation on the host and lie within 1 ulp of the
+    coordinate scale of the float64 one. On CUDA a tensor divided by a
+    Python float is multiplied by the reciprocal instead; the count of grid
+    points that form would move is printed beside the holds."""
+    import torch
+    from disn_tpu_torch.infer import fused
+    from disn_tpu_torch.ops import marching as m
+
+    vol, ids, iso = k["vol"], k["ids"], k["iso"]
+    R = int(vol.shape[0])
+    dev = vol.device
+    axes = torch.arange(R, device=dev)
+    grid = torch.stack(torch.meshgrid(axes, axes, axes, indexing="ij"),
+                       -1).reshape(-1, 3)
+    g_np = grid.cpu().numpy()
+    for box in (np.array([-1, -1, -1, 1, 1, 1], np.float32),
+                np.array([-0.3, -1, -2, 0.9, 1, 2], np.float32)):
+        sp = torch.from_numpy(box).to(dev)
+        lo, span = box[:3], box[3:] - box[:3]
+        ulp = float(np.spacing(np.abs(box).max()))
+        want32 = lo + g_np.astype(np.float32) / np.float32(R - 1) * span
+        want64 = (lo.astype(np.float64) + g_np.astype(np.float64) / (R - 1)
+                  * span.astype(np.float64))
+        got = m._world(grid, R, sp).cpu().numpy()
+        pts, flat = fused.plane_points(R, sp)
+        idx = flat.cpu().numpy()
+        gp = np.stack([idx % R, (idx // R) % R, idx // (R * R)], -1)
+        p32 = lo + gp.astype(np.float32) / np.float32(R - 1) * span
+        p64 = (lo.astype(np.float64) + gp.astype(np.float64) / (R - 1)
+               * span.astype(np.float64))
+        pts = pts.cpu().numpy()
+        faulty = (sp[0:3] + grid.float() / float(R - 1) * (sp[3:6] - sp[0:3])
+                  ).cpu().numpy()
+        e_w, e_p = np.abs(got - want64).max(), np.abs(pts - p64).max()
+        print(f"[division 49^3] box {box.tolist()}: _world equal to IEEE "
+              f"f32 = {np.array_equal(got, want32)}, max |err| vs float64 "
+              f"{e_w:.3e}; plane_points equal = {np.array_equal(pts, p32)}, "
+              f"vs float64 {e_p:.3e} (1 ulp = {ulp:.3e}); dividing by a "
+              f"Python float would move {int((faulty != want32).sum())} of "
+              f"{want32.size} coordinates, max |err| vs float64 "
+              f"{np.abs(faulty - want64).max():.3e}")
+        check(np.array_equal(got, want32) and e_w <= ulp,
+              "_world is off the IEEE f32 / float64 evaluation")
+        check(np.array_equal(pts, p32) and e_p <= ulp,
+              "plane_points is off the IEEE f32 / float64 evaluation")
+    # the extracted vertices: the same code on the CPU (IEEE f32), and the
+    # interpolation redone in float64 from the same f32 volume
+    sdfp = k["sdfp"]
+    verts = m._owned_pass1(vol, sdfp, ids, iso)[0].cpu().numpy()
+    cpu = m._owned_pass1(vol.cpu(), sdfp.cpu(), ids.cpu(), iso)[0].numpy()
+    tb = m._device_tables(torch.device("cpu"))
+    c, vals, _, cross = m._slot_data(vol.cpu().double(), ids.cpu(), iso)
+    slot, d = torch.nonzero(cross, as_tuple=True)
+    pj = tb["pair_j"][d]
+    t = m._edge_t(vals[slot, 0], vals[slot, pj], iso)[:, None]
+    box64 = sdfp.cpu().double()
+
+    def world64(g):
+        return box64[:3] + g.double() / (R - 1) * (box64[3:] - box64[:3])
+
+    gi = c[slot]
+    gj = torch.clamp(gi + tb["corners"][pj], max=R - 1)
+    v64 = (world64(gi) + t * (world64(gj) - world64(gi))).numpy()
+    ulp = float(np.spacing(np.float32(box64.abs().max().item())))
+    e_v = float(np.abs(verts - v64).max())
+    print(f"[division 49^3] {len(verts)} extracted vertices: equal to the "
+          f"CPU run = {np.array_equal(verts, cpu)}, max |err| vs float64 "
+          f"{e_v:.3e} (1 ulp = {ulp:.3e})")
+    check(np.array_equal(verts, cpu) and e_v <= ulp,
+          "extracted vertices are off the IEEE f32 / float64 evaluation")
+
+
+def time_extraction(k: dict) -> dict:
+    """Every part of the owned route, the record route and marching_tets +
+    weld on one volume, with the bytes each device part must move."""
+    import torch
+    from disn_tpu_torch import native
+    from disn_tpu_torch.ops import marching as m
+
+    vol, sdfp, iso, coarse = k["vol"], k["sdfp"], k["iso"], k["coarse_ids"]
+    R = int(vol.shape[0])
+    box = sdfp.cpu().numpy()
+    ids, n, _, blk = m._active_cells_from_coarse(vol, coarse, iso)
+    t = {}
+    t["scan"] = median_ms(
+        lambda: m._active_cells_from_coarse(vol, coarse, iso), True)
+    t["full_scan"] = median_ms(lambda: m._active_cells_ext(vol, iso), True)
+    t["owned_pass1"] = median_ms(
+        lambda: m._owned_pass1(vol, sdfp, ids, iso), True)
+    verts, c, imask, cmask = m._owned_pass1(vol, sdfp, ids, iso)
+    t["owned_pass2"] = median_ms(
+        lambda: m._owned_pass2(c, imask, cmask, ids, R), True)
+    faces = m._owned_pass2(c, imask, cmask, ids, R)
+    t["mesh_copy"] = median_ms(lambda: m._fetch_mesh(verts, faces), False)
+    # the alternative the port does not take: one copy into a page-locked
+    # buffer kept across calls, and a copy out of it into a fresh array
+    pinned = torch.empty(verts.numel() + faces.numel(), dtype=torch.int32,
+                         pin_memory=True)
+
+    def copy_pinned():
+        pinned.copy_(torch.cat([verts.reshape(-1).view(torch.int32),
+                                faces.reshape(-1)]))
+        return pinned.numpy().copy()
+
+    t["mesh_copy_pinned"] = median_ms(copy_pinned, False)
+    # the same copy when the allocator has just given its free memory back
+    # to the system (glibc's malloc_trim, called outside the timed region),
+    # so that the destination's pages are new to the process: what a caller
+    # meets that drops one mesh before it asks for the next
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)
+    if trim is not None:
+        cold = []
+        for _ in range(5):
+            trim(0)
+            t0 = time.perf_counter()
+            m._fetch_mesh(verts, faces)
+            cold.append((time.perf_counter() - t0) * 1e3)
+        t["mesh_copy_after_trim"] = float(np.median(cold))
+    t["record_emit"] = median_ms(lambda: m._extract_records(vol, ids, iso),
+                                 True)
+    rec_d, tq_d = m._extract_records(vol, ids, iso)
+    imask_d = (rec_d & 0xFF).to(torch.uint8)
+    t["record_copy"] = median_ms(
+        lambda: (m._records_to_host(imask_d, tq_d), blk.cpu().numpy()),
+        False)
+    (imask8, tq), blk_np = m._records_to_host(imask_d, tq_d), blk.cpu().numpy()
+    t["derive_recs"] = median_ms(
+        lambda: native.derive_recs(blk_np, imask8, R), False)
+    recs = native.derive_recs(blk_np, imask8, R)
+    t["mesh_faces_blocks"] = median_ms(
+        lambda: native.mesh_faces_blocks(blk_np, recs, n, R), False)
+    t["mesh_verts_blocks"] = median_ms(
+        lambda: native.mesh_verts_blocks(blk_np, recs, tq, n, R, box), False)
+    t["marching_tets"] = median_ms(lambda: m.marching_tets(vol, sdfp, iso),
+                                   True)
+    tri_pos, tri_keys, count = m.marching_tets(vol, sdfp, iso)
+    t["soup_copy"] = median_ms(
+        lambda: (tri_pos.cpu().numpy(), tri_keys.cpu().numpy()), False)
+    pos_np, keys_np = tri_pos.cpu().numpy(), tri_keys.cpu().numpy()
+    t["weld"] = median_ms(lambda: m.weld(pos_np, keys_np, count), False)
+    # owner look-up of pass 2: the dense [E^3] table against a sort of the
+    # ids and a binary search, at pass 2's count of look-ups
+    look = ids.long()[torch.randint(n, (3 * len(faces),), device=ids.device)]
+
+    def dense_table():
+        owner = torch.full((R ** 3,), -1, dtype=torch.int32,
+                           device=ids.device)
+        owner[ids.long()] = torch.arange(n, dtype=torch.int32,
+                                         device=ids.device)
+        return owner[look]
+
+    def sorted_search():
+        srt, order = torch.sort(ids.long())
+        return order[torch.searchsorted(srt, look)]
+
+    check(torch.equal(dense_table().long(), sorted_search()),
+          "the two owner look-ups disagree")
+    t["owner_dense_table"] = median_ms(dense_table, True)
+    t["owner_sorted_search"] = median_ms(sorted_search, True)
+    # the link's rate, from one large copy into pinned memory
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=vol.device)
+    pin = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    link = (256 << 20) / (median_ms(lambda: pin.copy_(big), False) * 1e-3)
+    del big, pin
+    mesh_b = verts.numel() * 4 + faces.numel() * 4
+    rec_b = imask8.nbytes + tq.nbytes + blk_np.nbytes
+    soup_b = pos_np.nbytes + keys_np.nbytes
+    touched = min(4 * R ** 3, 32 * n)   # the active cells' corner values
+    dev_bytes = {
+        "scan": 4 * R ** 3 + 4 * coarse.numel() + 4 * n + blk_np.nbytes,
+        "full_scan": 4 * R ** 3 + 4 * n,
+        "owned_pass1": 4 * n + touched + verts.numel() * 4 + 24 * n,
+        "owned_pass2": 28 * n + faces.numel() * 4,
+        "record_emit": 4 * n + touched + 2 * n + tq_d.numel()
+        * tq_d.element_size(),
+        "marching_tets": 4 * R ** 3 + soup_b,
+    }
+    link_bytes = {"mesh_copy": mesh_b, "mesh_copy_pinned": mesh_b,
+                  "mesh_copy_after_trim": mesh_b,
+                  "record_copy": rec_b, "soup_copy": soup_b}
+    tag = f"[extract {R}^3]"
+    print(f"{tag} {n} cells, {len(verts)} verts, {len(faces)} faces; mesh "
+          f"{mesh_b} B, records {rec_b} B, soup {soup_b} B; link "
+          f"{link / 1e9:.2f} GB/s (256 MiB into pinned memory); medians of "
+          f"5 after a warm-up")
+    for name, ms in t.items():
+        if name in dev_bytes:
+            extra = (f" device clock; bound_ms="
+                     f"{dev_bytes[name] / H100_BYTES_PER_S * 1e3:.5f} "
+                     f"({dev_bytes[name]} B at 3.35 TB/s)")
+        elif name in link_bytes:
+            extra = (f" host clock; bound_ms="
+                     f"{link_bytes[name] / link * 1e3:.5f} "
+                     f"({link_bytes[name]} B at the link's rate)")
+        elif name.startswith("owner_"):
+            extra = " device clock"
+        else:
+            extra = " host clock, host code"
+        print(f"{tag} {name} ms={ms:.4f}{extra}")
+    owned = (t["scan"] + t["owned_pass1"] + t["owned_pass2"]
+             + t["mesh_copy"])
+    record = (t["scan"] + t["record_emit"] + t["record_copy"]
+              + t["derive_recs"] + t["mesh_faces_blocks"]
+              + t["mesh_verts_blocks"])
+    tets = t["marching_tets"] + t["soup_copy"] + t["weld"]
+    bound = ((4 * R ** 3 + mesh_b) / H100_BYTES_PER_S + mesh_b / link) * 1e3
+    print(f"{tag} sums: owned route (scan + passes + copy) {owned:.4f} ms "
+          f"against a bound of {bound:.5f} ms (volume read once and the "
+          f"mesh written at 3.35 TB/s, the mesh over the link); record "
+          f"route {record:.4f} ms; marching_tets + copy + weld "
+          f"{tets:.4f} ms")
+    return t
 
 
 def main() -> int:
@@ -346,17 +744,25 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         phase_build()
-        launches, runs, kept = phase_main_path()
+        launches, runs, kept, held = phase_main_path()
         k1 = phase_k1_check(kept)
+        hold_routes("257^3 bf16", held["257"], main_mesh=held["bf16"])
+        hold_routes("49^3 f32", held["49"])
+        hold_divisions(held["49"])
+        time_extraction(held["257"])
         timed = runs[1:4]
         for key in ("encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
-                    "extraction_ms", "wall_ms", "k1_ms"):
+                    "scan_ms", "extraction_ms", "extract_ms", "fetch_ms",
+                    "wall_ms", "k1_ms"):
             vals = [r[key] for r in timed]
             print(f"[stages bf16 257^3] {key} median={np.median(vals):.3f} "
                   f"all={[round(v, 3) for v in vals]}")
         print(f"[stages bf16 257^3] active_cells="
-              f"{[r['active_cells'] for r in timed]} faces="
-              f"{[r['faces'] for r in timed]}")
+              f"{[r['active_cells'] for r in timed]} fine_cells="
+              f"{[r['fine_cells'] for r in timed]} faces="
+              f"{[r['faces'] for r in timed]} verts="
+              f"{[r['verts'] for r in timed]} route="
+              f"{[r['route'] for r in timed]}")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,

@@ -59,7 +59,11 @@ def plane_points(resolution: int, sdf_params: torch.Tensor
     fz = torch.where(which == 0, last, a)
     f = torch.stack([fx, fy, fz], dim=-1).float()
     sp = sdf_params.float()
-    pts = sp[0:3] + f / float(resolution - 1) * (sp[3:6] - sp[0:3])
+    # an IEEE divide by a scalar on the device, as cell_points does: a
+    # Python float would become a multiply by its reciprocal on CUDA
+    denom = torch.full((), float(resolution - 1), dtype=torch.float32,
+                       device=f.device)
+    pts = sp[0:3] + f / denom * (sp[3:6] - sp[0:3])
     return pts, (fz * resolution + fy) * resolution + fx
 
 

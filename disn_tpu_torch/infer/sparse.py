@@ -13,8 +13,10 @@ coarse grid upsampled with corners aligned, which keeps the signs.
 * finish: decode exactly the active cells through the kernel, upsample
   the coarse grid, scatter the fine values, and decode the boundary planes
   when an active cell touches them.
-* sparse_dense_sdf: both, with the exact dense fallback when more cells
-  are active than the cap allows.
+* phase_b_mesh: finish, then the mesh extractor's candidate scan of the
+  fine cells inside the active coarse cells.
+* sparse_volume / sparse_dense_sdf: both phases, with the exact dense
+  fallback when more cells are active than the cap allows.
 
 PyTorch runs eagerly, so the fine pass decodes exactly `count` cells: no
 power-of-two buckets and no escape re-run (the kernel has no escapes).
@@ -30,6 +32,7 @@ from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import fused
 from disn_tpu_torch.models import disn
+from disn_tpu_torch.ops import marching
 
 Params = dict[str, Any]
 
@@ -172,14 +175,34 @@ def finish(params: Params, endpoints: dict, vol_c: torch.Tensor,
     return vol.reshape(fine_r, fine_r, fine_r)
 
 
-def sparse_dense_sdf(params: Params, img, trans_mat, sdf_params,
-                     cfg: Config,
-                     device: str | torch.device | None = None,
-                     stats: dict | None = None) -> torch.Tensor:
-    """Image -> [R,R,R] f32 volume on `device` through the two-level sparse
-    pass, or the exact dense path when the active cells overflow the cap
-    (cell_cap). The band width and the cap come from cfg.band_factor and
-    cfg.cell_cap_frac.
+def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
+                 cell_ids: torch.Tensor, trans_mat: torch.Tensor,
+                 sdf_params: torch.Tensor, cfg: Config, iso: float,
+                 stats: dict | None = None):
+    """`finish`, then the mesh extractor's candidate scan on the volume it
+    built, limited to the blocks of the active coarse cells. Returns (vol,
+    ids [n] int32 fine sign-change cells, n, guard, blk); see
+    marching._active_cells_from_coarse. `stats` receives ``phase_b_ms`` and
+    ``scan_ms``."""
+    dev = sdf_params.device
+    with device_mod.stage(stats, "phase_b_ms", dev):
+        vol = finish(params, endpoints, vol_c, cell_ids, trans_mat,
+                     sdf_params, cfg)
+    with device_mod.stage(stats, "scan_ms", dev):
+        scan = marching._active_cells_from_coarse(vol, cell_ids, iso,
+                                                  stride=STRIDE)
+    return (vol, *scan)
+
+
+def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
+                  device: str | torch.device | None = None,
+                  stats: dict | None = None, scan_iso: float | None = None):
+    """Image -> ([R,R,R] f32 volume on `device`, scan) through the two-level
+    sparse pass, or the exact dense path when the active cells overflow the
+    cap (cell_cap). The band width and the cap come from cfg.band_factor
+    and cfg.cell_cap_frac. With `scan_iso` the sparse pass ends in
+    phase_b_mesh and scan is its (ids, n, guard, blk); otherwise, and after
+    the dense fallback, scan is None.
 
     `stats`, when given, receives per-stage wall times (``*_ms``, each
     stage synchronised), ``active_cells`` and ``dense_fallback``."""
@@ -201,6 +224,21 @@ def sparse_dense_sdf(params: Params, img, trans_mat, sdf_params,
     if overflow:
         with device_mod.stage(stats, "dense_fallback_ms", dev):
             return fused.dense_grid_via_cells(params, endpoints, trans,
-                                              sdfp, cfg.grid_resolution, cfg)
+                                              sdfp, cfg.grid_resolution,
+                                              cfg), None
+    if scan_iso is not None:
+        vol, *scan = phase_b_mesh(params, endpoints, vol_c, cell_ids, trans,
+                                  sdfp, cfg, float(scan_iso), stats)
+        return vol, tuple(scan)
     with device_mod.stage(stats, "phase_b_ms", dev):
-        return finish(params, endpoints, vol_c, cell_ids, trans, sdfp, cfg)
+        return finish(params, endpoints, vol_c, cell_ids, trans, sdfp,
+                      cfg), None
+
+
+def sparse_dense_sdf(params: Params, img, trans_mat, sdf_params,
+                     cfg: Config,
+                     device: str | torch.device | None = None,
+                     stats: dict | None = None) -> torch.Tensor:
+    """sparse_volume's volume alone."""
+    return sparse_volume(params, img, trans_mat, sdf_params, cfg,
+                         device=device, stats=stats)[0]

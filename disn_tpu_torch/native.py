@@ -1,0 +1,258 @@
+"""ctypes bindings for the host mesh assembler, native/meshassemble.cpp.
+
+The record route of ``ops/marching.py`` ships per-cell records to the host;
+these C++ passes rebuild the welded mesh from them, in the device
+extractor's vertex order and with its triangle tables. The source is
+compiled with the host C++ compiler at first use into ``build/native/``
+under the repository root, named by a hash of the source, the flags and
+the CPU's features (the flags include -march=native), and loaded with
+ctypes. A build failure raises (``RuntimeError``), and so
+does a pass that reports inconsistent input: there is no fallback here.
+The numpy versions (``marching.assemble_mesh_np``, ``derive_recs_np``,
+``expand_block_ids_np``) exist for tests and for callers that ask for
+them by name.
+
+Bound here: ``mesh_expand_ids``, ``derive_recs``, ``mesh_faces_blocks``,
+``mesh_verts_blocks`` and ``mesh_assemble``. The incremental entry points
+of the source (``*_incr``, ``*_range``) serve chunked record streams,
+which the port does not have.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+from disn_tpu_torch.ops import marching
+
+_SRC = Path(__file__).resolve().parents[1] / "native" / "meshassemble.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
+
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I32, _I64 = ctypes.c_int32, ctypes.c_int64
+
+
+def _cpu_tag() -> str:
+    """What -march=native depends on: the machine type and, where the
+    system lists them, the CPU's feature flags. A build directory copied to
+    another machine then gets a library of its own there."""
+    tag = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return tag + line
+    except OSError:
+        pass
+    return tag
+
+
+def build() -> Path:
+    """Compile native/meshassemble.cpp (once per hash of the source, the
+    flags and the CPU's features) and return the shared library's path."""
+    src = _SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()
+                            + _cpu_tag().encode()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libmeshassemble-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
+                              capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run the C++ compiler {cxx!r}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {_SRC.name}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    blocks = [_I32P, _U32P, _U32P, _I32]        # bids, mask lo, mask hi, rows
+    lib.mesh_expand_ids.restype = _I64
+    lib.mesh_expand_ids.argtypes = [*blocks, _I32, _I32, _I32P]
+    lib.derive_recs.restype = ctypes.c_int
+    lib.derive_recs.argtypes = [*blocks, _U8P, _I64, _I32, _I32, _I32P,
+                                _I32P, _U32P]
+    lib.mesh_faces_blocks.restype = _I64
+    lib.mesh_faces_blocks.argtypes = [*blocks, _U32P, _I32, _I32, _I32,
+                                      *[_I32P] * 6]
+    lib.mesh_verts_blocks.restype = _I64
+    lib.mesh_verts_blocks.argtypes = [*blocks, _U32P, _U16P, _I32, _I32,
+                                      _I32, _I32, _I64, _I32P, _I32P, _I32P,
+                                      _F32P, _F32P]
+    lib.mesh_assemble.restype = ctypes.c_int
+    lib.mesh_assemble.argtypes = [_I32P, _U32P, _U16P, _I32, _I32, _I32,
+                                  *[_I32P] * 7, _F32P, _F32P, _I32P, _I64P]
+    return lib
+
+
+def _ptr(a: np.ndarray, typ):
+    return a.ctypes.data_as(typ)
+
+
+def _i32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int32)
+
+
+def _block_args(blk: np.ndarray) -> tuple[list[np.ndarray], list]:
+    """blk [b,3] int32 rows -> (the arrays, kept alive by the caller, and
+    the four leading C arguments every blocks-driven pass takes)."""
+    blk = _i32(blk)
+    if blk.ndim != 2 or blk.shape[1] != 3:
+        raise ValueError(f"blk must be [b,3] int32 rows, got {blk.shape}")
+    bids = np.ascontiguousarray(blk[:, 0])
+    mlo = np.ascontiguousarray(blk[:, 1]).view(np.uint32)
+    mhi = np.ascontiguousarray(blk[:, 2]).view(np.uint32)
+    return [bids, mlo, mhi], [_ptr(bids, _I32P), _ptr(mlo, _U32P),
+                              _ptr(mhi, _U32P), np.int32(len(blk))]
+
+
+def _face_tables() -> list[np.ndarray]:
+    _, _, nb_tbl, dir_tbl = marching._owned_tables()
+    return [_i32(marching.CORNERS), _i32(marching.TETS),
+            _i32(marching._tables()[1]), _i32(nb_tbl), _i32(dir_tbl)]
+
+
+def _vert_tables() -> list[np.ndarray]:
+    pair_i, pair_j, _, _ = marching._owned_tables()
+    return [_i32(pair_i), _i32(pair_j), _i32(marching.CORNERS)]
+
+
+def _tq_u16(tq: np.ndarray) -> np.ndarray:
+    """The assemblers read u16 fixed point; u8 maps onto it exactly
+    (255 * 257 == 65535)."""
+    tq = np.asarray(tq)
+    if tq.dtype == np.uint8:
+        tq = tq.astype(np.uint16) * np.uint16(257)
+    return np.ascontiguousarray(tq, np.uint16)
+
+
+def _records(recs: np.ndarray, n_cells: int) -> np.ndarray:
+    if len(recs) < n_cells:
+        raise RuntimeError(f"{len(recs)} record slots < {n_cells} cells "
+                           "(the stream under-covers the scan)")
+    return np.ascontiguousarray(recs[:n_cells], np.uint32)
+
+
+def mesh_expand_ids(blk: np.ndarray, R: int) -> tuple[np.ndarray, int]:
+    """The scan's (block id, mask lo, mask hi) rows -> (ids int32 [n], n):
+    the flat cell-id list of the device compaction."""
+    keep, args = _block_args(blk)
+    out = np.empty(len(keep[0]) * marching.BLOCK ** 3, np.int32)
+    n = int(_lib().mesh_expand_ids(*args, np.int32(R),
+                                   np.int32(marching.BLOCK),
+                                   _ptr(out, _I32P)))
+    return out[:n].copy(), n
+
+
+def derive_recs(blk: np.ndarray, imask: np.ndarray, R: int) -> np.ndarray:
+    """u8 inside masks of the slots the rows encode -> uint32 records
+    (crossing mask << 8 | inside mask); see marching.derive_recs_np."""
+    keep, args = _block_args(blk)
+    imask = np.ascontiguousarray(imask, np.uint8)
+    pair_j = _i32(marching._owned_tables()[1])
+    alias = _i32(marching._alias_axes())
+    out = np.empty(len(imask), np.uint32)
+    rc = _lib().derive_recs(*args, _ptr(imask, _U8P), np.int64(len(imask)),
+                            np.int32(R), np.int32(len(pair_j)),
+                            _ptr(pair_j, _I32P), _ptr(alias, _I32P),
+                            _ptr(out, _U32P))
+    if rc:
+        raise RuntimeError(f"derive_recs failed (rc={rc})")
+    return out
+
+
+def mesh_faces_blocks(blk: np.ndarray, recs: np.ndarray, n_cells: int,
+                      R: int) -> np.ndarray:
+    """Faces [ntri,3] int32 from the block rows and the records: a cell's
+    neighbours resolve by popcounts on the masks, no id list needed."""
+    keep, args = _block_args(blk)
+    recs = _records(recs, n_cells)
+    tables = _face_tables()
+    faces = np.empty((max(n_cells, 1) * 12, 3), np.int32)
+    ntri = int(_lib().mesh_faces_blocks(
+        *args, _ptr(recs, _U32P), np.int32(n_cells), np.int32(R),
+        np.int32(marching.D_OWNED), *[_ptr(t, _I32P) for t in tables],
+        _ptr(faces, _I32P)))
+    if ntri < 0:
+        raise RuntimeError(f"mesh_faces_blocks failed (rc={ntri}): the "
+                           "records and the block rows are inconsistent")
+    return faces[:ntri].copy()
+
+
+def mesh_verts_blocks(blk: np.ndarray, recs: np.ndarray, tq: np.ndarray,
+                      n_cells: int, R: int, bbox: np.ndarray,
+                      compact: bool = False, nv: int | None = None
+                      ) -> np.ndarray:
+    """Vertices [nv,3] f32 from the block rows, the records and the edge
+    parameters. compact=True reads tq as the crossing-only vertex-order
+    stream (pass nv); otherwise tq is slot-dense [n_cells, D]."""
+    keep, args = _block_args(blk)
+    recs = _records(recs, n_cells)
+    if not compact and len(tq) < n_cells:
+        raise RuntimeError(f"{len(tq)} tq rows < {n_cells} cells")
+    tq = _tq_u16(tq if compact else tq[:n_cells])
+    tables = _vert_tables()
+    bbox = np.ascontiguousarray(bbox, np.float32)
+    cap = max(nv, 1) if compact and nv is not None \
+        else max(n_cells, 1) * marching.D_OWNED
+    if compact and tq.size < cap:
+        raise RuntimeError(f"compact tq stream has {tq.size} entries, "
+                           f"caller claims {cap} vertices")
+    verts = np.empty((cap, 3), np.float32)
+    got = int(_lib().mesh_verts_blocks(
+        *args, _ptr(recs, _U32P), _ptr(tq, _U16P),
+        np.int32(1 if compact else 0), np.int32(n_cells), np.int32(R),
+        np.int32(marching.D_OWNED), np.int64(cap),
+        *[_ptr(t, _I32P) for t in tables], _ptr(bbox, _F32P),
+        _ptr(verts, _F32P)))
+    if got < 0 or (compact and nv is not None and got != nv):
+        raise RuntimeError(f"mesh_verts_blocks emitted {got} vertices, the "
+                           f"caller expects {nv} (inconsistent records)")
+    return verts[:got].copy()
+
+
+def mesh_assemble(ids: np.ndarray, recs: np.ndarray, tq: np.ndarray,
+                  n_cells: int, R: int, bbox: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Welded (verts, faces) from the id list, the records and slot-dense
+    edge parameters: the C++ twin of marching.assemble_mesh_np."""
+    if len(ids) < n_cells or len(tq) < n_cells:
+        raise RuntimeError(f"{len(ids)} ids / {len(tq)} tq rows < "
+                           f"{n_cells} cells")
+    ids = _i32(ids[:n_cells])
+    recs = _records(recs, n_cells)
+    tq = _tq_u16(tq[:n_cells])
+    tables = _vert_tables() + _face_tables()[1:]
+    bbox = np.ascontiguousarray(bbox, np.float32)
+    verts = np.empty((max(n_cells, 1) * marching.D_OWNED, 3), np.float32)
+    faces = np.empty((max(n_cells, 1) * 12, 3), np.int32)
+    counts = np.zeros(2, np.int64)
+    rc = _lib().mesh_assemble(
+        _ptr(ids, _I32P), _ptr(recs, _U32P), _ptr(tq, _U16P),
+        np.int32(n_cells), np.int32(R), np.int32(marching.D_OWNED),
+        *[_ptr(t, _I32P) for t in tables], _ptr(bbox, _F32P),
+        _ptr(verts, _F32P), _ptr(faces, _I32P), _ptr(counts, _I64P))
+    if rc:
+        raise RuntimeError(f"mesh_assemble failed (rc={rc}): the records "
+                           "and the id list are inconsistent")
+    return verts[:counts[0]].copy(), faces[:counts[1]].copy()

@@ -39,10 +39,32 @@ def test_every_module_is_listed():
     names = {m.name for m in pkgutil.walk_packages(disn_tpu_torch.__path__,
                                                    "disn_tpu_torch.")}
     assert {"disn_tpu_torch.ops.fused_decode",
-            "disn_tpu_torch.infer.pipeline"} <= names
+            "disn_tpu_torch.infer.pipeline", "disn_tpu_torch.native",
+            "disn_tpu_torch.postprocessing",
+            "disn_tpu_torch.ops.marching"} <= names
 
 
-@pytest.mark.parametrize("entry", ["image_to_mesh", "init", "octahedron"])
+def test_native_bindings_load_neither_jax_nor_disn_tpu():
+    """The host assembler's bindings, built and called, stand alone too."""
+    code = (
+        "import sys, numpy as np\n"
+        "from disn_tpu_torch import native\n"
+        "blk = np.array([[0, 1, 0]], np.int32)\n"
+        "ids, n = native.mesh_expand_ids(blk, 9)\n"
+        "assert n == 1 and ids.tolist() == [0]\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'disn_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("entry", ["image_to_mesh", "init", "octahedron",
+                                   "extract_mesh_owned",
+                                   "extract_mesh_from_ids",
+                                   "extract_mesh_records"])
 def test_entry_points_need_a_device_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -50,7 +72,11 @@ def test_entry_points_need_a_device_without_cuda(entry):
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.models import disn
+    from disn_tpu_torch.ops import marching
 
+    vol = np.ones((9, 9, 9), np.float32)
+    box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    ids = torch.zeros(0, dtype=torch.int32)
     cfg = Config(num_classes=32, width_mult=0.125, sdf_res=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "image_to_mesh":
@@ -58,5 +84,11 @@ def test_entry_points_need_a_device_without_cuda(entry):
                                    synthetic.demo_trans_mat(), cfg)
         elif entry == "init":
             disn.init(cfg)
+        elif entry == "extract_mesh_owned":
+            marching.extract_mesh_owned(vol, box)
+        elif entry == "extract_mesh_from_ids":
+            marching.extract_mesh_from_ids(torch.from_numpy(vol), box, ids)
+        elif entry == "extract_mesh_records":
+            marching.extract_mesh_records(vol, box, ids, 0)
         else:
             synthetic.analytic_octahedron_params(cfg)

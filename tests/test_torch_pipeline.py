@@ -155,3 +155,160 @@ def test_upsample_and_cull_match_jax():
     jids, jcount = jsparse._active_cells(jnp.asarray(vol_c), jtau, 12 ** 3)
     assert count == int(jcount) > 0
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids)[:count])
+
+
+SMALL64 = dict(num_classes=32, width_mult=0.125, compute_dtype="float32",
+               sdf_res=64, cell_cap_frac=0.9)
+
+
+@pytest.mark.parametrize("kind,sdf_res", [("octahedron", 32),
+                                          ("octahedron", 64),
+                                          ("random", 32)])
+def test_phase_b_mesh_matches_jax(kind, sdf_res):
+    """The fine pass + candidate scan against _phase_b_mesh_jit, both fed
+    the port's phase_a outputs' JAX counterparts: the volume to f32
+    summation order, the scan's ids, count and block rows bit for bit
+    whenever the two volumes have the same signs (they do: on the
+    octahedron the field is exact at grid points; with random weights the
+    values differ only in summation order, and the test requires the sign
+    patterns to be equal before it compares)."""
+    kw = dict(SMALL, sdf_res=sdf_res, cell_cap_frac=1.0)
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    jp, p = _params(kind, jcfg)
+    img, trans = _img(), jsynthetic.demo_trans_mat()
+    stats = {}
+    vol, scan = sparse.sparse_volume(p, img, trans, BOX, cfg, device="cpu",
+                                     stats=stats, scan_iso=0.0)
+    assert not stats["dense_fallback"] and scan is not None
+    assert stats["scan_ms"] > 0 and stats["phase_b_ms"] > 0
+    ids, n, guard, blk = scan
+
+    jvol = jsparse.sparse_dense_sdf(jp, img, trans, BOX, jcfg,
+                                    cell_cap_frac=1.0, dynamic=True)
+    scale = np.abs(jvol).max()
+    np.testing.assert_allclose(vol.numpy(), jvol, rtol=1e-5,
+                               atol=1e-5 * scale)
+    assert ((vol.numpy() < 0) == (np.asarray(jvol) < 0)).all()
+    rc = sdf_res // 4 + 1
+    jids_c, jcount = jsparse._active_cells(
+        jnp.asarray(np.asarray(jvol)[::4, ::4, ::4]),
+        jsparse._band_tau(jnp.asarray(np.asarray(jvol)[::4, ::4, ::4]),
+                          jnp.asarray(BOX), rc, jcfg.band_factor, jcfg),
+        (rc - 1) ** 3)
+    want_ids, want_n, want_over, want_blk = jmarching._active_cells_from_coarse(
+        jnp.asarray(jvol), jids_c, jcount, iso=0.0, stride=4,
+        bcap=2 * rc ** 3)
+    assert n == int(want_n) and guard == int(want_over)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids)[:n])
+    wb = np.asarray(want_blk)
+    np.testing.assert_array_equal(
+        blk.numpy(), wb[(wb[:, 1] != 0) | (wb[:, 2] != 0)])
+
+
+@pytest.mark.parametrize("sdf_res", [32, 64])
+def test_image_to_mesh_owned_route_matches_jax(sdf_res):
+    """End to end on the narrow net with the analytic octahedron head: the
+    port's owned route gives the reference's faces exactly (the reference's
+    record route emits the same order) and its vertices within atol 2e-5.
+    The reference ships u16 edge parameters at these grids (sdf_res < 128):
+    its vertices are off the exact ones by at most cell/131070 = 4.8e-7 at
+    32, far inside the tolerance, which is test_image_to_mesh_matches_jax's."""
+    kw = dict(SMALL, sdf_res=sdf_res, cell_cap_frac=0.9)
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    jp, p = _params("octahedron", jcfg)
+    img, trans = _img()[0], jsynthetic.demo_trans_mat()
+    jv, jf = jpipeline.image_to_mesh(jp, img, trans, jcfg)
+    stats = {}
+    v, f = pipeline.image_to_mesh(p, img, trans, cfg, device="cpu",
+                                  stats=stats)
+    assert stats["route"] == "owned_ids" and stats["guard"] == 0
+    assert stats["fine_cells"] > 0 and not stats["dense_fallback"]
+    assert {"scan_ms", "extract_ms", "fetch_ms", "extraction_ms"} <= set(stats)
+    np.testing.assert_array_equal(f, jf)
+    np.testing.assert_allclose(v, jv, atol=2e-5, rtol=0)
+    assert np.abs(np.abs(v).sum(1) - 0.6).max() < 1e-5
+    # the mesh oracle on the same volume: the same vertex and triangle sets
+    vol = pipeline.predict_volume(p, img, trans, BOX, cfg, device="cpu")
+    tv, tf_ = pipeline.volume_to_mesh(vol, BOX)
+    assert len(tv) == len(v) and len(tf_) == len(f)
+    for a, b in zip(_mesh_sets(v, f), _mesh_sets(tv, tf_)):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_image_to_mesh_cap_overflow_takes_tets_route():
+    kw = dict(SMALL, sdf_res=32, cell_cap_frac=0.01)
+    cfg = Config(**kw)
+    _, p = _params("octahedron", JConfig(**kw))
+    img, trans = _img()[0], jsynthetic.demo_trans_mat()
+    stats = {}
+    v, f = pipeline.image_to_mesh(p, img, trans, cfg, device="cpu",
+                                  stats=stats)
+    assert stats["dense_fallback"] and stats["route"] == "tets"
+    assert "guard" not in stats and "scan_ms" not in stats
+    ov, of_ = pipeline.image_to_mesh(p, img, trans,
+                                     cfg.replace(cell_cap_frac=0.9),
+                                     device="cpu")
+    assert len(v) == len(ov) and len(f) == len(of_)
+    for a, b in zip(_mesh_sets(v, f), _mesh_sets(ov, of_)):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_image_to_mesh_guard_takes_full_scan(monkeypatch):
+    """A candidate scan that misses change cells (here: told of no active
+    coarse cell) reports guard > 0, and image_to_mesh scans the whole
+    volume it already built: the same mesh as the guard-free run."""
+    kw = dict(SMALL, sdf_res=32, cell_cap_frac=0.9)
+    cfg = Config(**kw)
+    _, p = _params("octahedron", JConfig(**kw))
+    img, trans = _img()[0], jsynthetic.demo_trans_mat()
+    want_v, want_f = pipeline.image_to_mesh(p, img, trans, cfg, device="cpu")
+    real_scan = marching._active_cells_from_coarse
+
+    def blind_scan(vol, coarse_ids, iso, stride):
+        return real_scan(vol, coarse_ids[:0], iso, stride=stride)
+
+    monkeypatch.setattr(marching, "_active_cells_from_coarse", blind_scan)
+    stats = {}
+    v, f = pipeline.image_to_mesh(p, img, trans, cfg, device="cpu",
+                                  stats=stats)
+    assert stats["route"] == "owned_scan" and stats["guard"] > 0
+    np.testing.assert_array_equal(f, want_f)
+    np.testing.assert_array_equal(v, want_v)
+
+
+def test_image_to_mesh_ineligible_config_takes_tets_route():
+    """sdf_res not a multiple of the stride: the dense path and the mesh
+    oracle."""
+    kw = dict(SMALL, sdf_res=16, sparse_stride=8)
+    cfg = Config(**kw)
+    _, p = _params("octahedron", JConfig(**kw))
+    stats = {}
+    v, f = pipeline.image_to_mesh(p, _img()[0], jsynthetic.demo_trans_mat(),
+                                  cfg, device="cpu", stats=stats)
+    assert stats["route"] == "tets" and len(f) > 100
+    assert np.abs(np.abs(v).sum(1) - 0.6).max() < 1e-5
+
+
+def test_clean_small_parts_matches_jax():
+    """Two spheres, one small and far from the centre: the same kept mesh
+    as the reference's clean_small_parts, and through clean=True."""
+    from disn_tpu import postprocessing as jpost
+    from disn_tpu_torch import postprocessing as post
+
+    lin = np.linspace(-1, 1, 33, dtype=np.float32)
+    z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
+    vol = np.minimum(np.sqrt(x ** 2 + y ** 2 + z ** 2) - 0.4,
+                     np.sqrt((x - 0.8) ** 2 + y ** 2 + z ** 2) - 0.1
+                     ).astype(np.float32)
+    v, f = marching.extract_mesh_owned(vol, BOX, device="cpu")
+    np.testing.assert_array_equal(post.connected_components(len(v), f),
+                                  jpost.connected_components(len(v), f))
+    wv, wf = jpost.clean_small_parts(v, f)
+    gv, gf = post.clean_small_parts(v, f)
+    assert 0 < len(gv) < len(v)
+    np.testing.assert_array_equal(gf, wf)
+    np.testing.assert_array_equal(gv, wv)
+    cv, cf = pipeline.volume_to_mesh(torch.from_numpy(vol), BOX, clean=True)
+    assert len(cv) == len(gv) and len(cf) == len(gf)
+    ev, ef = post.clean_small_parts(v[:0], f[:0])
+    assert len(ev) == 0 and len(ef) == 0
