@@ -93,7 +93,7 @@ def jax_owned(name, R, iso, box=tuple(BOX)):
 @functools.lru_cache(maxsize=None)
 def jax_records(name, R, iso):
     """(rec u16 [n], tq [n, D]) on the valid slots."""
-    ids_np, n = jax_scan(name, R, iso)
+    _, n = jax_scan(name, R, iso)
     gcap = jm._norm_gcap(R, 1 << 30)
     vol = jnp.asarray(field(name, R))
     ids, ncd, _ = jm._active_cells_ext(vol, float(iso), gcap)
