@@ -42,7 +42,24 @@ on failure:
 5. time every part of both routes and of marching_tets + weld at 257^3
    (median of 5 after a warm-up; CUDA events around device parts, the host
    clock around host parts and copies) beside a bound from the run's sizes;
-6. print per-stage times, each bf16 main-path launch's share of its bound
+6. train (the port's SDF training path; no kernel of its own): in-memory
+   records of the synthetic dataset (3 shapes x 8192 stratified samples, 4
+   views at 137^2) served through the port's SdfImageDataset, sampler and
+   PrefetchLoader onto the card. [train hold]: the port's step on the card
+   and on the CPU at width 0.25, B = 2, N = 256, TF32 off: the f32 loss,
+   every gradient leaf in float64 (in f32 a ReLU input or L1 residual
+   within rounding of 0 takes the other side on the other device, so the
+   f32 gradients are only printed), one fused Adam update from the same
+   gradients. [train f32] / [train bf16]: the default full-width Config
+   (B = 20, N = 2048): 2 warm-up and 10 timed steps (CUDA events), samples
+   per second, peak memory, the share of the wall time blocked on the
+   loader; in f32 also 20 steps on one batch, whose sdf_loss must fall
+   (the median of the last 5 steps below that of the first 5).
+   [train profile]: torch.profiler over 3 steps of each: idle share, top
+   ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
+   latest.npz after step 3 holds exactly the JAX package's names, and
+   restored into a fresh state it gives the same state and step-4 loss;
+7. print per-stage times, each bf16 main-path launch's share of its bound
    and the weight bytes it moves from L2, the card, and the kernel table as
    JSON.
 
@@ -53,6 +70,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -722,6 +740,419 @@ def time_extraction(k: dict) -> dict:
     return t
 
 
+# -- training ---------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")  # removed after
+TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke_trace")  # Chrome traces
+# card against CPU at width_mult 0.25 (the [train hold] lines): the loss is
+# a sum of many rounded terms, continuous across every ReLU and L1 kink, so
+# it agrees to summation order; the gradient is not continuous there, so it
+# is held in float64, where both devices round alike to 1e-16 and no unit
+# sits on the other side of a kink; the Adam update from identical
+# gradients differs by the fused kernel's rounding only
+CARD = "cuda"
+HOLD_LOSS_REL = 1e-5
+HOLD_GRAD_REL = 1e-4
+HOLD_ADAM_ABS = 1e-6
+
+
+def train_records() -> tuple[dict, dict]:
+    """The records build_dataset would write, in memory: 8192 stratified
+    samples and 4 views at 137^2 of each analytic shape."""
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.data import synthetic
+
+    rng = np.random.RandomState(0)
+    sdf, views = {}, {}
+    box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    for obj, fn in synthetic.SHAPES.items():
+        samples = synthetic.stratified_sample(fn, num=8192, rng=rng)
+        surf = synthetic.surface_points(fn, rng=rng)
+        sdf[obj] = codecs.SdfSamples(
+            ori_pt=surf, sample_pt=samples[:, :3], sample_sdf=samples[:, 3],
+            norm_params=np.array([0, 0, 0, 1], np.float32), sdf_params=box)
+        for v in range(4):
+            _, views[(obj, v)] = synthetic.render_view(
+                fn, *synthetic.view_angles(v, 4))
+    return sdf, views
+
+
+def memory_dataset(cfg, records):
+    """The port's SdfImageDataset serving `records` instead of h5 files
+    (the card's machine has no h5py), over the 12 (object, view) pairs."""
+    from disn_tpu_torch.data import pipeline, synthetic
+
+    class MemoryDataset(pipeline.SdfImageDataset):
+        def _load_sdf(self, cat_id, obj):
+            return records[0][obj]
+
+        def _read_view(self, cat_id, obj, view):
+            return records[1][(obj, view)]
+
+    listinfo = [(synthetic.SYNTH_CAT, obj, v) for obj in synthetic.SHAPES
+                for v in range(4)]
+    return MemoryDataset(cfg, None, listinfo, seed=0)
+
+
+def train_loader(cfg, records, batches: int):
+    """At least `batches` batches of the memory dataset through the port's
+    sampler and PrefetchLoader onto the card (at B = 20 the 12 pairs make
+    one batch an epoch)."""
+    from disn_tpu_torch.data import pipeline, synthetic
+
+    ds = memory_dataset(cfg, records)
+    sampler = pipeline.EpochSampler(ds.listinfo, {synthetic.SYNTH_CAT: 12},
+                                    cfg.cat_limit, seed=0)
+    loader = pipeline.PrefetchLoader(ds, sampler, cfg.batch_size,
+                                     epochs=batches, workers=4, seed=0,
+                                     device=CARD)
+    check(loader.total_batches >= batches, "loader batch count")
+    return loader
+
+
+def host_batch(cfg, records, seed: int) -> dict:
+    ds = memory_dataset(cfg, records)
+    idx = np.random.RandomState(seed).randint(len(ds.listinfo),
+                                              size=cfg.batch_size)
+    return ds.get_batch(idx, np.random.RandomState(seed))[0]
+
+
+def on(batch: dict, device: str) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def phase_train_hold(records) -> None:
+    """The port's step on the card and with device='cpu', from the same
+    params and batch: loss (f32), every gradient leaf (f64), and the
+    parameters after one Adam update from the same gradients (f32)."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.train import checkpoint, trainer
+
+    cfg = Config(width_mult=0.25, num_classes=64, batch_size=2,
+                 num_sample_points=256)
+    params = disn.init(cfg, seed=0, device="cpu")
+    batch = host_batch(cfg, records, seed=1)
+    grads = {}
+    for dtype in ("float32", "float64"):
+        c = cfg.replace(compute_dtype=dtype)
+        devs = (("card", CARD), ("cpu", "cpu"))
+        st = {k: trainer.create_state(c, params=params, device=d)
+              for k, d in devs}
+        loss = {k: trainer.compute_gradients(st[k], on(batch, d))
+                ["overall_loss"].item() for k, d in devs}
+        rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+        ratios = []
+        for (path, pg), (_, pc) in zip(checkpoint.leaves(st["card"].params),
+                                       checkpoint.leaves(st["cpu"].params)):
+            scale = max(pc.grad.abs().max().item(), 1e-30)
+            ratios.append(((pg.grad.cpu() - pc.grad).abs().max().item()
+                           / scale, path))
+        worst = max(ratios)
+        over = sum(r > HOLD_GRAD_REL for r, _ in ratios)
+        print(f"[train hold] {dtype}: loss card {loss['card']!r} cpu "
+              f"{loss['cpu']!r} rel {rel:.3e} (limit {HOLD_LOSS_REL}); "
+              f"gradients: worst leaf {worst[1]} max|diff|/max|grad| "
+              f"{worst[0]:.3e}, {over} of {len(ratios)} leaves over "
+              f"{HOLD_GRAD_REL}")
+        check(rel <= HOLD_LOSS_REL, f"train hold {dtype}: loss differs")
+        if dtype == "float64":
+            check(over == 0, "train hold: a float64 gradient leaf differs "
+                             "between the card and the CPU")
+        grads[dtype] = st
+    # one Adam update on each device from the CPU's f32 gradients
+    st = grads["float32"]
+    for (_, pg), (_, pc) in zip(checkpoint.leaves(st["card"].params),
+                                checkpoint.leaves(st["cpu"].params)):
+        pg.grad = pc.grad.to(CARD)
+    for s in st.values():
+        s.apply_gradients()
+    diff = max((pg.detach().cpu() - pc.detach()).abs().max().item()
+               for (_, pg), (_, pc) in zip(checkpoint.leaves(st["card"].params),
+                                           checkpoint.leaves(st["cpu"].params)))
+    print(f"[train hold] adam (fused on the card): params after one update "
+          f"from the same gradients, max|diff| {diff:.3e} (limit "
+          f"{HOLD_ADAM_ABS})")
+    check(diff <= HOLD_ADAM_ABS, "train hold: Adam updates differ")
+
+
+def train_step_bound(cfg, n_params: int) -> tuple[float, dict]:
+    """(least ms the card could take for one step, MACs by part) from the
+    step's shapes: the forward's multiply-adds (VGG-16's convolutions and
+    fc layers, the fold in the order fold_137 takes, the two point MLPs),
+    three times over for the forward and the backward, at the peak of the
+    type each runs in (the fold's resizes in f32 whatever the compute type;
+    the rest in bf16 for a bf16 step); against the bytes of the batch, and
+    the parameters, gradients and Adam moments read and written once."""
+    from disn_tpu_torch.infer import dense
+    from disn_tpu_torch.models import vgg
+
+    b, n = cfg.batch_size, cfg.num_sample_points
+    w = [vgg.scaled_width(c, cfg.width_mult) for c in (64, 128, 256, 512, 512)]
+    macs = {"encoder": 0, "fold matmuls": 0, "fold resizes": 0, "heads": 0}
+    cin, side = cfg.img_channels, cfg.vgg_size
+    for (_, names, _), cout in zip(vgg._CFG, w):
+        for _ in names:
+            macs["encoder"] += side * side * 9 * cin * cout
+            cin = cout
+        side //= 2
+    fc = vgg.scaled_width(4096, cfg.width_mult)
+    macs["encoder"] += 7 * 7 * cin * fc + fc * fc + fc * cfg.num_classes
+    oh, ow = cfg.img_h, cfg.img_w
+    side = cfg.vgg_size
+    for c in w:
+        if dense._resize_first(side, side, c, 512, cfg):
+            macs["fold resizes"] += oh * side * side * c + oh * ow * side * c
+            macs["fold matmuls"] += oh * ow * c * 512
+        else:
+            macs["fold matmuls"] += side * side * c * 512
+            macs["fold resizes"] += (oh * side * side * 512
+                                     + oh * ow * side * 512)
+        side //= 2
+    macs["fold matmuls"] += cfg.num_classes * 512
+    out = 2 if cfg.binary else 1
+    macs["heads"] = n * 2 * (3 * 64 + 64 * 256 + 256 * 512 + 512 * 512
+                             + 512 * 256 + 256 * out)
+    macs = {k: v * b for k, v in macs.items()}
+    fast = H100_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else \
+        H100_F32_FLOPS
+    t_ops = sum(2 * 3 * v / (H100_F32_FLOPS if k == "fold resizes" else fast)
+                for k, v in macs.items())
+    nbytes = (b * (oh * ow * cfg.img_channels + n * 7 + 12) * 4
+              + n_params * 4 * 7)
+    return max(t_ops, nbytes / H100_BYTES_PER_S) * 1e3, macs
+
+
+def time_steps(cfg, state, loader, label: str) -> dict:
+    """2 warm-up steps, then 10 timed ones (CUDA events between steps) from
+    the loader; the host time blocked in next(loader) over the wall time of
+    the timed steps is the loader-wait share."""
+    import torch
+    from disn_tpu_torch.train import checkpoint, trainer
+
+    step = trainer.make_train_step(cfg)
+    it = iter(loader)
+    for _ in range(2):
+        step(state, next(it))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+    waited, losses = 0.0, []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(10):
+        tw = time.perf_counter()
+        batch = next(it)
+        waited += time.perf_counter() - tw
+        _, out = step(state, batch)
+        losses.append(out["sdf_loss"])
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = [events[i].elapsed_time(events[i + 1]) for i in range(10)]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    med = float(np.median(ms))
+    bound, macs = train_step_bound(cfg, sum(p.numel() for _, p in
+                                            checkpoint.leaves(state.params)))
+    print(f"[train {label}] forward MACs by part "
+          f"{ {k: f'{v / 1e9:.1f} G' for k, v in macs.items()} }; "
+          f"bound {bound:.3f} ms (operations x 3 for the backward, at "
+          f"{cfg.compute_dtype}'s peak, resizes at f32's), share "
+          f"{bound / med:.4f}")
+    print(f"[train {label}] ms/step median={med:.3f} all="
+          f"{[round(x, 3) for x in ms]}; samples/s="
+          f"{cfg.batch_size * 1000 / med:.1f} (B={cfg.batch_size}, "
+          f"N={cfg.num_sample_points}); peak memory {peak} B "
+          f"({peak / 2**30:.2f} GiB); loader wait {waited * 1e3:.2f} ms of "
+          f"{wall * 1e3:.1f} ms wall = {waited / wall:.4f} (workers' queue "
+          f"{loader.wait_s * 1e3:.2f} ms since start)")
+    check(all(np.isfinite(losses)), f"train {label}: non-finite loss")
+    return dict(ms=ms, median=med, peak=peak, wait_share=waited / wall)
+
+
+def phase_train_steps(records) -> None:
+    """Full width, the default Config: f32 timing and a falling loss on one
+    repeated batch, its profile, then bf16 timing and profile."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.train import trainer
+
+    cfg = Config()
+    state = trainer.create_state(cfg, seed=0)
+    loader = train_loader(cfg, records, 12).start()
+    try:
+        time_steps(cfg, state, loader, "f32")
+    finally:
+        loader.shutdown()
+    step = trainer.make_train_step(cfg)
+    batch = on(host_batch(cfg, records, seed=2), CARD)
+    losses = [step(state, batch)[1]["sdf_loss"] for _ in range(20)]
+    losses = [x.item() for x in losses]
+    # Adam at lr 1e-4 and beta1 0.5 moves each of the 119M randomly
+    # initialised fc6/fc7 weights by ~lr a step, the embedding by several
+    # units: single steps spike (5934.3 after 2688.3 at step 20 in one run,
+    # where the first steps read 3055 -> 2660), so the medians of the
+    # first and the last five steps are compared
+    first, last = np.median(losses[:5]), np.median(losses[-5:])
+    print(f"[train f32] 20 steps on one batch: sdf_loss "
+          f"{[round(x, 2) for x in losses]}; median of the first 5 "
+          f"{first:.2f}, of the last 5 {last:.2f}")
+    check(all(np.isfinite(losses)) and last < first,
+          "train f32: sdf_loss did not fall over 20 steps on one batch")
+    profile_steps(cfg, state, batch, "f32")
+    del state
+    torch.cuda.empty_cache()
+    cfg16 = cfg.replace(compute_dtype="bfloat16")
+    state = trainer.create_state(cfg16, seed=0)
+    loader = train_loader(cfg16, records, 12).start()
+    try:
+        time_steps(cfg16, state, loader, "bf16")
+    finally:
+        loader.shutdown()
+    profile_steps(cfg16, state, batch, "bf16")
+
+
+def _device_time(evt, own: bool) -> float:
+    """An event's time on the device in us, its own or with its children's
+    (the attributes' names differ between torch versions)."""
+    names = (("self_device_time_total", "self_cuda_time_total") if own
+             else ("device_time_total", "cuda_time_total"))
+    for name in names:
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def profile_steps(cfg, state, batch, label: str) -> None:
+    """torch.profiler over 3 steps: the device's idle share of the span of
+    its activity (from the Chrome trace), the 10 PyTorch ops and the 5
+    kernels with the most self time on the device, with their share of the
+    busy time, and the sampler's gather (forward) and scatter-add (its
+    backward)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from disn_tpu_torch.train import trainer
+    from disn_tpu_torch.utils.logging import trace
+
+    step = trainer.make_train_step(cfg)
+    tdir = os.path.join(TRACE_DIR, label)
+    torch.cuda.synchronize()
+    with trace(tdir) as prof:
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(len(spans) > 0, "train profile: no device activity in the trace")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = spans[-1][1] - spans[0][0]
+    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and "Synchronize" in e.get("name", ""))
+    tag = f"[train profile {label}]"
+    print(f"{tag} 3 steps: device busy {busy / 1e3:.3f} ms of a "
+          f"{window / 1e3:.3f} ms span of device activity, idle share "
+          f"{1 - busy / window:.4f}; {len(spans)} device events, {syncs} "
+          f"stream/device synchronisations; trace in "
+          f"{os.path.relpath(tdir, ROOT)}/trace.json")
+    avg = prof.key_averages()
+    for kind, dt, n in (("op", DeviceType.CPU, 10),
+                        ("kernel", DeviceType.CUDA, 5)):
+        rows = [e for e in avg if e.device_type == dt]
+        for e in sorted(rows, key=lambda e: -_device_time(e, True))[:n]:
+            t = _device_time(e, True)
+            print(f"{tag} top {kind}: {e.key[:100]} self {t / 1e3:.3f} ms "
+                  f"in {e.count} calls ({t / busy:.4f} of busy)")
+    for name in ("aten::gather", "aten::scatter_add_"):
+        for e in avg:
+            if e.key == name:
+                t = _device_time(e, False)
+                print(f"{tag} sampler {name}: {t / 1e3:.3f} ms on the "
+                      f"device in {e.count} calls over 3 steps "
+                      f"({t / busy:.4f} of busy)")
+
+
+def phase_train_ckpt(records) -> None:
+    """Save latest.npz after step 3 of a full-width run, check its names
+    against the JAX package's, restore it into a fresh state and hold step
+    4's loss and the optimizer state against the run that went on."""
+    import shutil
+
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.train import checkpoint, trainer
+
+    cfg = Config()
+    step = trainer.make_train_step(cfg)
+    batches = [on(host_batch(cfg, records, seed=10 + i), CARD)
+               for i in range(4)]
+    state = trainer.create_state(cfg, seed=1)
+    for b in batches[:3]:
+        step(state, b)
+    mgr = checkpoint.CheckpointManager(TRAIN_DIR)
+    t0 = time.perf_counter()
+    mgr.save_latest(state.state_tree(), state.step)
+    save_s = time.perf_counter() - t0
+    paths = [p for p, _ in checkpoint.leaves(state.params)]
+    want = ({"step", "opt_state$0$count", "opt_state$1$count"}
+            | {f"{k}${p}" for p in paths
+               for k in ("params", "opt_state$0$mu", "opt_state$0$nu")})
+    with np.load(mgr.latest_path()) as z:
+        names = set(z.files) - {"__metadata__"}
+    check(names == want, f"train ckpt: names differ from the reference's: "
+          f"{sorted(names ^ want)[:5]}")
+    fresh = trainer.create_state(cfg, seed=2)
+    t0 = time.perf_counter()
+    fresh.load_state_tree(checkpoint.restore(mgr.latest_path(),
+                                             fresh.state_tree()))
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_DIR)
+    same = all(torch.equal(state.opt.state[a][k], fresh.opt.state[b][k])
+               for (_, a), (_, b) in zip(checkpoint.leaves(state.params),
+                                         checkpoint.leaves(fresh.params))
+               for k in ("exp_avg", "exp_avg_sq", "step"))
+    same = same and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        checkpoint.leaves(state.params), checkpoint.leaves(fresh.params)))
+    l4 = step(state, batches[3])[1]["overall_loss"].item()
+    r4 = step(fresh, batches[3])[1]["overall_loss"].item()
+    rel = abs(r4 - l4) / abs(l4)
+    print(f"[train ckpt] latest.npz after step 3: {len(names)} names, the "
+          f"reference's; saved in {save_s:.2f} s, restored in {load_s:.2f} "
+          f"s; params and Adam state equal after restore: {same}; step 4 "
+          f"loss {l4!r} uninterrupted, {r4!r} resumed, rel {rel:.3e} "
+          f"(limit 1e-5)")
+    check(same, "train ckpt: the restored state differs")
+    check(rel <= 1e-5, "train ckpt: step 4's loss differs after resume")
+
+
+def phase_train() -> None:
+    import torch
+
+    t0 = time.perf_counter()
+    records = train_records()
+    print(f"[train] records: 3 objects x 8192 samples, 12 views at 137^2, "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    phase_train_hold(records)
+    torch.cuda.empty_cache()
+    phase_train_steps(records)
+    torch.cuda.empty_cache()
+    phase_train_ckpt(records)
+    torch.cuda.empty_cache()
+    print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -750,6 +1181,9 @@ def main() -> int:
         hold_routes("49^3 f32", held["49"])
         hold_divisions(held["49"])
         time_extraction(held["257"])
+        del held
+        torch.cuda.empty_cache()
+        phase_train()
         timed = runs[1:4]
         for key in ("encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
                     "scan_ms", "extraction_ms", "extract_ms", "fetch_ms",

@@ -28,6 +28,9 @@ CAM_ROT = np.array(
     ]
 )
 
+# Fixed 90-degree turn about y of the view-frame point rotation.
+ROT90Y = np.array([[0, 0, -1], [0, 1, 0], [1, 0, 0]], dtype=np.float32)
+
 
 def blender_proj(az: float, el: float, distance_ratio: float,
                  img_w: int = 137, img_h: int = 137
@@ -92,6 +95,26 @@ def view_params_to_trans_mat(az: float, el: float, distance_ratio: float,
     regress = np.linalg.multi_dot([RT, rot, nm])
     return (trans.T.astype(np.float32), regress.T.astype(np.float32),
             K.astype(np.float32), RT.astype(np.float32))
+
+
+def obj_rot_matrix(az_deg: float, el_deg: float, inl_deg: float
+                   ) -> np.ndarray:
+    """View-frame rotation applied to the sample points when cfg.rot is
+    set: ROT90Y @ (inl @ el @ az)^T, float32."""
+    az = np.deg2rad(az_deg + 180.0)
+    el = np.deg2rad(el_deg)
+    inl = np.deg2rad(inl_deg)
+    caz, saz = np.cos(az), np.sin(az)
+    cel, sel = np.cos(el), np.sin(el)
+    cin, sin_ = np.cos(inl), np.sin(inl)
+    az_mat = np.array([[caz, 0, saz], [0, 1, 0], [-saz, 0, caz]],
+                      dtype=np.float32)
+    el_mat = np.array([[1, 0, 0], [0, cel, -sel], [0, sel, cel]],
+                      dtype=np.float32)
+    inl_mat = np.array([[cin, -sin_, 0], [sin_, cin, 0], [0, 0, 1]],
+                       dtype=np.float32)
+    cam_mat = (inl_mat @ el_mat @ az_mat).T
+    return (ROT90Y @ cam_mat).astype(np.float32)
 
 
 def project_points(sample_pc: torch.Tensor, trans_mat: torch.Tensor,

@@ -4,7 +4,7 @@ path of disn_tpu/infer/dense.py).
 fold='137': the reference's tf1 sampling (resize every endpoint map to
 137x137, then resample) is linear in the map values, so the five endpoint
 maps times their slices of the local fold2 weight collapse into ONE
-[1,137,137,512] map built once per image; per point that leaves four
+[137,137,512] map built once per image; per point that leaves four
 bilinear taps and the point MLPs. ``g_contrib = embedding @ W_g[512:]`` is
 the global stream's per-image contribution.
 
@@ -51,22 +51,47 @@ def normalize_fold(fold, cfg: Config) -> str:
 def fold_137(params: Params, embedding: torch.Tensor,
              endpoints: dict[str, torch.Tensor], cfg: Config
              ) -> dict[str, torch.Tensor]:
-    """Endpoint maps -> {"fold137": [1,137,137,512], "g_contrib": [1,512]},
-    both in the compute type."""
+    """Endpoint maps of a batch of B images -> {"fold137": [B,137,137,512],
+    "g_contrib": [B,512]}, both in the compute type.
+
+    The resize is linear in the channels, so it commutes with the fold2
+    slice's matmul; each map takes the order with fewer multiply-adds
+    (``_resize_first``): conv1_2 and conv2_2 are resized at their 64 and
+    128 channels, then folded at 137^2; the deeper maps are folded at their
+    own size, then resized at 512 channels."""
     cd = disn.compute_dtype(cfg)
     _, w_local = sdfnet.split_local_fold2(params["sdfprediction_imgfeat"])
     w_local = w_local.to(cd)
     merged = None
     off = 0
     for n in disn.endpoint_names(cfg):
-        c = endpoints[n].shape[-1]
-        f = torch.matmul(endpoints[n].to(cd), w_local[off:off + c])
+        x = endpoints[n].to(cd)
+        c = x.shape[-1]
+        w = w_local[off:off + c]
         off += c
-        r = image_ops.resize_bilinear(f, cfg.img_h, cfg.img_w)
+        if _resize_first(x.shape[1], x.shape[2], c, w.shape[1], cfg):
+            r = torch.matmul(
+                image_ops.resize_bilinear(x, cfg.img_h, cfg.img_w), w)
+        else:
+            r = image_ops.resize_bilinear(torch.matmul(x, w), cfg.img_h,
+                                          cfg.img_w)
         merged = r if merged is None else merged + r
     wg = params["sdfprediction"]["fold2"]["conv1"]["weights"]
     g_contrib = torch.matmul(embedding.to(cd), wg[512:].to(cd))
     return {"fold137": merged, "g_contrib": g_contrib}
+
+
+def _resize_first(h: int, w: int, c: int, d: int, cfg: Config) -> bool:
+    """Whether resizing an [h,w,c] map to 137^2 and then folding it to d
+    channels takes fewer multiply-adds than the other order. The resize is
+    two dense matmuls with the interpolation matrices: over the rows, then
+    the columns."""
+    oh, ow = cfg.img_h, cfg.img_w
+
+    def resize(ch):
+        return oh * h * w * ch + oh * ow * w * ch
+
+    return resize(c) + oh * ow * c * d < h * w * c * d + resize(d)
 
 
 def _prep(params: Params, img: torch.Tensor, cfg: Config,

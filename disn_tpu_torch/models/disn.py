@@ -1,5 +1,6 @@
-"""The DISN model graph, inference half (port of disn_tpu/models/disn.py):
-init, the VGG-16 encoder and its image preprocessing.
+"""The DISN model graph (port of disn_tpu/models/disn.py): init, the VGG-16
+encoder and its image preprocessing, the folded forward pass that training
+runs, and the loss.
 
 Top-level param keys mirror the TF variable scopes (vgg_16, sdfprediction,
 sdfprediction_imgfeat), so a JAX or TF checkpoint converts by name.
@@ -12,7 +13,8 @@ import torch
 
 from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config, EncoderKind, Variant
-from disn_tpu_torch.models import sdfnet, vgg
+from disn_tpu_torch.core import camera
+from disn_tpu_torch.models import layers, sdfnet, vgg
 from disn_tpu_torch.ops import image as image_ops
 
 Params = dict[str, Any]
@@ -33,7 +35,11 @@ def endpoint_names(cfg: Config) -> tuple[str, ...]:
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    """bfloat16, float32, or float64: the port's training forward pass also
+    runs in float64, where a card and the CPU round alike to 1e-16, so that
+    chip_smoke.py can hold their gradients free of float32's ReLU flips."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.compute_dtype, torch.float32)
 
 
 def init(cfg: Config, seed: int = 0,
@@ -73,3 +79,79 @@ def encode(params: Params, img: torch.Tensor, cfg: Config
     resized = preprocess_image(img, cfg)
     return vgg.apply(params["vgg_16"], resized,
                      compute_dtype=compute_dtype(cfg))
+
+
+def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
+          fold: bool = True) -> dict[str, torch.Tensor]:
+    """Forward pass of a batch, differentiable in `params`.
+
+    batch keys:
+      img           [B,137,137,C] float in [0,1] (or uint8)
+      sample_pc     [B,N,3] query points (model frame), projected
+      sample_pc_rot [B,N,3] optional view-rotated copy fed to the MLPs
+      trans_mat     [B,4,3] world->pixel right-multiply matrix
+    Returns {"img_embedding", "sample_img_points", "pred_sdf" [B,N,1|2]}.
+
+    fold=True (twostream + tf1 sampling) is the folded-137 form: the five
+    endpoint maps and the per-point 1472->512 matmul collapse into one
+    [B,137,137,512] map (infer/dense.fold_137), so a point samples 4 taps
+    of it, and autograd scatters 4 rows per point back into it. The
+    unfolded heads are not ported."""
+    if not fold:
+        raise NotImplementedError(
+            "the port implements the folded forward pass (fold=True)")
+    # infer.dense imports this module, so it is imported here
+    from disn_tpu_torch.infer import dense
+
+    dense.normalize_fold("137", cfg)
+    embedding, endpoints = encode(params, batch["img"], cfg)
+    folded = dense.fold_137(params, embedding, endpoints, cfg)
+    img_points = camera.project_points(batch["sample_pc"], batch["trans_mat"],
+                                       img_w=cfg.img_w, img_h=cfg.img_h)
+    local = image_ops.resampler(folded["fold137"], img_points)
+    pts_dec = batch.get("sample_pc_rot", batch["sample_pc"])
+    pred = sdfnet.apply_two_stream_prefold(
+        params["sdfprediction"], params["sdfprediction_imgfeat"], pts_dec,
+        folded["g_contrib"], local, compute_dtype(cfg))
+    if cfg.tanh:
+        pred = torch.tanh(pred)
+    return {"img_embedding": embedding, "sample_img_points": img_points,
+            "pred_sdf": pred}
+
+
+def get_loss(end_points: dict[str, torch.Tensor], gt_sdf: torch.Tensor,
+             params: Params, cfg: Config
+             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(loss, {name: 0-d tensor}), in float32 (float64 in a float64 pass).
+
+    Regression: L1 on (gt*10 - pred), near-surface points (gt <= 0.01)
+    weighted x4, overall x1000. Binary: softmax cross-entropy on the sign
+    labels x100. Plus the L2 weight decay when cfg.regularization is set.
+    gt_sdf: [B,N,1], already iso-offset by the caller when training."""
+    pred = image_ops.widen(end_points["pred_sdf"])
+    gt_sdf = gt_sdf.to(pred.dtype)
+    losses: dict[str, torch.Tensor] = {}
+    if cfg.binary:
+        labels = (gt_sdf[..., 0] > 0).long()
+        logp = torch.log_softmax(pred, dim=-1)
+        ce = -torch.gather(logp, -1, labels[..., None])
+        sdf_loss = torch.mean(ce) * 100.0
+        losses["accuracy"] = torch.mean(
+            (torch.argmax(pred, dim=-1) == labels).float())
+    else:
+        losses["accuracy"] = torch.mean(((gt_sdf > 0) == (pred > 0)).float())
+        weight_mask = (torch.where(gt_sdf <= cfg.mask_margin,
+                                   cfg.mask_weight, 0.0)
+                       + torch.where(gt_sdf > cfg.mask_margin, 1.0, 0.0))
+        sdf_loss = torch.mean(
+            torch.abs(gt_sdf * cfg.sdf_weight - pred) * weight_mask) * 1000.0
+        losses["sdf_loss_realvalue"] = torch.mean(
+            torch.abs(gt_sdf - pred / cfg.sdf_weight))
+    losses["sdf_loss"] = sdf_loss
+    loss = sdf_loss
+    if cfg.regularization:
+        reg = layers.l2_regularizer(params, cfg.weight_decay)
+        losses["regularization"] = reg
+        loss = loss + reg
+    losses["overall_loss"] = loss
+    return loss, losses

@@ -71,3 +71,24 @@ def max_pool2d(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
     """VALID max pool on NHWC."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=k, stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+def _weight_leaves(tree: Any):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _weight_leaves(v)
+        elif k == "weights":
+            yield v
+
+
+def l2_regularizer(params: Params, scale: float) -> torch.Tensor:
+    """scale * sum over every 'weights' leaf of ||w||^2 / 2, biases
+    excluded (slim.l2_regularizer), summed in float32."""
+    total = sum(torch.sum(torch.square(w.float())) / 2.0
+                for w in _weight_leaves(params))
+    return scale * total
+
+
+def param_count(params: Params) -> int:
+    return sum(v.numel() if torch.is_tensor(v) else param_count(v)
+               for v in params.values())

@@ -17,6 +17,11 @@ import numpy as np
 import torch
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """float64 stays float64; every other type becomes float32."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 @functools.lru_cache(maxsize=64)
 def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
     """[out, in] TF1-legacy bilinear interpolation matrix: src = dst*in/out,
@@ -33,17 +38,28 @@ def _interp_matrix(out_size: int, in_size: int) -> np.ndarray:
     return w
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_tensor(out_size: int, in_size: int, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """_interp_matrix on `device`, made once: a copy from pageable host
+    memory to a card waits for the card's stream to drain, which, once per
+    resize, left the card idle while the host caught up."""
+    return torch.from_numpy(_interp_matrix(out_size, in_size)).to(device,
+                                                                  dtype)
+
+
 def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int
                     ) -> torch.Tensor:
-    """[B,H,W,C] -> [B,out_h,out_w,C]. Interpolates in float32 whatever the
-    input type and casts back to it. On a GPU the caller keeps TF32 off
-    (torch.backends.cuda.matmul.allow_tf32, False by default) for f32 maps."""
+    """[B,H,W,C] -> [B,out_h,out_w,C]. Interpolates in float32 (float64 for
+    a float64 map) and casts back to the input type. On a GPU the caller
+    keeps TF32 off (torch.backends.cuda.matmul.allow_tf32, False by
+    default) for f32 maps."""
     _, h, w, _ = img.shape
     if (h, w) == (out_h, out_w):
         return img
-    x = img.float()
-    wh = torch.from_numpy(_interp_matrix(out_h, h)).to(img.device)
-    ww = torch.from_numpy(_interp_matrix(out_w, w)).to(img.device)
+    x = widen(img)
+    wh = _interp_tensor(out_h, h, x.device, x.dtype)
+    ww = _interp_tensor(out_w, w, x.device, x.dtype)
     x = torch.einsum("oh,bhwc->bowc", wh, x)
     x = torch.einsum("pw,bhwc->bhpc", ww, x)
     return x.to(img.dtype)
@@ -54,7 +70,7 @@ def resampler(data: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
     (0,0) is the corner pixel; taps outside [0, W-1] x [0, H-1] contribute
     zero. The result is float32 (the JAX version promotes a bf16 map against
-    its f32 tap weights the same way)."""
+    its f32 tap weights the same way), float64 for a float64 map."""
     b, h, w, c = data.shape
     x, y = coords[..., 0].float(), coords[..., 1].float()
     x0f, y0f = torch.floor(x), torch.floor(y)
@@ -68,7 +84,7 @@ def resampler(data: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
         idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
         vals = torch.gather(flat, 1, idx[..., None].expand(-1, -1, c))
-        return vals.float() * valid[..., None].float()
+        return widen(vals) * valid[..., None]
 
     v00 = gather(y0, x0)
     v01 = gather(y0, x0 + 1)

@@ -1,6 +1,6 @@
 """disn_tpu_torch stands alone: importing every module of it loads neither
-JAX nor any module of disn_tpu, and its entry points refuse to run on the
-CPU unless asked to."""
+JAX (nor optax or flax) nor any module of disn_tpu, and its entry points
+refuse to run on the CPU unless asked to."""
 import pkgutil
 import subprocess
 import sys
@@ -19,8 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(disn_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith("jax.") or k == "disn_tpu"
-             or k.startswith("disn_tpu."))
+             if k.split(".")[0] in ("jax", "jaxlib", "optax", "flax",
+                                    "disn_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -41,7 +41,9 @@ def test_every_module_is_listed():
     assert {"disn_tpu_torch.ops.fused_decode",
             "disn_tpu_torch.infer.pipeline", "disn_tpu_torch.native",
             "disn_tpu_torch.postprocessing",
-            "disn_tpu_torch.ops.marching"} <= names
+            "disn_tpu_torch.ops.marching", "disn_tpu_torch.train.trainer",
+            "disn_tpu_torch.train.checkpoint",
+            "disn_tpu_torch.data.pipeline", "disn_tpu_torch.cli"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
@@ -64,15 +66,19 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
 @pytest.mark.parametrize("entry", ["image_to_mesh", "init", "octahedron",
                                    "extract_mesh_owned",
                                    "extract_mesh_from_ids",
-                                   "extract_mesh_records"])
-def test_entry_points_need_a_device_without_cuda(entry):
+                                   "extract_mesh_records", "create_state",
+                                   "make_train_step", "make_eval_step",
+                                   "cli_train"])
+def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
+    from disn_tpu_torch import cli
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.models import disn
     from disn_tpu_torch.ops import marching
+    from disn_tpu_torch.train import trainer
 
     vol = np.ones((9, 9, 9), np.float32)
     box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
@@ -90,5 +96,14 @@ def test_entry_points_need_a_device_without_cuda(entry):
             marching.extract_mesh_from_ids(torch.from_numpy(vol), box, ids)
         elif entry == "extract_mesh_records":
             marching.extract_mesh_records(vol, box, ids, 0)
+        elif entry == "create_state":
+            trainer.create_state(cfg)
+        elif entry == "make_train_step":
+            trainer.make_train_step(cfg)
+        elif entry == "make_eval_step":
+            trainer.make_eval_step(cfg)
+        elif entry == "cli_train":
+            cli.main(["train", "--data-root", "unused", "--log-dir",
+                      str(tmp_path)])
         else:
             synthetic.analytic_octahedron_params(cfg)
