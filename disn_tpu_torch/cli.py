@@ -1,5 +1,5 @@
-"""Command-line interface of the port (the `train` subcommand of
-disn_tpu/cli.py):
+"""Command-line interface of the port (the `train`, `create-sdf`,
+`evaluate` and `evaluate-acc` subcommands of disn_tpu/cli.py):
 
     python -m disn_tpu_torch train --data-root DIR [--device cpu]
 
@@ -9,12 +9,23 @@ writes config.json, log_train.txt, metrics_train.jsonl and the checkpoints
 (latest.npz with the optimizer state, best.npz, epoch_NNN.npz) into
 --log-dir, in the JAX package's format: either package resumes the
 other's. `--set key=value` overrides a Config field.
+
+    python -m disn_tpu_torch create-sdf --data-root DIR --restore CKPT
+    python -m disn_tpu_torch evaluate --data-root DIR --pred-dir P --gt-dir G
+    python -m disn_tpu_torch evaluate-acc --data-root DIR --restore CKPT
+
+reconstruct every view of a split into
+{log-dir}/test_objs/{R}_{iso}/{cat}/{cat}_{obj}_{view:02d}.obj, score such
+a tree against {G}/{cat}/{obj}/isosurf.obj (CD, EMD, F-score, IoU; the
+result JSON on stdout and in --out), and print the SDF accuracy and losses
+over a split. Every subcommand runs on the GPU unless --device cpu.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import glob
+import json
 import os
 from typing import Any
 
@@ -131,6 +142,92 @@ def cmd_train(args) -> None:
         logger.close()
 
 
+def cmd_create_sdf(args) -> None:
+    from disn_tpu_torch import convert
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.utils.logging import MetricLogger
+
+    if args.multi_view:
+        raise NotImplementedError("--multi-view: the multiview fusion is "
+                                  "not ported yet (ROADMAP item 14)")
+    if args.cam_est:
+        raise NotImplementedError("--cam-est: the camera net is not ported "
+                                  "yet (ROADMAP item 13)")
+    dev = device_mod.resolve(args.device)
+    cfg = apply_overrides(Config(), args.set)
+    logger = MetricLogger(args.log_dir, name="test")
+    listinfo, _, paths = data_handles(cfg, args.data_root, args.split)
+    donor = convert.load_npz(args.restore)
+    written = pipeline.reconstruct_split(
+        donor.get("params", donor), cfg, paths, listinfo, args.log_dir,
+        sparse=not args.dense, logger=logger, shard_index=args.shard,
+        shard_count=args.shards, device=dev)
+    logger.log(f"wrote {len(written)} meshes")
+    logger.close()
+
+
+def cmd_evaluate(args) -> None:
+    from disn_tpu_torch.eval import runner
+
+    results = runner.evaluate_tree(
+        pred_dir=args.pred_dir, gt_dir=args.gt_dir,
+        lst_dir=os.path.join(args.data_root, "filelists"),
+        split=args.split, metrics=args.metrics.split(","),
+        num_points=args.num_points, view_num=args.view_num, dim=args.dim,
+        protocol=args.protocol, device_iou=args.device_iou,
+        cache_dir=args.cache_dir, device=args.device)
+    print(json.dumps(results, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=2)
+
+
+def cmd_evaluate_acc(args) -> None:
+    """SDF accuracy and losses on a split's sampled points (the reference's
+    test/test_sdf_acc.py): the metric-only eval step over one unshuffled
+    epoch, averaged over batches."""
+    from disn_tpu_torch import convert
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.data import pipeline
+    from disn_tpu_torch.train import trainer
+    from disn_tpu_torch.utils.logging import MetricLogger
+
+    dev = device_mod.resolve(args.device)
+    cfg = apply_overrides(Config(), args.set)
+    logger = MetricLogger(args.log_dir, name="acc")
+    listinfo, cats_limit, paths = data_handles(cfg, args.data_root,
+                                               args.split)
+    donor = convert.load_npz(args.restore)
+    params = device_mod.tree_to(donor.get("params", donor), dev)
+    loader = pipeline.make_loader(cfg, paths, listinfo, cats_limit,
+                                  epochs=1, shuffle=False, workers=4,
+                                  device=dev)
+    ev = trainer.make_eval_step(cfg, device=dev)
+    loader.start()
+    sums: dict[str, float] = {}
+    n = 0
+    try:
+        for batch in loader:
+            for k, v in ev(params, batch).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            n += 1
+    finally:
+        loader.shutdown()
+    logger.log(json.dumps({k: v / max(n, 1) for k, v in sums.items()},
+                          indent=2))
+    logger.close()
+
+
+def _common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--set", action="append", default=[], metavar="K=V",
+                   help="override a Config field")
+    p.add_argument("--log-dir", default="runs/default")
+    p.add_argument("--device", default=None,
+                   help="'cuda' (the default: it fails without a card) or "
+                        "'cpu'")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("disn_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -141,12 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "dumps of the JAX package's --dump-every need the "
                     "unfolded forward pass, which the port does not have "
                     "yet, so that option is not accepted.")
-    p.add_argument("--set", action="append", default=[], metavar="K=V",
-                   help="override a Config field")
-    p.add_argument("--log-dir", default="runs/default")
-    p.add_argument("--device", default=None,
-                   help="'cuda' (the default: it fails without a card) or "
-                        "'cpu'")
+    _common(p)
     p.add_argument("--data-root", required=True)
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--workers", type=int, default=4)
@@ -161,6 +253,53 @@ def build_parser() -> argparse.ArgumentParser:
                         "a checkpoint file or a run dir's latest.npz; "
                         "either package's")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("create-sdf", help="test-split reconstruction")
+    _common(p)
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--restore", required=True)
+    p.add_argument("--split", default="test")
+    p.add_argument("--cam-est", action="store_true",
+                   help="not ported yet: raises")
+    p.add_argument("--dense", action="store_true",
+                   help="exact dense path (default: sparse two-level)")
+    p.add_argument("--shard", type=int, default=0,
+                   help="this worker's index in a reconstruction farm")
+    p.add_argument("--shards", type=int, default=1,
+                   help="total farm workers (one process per card)")
+    p.add_argument("--multi-view", action="store_true",
+                   help="not ported yet: raises")
+    p.set_defaults(fn=cmd_create_sdf)
+
+    p = sub.add_parser("evaluate", help="cd/emd/f-score/iou over a result tree")
+    _common(p)
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--pred-dir", required=True)
+    p.add_argument("--gt-dir", required=True)
+    p.add_argument("--split", default="test")
+    p.add_argument("--metrics", default="cd,emd,fscore,iou")
+    p.add_argument("--num-points", type=int, default=2048)
+    p.add_argument("--view-num", type=int, default=24)
+    p.add_argument("--dim", type=int, default=110)
+    p.add_argument("--protocol", choices=["vertices", "surface"],
+                   default="vertices",
+                   help="point sampling: reference protocol (vertices) or "
+                        "uniform surface sampling")
+    p.add_argument("--device-iou", action="store_true",
+                   help="voxelize on the device by sampling")
+    p.add_argument("--cache-dir", default=None,
+                   help="per-object metric cache: a killed run resumes, "
+                        "skipping finished objects")
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("evaluate-acc",
+                       help="SDF sign-accuracy/loss on held-out points")
+    _common(p)
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--restore", required=True)
+    p.add_argument("--split", default="test")
+    p.set_defaults(fn=cmd_evaluate_acc)
     return ap
 
 

@@ -1,9 +1,13 @@
-"""On-disk formats the training data uses (a copy of the training half of
-disn_tpu/core/codecs.py): the SDF-sample h5 and the image+camera h5 of each
-object and view, and the `.dist` distance-field writer.
+"""On-disk formats (a copy of disn_tpu/core/codecs.py without the grid
+readers): the SDF-sample h5 and the image+camera h5 of each object and
+view, the `.dist` distance-field writer, and OBJ meshes.
 
 `h5py` is imported when a file is read or written, not with the module, and
-a clear error says so when it is missing.
+a clear error says so when it is missing. Large OBJ files go through the C
+formatter and parser of ``disn_tpu_torch.native`` (above 4096 vertices and
+64 KB, the JAX package's thresholds, so both packages write the same
+bytes); a failed build of those raises. The Python loops below the
+thresholds are the plain versions the tests hold the C code against.
 
 `.dist` layout:
     int32  -res, res, res
@@ -70,6 +74,14 @@ def write_sdf_h5(path: str, samples: np.ndarray, norm_params: np.ndarray,
                              compression="gzip", compression_opts=4)
 
 
+def read_sdf_params(path: str) -> np.ndarray:
+    """Only the sdf_params dataset of an SDF-sample h5: the one field
+    reconstruction needs, without decompressing the sample arrays."""
+    h5py = _h5py()
+    with h5py.File(path, "r") as f:
+        return f["sdf_params"][:].astype(np.float32)
+
+
 def read_sdf_h5(path: str) -> SdfSamples:
     h5py = _h5py()
     with h5py.File(path, "r") as f:
@@ -124,3 +136,53 @@ def read_view_h5(path: str) -> ViewRecord:
         return ViewRecord(img_arr=f["img_arr"][:],
                           **{k: f[k][:].astype(np.float32)
                              for k in _VIEW_MATS})
+
+
+# OBJ meshes: faces 0-based in memory, 1-based on disk.
+
+NATIVE_OBJ_VERTS = 4096      # write_obj formats in C above this many vertices
+NATIVE_OBJ_BYTES = 1 << 16   # read_obj parses in C above this file size
+
+
+def write_obj(path: str, vertices: np.ndarray,
+              faces: np.ndarray | None = None) -> None:
+    """A triangle mesh (or a point cloud when faces is None) as ASCII OBJ,
+    six decimals a coordinate."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    vertices = np.asarray(vertices)
+    if len(vertices) > NATIVE_OBJ_VERTS:
+        from disn_tpu_torch import native
+        data = native.format_obj(vertices, faces)
+        with open(path, "wb") as f:
+            f.write(data)
+        return
+    lines = [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in vertices]
+    if faces is not None:
+        lines += [f"f {f[0] + 1} {f[1] + 1} {f[2] + 1}"
+                  for f in np.asarray(faces)]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def read_obj(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """(vertices [V,3] f32, triangles [F,3] i32): polygons fan-triangulated;
+    normals, texture coordinates and materials ignored."""
+    if os.path.getsize(path) > NATIVE_OBJ_BYTES:
+        from disn_tpu_torch import native
+        with open(path, "rb") as f:
+            return native.parse_obj(f.read())
+    verts: list[list[float]] = []
+    faces: list[list[int]] = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                p = line.split()
+                verts.append([float(p[1]), float(p[2]), float(p[3])])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) - 1 for tok in line.split()[1:]]
+                for i in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+    return (np.asarray(verts, dtype=np.float32),
+            np.asarray(faces, dtype=np.int32).reshape(-1, 3))

@@ -1,5 +1,5 @@
 """Image -> mesh reconstruction (port of the synchronous core of
-disn_tpu/infer/pipeline.py).
+disn_tpu/infer/pipeline.py) and the reconstruction farm over a split.
 
 One call: encode + fold the image, build the SDF volume (two-level sparse
 when the grid allows, else the exact dense path) and extract the welded
@@ -8,17 +8,28 @@ ends in the extractor's candidate scan and the owned-edge extractor builds
 the welded mesh on the device, so one copy brings it to the host; the
 dense paths go through marching tetrahedra and the host weld. The JAX
 package's remote-link machinery (speculative buckets, parallel fetch
-streams, background assembly) is not ported.
+streams, background assembly, the farm's dispatch/collect software
+pipeline) is not ported.
+
+``reconstruct_split`` runs every (category, object, view) of a split into
+the reference's output tree: a reader thread prefetches the records, the
+calling thread owns all device work, and a bounded writer pool writes the
+OBJ files.
 """
 from __future__ import annotations
 
-from typing import Any
+import os
+from concurrent.futures import ThreadPoolExecutor
+from queue import Empty, Queue
+from threading import Event, Thread
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config
+from disn_tpu_torch.core import codecs
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import sparse as sparse_mod
 from disn_tpu_torch.ops import marching
@@ -27,6 +38,8 @@ from disn_tpu_torch.postprocessing import clean_small_parts
 Params = dict[str, Any]
 
 UNIT_BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+WRITERS = 4    # reconstruct_split's OBJ writer threads (at most spare cores)
+PREFETCH = 4   # records its reader thread reads ahead
 
 
 def _sparse_eligible(cfg: Config) -> bool:
@@ -61,7 +74,7 @@ def volume_to_mesh(vol: torch.Tensor, sdf_params, iso: float = 0.0,
 
 def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
                   sdf_params=None, iso: float | None = None,
-                  clean: bool = False,
+                  sparse: bool = True, clean: bool = False,
                   device: str | torch.device | None = None,
                   stats: dict | None = None
                   ) -> tuple[np.ndarray, np.ndarray]:
@@ -72,9 +85,9 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     the fine cells inside the active coarse cells and extracts the welded
     mesh on the device (route ``owned_ids``); if the scan's guard finds a
     sign change outside those cells, the whole volume is scanned instead
-    (``owned_scan``). When the active cells overflow the cap, or the config
-    is not eligible for the sparse path, the dense volume goes through
-    volume_to_mesh (``tets``).
+    (``owned_scan``). When the active cells overflow the cap, the config
+    is not eligible for the sparse path, or ``sparse`` is false, the dense
+    volume goes through volume_to_mesh (``tets``).
 
     `stats`, when given, receives per-stage wall times in ms (each stage
     synchronised: encode, prep, phase_a, phase_b and scan or
@@ -87,7 +100,7 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
         sdf_params = UNIT_BOX
     iso = cfg.iso if iso is None else iso
     scan = None
-    if _sparse_eligible(cfg):
+    if sparse and _sparse_eligible(cfg):
         vol, scan = sparse_mod.sparse_volume(
             params, img, trans_mat, sdf_params, cfg, device=dev,
             stats=stats, scan_iso=iso)
@@ -115,3 +128,93 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     if clean and len(faces):
         verts, faces = clean_small_parts(verts, faces)
     return verts, faces
+
+
+def result_dir(log_dir: str, cfg: Config) -> str:
+    """The reference's output root: {log_dir}/test_objs/{R}_{iso}."""
+    return os.path.join(log_dir, "test_objs",
+                        f"{cfg.grid_resolution}_{cfg.iso}")
+
+
+def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
+                      log_dir: str, sparse: bool = True, logger: Any = None,
+                      shard_index: int = 0, shard_count: int = 1,
+                      device: str | torch.device | None = None,
+                      read_view: Callable = codecs.read_view_h5,
+                      read_sdf_params: Callable = codecs.read_sdf_params
+                      ) -> list[str]:
+    """Reconstruct every (cat, obj, view) of `listinfo` whose position i
+    has i % shard_count == shard_index into
+    {result_dir}/{cat}/{cat}_{obj}_{view:02d}.obj; returns the paths.
+
+    The reader thread reads each view with ``read_view(paths.img_path(..))``
+    and each object's sdf_params once with
+    ``read_sdf_params(paths.sdf_path(..))`` (h5 files by default), at most
+    PREFETCH records ahead. The calling thread runs image_to_mesh on
+    `device` (the GPU by default; it raises without one); WRITERS
+    threads, at most the spare cores, write the files, and the calling
+    thread waits when more than 4 x WRITERS + 4 writes are pending."""
+    dev = device_mod.resolve(device)
+    params = device_mod.tree_to(params, dev)
+    my_list = [t for i, t in enumerate(listinfo)
+               if i % shard_count == shard_index]
+    out_root = result_dir(log_dir, cfg)
+    writers = max(1, min(WRITERS, (os.cpu_count() or 2) - 1))
+    q: Queue = Queue(maxsize=PREFETCH)
+    stop = Event()
+
+    def reader():
+        sdf_key, sdf_params = None, None
+        for cat_id, obj, view in my_list:
+            if stop.is_set():
+                break
+            try:
+                rec = read_view(paths.img_path(cat_id, obj, view))
+                if (cat_id, obj) != sdf_key:
+                    sdf_params = read_sdf_params(paths.sdf_path(cat_id, obj))
+                    sdf_key = (cat_id, obj)
+                q.put((cat_id, obj, view, rec, sdf_params))
+            except Exception as e:  # the calling thread re-raises it
+                q.put(e)
+                return
+        q.put(None)
+
+    t = Thread(target=reader, daemon=True)
+    t.start()
+    pool = ThreadPoolExecutor(writers)
+    futures: list = []
+    written = []
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, Exception):
+                raise item
+            cat_id, obj, view, rec, sdf_params = item
+            # u8 straight to the device, normalised there
+            img = rec.img_arr[:, :, :cfg.img_channels]
+            out = os.path.join(out_root, cat_id,
+                               f"{cat_id}_{obj}_{view:02d}.obj")
+            verts, faces = image_to_mesh(params, img, rec.trans_mat, cfg,
+                                         sdf_params=sdf_params, iso=cfg.iso,
+                                         sparse=sparse, device=dev)
+            futures.append(pool.submit(codecs.write_obj, out, verts, faces))
+            written.append(out)
+            while len(futures) > 4 * writers + 4:
+                futures.pop(0).result()
+            if logger:
+                logger.log(f"reconstructed {cat_id}/{obj}/{view}")
+        for f in futures:
+            f.result()
+    finally:
+        stop.set()
+        # unblock a reader waiting on the full queue, then join it
+        while t.is_alive():
+            try:
+                q.get(timeout=0.1)
+            except Empty:
+                pass
+        t.join()
+        pool.shutdown(wait=True)  # no truncated files left behind
+    return written

@@ -1,10 +1,13 @@
-"""ctypes bindings for the host mesh assembler, native/meshassemble.cpp.
+"""ctypes bindings for the host C++ passes of native/: the mesh assembler
+(meshassemble.cpp) and, for evaluation, the OBJ formatter and parser
+(objwriter.cpp, objreader.cpp) and the exact surface voxelizer
+(voxelsat.cpp).
 
 The record route of ``ops/marching.py`` ships per-cell records to the host;
 these C++ passes rebuild the welded mesh from them, in the device
-extractor's vertex order and with its triangle tables. The source is
+extractor's vertex order and with its triangle tables. Each library is
 compiled with the host C++ compiler at first use into ``build/native/``
-under the repository root, named by a hash of the source, the flags and
+under the repository root, named by a hash of its sources, the flags and
 the CPU's features (the flags include -march=native), and loaded with
 ctypes. A build failure raises (``RuntimeError``), and so
 does a pass that reports inconsistent input: there is no fallback here.
@@ -13,9 +16,12 @@ The numpy versions (``marching.assemble_mesh_np``, ``derive_recs_np``,
 them by name.
 
 Bound here: ``mesh_expand_ids``, ``derive_recs``, ``mesh_faces_blocks``,
-``mesh_verts_blocks`` and ``mesh_assemble``. The incremental entry points
-of the source (``*_incr``, ``*_range``) serve chunked record streams,
-which the port does not have.
+``mesh_verts_blocks`` and ``mesh_assemble`` (libmeshassemble); the
+incremental entry points of that source (``*_incr``, ``*_range``) serve
+chunked record streams, which the port does not have. ``format_obj``,
+``parse_obj`` and ``voxelize_sat`` (libevalio, the three evaluation
+sources in one library). Every call releases the GIL (ctypes), so the
+evaluator's and the writer's pool threads overlap.
 """
 from __future__ import annotations
 
@@ -30,9 +36,13 @@ from pathlib import Path
 
 import numpy as np
 
+from disn_tpu_torch.kernels import build_lock
 from disn_tpu_torch.ops import marching
 
-_SRC = Path(__file__).resolve().parents[1] / "native" / "meshassemble.cpp"
+_NATIVE = Path(__file__).resolve().parents[1] / "native"
+_SRC = _NATIVE / "meshassemble.cpp"
+_EVAL_SRCS = tuple(_NATIVE / f for f in ("objwriter.cpp", "objreader.cpp",
+                                          "voxelsat.cpp"))
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-shared")
 
@@ -60,26 +70,58 @@ def _cpu_tag() -> str:
     return tag
 
 
-def build() -> Path:
-    """Compile native/meshassemble.cpp (once per hash of the source, the
-    flags and the CPU's features) and return the shared library's path."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()
+def _build(name: str, srcs: tuple[Path, ...]) -> Path:
+    """Compile `srcs` into lib<name>-<hash>.so (once per hash of the
+    sources, the flags and the CPU's features) and return its path. One
+    thread at a time builds a library."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
+                            + " ".join(CXX_FLAGS).encode()
                             + _cpu_tag().encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libmeshassemble-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot run the C++ compiler {cxx!r}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"{cxx} failed on {_SRC.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)
+    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    with build_lock(lib.name):
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        try:
+            proc = subprocess.run(
+                [cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(
+                f"cannot run the C++ compiler {cxx!r}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed on "
+                               f"{', '.join(p.name for p in srcs)}:\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+    return lib
+
+
+def build() -> Path:
+    """Compile native/meshassemble.cpp and return the library's path."""
+    return _build("meshassemble", (_SRC,))
+
+
+def build_eval() -> Path:
+    """Compile the OBJ formatter, the OBJ parser and the voxelizer into one
+    library and return its path."""
+    return _build("evalio", _EVAL_SRCS)
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_eval()))
+    lib.format_obj.restype = _I64
+    lib.format_obj.argtypes = [_F32P, _I32, _I32P, _I32,
+                               ctypes.POINTER(ctypes.c_char), _I64]
+    lib.parse_obj.restype = _I64
+    lib.parse_obj.argtypes = [ctypes.c_char_p, _I64, _F32P, _I64, _I32P,
+                              _I64, _I64P]
+    lib.voxelize_sat.restype = None
+    lib.voxelize_sat.argtypes = [_F32P, _I64, _I32P, _I64, _I32,
+                                 ctypes.c_float, ctypes.c_float, _U8P]
     return lib
 
 
@@ -256,3 +298,57 @@ def mesh_assemble(ids: np.ndarray, recs: np.ndarray, tq: np.ndarray,
         raise RuntimeError(f"mesh_assemble failed (rc={rc}): the records "
                            "and the id list are inconsistent")
     return verts[:counts[0]].copy(), faces[:counts[1]].copy()
+
+
+def format_obj(verts: np.ndarray, faces: np.ndarray | None) -> memoryview:
+    """ASCII OBJ text of (verts [V,3] f32, faces [F,3] i32 0-based) from the
+    C formatter, as a view of a buffer of its own."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(np.zeros((0, 3), np.int32)
+                                 if faces is None else faces, np.int32)
+    nv, nf = len(verts), len(faces)
+    # the longest lines objwriter.cpp writes: 3 x 27 + 4 and 3 x 12 + 4
+    buf = np.empty(nv * (3 * 27 + 4) + nf * (3 * 12 + 4) + 64, np.uint8)
+    n = _eval_lib().format_obj(
+        _ptr(verts, _F32P), nv, _ptr(faces, _I32P), nf,
+        buf.ctypes.data_as(ctypes.POINTER(ctypes.c_char)), int(buf.nbytes))
+    if n < 0:
+        raise RuntimeError("format_obj: buffer overflow")
+    return memoryview(buf)[:n]
+
+
+def parse_obj(data: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """ASCII OBJ bytes -> (verts [V,3] f32, faces [F,3] i32 0-based,
+    polygons fan-triangulated) from the C parser. The capacities come from
+    counts of line starts; a file with more triangles than two a face line
+    is parsed again at the counts the parser reports."""
+    vcap = max(1, data.count(b"\nv ") + data.startswith(b"v "))
+    fcap = 2 * max(1, data.count(b"\nf ") + data.startswith(b"f "))
+    counts = np.zeros(2, np.int64)
+    for _ in range(2):
+        verts = np.empty((vcap, 3), np.float32)
+        faces = np.empty((fcap, 3), np.int32)
+        rc = _eval_lib().parse_obj(data, len(data), _ptr(verts, _F32P),
+                                   vcap, _ptr(faces, _I32P), fcap,
+                                   _ptr(counts, _I64P))
+        if rc == 0:
+            return verts[:counts[0]].copy(), faces[:counts[1]].copy()
+        if rc != -1:
+            raise ValueError(f"parse_obj: malformed OBJ (rc={rc})")
+        vcap, fcap = int(counts[0]), int(counts[1])
+    raise RuntimeError("parse_obj: the parser's counts did not fit")
+
+
+def voxelize_sat(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
+                 offset: float = 1.1, span: float = 2.4) -> np.ndarray:
+    """Boolean [dim,dim,dim] occupancy: a cell is marked iff a triangle
+    intersects it (the 13-axis separating-axis test of voxelsat.cpp). Cell
+    (i,j,k) covers [-offset + i*cell, -offset + (i+1)*cell) per axis with
+    cell = span/dim."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32).reshape(-1, 3)
+    occ = np.zeros(dim ** 3, np.uint8)
+    _eval_lib().voxelize_sat(_ptr(verts, _F32P), len(verts),
+                             _ptr(faces, _I32P), len(faces), dim,
+                             offset, span, _ptr(occ, _U8P))
+    return occ.reshape(dim, dim, dim).astype(bool)

@@ -35,16 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import time
 import weakref
 from pathlib import Path
 
 import torch
 
+from disn_tpu_torch import kernels
 from disn_tpu_torch.core import camera
 
 STRIDE = 4
@@ -56,10 +53,6 @@ TILE_K, TILE_N = 64, 256
 TILE_ELEMS = TILE_K * TILE_N
 GEMM_SHAPES = ((64, 256), (256, 512), (512, 512), (512, 256))  # w2..w4
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_decode.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def cell_points(cell_ids: torch.Tensor, coarse_c: int, fine_r: int,
@@ -295,23 +288,7 @@ def build() -> Path:
 
 def _build(defines: tuple[str, ...]) -> Path:
     """build() with preprocessor defines, e.g. ("K1_TRACE",)."""
-    src = _SRC.read_bytes()
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libfused_decode-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = (os.environ.get("NVCC") or shutil.which("nvcc")
-            or "/usr/local/cuda/bin/nvcc")
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *flags, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC.name}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    return kernels.nvcc_build("fused_decode", defines)
 
 
 @functools.lru_cache(maxsize=None)

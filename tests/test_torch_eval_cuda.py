@@ -1,0 +1,128 @@
+"""K6a-K6d (csrc/metrics.cu) against their plain PyTorch versions on the
+card, at small and ragged shapes. Needs an NVIDIA GPU and nvcc; skips
+without them. Imports nothing of JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_eval_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from disn_tpu_torch.eval import metrics as mt
+
+EPS32 = 2.0 ** -23
+NN_ULPS = 8           # a.b and the Gram sum rounded in another order
+EMD_REL_TOL = 1e-3    # the level -16384 amplification of those roundings
+MARGINAL_TOL = 1e-3
+SUM_REL_TOL = 1e-4    # n * eps of the sums of |terms| for n <= 2048
+SHAPES = [(1, 1, 1), (2, 5, 3), (3, 256, 100), (3, 100, 256), (2, 257, 191),
+          (4, 512, 512), (1, 1000, 2047)]
+
+
+def clouds(b, n, m, seed=0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    rng = np.random.RandomState(seed + 7 * n + m)
+    return (torch.from_numpy((0.5 * rng.randn(b, n, 3)).astype(np.float32)
+                             ).cuda(),
+            torch.from_numpy((0.5 * rng.randn(b, m, 3)).astype(np.float32)
+                             ).cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SHAPES)
+def test_nn_distance_kernel_matches_plain(b, n, m):
+    x, y = clouds(b, n, m)
+    before = mt.nn_distance.launches
+    got, want = mt.nn_distance(x, y), mt.nn_distance_plain(x, y)
+    assert mt.nn_distance.launches == before + 1
+    tol = NN_ULPS * EPS32 * float((x * x).sum(-1).max()
+                                  + (y * y).sum(-1).max())
+    for k in (0, 2):
+        assert float((got[k] - want[k]).abs().max()) <= tol
+    for k, (a, c) in ((1, (x, y)), (3, (y, x))):
+        assert got[k].dtype == torch.int32
+        # an index may differ only where the two candidates are a near-tie
+        rows = torch.nonzero(got[k] != want[k], as_tuple=True)
+        if len(rows[0]):
+            p = a[rows].double()
+            da = ((p - c[rows[0], got[k][rows].long()].double()) ** 2).sum(-1)
+            dp = ((p - c[rows[0], want[k][rows].long()].double()) ** 2).sum(-1)
+            assert float((da - dp).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_nn_distance_kernel_ties_take_the_lowest_index():
+    x, y = clouds(2, 64, 48)
+    y[:, 30] = y[:, 4]
+    y[:, 47] = y[:, 4]
+    got = mt.nn_distance(x, y)
+    want = mt.nn_distance_plain(x, y)
+    assert torch.equal(got[1], want[1])
+    assert not ((got[1] == 30) | (got[1] == 47)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SHAPES)
+def test_approx_match_kernel_matches_plain(b, n, m):
+    x, y = clouds(b, n, m, seed=1)
+    before = mt.approx_match.launches
+    got, want = mt.approx_match(x, y), mt.approx_match_plain(x, y)
+    assert mt.approx_match.launches == before + 1
+    assert got.shape == (b, m, n) and bool((got >= 0).all())
+    ck, cp = mt.match_cost_plain(x, y, got), mt.match_cost_plain(x, y, want)
+    assert float(((ck - cp).abs() / cp.abs().clamp_min(1e-30)).max()) \
+        <= EMD_REL_TOL
+    assert float((got.sum(1) - want.sum(1)).abs().max()) <= MARGINAL_TOL
+    assert float((got.sum(2) - want.sum(2)).abs().max()) <= MARGINAL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SHAPES)
+def test_match_cost_kernel_and_gradient_match_plain(b, n, m):
+    x, y = clouds(b, n, m, seed=2)
+    match = mt.approx_match(x, y)
+    before = (mt.match_cost.launches, mt.match_cost_grad.launches)
+    got = mt.match_cost(x, y, match)
+    want = mt.match_cost_plain(x, y, match)
+    assert float((got - want).abs().max()) <= \
+        SUM_REL_TOL * float(want.abs().max()) + 1e-7
+    g = torch.linspace(0.5, 1.5, b, device="cuda")
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    (mt.match_cost(xr, yr, match) * g).sum().backward()
+    assert (mt.match_cost.launches, mt.match_cost_grad.launches) == \
+        (before[0] + 2, before[1] + 1)
+    w1, w2 = mt.match_cost_grad_plain(x, y, match, g)
+    scale = float(g.max()) * max(float(match.sum(1).max()),
+                                 float(match.sum(2).max()))
+    assert float((xr.grad - w1).abs().max()) <= SUM_REL_TOL * scale
+    assert float((yr.grad - w2).abs().max()) <= SUM_REL_TOL * scale
+
+
+@pytest.mark.cuda
+def test_nn_distance_backward_on_the_card_matches_the_cpu():
+    """The gather and index_add_ backward (atomics in any order)."""
+    x, y = clouds(3, 300, 200, seed=3)
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    d1, i1, d2, i2 = mt.nn_distance(xr, yr)
+    w1 = torch.linspace(0, 1, 300, device="cuda").expand(3, -1)
+    w2 = torch.linspace(1, 2, 200, device="cuda").expand(3, -1)
+    ((d1 * w1).sum() + (d2 * w2).sum()).backward()
+    cpu = mt.nn_distance_backward(x.cpu(), y.cpu(), i1.cpu(), i2.cpu(),
+                                  w1.cpu().contiguous(), w2.cpu().contiguous())
+    for got, want in zip((xr.grad, yr.grad), cpu):
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_chamfer_emd_and_f_score_on_the_card_match_the_cpu():
+    x, y = clouds(4, 700, 650, seed=4)
+    card = mt.chamfer_emd(x, y)
+    cpu = mt.chamfer_emd(x.cpu(), y.cpu())
+    for k in ("cd", "emd"):
+        torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-3, atol=0)
+    th = np.array([0.05, 0.1, 0.2], np.float32)
+    fc, fh = mt.f_score(x, y, th), mt.f_score(x.cpu(), y.cpu(), th)
+    for k in ("precision", "recall"):
+        assert float((fc[k].cpu() - fh[k]).abs().max()) <= 1 / 650

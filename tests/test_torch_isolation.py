@@ -43,17 +43,24 @@ def test_every_module_is_listed():
             "disn_tpu_torch.postprocessing",
             "disn_tpu_torch.ops.marching", "disn_tpu_torch.train.trainer",
             "disn_tpu_torch.train.checkpoint",
-            "disn_tpu_torch.data.pipeline", "disn_tpu_torch.cli"} <= names
+            "disn_tpu_torch.data.pipeline", "disn_tpu_torch.cli",
+            "disn_tpu_torch.eval.metrics", "disn_tpu_torch.eval.runner",
+            "disn_tpu_torch.ops.voxelize", "disn_tpu_torch.core.meshes",
+            "disn_tpu_torch.kernels"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
-    """The host assembler's bindings, built and called, stand alone too."""
+    """The host libraries' bindings, built and called, stand alone too."""
     code = (
         "import sys, numpy as np\n"
         "from disn_tpu_torch import native\n"
         "blk = np.array([[0, 1, 0]], np.int32)\n"
         "ids, n = native.mesh_expand_ids(blk, 9)\n"
         "assert n == 1 and ids.tolist() == [0]\n"
+        "v = np.eye(3, dtype=np.float32); f = np.array([[0, 1, 2]], np.int32)\n"
+        "assert native.voxelize_sat(v, f, dim=4).any()\n"
+        "assert native.parse_obj(bytes(native.format_obj(v, f)))[1].tolist()"
+        " == [[0, 1, 2]]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'disn_tpu'))\n"
         "print(bad)\n"
@@ -68,16 +75,20 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "extract_mesh_from_ids",
                                    "extract_mesh_records", "create_state",
                                    "make_train_step", "make_eval_step",
-                                   "cli_train"])
+                                   "cli_train", "reconstruct_split",
+                                   "evaluate_tree", "occupancy_device",
+                                   "cli_create_sdf", "cli_evaluate",
+                                   "cli_evaluate_acc"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from disn_tpu_torch import cli
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.eval import runner
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.models import disn
-    from disn_tpu_torch.ops import marching
+    from disn_tpu_torch.ops import marching, voxelize
     from disn_tpu_torch.train import trainer
 
     vol = np.ones((9, 9, 9), np.float32)
@@ -105,5 +116,21 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
         elif entry == "cli_train":
             cli.main(["train", "--data-root", "unused", "--log-dir",
                       str(tmp_path)])
+        elif entry == "reconstruct_split":
+            pipeline.reconstruct_split({}, cfg, None, [], str(tmp_path))
+        elif entry == "evaluate_tree":
+            runner.evaluate_tree(str(tmp_path), str(tmp_path), str(tmp_path))
+        elif entry == "occupancy_device":
+            voxelize.occupancy_device(np.eye(3, dtype=np.float32),
+                                      np.array([[0, 1, 2]], np.int32))
+        elif entry == "cli_create_sdf":
+            cli.main(["create-sdf", "--data-root", "unused", "--restore",
+                      "unused", "--log-dir", str(tmp_path)])
+        elif entry == "cli_evaluate":
+            cli.main(["evaluate", "--data-root", "unused", "--pred-dir",
+                      "unused", "--gt-dir", "unused"])
+        elif entry == "cli_evaluate_acc":
+            cli.main(["evaluate-acc", "--data-root", "unused", "--restore",
+                      "unused", "--log-dir", str(tmp_path)])
         else:
             synthetic.analytic_octahedron_params(cfg)
