@@ -67,14 +67,15 @@ def _pow2(n: int) -> int:
 
 def occupancy_device(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
                      offset: float = 1.1, span: float = 2.4,
-                     samples_per_cell: float = 4.0,
+                     samples_per_cell: float = 4.0, seed: int = 0,
                      device: str | torch.device | None = None) -> np.ndarray:
     """Boolean [dim,dim,dim] surface occupancy sampled on `device` (the GPU
     by default; it raises without one): triangles drawn by area through a
     cumulative sum and searchsorted, uniform points on them, the corners,
     and a scatter into a [dim^3] grid. The sample count is the JAX
     package's (a power of two between 2^12 and 2^22); the draws come from a
-    torch.Generator seeded with 0, so they are not the JAX package's."""
+    torch.Generator on `device` seeded with `seed`, so they are not the JAX
+    package's, nor the same on the CPU and on the card."""
     dev = device_mod.resolve(device)
     if len(faces) == 0:
         return np.zeros((dim, dim, dim), dtype=bool)
@@ -93,7 +94,7 @@ def occupancy_device(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
                                                dim=1), 0)
     cdf = cdf / torch.clamp_min(cdf[-1], 1e-12)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     u = torch.rand(n, generator=gen, device=dev)
     fi = torch.clamp(torch.searchsorted(cdf, u), 0, len(f_np) - 1)
     r1 = torch.sqrt(torch.rand((n, 1), generator=gen, device=dev))
@@ -117,11 +118,12 @@ def occupancy_iou(o1: np.ndarray, o2: np.ndarray) -> float:
     return float(np.logical_and(o1, o2).sum()) / float(union)
 
 
-def iou_meshes_device(mesh1, mesh2, dim: int = 110,
+def iou_meshes_device(mesh1, mesh2, dim: int = 110, seed: int = 0,
                       device: str | torch.device | None = None) -> float:
-    """IoU of two meshes' occupancy_device grids."""
-    return occupancy_iou(occupancy_device(*mesh1, dim=dim, device=device),
-                         occupancy_device(*mesh2, dim=dim, device=device))
+    """IoU of two meshes' occupancy_device grids, both drawn from `seed`."""
+    return occupancy_iou(
+        occupancy_device(*mesh1, dim=dim, seed=seed, device=device),
+        occupancy_device(*mesh2, dim=dim, seed=seed, device=device))
 
 
 def fill_solid(occ_surface: np.ndarray) -> np.ndarray:

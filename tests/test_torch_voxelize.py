@@ -106,6 +106,30 @@ def test_device_occupancy_samples_like_jax(meshes, dim):
     assert dev == pytest.approx(jv.iou_meshes_device(a, b, dim=dim), abs=0.02)
 
 
+def test_device_iou_seeds_follow_jax(meshes):
+    """The seed picks the draws (0 by default, as in the JAX package), and
+    over 8 seeds the port's sampled IoU of the spheres follows the JAX
+    package's: the two means within 4 standard errors of their
+    difference (the draws differ, torch.Generator against jax.random)."""
+    m1, m2 = meshes["sphere"], meshes["sphere55"]
+    occ = [tv.occupancy_device(*m1, dim=48, seed=s, device="cpu")
+           for s in (0, 0, 1)]
+    np.testing.assert_array_equal(occ[0], occ[1])
+    np.testing.assert_array_equal(
+        occ[0], tv.occupancy_device(*m1, dim=48, device="cpu"))
+    assert (occ[0] != occ[2]).any()
+    seeds = range(8)
+    got = np.array([tv.iou_meshes_device(m1, m2, dim=48, seed=s,
+                                         device="cpu") for s in seeds])
+    want = np.array([tv.occupancy_iou(jv.occupancy_device(*m1, dim=48,
+                                                          seed=s),
+                                      jv.occupancy_device(*m2, dim=48,
+                                                          seed=s))
+                     for s in seeds])
+    se = np.sqrt((got.var(ddof=1) + want.var(ddof=1)) / len(seeds))
+    assert abs(got.mean() - want.mean()) <= 4 * se
+
+
 def test_occupancy_device_needs_a_device_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
