@@ -6,20 +6,32 @@ Run from the repository root on a machine with one CUDA card, nvcc and a
 host C++ compiler. It imports nothing of JAX or disn_tpu. Phases, each fatal
 on failure:
 
-1. build every kernel of the port from csrc/ (nvcc, sm_90a: fused_decode.cu
-   and metrics.cu) and, beside them, the host mesh assembler from
-   native/meshassemble.cpp and the OBJ formatter, OBJ parser and voxelizer
-   of evaluation (g++), all started together, and report the build seconds
-   and the compiler's register/shared-memory/wgmma report; a wgmma the
-   compiler serialised fails the run;
-2. drive the main path, pipeline.image_to_mesh at sdf_res=256 on the
-   full-width VGG-16 two-stream net (analytic octahedron head, r=0.6, the
-   demo camera): a warm-up image and 3 fresh seeded u8 images in bf16, then
-   one image in f32 with TF32 off. Checks: > 1000 faces, every vertex on
-   |x|+|y|+|z| = 0.6, K1 launched in both the coarse and the fine pass, and
-   the mesh came welded from the device (route owned_ids, guard 0). The
-   inputs of K1's two launches for one bf16 image and the f32 image are
-   kept;
+1. build every kernel of the port from csrc/ (nvcc, sm_90a: fused_decode.cu,
+   metrics.cu and sparse_words.cu) and, beside them, the host mesh
+   assembler from native/meshassemble.cpp and the OBJ formatter, OBJ parser
+   and voxelizer of evaluation (g++), all started together, and report the
+   build seconds and the compiler's register/shared-memory/wgmma report; a
+   wgmma the compiler serialised fails the run;
+2. drive the main path, pipeline.image_to_mesh with the default Config at
+   sdf_res=256 on the full-width VGG-16 two-stream net (analytic octahedron
+   head, r=0.6, the demo camera): a warm-up image and 3 fresh seeded u8
+   images in bf16, then one image in f32 with TF32 off, with the K1 and K5
+   counts set to 0 just before and read just after. Every image must take
+   the sparse-words flow (route records_sparse, guard 0: K1 in the coarse
+   and the fine pass, K5 once on the fine rows, the record route's host
+   assembly), with > 1000 faces and every vertex on |x|+|y|+|z| = 0.6
+   within SURFACE_TOL + 3 x span/(R-1)/510 (the records' u8 edge
+   parameter). Then the volume flow (sparse_words=False) on the same 4 bf16
+   images, its counts set to 0 just before and read just after (8 K1
+   launches, no K5): route owned_ids, guard 0, within SURFACE_TOL; the two
+   flows' meshes have equal faces, in order, and vertices within
+   span/(R-1)/510 + 1e-6. The inputs of K1's two launches and K5's one for
+   one bf16 image and the f32 image are kept; [swords hold]: on that bf16
+   image the words flow and the volume flow from one phase_a give equal
+   block rows, cell counts and (rec, tq) on every slot; K5 equals its plain
+   version bit for bit on the kept inputs (timed) and on seeded random
+   inputs at 257^3 (u8) and 65^3 (u16) with absent neighbours, rows at the
+   iso and ragged counts;
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -32,18 +44,23 @@ on failure:
    random cells of a 49^3 grid, whose spacing 2/48 is inexact in f32 (the
    main path's 2/64 and 2/256 are exact), the same way;
 4. hold the extraction routes against each other on the card, on the volume
-   and scan of one bf16 main-path image (257^3) and of an f32 image at
-   sdf_res=48 (49^3): the candidate scan's ids equal the full scan's; the
-   full-scan owned route equals the owned_ids route exactly; owned against
-   marching_tets + weld as vertex and triangle sets, with the Euler
-   characteristic; the record route through the C++ passes (faces
-   identical, vertices within the quantisation bound); the C++ passes
-   against assemble_mesh_np on the same records. At 49^3 also: grid-point
-   coordinates (plane_points, _world) and extracted vertices against an
-   IEEE f32 evaluation on the host (equal) and a float64 one (1 ulp);
+   flow's volume and scan of one bf16 main-path image (257^3) and of an f32
+   image at sdf_res=48 (49^3): the candidate scan's ids equal the full
+   scan's; the full-scan owned route equals the owned_ids route exactly
+   (and the volume flow's mesh); owned against marching_tets + weld as
+   vertex and triangle sets, with the Euler characteristic; the record
+   route through the C++ passes (faces identical, vertices within the
+   quantisation bound); the C++ passes against assemble_mesh_np on the same
+   records. At 49^3 also: grid-point coordinates (plane_points, _world) and
+   extracted vertices against an IEEE f32 evaluation on the host (equal)
+   and a float64 one (1 ulp);
 5. time every part of both routes and of marching_tets + weld at 257^3
    (median of 5 after a warm-up; CUDA events around device parts, the host
    clock around host parts and copies) beside a bound from the run's sizes;
+   [flows ab]: the two flows' wall time on 10 more images, in turns (not
+   gated); [phase_a profile]: torch.profiler over one phase_a of that image
+   (idle share, top ops and kernels), and [k4]: the band cull on the 65^3
+   grid beside its byte bound;
 6. evaluate. [eval hold]: K6a-K6d (metrics.cu: nn_distance, approx_match,
    match_cost and its gradient) against their plain PyTorch versions on
    the card in the protocol's argument order, at B = 24, N = M = 2048 on
@@ -81,10 +98,11 @@ on failure:
    ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
    latest.npz after step 3 holds exactly the JAX package's names, and
    restored into a fresh state it gives the same state and step-4 loss;
-8. print per-stage times, each bf16 main-path launch's share of its bound
-   and the weight bytes it moves from L2, the card, and the kernel table as
-   JSON (K1's launches from the inference run of phase 2, K6's from the
-   farm's evaluate_tree, where K6d is not called: it serves autograd).
+8. print per-stage times of both flows, each bf16 main-path launch's share
+   of its bound and the weight bytes it moves from L2, the card, and the
+   kernel table as JSON (K1's and K5's launches from the main path's run of
+   phase 2, K6's from the farm's evaluate_tree, where K6d is not called: it
+   serves autograd).
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before printing it.
@@ -173,37 +191,41 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build() -> None:
-    """nvcc on the two kernel sources and the host compiler on the mesh
+    """nvcc on the three kernel sources and the host compiler on the mesh
     assembler and the evaluation library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from disn_tpu_torch import native
     from disn_tpu_torch.eval import metrics
-    from disn_tpu_torch.ops import fused_decode
+    from disn_tpu_torch.ops import fused_decode, sparse_words
 
     def timed(build):
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(4) as pool:
-        k1_s, k6_s, asm_s, eio_s = pool.map(
-            timed, (fused_decode.build, metrics.build, native.build,
-                    native.build_eval))
+    with ThreadPoolExecutor(5) as pool:
+        k1_s, k6_s, k5_s, asm_s, eio_s = pool.map(
+            timed, (fused_decode.build, metrics.build, sparse_words.build,
+                    native.build, native.build_eval))
     secs = fused_decode.build_seconds()
     native._lib()
     native._eval_lib()
     metrics._lib()
+    sparse_words._lib()
     print(f"[build] fused_decode.cu built in {k1_s:.2f} s (loaded in "
           f"{secs:.2f} s); meshassemble.cpp built in {asm_s:.2f} s -> "
           f"{native.build().parent.name}/{native.build().name}")
     print(f"[eval build] metrics.cu built in {k6_s:.2f} s -> "
           f"{metrics.build().name}; objwriter/objreader/voxelsat.cpp built "
           f"in {eio_s:.2f} s -> {native.build_eval().name}")
+    print(f"[swords build] sparse_words.cu built in {k5_s:.2f} s -> "
+          f"{sparse_words.build().name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg")
     for tag, lib in (("[build]", fused_decode.build()),
-                     ("[eval build]", metrics.build())):
+                     ("[eval build]", metrics.build()),
+                     ("[swords build]", sparse_words.build())):
         log = lib.with_suffix(".log").read_text()
         for line in log.splitlines():
             if any(k in line for k in keys):
@@ -282,8 +304,8 @@ def phase_k1_check(kept: dict) -> dict:
     from disn_tpu_torch.data import synthetic
 
     res = {}
-    for dt, calls in kept.items():
-        for (args, kw), pass_ in zip(calls, ("coarse", "fine")):
+    for dt in ("bf16", "f32"):
+        for (args, kw), pass_ in zip(kept[dt], ("coarse", "fine")):
             res[(dt, "main", pass_)] = hold_k1(f"{dt} main-path {pass_}",
                                                args, kw)
     args_by_pass = dict(zip(("coarse", "fine"), kept["bf16"]))
@@ -341,88 +363,383 @@ def print_k1_shares(kept: dict, ref: list) -> None:
 
 
 def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
-                  kept: dict, meshes: dict) -> list[dict]:
-    """image_to_mesh on each image; returns per-image stats. The inputs of
-    image `keep`'s K1 launches go into kept[label], its mesh into
-    meshes[label]."""
+                  kept: dict | None, meshes: dict) -> list[dict]:
+    """image_to_mesh on each image; returns per-image stats. With
+    cfg.sparse_words (the default) every image must take the sparse-words
+    flow (route records_sparse: K1 twice, K5 once), otherwise the volume
+    flow (owned_ids: K1 twice, no K5). The inputs of image `keep`'s K1 and
+    K5 launches go into kept[label] and kept[label + " k5"] when `kept` is
+    given; every image's mesh goes into meshes[label]."""
     import torch
     from disn_tpu_torch.infer import pipeline
-    from disn_tpu_torch.ops import fused_decode
+    from disn_tpu_torch.ops import fused_decode, sparse_words
 
     k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    words = cfg.sparse_words
+    route = "records_sparse" if words else "owned_ids"
+    R = cfg.grid_resolution
+    # the records' u8 edge parameter moves a coordinate by at most
+    # cell/510, so |x|+|y|+|z| by at most 3 of that
+    tol = SURFACE_TOL + (3 * 2.0 / (R - 1) / 510 if words else 0.0)
     out = []
+    meshes[label] = []
     for i, img in enumerate(imgs):
         stats: dict = {}
-        before = k1.launches
-        k1.events = []
+        before = (k1.launches, k5.launches)
+        k1.events, k5.events = [], []
         k1.inputs = [] if i == keep else None
+        k5.inputs = [] if i == keep else None
         t0 = time.perf_counter()
         verts, faces = pipeline.image_to_mesh(params, img, trans, cfg,
                                               stats=stats)
         wall_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         k1_ms = sum(s.elapsed_time(e) for s, e in k1.events)
-        if i == keep:
-            kept[label] = k1.inputs
-        k1.events = k1.inputs = None
-        launches = k1.launches - before
+        k5_ms = sum(s.elapsed_time(e) for s, e in k5.events)
+        if i == keep and kept is not None:
+            kept[label], kept[label + " k5"] = k1.inputs, k5.inputs
+        k1.events = k1.inputs = k5.events = k5.inputs = None
+        launches = k1.launches - before[0]
+        k5_launches = k5.launches - before[1]
         dist = np.abs(np.abs(verts).sum(1) - 0.6)
-        stats.update(image=i, wall_ms=wall_ms, k1_ms=k1_ms,
-                     k1_launches=launches, faces=len(faces),
-                     verts=len(verts),
+        stats.update(image=i, wall_ms=wall_ms, k1_ms=k1_ms, k5_ms=k5_ms,
+                     k1_launches=launches, k5_launches=k5_launches,
+                     faces=len(faces), verts=len(verts),
                      max_surface_dist=float(dist.max()) if len(verts)
                      else float("nan"))
         print(f"[main {label}] " + json.dumps(stats))
         check(len(faces) > 1000, f"{label} image {i}: {len(faces)} faces")
         check(np.isfinite(verts).all(), f"{label} image {i}: bad vertices")
-        check(float(dist.max()) <= SURFACE_TOL,
+        check(float(dist.max()) <= tol,
               f"{label} image {i}: a vertex is {dist.max():.3e} off the "
-              f"surface (tolerance {SURFACE_TOL})")
+              f"surface (tolerance {tol:.3e})")
         check(not stats["dense_fallback"] and launches == 2,
               f"{label} image {i}: expected K1 in the coarse and the fine "
               f"pass (2 launches, no dense fallback), got {launches} "
               f"launches, fallback={stats['dense_fallback']}")
-        check(stats["route"] == "owned_ids" and stats["guard"] == 0,
-              f"{label} image {i}: expected the device's welded mesh from "
-              f"the candidate scan, got route {stats['route']} with guard "
-              f"{stats.get('guard')}")
-        if i == keep:
-            meshes[label] = (verts, faces)
+        check(k5_launches == int(words),
+              f"{label} image {i}: {k5_launches} K5 launches, expected "
+              f"{int(words)}")
+        check(stats["route"] == route and stats["guard"] == 0
+              and stats.get("swords_guard", 0) == 0,
+              f"{label} image {i}: expected route {route} with guard 0, got "
+              f"route {stats['route']} with guard {stats.get('guard')} and "
+              f"words guard {stats.get('swords_guard')}")
+        meshes[label].append((verts, faces))
         out.append(stats)
     return out
 
 
-def phase_main_path() -> tuple[int, list[dict], dict, dict]:
-    """The main path with K1's launch count set to 0 just before it and
-    read just after. Returns (launches, per-image stats, kept K1 inputs,
-    and for the extraction holds the kept bf16 image's mesh with its volume
-    and scan, and those of an f32 image on a 49^3 grid)."""
+def hold_flows(words_meshes: list, volume_meshes: list, R: int) -> None:
+    """The sparse-words flow's meshes against the volume flow's on the same
+    images: faces equal, in order; vertices within the records' u8
+    quantisation, span/(R-1)/510 + 1e-6 (hold (c)'s bound)."""
+    bound = 2.0 / (R - 1) / 510 + 1e-6
+    for i, ((wv, wf), (vv, vf)) in enumerate(zip(words_meshes,
+                                                 volume_meshes)):
+        same = np.array_equal(wf, vf) and wv.shape == vv.shape
+        dv = float(np.abs(wv - vv).max()) if same else float("inf")
+        print(f"[flows] image {i}: records_sparse vs owned_ids faces equal="
+              f"{same} ({len(wf)} faces), vertices max diff {dv:.6e} "
+              f"(bound {bound:.6e})")
+        check(same and dv <= bound, f"[flows] image {i}: the words flow's "
+                                    f"mesh is not the volume flow's")
+
+
+def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
+    """The main path (the default Config: the sparse-words flow), then the
+    volume flow (sparse_words=False) on the same bf16 images, each with the
+    kernels' launch counts set to 0 just before it and read just after.
+    Returns (launch counts of the main path, its per-image stats, the
+    volume flow's, kept K1 and K5 inputs, and for the holds the meshes and
+    the volume flow's volume and scan of the kept bf16 image and of an f32
+    image on a 49^3 grid)."""
     import torch
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
-    from disn_tpu_torch.ops import fused_decode
+    from disn_tpu_torch.ops import fused_decode, sparse_words
 
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
     rng = np.random.RandomState(0)
     imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
             for _ in range(5)]
     trans = synthetic.demo_trans_mat()
     cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    check(cfg.sparse_words, "the default Config must take the words flow")
     params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
     kept: dict = {}
     held: dict = {}
     torch.cuda.synchronize()
-    fused_decode.fused_cell_decode.launches = 0
+    k1.launches = k5.launches = 0
     runs = run_main_path(cfg, params, imgs[:4], trans, "bf16", 1, kept,
                          held)
     cfg32 = cfg.replace(compute_dtype="float32")
     runs += run_main_path(cfg32, params, imgs[4:], trans, "f32", 0, kept,
                           held)
-    launches = fused_decode.fused_cell_decode.launches
+    launches = {"k1": k1.launches, "k5": k5.launches}
+    cfgv = cfg.replace(sparse_words=False)
+    torch.cuda.synchronize()
+    k1.launches = k5.launches = 0
+    vruns = run_main_path(cfgv, params, imgs[:4], trans, "bf16 volume", 1,
+                          None, held)
+    check(k1.launches == 8 and k5.launches == 0,
+          f"volume flow: {k1.launches} K1 and {k5.launches} K5 launches, "
+          f"expected 8 and 0")
+    hold_flows(held["bf16"], held["bf16 volume"], cfg.grid_resolution)
     # made after the counts were read
-    held["257"] = volume_and_scan(cfg, params, imgs[1], trans)
-    held["49"] = volume_and_scan(cfg32.replace(sdf_res=48), params, imgs[1],
+    held.update(cfg=cfg, params=params, img=imgs[1], trans=trans)
+    held["257"] = volume_and_scan(cfgv, params, imgs[1], trans)
+    held["49"] = volume_and_scan(cfgv.replace(compute_dtype="float32",
+                                              sdf_res=48), params, imgs[1],
                                  trans)
-    return launches, runs, kept, held
+    return launches, runs, vruns, kept, held
+
+
+def compare_flows(cfg, params, trans, pairs: int = 10) -> None:
+    """[flows ab]: image_to_mesh's wall time through the sparse-words flow
+    and the volume flow on the same fresh seeded images, in turns (pair k
+    runs the words flow first when k is even), host clock with the device
+    synchronised; the medians and the pairs each flow won. Only the route
+    is checked (K5 launched once by the words flow, never by the other).
+    """
+    import torch
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import sparse_words
+
+    k5 = sparse_words.sparse_cell_words
+    rng = np.random.RandomState(7)
+    flows = {True: cfg.replace(sparse_words=True),
+             False: cfg.replace(sparse_words=False)}
+    ms: dict = {True: [], False: []}
+    for k in range(pairs):
+        img = rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
+        for words in ((True, False) if k % 2 == 0 else (False, True)):
+            before = k5.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipeline.image_to_mesh(params, img, trans, flows[words])
+            torch.cuda.synchronize()
+            ms[words].append((time.perf_counter() - t0) * 1e3)
+            check(k5.launches - before == int(words),
+                  f"[flows ab] pair {k}: the {'words' if words else 'volume'}"
+                  f" flow launched K5 {k5.launches - before} times")
+    w, v = np.array(ms[True]), np.array(ms[False])
+    print(f"[flows ab] {pairs} pairs in turns: words flow median "
+          f"{np.median(w):.3f} ms (quartiles {np.percentile(w, 25):.3f}-"
+          f"{np.percentile(w, 75):.3f}), volume flow median "
+          f"{np.median(v):.3f} ms ({np.percentile(v, 25):.3f}-"
+          f"{np.percentile(v, 75):.3f}); the words flow won "
+          f"{int((w < v).sum())} of {pairs} pairs; words "
+          f"{[round(float(x), 3) for x in w]}, volume "
+          f"{[round(float(x), 3) for x in v]}")
+
+
+def k5_bound(args, kw) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations") for one K5
+    call on these inputs: the rows, ids, coarse grid and own-slot table
+    read once, the words written, and each cell's two mask words and cand
+    byte; 56 f32 operations a lane (7 edges x (2 subtractions, a divide, a
+    scale, a compare) and the 7 lerps of the guard's own point)."""
+    rows, cells, _, vol_c = args
+    nk = cells.numel()
+    c = vol_c.shape[0] - 1
+    nw = 2 if kw["R"] - 1 >= 128 else 4
+    nbytes = (rows.numel() * 4 + nk * 4 + vol_c.numel() * 4 + c ** 3 * 4
+              + nw * nk * 64 * 4 + nk * 9 + 4)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 56.0 * nk * 64 / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
+    """One K5 call against marching._sparse_cell_words on the same inputs:
+    every output equal bit for bit (max_abs_err is the count of differing
+    words); timed, the wrapper (own-slot table, guard term 1, zero fill,
+    kernel), the kernel alone (its CUDA events) and the plain version.
+    These launches are made after the main path's counts were read."""
+    import torch
+    from disn_tpu_torch.ops import marching as m
+    from disn_tpu_torch.ops import sparse_words
+
+    k5 = sparse_words.sparse_cell_words
+    got = k5(*args, **kw)
+    want = m._sparse_cell_words(*args, kw["R"], kw["iso"])
+    torch.cuda.synchronize()
+    names = ("words", "bits", "cand", "own_tbl", "guard")
+    bad = [n for n, a, b in zip(names, got, want)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    diff = int((got[0] != want[0]).sum()) if got[0].shape == want[0].shape \
+        else got[0].numel()
+    res = dict(max_abs_err=diff, ms=float("nan"), kernel_ms=float("nan"),
+               plain_ms=float("nan"))
+    if timed:
+        res["ms"] = cuda_ms(lambda: k5(*args, **kw), 20)
+        k5.events = []
+        for _ in range(20):
+            k5(*args, **kw)
+        torch.cuda.synchronize()
+        res["kernel_ms"] = float(np.median([s.elapsed_time(e)
+                                            for s, e in k5.events]))
+        k5.events = None
+        res["plain_ms"] = cuda_ms(
+            lambda: m._sparse_cell_words(*args, kw["R"], kw["iso"]), 3)
+    res["bound_ms"], res["bound_by"] = k5_bound(args, kw)
+    print(f"[k5] {label} cells={args[1].numel()} count={args[2]} "
+          f"R={kw['R']} differing words={diff} outputs off={bad} guard="
+          f"{int(got[4])} ms={res['ms']:.5f} kernel_ms="
+          f"{res['kernel_ms']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
+          f"{res['bound_ms']:.5f} ({res['bound_by']})")
+    check(not bad, f"K5 {label}: {bad} differ from the plain version")
+    return res
+
+
+def random_k5_args(R: int, nk: int, count: int, seed: int):
+    """Seeded K5 inputs on the card: nk distinct random coarse cells (most
+    "+1" neighbours absent), rows and coarse grid around the iso with 5% of
+    the rows exactly at it, ids past `count` set to 0."""
+    import torch
+
+    c = (R - 1) // 4
+    rng = np.random.RandomState(seed)
+    ids = np.sort(rng.choice(c ** 3, nk, replace=False)).astype(np.int32)
+    ids[count:] = 0
+    rows = (0.3 * rng.randn(nk * 64)).astype(np.float32)
+    rows[rng.rand(nk * 64) < 0.05] = 0.0
+    vol_c = (0.3 * rng.randn(c + 1, c + 1, c + 1)).astype(np.float32)
+    dev = torch.device("cuda")
+    return ((torch.from_numpy(rows).to(dev), torch.from_numpy(ids).to(dev),
+             count, torch.from_numpy(vol_c).to(dev)), dict(R=R, iso=0.0))
+
+
+def hold_swords(cfg, params, img, trans, kept: dict) -> dict:
+    """[swords hold]: on one 257^3 bf16 image, the words flow against the
+    volume flow from the same phase_a outputs (blk and the cell count
+    equal, (rec, tq) from the words equal _extract_records on the volume on
+    every slot), then K5 against its plain version on the main path's kept
+    inputs (timed) and on random inputs at u8 and u16 grids with absent
+    neighbours, values at the iso and ragged counts. Returns the timed
+    main-path hold."""
+    import torch
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.infer import dense, pipeline, sparse
+    from disn_tpu_torch.ops import marching as m
+
+    dev = torch.device("cuda")
+    params = device_mod.tree_to(params, dev)
+    img_t, trans_t, sdfp = dense.as_inputs(img, trans, pipeline.UNIT_BOX, dev)
+    _, eps, vol_c, cells, _ = sparse.phase_a(params, img_t, trans_t, sdfp,
+                                             cfg)
+    R = cfg.grid_resolution
+    words, sids, n, guard, blk = sparse.phase_b_mesh_sparse(
+        params, eps, vol_c, cells, trans_t, sdfp, cfg, cfg.iso)
+    vol, ids, n_d, guard_d, blk_d = sparse.phase_b_mesh(
+        params, eps, vol_c, cells, trans_t, sdfp, cfg, cfg.iso)
+    rec, tq = m._records_from_words_sparse(words, sids, R)
+    rec_d, tq_d = m._extract_records(vol, ids, cfg.iso)
+    same_rec = (rec.dtype == rec_d.dtype and torch.equal(rec, rec_d)
+                and tq.dtype == tq_d.dtype and torch.equal(tq, tq_d))
+    print(f"[swords hold] {R}^3: words flow guard {guard}, volume flow "
+          f"guard {guard_d}; cells {n} vs {n_d}, blk equal="
+          f"{torch.equal(blk, blk_d)} ({len(blk)} blocks); (rec, tq) equal "
+          f"on all {n} slots={same_rec}")
+    check(guard == 0 and guard_d == 0 and n == n_d
+          and torch.equal(blk, blk_d) and same_rec,
+          "[swords hold] the words flow is not the volume flow's twin")
+    (args, kw), = kept["bf16 k5"]
+    main = hold_k5("bf16 main-path", args, kw, timed=True)
+    (args32, kw32), = kept["f32 k5"]
+    hold_k5("f32 main-path", args32, kw32)
+    nk = args[1].numel()
+    for R_, cases in ((257, ((nk, nk), (nk - 1, nk - 1), (nk, nk - 777),
+                             (1, 1), (3, 2), (61, 61))),
+                      (65, ((2001, 2001), (2001, 1500), (1, 1)))):
+        for k, (n_, count) in enumerate(cases):
+            a, kw_ = random_k5_args(R_, n_, count, seed=k)
+            hold_k5(f"random R={R_}", a, kw_, timed=(R_, k) == (257, 0))
+    return main
+
+
+def trace_busy(tdir: str) -> tuple[float, float, int, int]:
+    """(device busy us, span of device activity us, device events, host
+    synchronisations) of the Chrome trace in tdir."""
+    with open(os.path.join(tdir, "trace.json")) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(len(spans) > 0, f"no device activity in {tdir}/trace.json")
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and "Synchronize" in e.get("name", ""))
+    return busy, spans[-1][1] - spans[0][0], len(spans), syncs
+
+
+def profile_phase_a(cfg, params, img, trans) -> None:
+    """[phase_a profile]: one phase_a (encode, fold, the coarse 65^3 pass,
+    the band cull) timed on the host clock, then under torch.profiler
+    (twice; the second is read): the device's idle share of the span of
+    its activity and of the unprofiled wall, the 10 PyTorch ops and the 5
+    kernels with the most self time on the device (K1 is a kernel of no
+    PyTorch op). Then [k4]: _band_tau and _active_cells on the coarse grid,
+    median of 5 on CUDA events, beside a byte bound: the 65^3 grid and the
+    box read once, tau, the ids and their count written once."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.infer import dense, pipeline, sparse
+    from disn_tpu_torch.utils.logging import trace
+
+    dev = torch.device("cuda")
+    params = device_mod.tree_to(params, dev)
+    img_t, trans_t, sdfp = dense.as_inputs(img, trans, pipeline.UNIT_BOX, dev)
+
+    def run():
+        return sparse.phase_a(params, img_t, trans_t, sdfp, cfg)
+
+    wall = median_ms(run, False)
+    tdir = os.path.join(TRACE_DIR, "phase_a")
+    for _ in range(2):  # the first profiled call also starts the tracer
+        torch.cuda.synchronize()
+        with trace(tdir) as prof:
+            _, _, vol_c, _, count = run()
+            torch.cuda.synchronize()
+    busy, window, n_ev, syncs = trace_busy(tdir)
+    tag = "[phase_a profile]"
+    print(f"{tag} one phase_a: wall {wall:.3f} ms without the profiler "
+          f"(host clock, median of 5); under it (the second profiled call) "
+          f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms span "
+          f"of device activity, idle share {1 - busy / window:.4f} (of the "
+          f"unprofiled wall {1 - busy / 1e3 / wall:.4f}); {n_ev} device "
+          f"events, {syncs} host synchronisations; trace in "
+          f"{os.path.relpath(tdir, ROOT)}/trace.json")
+    avg = prof.key_averages()
+    for kind, dt, n in (("op", DeviceType.CPU, 10),
+                        ("kernel", DeviceType.CUDA, 5)):
+        rows = [e for e in avg if e.device_type == dt]
+        for e in sorted(rows, key=lambda e: -_device_time(e, True))[:n]:
+            t = _device_time(e, True)
+            print(f"{tag} top {kind}: {e.key[:100]} self {t / 1e3:.3f} ms "
+                  f"in {e.count} calls ({t / busy:.4f} of busy)")
+    rc = vol_c.shape[0]
+
+    def k4():
+        tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
+        return sparse._active_cells(vol_c, tau)
+
+    ms = median_ms(k4, True)
+    nbytes = vol_c.numel() * 4 + 24 + 4 + 4 * count + 8
+    print(f"[k4] _band_tau + _active_cells on the {rc}^3 grid ({count} "
+          f"active cells): ms={ms:.4f} device clock; bound_ms="
+          f"{nbytes / H100_BYTES_PER_S * 1e3:.5f} ({nbytes} B at 3.35 TB/s)")
 
 
 def volume_and_scan(cfg, params, img, trans) -> dict:
@@ -1080,25 +1397,11 @@ def profile_steps(cfg, state, batch, label: str) -> None:
         for _ in range(3):
             step(state, batch)
         torch.cuda.synchronize()
-    with open(os.path.join(tdir, "trace.json")) as f:
-        events = json.load(f)
-    events = events["traceEvents"] if isinstance(events, dict) else events
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
-                   for e in events if e.get("ph") == "X"
-                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    check(len(spans) > 0, "train profile: no device activity in the trace")
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    window = spans[-1][1] - spans[0][0]
-    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                and "Synchronize" in e.get("name", ""))
+    busy, window, n_ev, syncs = trace_busy(tdir)
     tag = f"[train profile {label}]"
     print(f"{tag} 3 steps: device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms span of device activity, idle share "
-          f"{1 - busy / window:.4f}; {len(spans)} device events, {syncs} "
+          f"{1 - busy / window:.4f}; {n_ev} device events, {syncs} "
           f"stream/device synchronisations; trace in "
           f"{os.path.relpath(tdir, ROOT)}/trace.json")
     avg = prof.key_averages()
@@ -1695,14 +1998,20 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         phase_build()
-        launches, runs, kept, held = phase_main_path()
+        launches, runs, vruns, kept, held = phase_main_path()
+        main_inputs = (held["cfg"], held["params"], held["img"],
+                       held["trans"])
+        k5 = hold_swords(*main_inputs, kept)
         k1 = phase_k1_check(kept)
-        hold_routes("257^3 bf16", held["257"], main_mesh=held["bf16"])
+        hold_routes("257^3 bf16", held["257"],
+                    main_mesh=held["bf16 volume"][1])
         hold_routes("49^3 f32", held["49"])
         hold_divisions(held["49"])
         time_extraction(held["257"])
-        pred_mesh = held["bf16"]
-        del held
+        compare_flows(held["cfg"], held["params"], held["trans"])
+        profile_phase_a(*main_inputs)
+        pred_mesh = held["bf16"][1]
+        del held, main_inputs
         torch.cuda.empty_cache()
         gt_mesh = octahedron_mesh(128, "float32")
         k6 = phase_eval_hold(pred_mesh, gt_mesh)
@@ -1710,19 +2019,26 @@ def main() -> int:
         k6_counts = phase_eval_farm(gt_mesh)
         torch.cuda.empty_cache()
         phase_train()
-        timed = runs[1:4]
-        for key in ("encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
-                    "scan_ms", "extraction_ms", "extract_ms", "fetch_ms",
-                    "wall_ms", "k1_ms"):
-            vals = [r[key] for r in timed]
-            print(f"[stages bf16 257^3] {key} median={np.median(vals):.3f} "
-                  f"all={[round(v, 3) for v in vals]}")
-        print(f"[stages bf16 257^3] active_cells="
-              f"{[r['active_cells'] for r in timed]} fine_cells="
-              f"{[r['fine_cells'] for r in timed]} faces="
-              f"{[r['faces'] for r in timed]} verts="
-              f"{[r['verts'] for r in timed]} route="
-              f"{[r['route'] for r in timed]}")
+        for flow, timed, keys in (
+                ("words", runs[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
+                                      "phase_b_ms", "scan_ms",
+                                      "extraction_ms", "extract_ms",
+                                      "fetch_ms", "assemble_ms", "wall_ms",
+                                      "k1_ms", "k5_ms")),
+                ("volume", vruns[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
+                                        "phase_b_ms", "scan_ms",
+                                        "extraction_ms", "extract_ms",
+                                        "fetch_ms", "wall_ms", "k1_ms"))):
+            tag = f"[stages bf16 257^3 {flow}]"
+            for key in keys:
+                vals = [r[key] for r in timed]
+                print(f"{tag} {key} median={np.median(vals):.3f} "
+                      f"all={[round(v, 3) for v in vals]}")
+            print(f"{tag} active_cells={[r['active_cells'] for r in timed]} "
+                  f"fine_cells={[r['fine_cells'] for r in timed]} faces="
+                  f"{[r['faces'] for r in timed]} verts="
+                  f"{[r['verts'] for r in timed]} route="
+                  f"{[r['route'] for r in timed]}")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1737,13 +2053,20 @@ def main() -> int:
             "name": "fused_cell_decode", "route": "cuda",
             "source": "disn_tpu_torch/csrc/fused_decode.cu",
             "replaces": "disn_tpu/ops/pallas_fused.py:46",
-            "launches": launches,
+            "launches": launches["k1"],
             "max_abs_err": max(r["max_abs_err"] for r in ref),
             "ms": sum(r["ms"] for r in ref),
             "plain_ms": sum(r["plain_ms"] for r in ref),
             "bound_ms": sum(r["bound_ms"] for r in ref),
             "bound_by": ref[1]["bound_by"], "library_ms": None},
-            *k6_entries(k6, k6_counts)]}))
+            *k6_entries(k6, k6_counts), {
+            "name": "sparse_cell_words", "route": "cuda",
+            "source": "disn_tpu_torch/csrc/sparse_words.cu",
+            "replaces": "disn_tpu/ops/marching.py:1102",
+            "launches": launches["k5"],
+            "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
+            "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"], "library_ms": None}]}))
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1

@@ -1,15 +1,17 @@
 """Image -> mesh reconstruction (port of the synchronous core of
 disn_tpu/infer/pipeline.py) and the reconstruction farm over a split.
 
-One call: encode + fold the image, build the SDF volume (two-level sparse
-when the grid allows, else the exact dense path) and extract the welded
-mesh, returned as numpy (verts, faces). On the sparse path the fine pass
-ends in the extractor's candidate scan and the owned-edge extractor builds
-the welded mesh on the device, so one copy brings it to the host; the
-dense paths go through marching tetrahedra and the host weld. The JAX
-package's remote-link machinery (speculative buckets, parallel fetch
-streams, background assembly, the farm's dispatch/collect software
-pipeline) is not ported.
+One call: encode + fold the image, decode the SDF (two-level sparse when
+the grid allows, else the exact dense path) and extract the welded mesh,
+returned as numpy (verts, faces). On the sparse path with
+cfg.sparse_words (the default) the fine pass's rows become record words
+(K5) and the host assembles the mesh from them, with no [R^3] volume; in
+the volume flow the fine pass ends in the extractor's candidate scan and
+the owned-edge extractor builds the welded mesh on the device, so one copy
+brings it to the host; the dense paths scan the whole volume for that
+extractor. The JAX package's remote-link machinery (speculative buckets,
+parallel fetch streams, background assembly, the farm's dispatch/collect
+software pipeline) is not ported.
 
 ``reconstruct_split`` runs every (category, object, view) of a split into
 the reference's output tree: a reader thread prefetches the records, the
@@ -40,6 +42,9 @@ Params = dict[str, Any]
 UNIT_BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 WRITERS = 4    # reconstruct_split's OBJ writer threads (at most spare cores)
 PREFETCH = 4   # records its reader thread reads ahead
+# (cfg, iso) whose sparse-words guard tripped: they take the volume flow
+# directly, instead of a guard trip and a second fine pass every image
+_SWORDS_SKIP: set = set()
 
 
 def _sparse_eligible(cfg: Config) -> bool:
@@ -63,10 +68,14 @@ def predict_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
 
 def volume_to_mesh(vol: torch.Tensor, sdf_params, iso: float = 0.0,
                    clean: bool = False) -> tuple[np.ndarray, np.ndarray]:
-    """[R,R,R] volume (on any device) -> welded numpy (verts, faces) by
-    marching tetrahedra and the host weld, the mesh oracle. clean=True
+    """[R,R,R] volume -> welded numpy (verts, faces) by the owned-edge
+    extractor on the volume's device (full-volume scan, then one copy), as
+    the JAX package's volume_to_mesh runs its device extractor. That one
+    retries at cfg.max_triangles when its group cap overflows; the port's
+    extractor has no group cap, so there is nothing to retry. clean=True
     drops small and off-centre components."""
-    verts, faces = marching.extract_mesh(vol, sdf_params, iso=iso)
+    verts, faces = marching.extract_mesh_owned(vol, sdf_params, iso=iso,
+                                               device=vol.device)
     if clean and len(faces):
         verts, faces = clean_small_parts(verts, faces)
     return verts, faces
@@ -81,29 +90,44 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     """Single image ([H,W,3] float in [0,1], or uint8 normalised on the
     device) -> (vertices [V,3] f32, faces [F,3] i32).
 
-    sdf_params defaults to the unit box [-1,1]^3. The sparse path scans
-    the fine cells inside the active coarse cells and extracts the welded
-    mesh on the device (route ``owned_ids``); if the scan's guard finds a
-    sign change outside those cells, the whole volume is scanned instead
-    (``owned_scan``). When the active cells overflow the cap, the config
-    is not eligible for the sparse path, or ``sparse`` is false, the dense
-    volume goes through volume_to_mesh (``tets``).
+    sdf_params defaults to the unit box [-1,1]^3. With cfg.sparse_words on
+    a grid that words_eligible allows, the sparse path takes the
+    sparse-words flow: the fine rows go to K5 and the record route
+    assembles the mesh on the host (route ``records_sparse``; vertices
+    quantised to the cell over 510, or 131070 on grids under 129). When
+    its guard trips (active cells on the + boundary, a band violation) the
+    image goes through the volume flow from the same coarse pass, and
+    (cfg, iso) keeps to the volume flow from then on, as the JAX package's
+    _SWORDS_SKIP does. The volume flow scans the fine cells inside the
+    active coarse cells and extracts the welded mesh on the device (route
+    ``owned_ids``); if the scan's guard finds a sign change outside those
+    cells, the whole volume is scanned instead (``owned_scan``). When the
+    active cells overflow the cap, the config is not eligible for the
+    sparse path, or ``sparse`` is false, the dense volume goes through
+    volume_to_mesh (``tets``).
 
     `stats`, when given, receives per-stage wall times in ms (each stage
     synchronised: encode, prep, phase_a, phase_b and scan or
     dense_fallback, then extraction, which covers everything after the
     volume and the scan, with its parts extract on the device and fetch to
-    the host on the owned routes), ``active_cells``, and ``route`` with,
-    on the sparse path, ``fine_cells`` and ``guard``."""
+    the host on the owned and records_sparse routes, and assemble on the
+    host on records_sparse), ``active_cells``, ``route`` with, on the
+    sparse path, ``fine_cells`` and ``guard``, and ``swords_guard`` when
+    the sparse-words flow ran."""
     dev = device_mod.resolve(device)
     if sdf_params is None:
         sdf_params = UNIT_BOX
     iso = cfg.iso if iso is None else iso
-    scan = None
+    scan = vol = None
     if sparse and _sparse_eligible(cfg):
+        key = (cfg, float(iso))
+        words = (cfg.sparse_words and key not in _SWORDS_SKIP
+                 and sparse_mod.words_eligible(cfg))
         vol, scan = sparse_mod.sparse_volume(
             params, img, trans_mat, sdf_params, cfg, device=dev,
-            stats=stats, scan_iso=iso)
+            stats=stats, scan_iso=iso, words=words)
+        if words and vol is not None and scan is not None:
+            _SWORDS_SKIP.add(key)
     else:
         vol = dense_mod.dense_sdf(params, img, trans_mat, sdf_params, cfg,
                                   device=dev)
@@ -111,6 +135,12 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
         if scan is None:
             route = "tets"
             verts, faces = volume_to_mesh(vol, sdf_params, iso=iso)
+        elif vol is None:
+            route = "records_sparse"
+            words_d, ids, n_cells, guard, blk = scan
+            verts, faces = marching.extract_mesh_records_sparse(
+                words_d, cfg.grid_resolution, sdf_params, ids, n_cells, blk,
+                stats=stats)
         else:
             ids, n_cells, guard, _ = scan
             if guard == 0:

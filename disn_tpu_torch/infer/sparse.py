@@ -15,6 +15,13 @@ coarse grid upsampled with corners aligned, which keeps the signs.
   when an active cell touches them.
 * phase_b_mesh: finish, then the mesh extractor's candidate scan of the
   fine cells inside the active coarse cells.
+* phase_b_mesh_sparse (the sparse-words flow, port of
+  _phase_b_mesh_sparse_jit): the fine pass's rows go straight to K5
+  (ops/sparse_words), which builds the record words and change bits of the
+  active blocks, then to the compaction. No volume, no upsample, no
+  scatter, no planes. Its guard counts what that model cannot hold
+  (active cells on the + boundary, band violations); the caller then runs
+  phase_b_mesh from the same phase_a outputs.
 * sparse_volume / sparse_dense_sdf: both phases, with the exact dense
   fallback when more cells are active than the cap allows.
 
@@ -32,7 +39,7 @@ from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import fused
 from disn_tpu_torch.models import disn
-from disn_tpu_torch.ops import marching
+from disn_tpu_torch.ops import marching, sparse_words
 
 Params = dict[str, Any]
 
@@ -194,9 +201,52 @@ def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
     return (vol, *scan)
 
 
+def words_eligible(cfg: Config) -> bool:
+    """The sparse-words flow's grids: the JAX package's kernel_enabled
+    (disn_tpu/infer/fused.py) for the fold='137' path the port's sparse
+    pass takes: stride 4, R - 1 a multiple of it and at least 48, 137^2
+    images."""
+    r1 = cfg.grid_resolution - 1
+    return (cfg.sparse_stride == STRIDE and r1 % STRIDE == 0 and r1 >= 48
+            and cfg.img_w == 137 and cfg.img_h == 137)
+
+
+def phase_b_mesh_sparse(params: Params, endpoints: dict, vol_c: torch.Tensor,
+                        cell_ids: torch.Tensor, trans_mat: torch.Tensor,
+                        sdf_params: torch.Tensor, cfg: Config, iso: float,
+                        stats: dict | None = None):
+    """The sparse-words flow: K1 over the active cells, K5 on its rows, and
+    the compaction, with no volume. Returns (words [2|4, n_cells*64] int32,
+    sids [n] int32 sparse row ids, n, guard, blk [b,3] int32); blk and n
+    equal phase_b_mesh's when guard is 0. guard adds to K5's guard the
+    active cells on the + boundary layer, which the words' patch model
+    leaves out; when it is not 0 the caller must take phase_b_mesh.
+    `stats` receives ``phase_b_ms`` (K1 + K5) and ``scan_ms`` (the
+    compaction)."""
+    dev = sdf_params.device
+    fine_r = cfg.grid_resolution
+    c = vol_c.shape[0] - 1
+    cells = cell_ids.int().contiguous()
+    with device_mod.stage(stats, "phase_b_ms", dev):
+        vals = fused.decode_cells(params, endpoints, trans_mat, sdf_params,
+                                  cells, cfg, fine_r=fine_r, coarse_c=c)
+        words, bits, cand, own_tbl, guard = sparse_words.sparse_cell_words(
+            vals.contiguous(), cells, cells.shape[0], vol_c.contiguous(),
+            R=fine_r, iso=iso)
+    with device_mod.stage(stats, "scan_ms", dev):
+        ids = cells.long()
+        n_boundary = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
+                      | (ids // (c * c) == c - 1)).sum()
+        sids, n, blk = marching._compact_block_bits(bits, cand, fine_r,
+                                                    srow_tbl=own_tbl)
+        guard = int(guard + n_boundary)
+    return words, sids, n, guard, blk
+
+
 def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
                   device: str | torch.device | None = None,
-                  stats: dict | None = None, scan_iso: float | None = None):
+                  stats: dict | None = None, scan_iso: float | None = None,
+                  words: bool = False):
     """Image -> ([R,R,R] f32 volume on `device`, scan) through the two-level
     sparse pass, or the exact dense path when the active cells overflow the
     cap (cell_cap). The band width and the cap come from cfg.band_factor
@@ -204,8 +254,15 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
     phase_b_mesh and scan is its (ids, n, guard, blk); otherwise, and after
     the dense fallback, scan is None.
 
+    With `scan_iso` and `words` the sparse-words flow runs first
+    (phase_b_mesh_sparse; words_eligible must hold): when its guard is 0
+    the result is (None, (words, sids, n, 0, blk)) and no volume is made;
+    otherwise the image goes on through phase_b_mesh from the same phase_a
+    outputs. So a volume with a scan after `words` means its guard tripped.
+
     `stats`, when given, receives per-stage wall times (``*_ms``, each
-    stage synchronised), ``active_cells`` and ``dense_fallback``."""
+    stage synchronised), ``active_cells`` and ``dense_fallback``, and after
+    the sparse-words flow ``swords_guard``."""
     if cfg.sdf_res % STRIDE:
         raise ValueError(f"stride {STRIDE} must divide sdf_res "
                          f"{cfg.sdf_res}")
@@ -226,6 +283,13 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
             return fused.dense_grid_via_cells(params, endpoints, trans,
                                               sdfp, cfg.grid_resolution,
                                               cfg), None
+    if scan_iso is not None and words:
+        out = phase_b_mesh_sparse(params, endpoints, vol_c, cell_ids, trans,
+                                  sdfp, cfg, float(scan_iso), stats)
+        if stats is not None:
+            stats["swords_guard"] = out[3]
+        if out[3] == 0:
+            return None, out
     if scan_iso is not None:
         vol, *scan = phase_b_mesh(params, endpoints, vol_c, cell_ids, trans,
                                   sdfp, cfg, float(scan_iso), stats)

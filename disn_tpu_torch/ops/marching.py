@@ -354,31 +354,15 @@ def _block_bits(change: torch.Tensor) -> torch.Tensor:
     return z.reshape(-1)
 
 
-def _expand_blocks(bids: torch.Tensor, words: torch.Tensor, E: int
-                   ) -> torch.Tensor:
-    """(block ids [b] int64 ascending, 64-bit masks [b] int64) -> flat cell
-    ids over E^3, int32, block ascending then bit ascending."""
-    dev = bids.device
-    B3 = -(-E // BLOCK)
-    bit = torch.arange(BLOCK ** 3, device=dev)
-    rows = (words[:, None] >> bit[None, :]) & 1
-    bi, li = torch.nonzero(rows, as_tuple=True)       # row-major: the order
-    bz, by, bx = bids // (B3 * B3), (bids // B3) % B3, bids % B3
-    base = ((bz * BLOCK) * E + by * BLOCK) * E + bx * BLOCK
-    loff = ((bit // BLOCK ** 2) * E + (bit // BLOCK) % BLOCK) * E \
-        + bit % BLOCK
-    return (base[bi] + loff[li]).int()
-
-
 def _active_cells_ext(volume: torch.Tensor, iso: float
                       ) -> tuple[torch.Tensor, int]:
     """Sign-change scan of the whole extended cell grid -> (cell ids [n]
     int32 flat over E^3, n)."""
     change = _sign_change_cells(volume, iso)
-    words = _block_bits(change)
-    bids = torch.nonzero(words != 0)[:, 0]
-    ids = _expand_blocks(bids, words[bids], change.shape[0])
-    return ids, int(ids.shape[0])
+    bits = _block_bits(change).view(torch.int32).view(-1, 2)
+    every = torch.ones(bits.shape[0], dtype=torch.bool, device=bits.device)
+    ids, n, _ = _compact_block_bits(bits, every, change.shape[0])
+    return ids, n
 
 
 def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
@@ -403,22 +387,56 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
     R = volume.shape[0]
     cgrid = (R - 1) // BLOCK
     change = _sign_change_cells(volume, iso)
-    words = _block_bits(change)
+    # an int64 mask read as two int32 words is (lo, hi): little-endian, as
+    # every platform of PyTorch is
+    bits = _block_bits(change).view(torch.int32).view(-1, 2)
     act = torch.zeros(cgrid ** 3, dtype=torch.bool, device=volume.device)
     act[coarse_ids.long()] = True
     cand = act.view(cgrid, cgrid, cgrid)
     for ax in range(3):  # the ghost blocks take their low neighbour's flag
         cand = torch.cat([cand, cand.narrow(ax, cgrid - 1, 1)], ax)
-    bids = torch.nonzero(cand.reshape(-1) & (words != 0))[:, 0]
-    rw = words[bids]
-    ids = _expand_blocks(bids, rw, R)
-    n_cells = int(ids.shape[0])
+    ids, n_cells, blk = _compact_block_bits(bits, cand.reshape(-1), R)
     guard = int(change.sum()) - n_cells
-    # an int64 mask read as two int32 words is (lo, hi): little-endian, as
-    # every platform of PyTorch is
-    blk = torch.cat([bids.int()[:, None], rw.view(torch.int32).view(-1, 2)],
-                    dim=1)
     return ids, n_cells, guard, blk
+
+
+def _compact_block_bits(bits: torch.Tensor, cand: torch.Tensor, E: int,
+                        srow_tbl: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """The tail both flows share (port of disn_tpu/ops/marching.py
+    _compact_block_bits): the candidate blocks that hold a change bit, in
+    block order, and their cells in bit order -> (ids [n] int32, n, blk
+    [b,3] int32 rows (block id, mask lo, mask hi)).
+
+    bits [B3^3, 2] int32: each block's 64 change bits as (lo, hi); cand
+    [B3^3] bool. Without `srow_tbl` the ids are flat cell ids over E^3.
+    With it (the sparse-words flow: [c^3] coarse cell -> its row slot in
+    the words arrays) they are sparse row ids slot*64 + bit, which address
+    the words arrays; the blk rows are the same in both flows, and the host
+    rebuilds the cell ids from them."""
+    bits = bits.contiguous()
+    words = bits.view(torch.int64).reshape(-1)
+    bids = torch.nonzero(cand & (words != 0))[:, 0]
+    blk = torch.cat([bids.int()[:, None], bits[bids]], dim=1)
+    B3 = -(-E // BLOCK)
+    bit = torch.arange(BLOCK ** 3, device=bits.device)
+    bi, li = torch.nonzero((words[bids][:, None] >> bit[None, :]) & 1,
+                           as_tuple=True)              # row-major: the order
+    bz, by, bx = bids // (B3 * B3), (bids // B3) % B3, bids % B3
+    if srow_tbl is None:
+        base = ((bz * BLOCK) * E + by * BLOCK) * E + bx * BLOCK
+        loff = ((bit // BLOCK ** 2) * E + (bit // BLOCK) % BLOCK) * E \
+            + bit % BLOCK
+    else:
+        # a ghost block (coordinate c) never holds a bit in this flow: its
+        # boundary-touching active cell trips the guard first
+        c = B3 - 1
+        cid = (bz.clamp(max=c - 1) * c + by.clamp(max=c - 1)) * c \
+            + bx.clamp(max=c - 1)
+        base = srow_tbl.long()[cid].clamp(min=0) * BLOCK ** 3
+        loff = bit
+    ids = (base[bi] + loff[li]).int()
+    return ids, int(ids.shape[0]), blk
 
 
 # ---------------------------------------------------------------------------
@@ -669,21 +687,239 @@ def extract_mesh_records(volume, sdf_params, ids: torch.Tensor, n_cells: int,
     if n_cells == 0:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
     rec_d, tq_d = _extract_records(vol, ids.to(vol.device), float(iso))
-    if blk is not None:
-        rec_d = (rec_d & 0xFF).to(torch.uint8)  # the inside mask only
-    rec, tq = _records_to_host(rec_d, tq_d)
     bbox = sdfp.cpu().numpy()
-    if blk is None:
-        return native.mesh_assemble(ids.cpu().numpy(), rec, tq, n_cells, R,
-                                    bbox)
-    rows = blk.cpu().numpy()
-    if _mask_cell_count(rows) != n_cells:
-        raise RuntimeError(
-            f"block masks encode {_mask_cell_count(rows)} cells, the scan "
-            f"counted {n_cells} (inconsistent record streams)")
-    recs = native.derive_recs(rows, rec, R)
-    faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
-    return native.mesh_verts_blocks(rows, recs, tq, n_cells, R, bbox), faces
+    if blk is not None:
+        return _assemble_blocks(rec_d, tq_d, blk, n_cells, R, bbox)
+    rec, tq = _records_to_host(rec_d, tq_d)
+    return native.mesh_assemble(ids.cpu().numpy(), rec, tq, n_cells, R, bbox)
+
+
+def _assemble_blocks(rec_d: torch.Tensor, tq_d: torch.Tensor,
+                     blk: torch.Tensor, n_cells: int, R: int,
+                     bbox: np.ndarray, stats: dict | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The record route's host half from the block rows: one copy of the u8
+    inside masks, the edge parameters and the rows, then the C++ passes
+    derive the crossing bits and the cell coordinates and build the mesh.
+    `stats` receives ``fetch_ms`` (the copy) and ``assemble_ms``."""
+    from disn_tpu_torch import native
+
+    with device_mod.stage(stats, "fetch_ms", rec_d.device):
+        rec, tq = _records_to_host((rec_d & 0xFF).to(torch.uint8), tq_d)
+        rows = blk.cpu().numpy()
+    with device_mod.stage(stats, "assemble_ms", rec_d.device):
+        if _mask_cell_count(rows) != n_cells:
+            raise RuntimeError(
+                f"block masks encode {_mask_cell_count(rows)} cells, the "
+                f"scan counted {n_cells} (inconsistent record streams)")
+        recs = native.derive_recs(rows, rec, R)
+        faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
+        verts = native.mesh_verts_blocks(rows, recs, tq, n_cells, R, bbox)
+    return verts, faces
+
+
+# ---------------------------------------------------------------------------
+# K5: record words and change bits straight from the fine pass's rows
+# ---------------------------------------------------------------------------
+
+LANES = BLOCK ** 3  # a cell's fine points, lane l = (z*4 + y)*4 + x
+_LANE_XYZ = (np.arange(LANES) % BLOCK, (np.arange(LANES) // BLOCK) % BLOCK,
+             np.arange(LANES) // BLOCK ** 2)
+# the "-1" directions (dx, dy, dz) whose neighbour covers a cell's low faces
+_LOW_DIRS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
+             (0, 1, 1), (1, 1, 1))
+
+
+def _own_table(cell_ids: torch.Tensor, count: int, c: int) -> torch.Tensor:
+    """[c^3] int32: the row slot of each of the first `count` coarse cells
+    of `cell_ids`, -1 for every other cell."""
+    own = torch.full((c ** 3,), -1, dtype=torch.int32,
+                     device=cell_ids.device)
+    own[cell_ids[:count].long()] = torch.arange(count, dtype=torch.int32,
+                                                device=cell_ids.device)
+    return own
+
+
+def _coarse_guard(vol_c: torch.Tensor, own_tbl: torch.Tensor, iso: float
+                  ) -> torch.Tensor:
+    """Guard term (1), int32 0-d: coarse cells whose corner signs disagree
+    but that are not active. Their lerp may cross the iso in a block that
+    no candidate covers; the band cull makes every such cell active, so
+    this counts violations of its premise."""
+    c = vol_c.shape[0] - 1
+    chg = _sign_change_cells(vol_c, iso)[:c, :c, :c].reshape(-1)
+    return (chg & (own_tbl < 0)).sum().to(torch.int32)
+
+
+def _pack_words(tq: list, imask: torch.Tensor, R: int) -> torch.Tensor:
+    """7 edge parameters and the inside mask per lane -> [2 | 4, n] int32
+    words: u8 (tq0..tq3 | tq4..tq6, imask), or u16 pairs (tq6, imask)."""
+    if _tq_bits(R) == 8:
+        ws = [tq[0] | (tq[1] << 8) | (tq[2] << 16) | (tq[3] << 24),
+              tq[4] | (tq[5] << 8) | (tq[6] << 16) | (imask << 24)]
+    else:
+        ws = [tq[0] | (tq[1] << 16), tq[2] | (tq[3] << 16),
+              tq[4] | (tq[5] << 16), tq[6] | (imask << 16)]
+    return torch.stack([w.reshape(-1) for w in ws])
+
+
+def _sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor,
+                       count: int, vol_c: torch.Tensor, R: int, iso: float):
+    """K5 in plain PyTorch (port of disn_tpu/ops/marching.py
+    _sparse_cell_words, lane form): the record words and change bits of
+    every active 4^3 block, from the fine pass's rows, with no [R^3]
+    volume.
+
+    rows [NK*64] f32: the fine pass's values, cell after cell, lane l =
+    (z*4 + y)*4 + x; cell_ids [NK] int32 coarse cells, the first `count`
+    valid. A lane's corner value at offset o is the value the dense volume
+    holds there: the cell's own row, else the row of its active "+1"
+    neighbour, else the coarse trilinear, lo*(1-w) + hi*w along z, y, x,
+    each product and sum rounded, as sparse._upsample_aligned computes it.
+    Requires no active cell on the + boundary (the caller adds those to the
+    guard): ghost blocks and boundary planes stay out of this model.
+
+    Returns (words [2|4, NK*64] int32 (_pack_words), bits [B3^3, 2] int32
+    change masks (lo, hi), cand [B3^3] bool, own_tbl [c^3] int32,
+    guard int32 0-d: term (1) of _coarse_guard plus term (2), lanes on a
+    low face whose own value and coarse lerp differ in sign while a "-1"
+    neighbour that reads them is not active)."""
+    c = (R - 1) // BLOCK
+    if tuple(vol_c.shape) != (c + 1,) * 3:
+        raise ValueError(f"vol_c must be [{c + 1}]^3, got "
+                         f"{tuple(vol_c.shape)}")
+    dev = rows.device
+    nk = cell_ids.shape[0]
+    B3 = c + 1
+    valid = torch.arange(nk, device=dev) < count
+    own_tbl = _own_table(cell_ids, count, c)
+    gid = torch.where(valid, cell_ids.long(), 0)
+    cz, cy, cx = gid // (c * c), (gid // c) % c, gid % c
+    # k = dz*4 + dy*2 + dx: the cell's coarse corners, and the row slots of
+    # the cell (k = 0) and of its "+1" neighbours (-1: inactive, or past
+    # the grid)
+    corn, slot = [], []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                z, y, x = cz + dz, cy + dy, cx + dx
+                corn.append(vol_c[z, y, x])
+                inside = (z < c) & (y < c) & (x < c)
+                s = own_tbl[((z * c + y) * c + x).clamp(max=c ** 3 - 1)]
+                slot.append(torch.where(inside, s, -1))
+    corn8 = torch.stack(corn, 1)                                # [NK,8]
+    slot8 = torch.stack(slot, 1)                                # [NK,8]
+    rows2 = rows.reshape(nk, LANES)
+    ok8 = (slot8 >= 0) & valid[:, None]
+    ok8[:, 0] = valid
+    src8 = torch.stack([rows2] + [rows2[slot8[:, k].clamp(min=0)]
+                                  for k in range(1, 8)], 1)     # [NK,8,64]
+    lx, ly, lz = _LANE_XYZ
+
+    def weight(lane):
+        return torch.from_numpy((lane / 4.0).astype(np.float32)).to(dev)
+
+    def lerp1(lo, hi, w):
+        return lo * (1 - w) + hi * w
+
+    def lerp_at(ox, oy, oz):
+        """The coarse trilinear at every lane's point + (ox, oy, oz)."""
+        wx, wy, wz = weight(lx + ox), weight(ly + oy), weight(lz + oz)
+        az = [[lerp1(corn8[:, dy * 2 + dx, None],
+                     corn8[:, 4 + dy * 2 + dx, None], wz[None])
+               for dx in (0, 1)] for dy in (0, 1)]
+        ay = [lerp1(az[0][dx], az[1][dx], wy[None]) for dx in (0, 1)]
+        return lerp1(ay[0], ay[1], wx[None])                    # [NK,64]
+
+    def value_at(ox, oy, oz):
+        tx, ty, tz = lx + ox, ly + oy, lz + oz
+        k = torch.from_numpy((tz // 4) * 4 + (ty // 4) * 2 + tx // 4).to(dev)
+        sl = torch.from_numpy((tz % 4) * 16 + (ty % 4) * 4 + tx % 4).to(dev)
+        return torch.where(ok8[:, k], src8[:, k, sl], lerp_at(ox, oy, oz))
+
+    _, pair_j, _, _ = _owned_tables()
+    v0 = rows2
+    imask = (v0 < iso).int()
+    scale = 255.0 if _tq_bits(R) == 8 else 65535.0
+    tq = []
+    for j in pair_j.tolist():
+        vj = value_at(*CORNERS[j].tolist())
+        imask = imask | ((vj < iso).int() << j)
+        tq.append(torch.round(_edge_t(v0, vj, iso) * scale).int())
+    words = _pack_words(tq, imask, R)
+
+    # a cell changes iff its 8 corner signs disagree
+    change = (imask != 0) & (imask != 0xFF) & valid[:, None]
+    masks = _pack_bits(change).view(torch.int32).view(-1, 2)
+    b3id = ((cz * B3 + cy) * B3 + cx)[valid]
+    bits = torch.zeros((B3 ** 3, 2), dtype=torch.int32, device=dev)
+    bits[b3id] = masks[valid]
+    cand = torch.zeros(B3 ** 3, dtype=torch.bool, device=dev)
+    cand[b3id] = True
+
+    mm = (rows2 < iso) != (lerp_at(0, 0, 0) < iso)              # [NK,64]
+    cov = []
+    for dx, dy, dz in _LOW_DIRS:
+        z, y, x = cz - dz, cy - dy, cx - dx
+        past = (z < 0) | (y < 0) | (x < 0)
+        act = own_tbl[((z * c + y) * c + x).clamp(min=0)] >= 0
+        cov.append((past | act)[:, None])
+    a_x, a_y, a_z, a_xy, a_xz, a_yz, a_xyz = cov
+    ex, ey, ez = (torch.from_numpy(v == 0).to(dev)[None]
+                  for v in (lx, ly, lz))
+    badx = ex & (~a_x | (ey & ~a_xy) | (ez & ~a_xz) | (ey & ez & ~a_xyz))
+    bady = ey & (~a_y | (ex & ~a_xy) | (ez & ~a_yz) | (ex & ez & ~a_xyz))
+    badz = ez & (~a_z | (ex & ~a_xz) | (ey & ~a_yz) | (ex & ey & ~a_xyz))
+    guard = (_coarse_guard(vol_c, own_tbl, iso)
+             + (mm & (badx | bady | badz) & valid[:, None]).sum()
+             ).to(torch.int32)
+    return words, bits, cand, own_tbl, guard
+
+
+def _records_from_words_sparse(words: torch.Tensor, sids: torch.Tensor,
+                               R: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rec, tq) of the slots whose ids address the sparse words arrays
+    (slot*64 + bit, see _compact_block_bits), in _extract_records' types.
+    No ghost aliasing: the sparse flow never gives a ghost cell a slot."""
+    _, pair_j, _, _ = _owned_tables()
+    rows = words[:, sids.long()]
+    if _tq_bits(R) == 8:
+        imask = (rows[1] >> 24) & 0xFF
+        tq = torch.stack([(rows[w] >> s) & 0xFF for w, s in
+                          ((0, 0), (0, 8), (0, 16), (0, 24), (1, 0), (1, 8),
+                           (1, 16))], -1).to(torch.uint8)
+    else:
+        imask = (rows[3] >> 16) & 0xFF
+        tq = torch.stack([(rows[w] >> s) & 0xFFFF for w in range(4)
+                          for s in (0, 16)][:7], -1)
+    pj = torch.as_tensor(pair_j, dtype=torch.int64, device=words.device)
+    bitj = (imask.long()[:, None] >> pj[None, :]) & 1
+    cross = (imask.long()[:, None] & 1) != bitj
+    rec = (_pack_bits(cross) << 8 | imask.long()).to(torch.int16)
+    return rec, tq
+
+
+def extract_mesh_records_sparse(words: torch.Tensor, R: int, sdf_params,
+                                sids: torch.Tensor, n_cells: int,
+                                blk: torch.Tensor,
+                                stats: dict | None = None
+                                ) -> tuple[np.ndarray, np.ndarray]:
+    """The record route over the sparse words arrays (port of
+    extract_mesh_records_deferred_sparse without its fetch streams): the
+    slots' (rec, tq) gathered on the words' device, one copy to the host,
+    and the C++ passes of extract_mesh_records(blk=...). Faces equal the
+    owned extractor's on the volume flow's volume; a vertex is off by at
+    most its cell edge over 510 per coordinate (u8 t) or over 131070 (u16
+    t). `stats` receives ``extract_ms`` (the gather), ``fetch_ms`` and
+    ``assemble_ms``."""
+    if n_cells != sids.shape[0]:
+        raise ValueError(f"{sids.shape[0]} ids for {n_cells} cells")
+    if n_cells == 0:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    bbox = torch.as_tensor(sdf_params, dtype=torch.float32).cpu().numpy()
+    with device_mod.stage(stats, "extract_ms", words.device):
+        rec_d, tq_d = _records_from_words_sparse(words, sids, R)
+    return _assemble_blocks(rec_d, tq_d, blk, n_cells, R, bbox, stats)
 
 
 # ---------------------------------------------------------------------------
