@@ -1,6 +1,6 @@
 """Smoke run of disn_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the repository root on a machine with one CUDA card, nvcc and a
 host C++ compiler. It imports nothing of JAX or disn_tpu. Phases, each fatal
@@ -28,10 +28,14 @@ on failure:
    span/(R-1)/510 + 1e-6. The inputs of K1's two launches and K5's one for
    one bf16 image and the f32 image are kept; [swords hold]: on that bf16
    image the words flow and the volume flow from one phase_a give equal
-   block rows, cell counts and (rec, tq) on every slot; K5 equals its plain
-   version bit for bit on the kept inputs (timed) and on seeded random
-   inputs at 257^3 (u8) and 65^3 (u16) with absent neighbours, rows at the
-   iso and ragged counts;
+   block rows, cell counts and (rec, tq) on every slot; K5 (the whole step:
+   own-slot table, guard, zeroing and words in one library call) equals its
+   plain version bit for bit on the kept inputs (timed: the step's events
+   and the wrapper back to back) and on seeded random inputs at 257^3 (u8)
+   and 65^3 (u16) with absent neighbours, rows at the iso, ragged counts,
+   no cells, and lattices with every or no neighbour active and padded
+   ids; [k5 profile]: torch.profiler over one step sees the library's
+   memset and two kernels and no other device work;
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -70,13 +74,21 @@ on failure:
    beside a bound and, for K6a, torch.cdist), and at B = 3 with (N, M) =
    (2048, 1000), (1000, 2048), (2047, 1537) and at B = N = M = 1; the
    tolerances and their reasons are the constants NN_ULPS ... NN_BWD_REL_TOL;
-   nn_distance's backward on the card against the CPU. [eval farm]:
+   on every shape K6b and its f32 plain version against the float64
+   referee (eval/referee.py: the marginals per xyz1 and per xyz2 point and
+   the EMD), K6b within 2x the plain version's distance + 1e-7, and with
+   --parent DIR that checkout's K6b measured beside them; at the
+   protocol's shape K6b's split by pass (torch.profiler) beside its bound
+   and the three-pass floor; nn_distance's backward on the card against
+   the CPU. [eval farm]:
    reconstruct_split writes 2 objects x 24 views from in-memory records
    (seeded u8 images, the demo camera; full-width net, analytic head,
    sdf_res 256, bf16), evaluate_tree scores them on the card against GT
    meshes written with the port's write_obj (K6a-K6c launched, every value
    finite, F1 at 20% = 1.0), the images per second and each object's host
-   and device halves are printed, and 1 object x 4 views is scored again
+   and device halves are printed, K6b is held to the float64 referee on
+   each object's clouds as on [eval hold]'s, and 1 object x 4 views is
+   scored again
    on the CPU (CD and EMD within 1e-3 relative, precision and recall
    within 1/2048, IoU equal) and with the device IoU on both, which
    samples the surface: its occupancy is held to that design's bounds and
@@ -538,16 +550,17 @@ def compare_flows(cfg, params, trans, pairs: int = 10) -> None:
 
 def k5_bound(args, kw) -> tuple[float, str]:
     """(least ms the card could take, "bytes" or "operations") for one K5
-    call on these inputs: the rows, ids, coarse grid and own-slot table
-    read once, the words written, and each cell's two mask words and cand
-    byte; 56 f32 operations a lane (7 edges x (2 subtractions, a divide, a
-    scale, a compare) and the 7 lerps of the guard's own point)."""
+    step on these inputs: the rows, ids and coarse grid read once; the
+    words, the own-slot table, the change bits and cand of the whole block
+    grid and the guard written once; 56 f32 operations a lane (7 edges x
+    (2 subtractions, a divide, a scale, a compare) and the 7 lerps of the
+    guard's own point)."""
     rows, cells, _, vol_c = args
     nk = cells.numel()
     c = vol_c.shape[0] - 1
     nw = 2 if kw["R"] - 1 >= 128 else 4
-    nbytes = (rows.numel() * 4 + nk * 4 + vol_c.numel() * 4 + c ** 3 * 4
-              + nw * nk * 64 * 4 + nk * 9 + 4)
+    nbytes = (rows.numel() * 4 + nk * 4 + vol_c.numel() * 4
+              + nw * nk * 64 * 4 + c ** 3 * 4 + (c + 1) ** 3 * 9 + 4)
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = 56.0 * nk * 64 / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -555,10 +568,10 @@ def k5_bound(args, kw) -> tuple[float, str]:
 
 
 def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
-    """One K5 call against marching._sparse_cell_words on the same inputs:
+    """One K5 step against marching._sparse_cell_words on the same inputs:
     every output equal bit for bit (max_abs_err is the count of differing
-    words); timed, the wrapper (own-slot table, guard term 1, zero fill,
-    kernel), the kernel alone (its CUDA events) and the plain version.
+    words); timed, the wrapper back to back (allocation, the one library
+    call), the step on the device (its CUDA events) and the plain version.
     These launches are made after the main path's counts were read."""
     import torch
     from disn_tpu_torch.ops import marching as m
@@ -573,7 +586,7 @@ def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
            if a.dtype != b.dtype or not torch.equal(a, b)]
     diff = int((got[0] != want[0]).sum()) if got[0].shape == want[0].shape \
         else got[0].numel()
-    res = dict(max_abs_err=diff, ms=float("nan"), kernel_ms=float("nan"),
+    res = dict(max_abs_err=diff, ms=float("nan"), step_ms=float("nan"),
                plain_ms=float("nan"))
     if timed:
         res["ms"] = cuda_ms(lambda: k5(*args, **kw), 20)
@@ -581,19 +594,48 @@ def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
         for _ in range(20):
             k5(*args, **kw)
         torch.cuda.synchronize()
-        res["kernel_ms"] = float(np.median([s.elapsed_time(e)
-                                            for s, e in k5.events]))
+        res["step_ms"] = float(np.median([s.elapsed_time(e)
+                                          for s, e in k5.events]))
         k5.events = None
         res["plain_ms"] = cuda_ms(
             lambda: m._sparse_cell_words(*args, kw["R"], kw["iso"]), 3)
     res["bound_ms"], res["bound_by"] = k5_bound(args, kw)
     print(f"[k5] {label} cells={args[1].numel()} count={args[2]} "
           f"R={kw['R']} differing words={diff} outputs off={bad} guard="
-          f"{int(got[4])} ms={res['ms']:.5f} kernel_ms="
-          f"{res['kernel_ms']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
+          f"{int(got[4])} ms={res['ms']:.5f} step_ms="
+          f"{res['step_ms']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
           f"{res['bound_ms']:.5f} ({res['bound_by']})")
     check(not bad, f"K5 {label}: {bad} differ from the plain version")
     return res
+
+
+def profile_k5(args, kw) -> None:
+    """[k5 profile]: torch.profiler over one step on these inputs; the
+    device must run the library's work alone (the own-slot memset and its
+    two kernels), no PyTorch op's kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from disn_tpu_torch.ops import sparse_words
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sparse_words.sparse_cell_words(*args, **kw)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    dev = [(e.key, e.count, _device_time(e, True)) for e in avg
+           if e.device_type == DeviceType.CUDA]
+    ops = sorted(e.key for e in avg if e.device_type == DeviceType.CPU
+                 and e.key.startswith("aten::"))
+    for key, count, us in dev:
+        print(f"[k5 profile] device: {key[:90]} x{count} {us:.2f} us")
+    print(f"[k5 profile] {len(dev)} device events in one step; PyTorch ops "
+          f"on the host (allocation and views, no device work): {ops}")
+    ours = ("Memset", "own_scatter", "sparse_words_grid")
+    check(len(dev) == 3 and all(any(o in k for o in ours) for k, _, _ in dev),
+          f"[k5 profile] the step ran other device work: {dev}")
 
 
 def random_k5_args(R: int, nk: int, count: int, seed: int):
@@ -608,6 +650,27 @@ def random_k5_args(R: int, nk: int, count: int, seed: int):
     ids[count:] = 0
     rows = (0.3 * rng.randn(nk * 64)).astype(np.float32)
     rows[rng.rand(nk * 64) < 0.05] = 0.0
+    vol_c = (0.3 * rng.randn(c + 1, c + 1, c + 1)).astype(np.float32)
+    dev = torch.device("cuda")
+    return ((torch.from_numpy(rows).to(dev), torch.from_numpy(ids).to(dev),
+             count, torch.from_numpy(vol_c).to(dev)), dict(R=R, iso=0.0))
+
+
+def lattice_k5_args(R: int, stride: int, pad: int, seed: int):
+    """Seeded K5 inputs on the card: every `stride`-th coarse cell along
+    each axis active (1: every neighbour active; 2: none), then `pad` ids
+    past the count that repeat active cells."""
+    import torch
+
+    c = (R - 1) // 4
+    rng = np.random.RandomState(seed)
+    ax = np.arange(0, c, stride)
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    ids = ((z * c + y) * c + x).reshape(-1).astype(np.int32)
+    count = len(ids)
+    ids = np.concatenate([ids, rng.choice(ids, pad)]).astype(np.int32)
+    rows = (0.3 * rng.randn(len(ids) * 64)).astype(np.float32)
+    rows[rng.rand(len(ids) * 64) < 0.05] = 0.0
     vol_c = (0.3 * rng.randn(c + 1, c + 1, c + 1)).astype(np.float32)
     dev = torch.device("cuda")
     return ((torch.from_numpy(rows).to(dev), torch.from_numpy(ids).to(dev),
@@ -650,15 +713,19 @@ def hold_swords(cfg, params, img, trans, kept: dict) -> dict:
           "[swords hold] the words flow is not the volume flow's twin")
     (args, kw), = kept["bf16 k5"]
     main = hold_k5("bf16 main-path", args, kw, timed=True)
+    profile_k5(args, kw)
     (args32, kw32), = kept["f32 k5"]
     hold_k5("f32 main-path", args32, kw32)
     nk = args[1].numel()
     for R_, cases in ((257, ((nk, nk), (nk - 1, nk - 1), (nk, nk - 777),
-                             (1, 1), (3, 2), (61, 61))),
-                      (65, ((2001, 2001), (2001, 1500), (1, 1)))):
+                             (1, 1), (3, 2), (61, 61), (0, 0))),
+                      (65, ((2001, 2001), (2001, 1500), (1, 1), (0, 0)))):
         for k, (n_, count) in enumerate(cases):
             a, kw_ = random_k5_args(R_, n_, count, seed=k)
             hold_k5(f"random R={R_}", a, kw_, timed=(R_, k) == (257, 0))
+    for stride in (1, 2):  # every neighbour active, then none
+        a, kw_ = lattice_k5_args(65, stride, pad=37, seed=stride)
+        hold_k5(f"lattice stride {stride} + 37 padded ids R=65", a, kw_)
     return main
 
 
@@ -1647,6 +1714,8 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
     check(rel <= EMD_REL_TOL and row <= MARGINAL_TOL and col <= MARGINAL_TOL,
           f"{tag}: approx_match disagrees with its plain version")
     out["approx_match"] = {"max_abs_err": elem}
+    hold_referee(tag, gt, pred, mk, mp)
+    del mp
     # K6c on the kernel's match
     got_c = mt.match_cost(gt, pred, mk)
     want_c = mt.match_cost_plain(gt, pred, mk)
@@ -1720,7 +1789,79 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
                   f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) share {r['bound_ms'] / r['ms']:.4f}"
                   f"{lib}")
+        am_split(tag, gt, pred, out["approx_match"])
     return out
+
+
+def am_split(tag: str, xyz1, xyz2, res: dict) -> None:
+    """K6b's device time by pass (row, column, match) from torch.profiler
+    over 3 calls, beside its bound and the three-pass floor: 36 exps a pair
+    (2 a row pass, 1 a column pass and match write, none at the last level,
+    0) at the special-function rate, the rate the bound counts 9 exps a
+    pair at."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from disn_tpu_torch.eval import metrics as mt
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            mt.approx_match(xyz1, xyz2)
+        torch.cuda.synchronize()
+    split = {"row": 0.0, "col": 0.0, "match": 0.0}
+    other = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = next((k for k in split if f"am_{k}" in e.key), None)
+        if key is None:
+            other.append(e.key)
+        else:
+            split[key] += _device_time(e, True) / 3e3
+    floor = 36 / 9 * res["bound_ms"]
+    print(f"{tag} approx_match split (torch.profiler, 3 calls): row passes "
+          f"{split['row']:.4f} ms, column passes {split['col']:.4f} ms, "
+          f"match write {split['match']:.4f} ms, sum "
+          f"{sum(split.values()):.4f}; events ms {res['ms']:.4f}; bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_ms'] / res['ms']:.4f}), "
+          f"three-pass floor {floor:.5f} ms ({floor / res['ms']:.4f}); "
+          f"other device work (the norms): {[k[:40] for k in other]}")
+
+
+PARENT_K6B: list = []  # another checkout's K6b (--parent), run beside
+
+
+def hold_referee(tag: str, xyz1, xyz2, mk=None, mp=None) -> None:
+    """K6b and its f32 plain version against the float64 referee
+    (eval/referee.py) on approx_match(xyz1, xyz2): each one's largest
+    difference of the marginal per xyz1 point and per xyz2 point and
+    relative of the EMD; K6b within referee.RATIO x the plain version's +
+    referee.ABS. With --parent, that checkout's K6b is measured too (not
+    gated)."""
+    from disn_tpu_torch.eval import metrics as mt
+    from disn_tpu_torch.eval import referee
+
+    mk = mt.approx_match(xyz1, xyz2) if mk is None else mk
+    mp = mt.approx_match_plain(xyz1, xyz2) if mp is None else mp
+    ref = referee.referee(xyz1, xyz2)
+    dk, dp = referee.distance(mk, ref), referee.distance(mp, ref)
+    ok = referee.within(dk, dp)
+
+    def fmt(d):
+        return " ".join(f"{k} {d[k]:.3e}" for k in referee.KEYS)
+
+    parent = ""
+    for run in PARENT_K6B:
+        dq = referee.distance(run(xyz1, xyz2), ref)
+        parent = f"; parent kernel {fmt(dq)}"
+    print(f"{tag} K6b float64 referee (largest |diff| of the marginal per "
+          f"xyz1 point n, per xyz2 point m, relative of the EMD): kernel "
+          f"{fmt(dk)}; f32 plain {fmt(dp)}{parent}; kernel within "
+          f"{referee.RATIO} x plain + {referee.ABS}: {ok}")
+    check(ok, f"{tag}: approx_match is further from the float64 referee "
+              f"than {referee.RATIO} x its plain version")
 
 
 def phase_eval_hold(pred_mesh, gt_mesh) -> dict:
@@ -1859,6 +2000,12 @@ def phase_eval_farm(gt_mesh) -> dict:
               f"sample, voxelize them at 110^3, one thread) {host_ms:.1f} ms;"
               f" device half (chamfer_emd + f_score on [{FARM_VIEWS},2048,3])"
               f" {dev_ms:.2f} ms")
+        # the auction as _object_device runs it: GT first, broadcast
+        pred = torch.from_numpy(host[0].astype(np.float32)).cuda()
+        gt = torch.from_numpy(host[1].astype(np.float32)).cuda()
+        hold_referee(f"[eval farm] {obj}", gt.expand(len(pred), -1, -1)
+                     .contiguous(), pred)
+        torch.cuda.empty_cache()
     # 1 object x 4 views: the card against the CPU, and the device IoU
     card = runner.evaluate_tree(pred_dir, gt_dir, lst_one, view_num=4)
     cpu = runner.evaluate_tree(pred_dir, gt_dir, lst_one, view_num=4,
@@ -1977,6 +2124,15 @@ def k6_entries(hold: dict, counts: dict) -> list[dict]:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of disn_tpu_torch "
+                                             "on one NVIDIA GPU.")
+    ap.add_argument("--parent", default=None,
+                    help="root of another checkout (for example the parent "
+                         "commit's, unpacked with git archive) whose K6b "
+                         "also runs on [eval hold]'s and [eval farm]'s "
+                         "clouds, measured against the float64 referee")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1998,6 +2154,13 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         phase_build()
+        if args.parent:
+            from disn_tpu_torch import kernels
+            from disn_tpu_torch.eval import referee
+            src = os.path.join(args.parent, "disn_tpu_torch", "csrc",
+                               "metrics.cu")
+            PARENT_K6B.append(referee.load(kernels.nvcc_build(
+                "metrics", src=src))[1])
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])

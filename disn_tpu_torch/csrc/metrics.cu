@@ -14,25 +14,18 @@
 //   K6a ~8 flops a pair and direction, inputs and outputs ~2 MB: operations,
 //       ~0.02 ms at the protocol shape.
 //   K6b one exp a pair and level (10 levels, 1e9 at the protocol shape) on
-//       the special-function units, and the 403 MB match written once.
+//       the special-function units, and the 403 MB match written once
+//       (see its kernels for its own design).
 //   K6c, K6d one read of match (403 MB): bytes, ~0.12 ms each.
 // What the design does about it: no kernel stores a [B,N,M] tensor other
 // than match itself. Distances are recomputed from the coordinates, held in
 // shared memory a tile at a time, in the JAX package's Gram form
 // (|a|^2 - 2 a.b) + |b|^2 clamped at 0, with |a|^2 and |b|^2 precomputed by
 // the caller exactly as the plain PyTorch versions compute them, so that
-// only a.b differs from those by rounding. Rows are reduced by NSPLIT
-// neighbouring threads each (merged with shuffles in a fixed order), so a
+// only a.b differs from those by rounding. In K6a a row is reduced by
+// NSPLIT neighbouring threads (merged with shuffles in a fixed order), so a
 // pass has B*N*NSPLIT threads in flight; every sum has a fixed order and
 // no atomics are used: two runs give the same bits.
-//
-// K6b's phases per level (the plain version's one_level): a row pass
-// (ratio_l from remain_l and remain_r), a column pass (sumr, ratio_r,
-// remain_r), and a row pass (sum_m e ratio_r -> remain_l). The last row
-// pass of a level shares a launch with the first row pass of the next
-// (two exps a pair). The ten levels' ratio_l and ratio_r vectors are kept,
-// and match = sum_level e * ratio_l * ratio_r is written once at the end,
-// in level order as the plain version adds it up.
 //
 // Simple and right first: no tensor cores, no asynchronous copies.
 
@@ -49,7 +42,6 @@ constexpr int TILE = 512;              // points of the other cloud staged
 constexpr int LEVELS = 10;
 __constant__ float kLevels[LEVELS] = {-16384.f, -4096.f, -1024.f, -256.f,
                                       -64.f, -16.f, -4.f, -1.f, -0.25f, 0.f};
-constexpr int MATCH_ROWS = 8;          // rows m a block of the match write
 constexpr int COST_ROWS = 4;           // rows m a block of match_cost
 
 // (|p1|^2 - 2 p1.p2) + |p2|^2, clamped at 0: the plain versions' order, p1
@@ -62,13 +54,6 @@ __device__ __forceinline__ float gram_d(float sq1, float sq2, float ab) {
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                       float by, float bz) {
   return fmaf(az, bz, fmaf(ay, by, ax * bx));
-}
-
-__device__ __forceinline__ float split_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < NSPLIT; off <<= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // ---------------------------------------------------------------- K6a ----
@@ -142,179 +127,303 @@ nn_kernel(const float* __restrict__ xyz1, const float* __restrict__ sq1,
 }
 
 // ---------------------------------------------------------------- K6b ----
-// Row pass of level k over the points of xyz1 (blockIdx.y = batch):
-//   k > 0: remain_l -= ratio_l[k-1] * sum_m e_{k-1} ratio_r[k-1]  (>= 0)
-//   ratio_l[k] = remain_l / (1e-9 + sum_m e_k remain_r)
-// ratio_l / ratio_r are [LEVELS][B][n] / [LEVELS][B][m].
-__global__ void __launch_bounds__(THREADS)
+// The auction of the plain version (eval/metrics.approx_match_plain), per
+// level k with e = exp(level_k * d):
+//   row pass k     remain_l -= ratio_l[k-1] * sum_m e_{k-1} ratio_r[k-1]
+//                  (clamped at 0; k > 0), ratio_l[k] = remain_l /
+//                  (1e-9 + sum_m e_k remain_r)
+//   column pass k  sumr = remain_r * sum_n e_k ratio_l[k];
+//                  ratio_r[k] = min(remain_r / (sumr + 1e-9), 1) * remain_r;
+//                  remain_r = max(remain_r - sumr, 0)
+//   match          match[c][r] = sum_k e_k ratio_l[k][r] ratio_r[k][c]
+// Three passes a level store no exps: each pass recomputes e from d.
+//
+// Numbers. d and every e are the plain version's f32 bits: d in its Gram
+// order (gram_d of dot3), e = expf(level * d) (level * d is exact: the
+// levels are powers of 2), which rounds as torch.exp does. No approximate
+// exp, and none derived from another level's. The one skip is the last
+// level, 0, where e is exactly 1. The auction's bookkeeping is float64:
+// the row and column sums (each e * weight product is exact in f64), the
+// epilogues, and the remainders and ratios carried between passes (the
+// wrapper's scratch is f64). The match write rounds as the plain
+// version's does, from the ratios rounded to f32. The auction amplifies
+// rounding (at level -16384 a change delta in d moves e by ~16384 delta).
+// Measured on the card (eval/referee.py, 56 clouds), an f32 bookkeeping
+// lands up to 10x further from the float64 referee than the plain version
+// does (FMA contraction in the epilogues, another sum order, ratios
+// rounded between passes); with an f64 one every marginal and EMD stays
+// within 1.53x of the plain version's distance. Sums have a fixed order
+// (below): two runs give the same bits.
+//
+// What bounds it on the H100: the special-function units (16 results a
+// clock per SM). A pair costs 36 expf (row passes 2 a level, column pass
+// and match write 1, none at the last level) and 27 f32 -> f64 conversions for
+// the sums on the same units, against the 9 exps a pair of the bound.
+// What the design does about it: registers, not shared memory, carry the
+// pairs. A thread holds AM_RPT points of its own cloud; the other cloud is
+// staged a tile at a time in shared memory as one float4 a point (-2x, -2y,
+// -2z, |p|^2: -2 is a power of 2, so ((|a|^2 + a.(-2b)) + |b|^2) is
+// gram_d's d to the bit) and its weights as one wide f64 load, and each
+// broadcast load serves AM_RPT rows. A block's AM_SPLIT warps take the
+// other cloud's points j = w, w + AM_SPLIT, ... in order, and a row's total
+// is the warps' partial sums added as a balanced tree in warp order.
+constexpr int AM_RPT = 4;                      // rows a thread
+constexpr int AM_SPLIT = 8;                    // warps a block
+constexpr int AM_ROWS = 32 * AM_RPT;           // rows a block
+constexpr int AM_THREADS = 32 * AM_SPLIT;
+constexpr int AM_TILE = 512;                   // staged points of the other
+constexpr int AM_MATCH_RPT = 2;                // match: rows a thread
+constexpr int AM_MATCH_THREADS = 256;
+constexpr int AM_MATCH_COLS = 8;               // match: columns a block
+
+// -2 * p and |p|^2 of point i of a cloud [.,3] with norms sq
+__device__ __forceinline__ float4 am_stage(const float* __restrict__ xyz,
+                                           const float* __restrict__ sq,
+                                           size_t i) {
+  return make_float4(-2.f * xyz[3 * i], -2.f * xyz[3 * i + 1],
+                     -2.f * xyz[3 * i + 2], sq[i]);
+}
+
+// d of a point (x, y, z) of xyz1 with norm s1 and a staged point q of xyz2
+// (row pass and match), or of a staged point q of xyz1 and a point of xyz2
+// with norm s2 (column pass): the parent's gram_d(s1, s2, dot3(p1, p2)).
+__device__ __forceinline__ float am_d_row(float x, float y, float z,
+                                          float s1, float4 q) {
+  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));   // -2 a.b
+  return fmaxf(__fadd_rn(__fadd_rn(s1, ab2), q.w), 0.f);
+}
+__device__ __forceinline__ float am_d_col(float x, float y, float z,
+                                          float s2, float4 q) {
+  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));
+  return fmaxf(__fadd_rn(__fadd_rn(q.w, ab2), s2), 0.f);
+}
+
+// a row's total of the AM_SPLIT warps' partials part[w][row]: a balanced
+// tree in warp order
+__device__ __forceinline__ double am_total(double (*part)[AM_ROWS],
+                                           int row) {
+  double t[AM_SPLIT];
+#pragma unroll
+  for (int w = 0; w < AM_SPLIT; w++) t[w] = part[w][row];
+#pragma unroll
+  for (int h = 1; h < AM_SPLIT; h <<= 1)
+#pragma unroll
+    for (int w = 0; w < AM_SPLIT; w += 2 * h) t[w] += t[w + h];
+  return t[0];
+}
+
+// Row pass of level k over the points of xyz1, blockIdx.y = batch. PREV:
+// k > 0 (the remain_l update from level k-1); EXP: k < LEVELS - 1.
+template <bool PREV, bool EXP>
+__global__ void __launch_bounds__(AM_THREADS)
 am_row(const float* __restrict__ xyz1, const float* __restrict__ sq1, int n,
        const float* __restrict__ xyz2, const float* __restrict__ sq2, int m,
-       int nb, int k, float* __restrict__ remain_l,
-       const float* __restrict__ remain_r, float* __restrict__ ratio_l,
-       const float* __restrict__ ratio_r) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], ss[TILE], w1[TILE],
-      w2[TILE];
-  const int b = blockIdx.y;
-  const float lev = kLevels[k];
-  const float lev_prev = k > 0 ? kLevels[k - 1] : 0.f;
-  const float* p1 = xyz1 + (size_t)b * n * 3;
-  const float* p2 = xyz2 + (size_t)b * m * 3;
-  const float* rr_prev =
-      k > 0 ? ratio_r + ((size_t)(k - 1) * nb + b) * m : nullptr;
-  const float* rem_r = remain_r + (size_t)b * m;
-  const int r = blockIdx.x * ROWS + threadIdx.x / NSPLIT;
-  const int part = threadIdx.x % NSPLIT;
-  const bool live = r < n;
-  float rx = 0.f, ry = 0.f, rz = 0.f, rs = 0.f;
-  if (live) {
-    rx = p1[3 * r];
-    ry = p1[3 * r + 1];
-    rz = p1[3 * r + 2];
-    rs = sq1[(size_t)b * n + r];
+       int nb, int k, double multi_l, double multi_r,
+       double* __restrict__ remain_l, const double* __restrict__ remain_r,
+       double* __restrict__ ratio_l, const double* __restrict__ ratio_r) {
+  __shared__ float4 s_pt[AM_TILE];
+  __shared__ double2 s_w[AM_TILE];
+  __shared__ double s_part[2][AM_SPLIT][AM_ROWS];
+  const int b = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * AM_ROWS;
+  const float lev = kLevels[k], lev_prev = PREV ? kLevels[k - 1] : 0.f;
+  float rx[AM_RPT], ry[AM_RPT], rz[AM_RPT], rs[AM_RPT];
+  double cur[AM_RPT], prev[AM_RPT];
+#pragma unroll
+  for (int i = 0; i < AM_RPT; i++) {
+    const int r = min(r0 + i * 32 + lane, n - 1);  // past n: a copy, unused
+    const size_t g = (size_t)b * n + r;
+    rx[i] = xyz1[3 * g];
+    ry[i] = xyz1[3 * g + 1];
+    rz[i] = xyz1[3 * g + 2];
+    rs[i] = sq1[g];
+    cur[i] = prev[i] = 0.0;
   }
-  float s_prev = 0.f, s_cur = 0.f;
-  for (int t0 = 0; t0 < m; t0 += TILE) {
-    const int cnt = min(TILE, m - t0);
+  for (int t0 = 0; t0 < m; t0 += AM_TILE) {
+    const int cnt = min(AM_TILE, m - t0);
     __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      sx[i] = p2[3 * (t0 + i)];
-      sy[i] = p2[3 * (t0 + i) + 1];
-      sz[i] = p2[3 * (t0 + i) + 2];
-      ss[i] = sq2[(size_t)b * m + t0 + i];
-      w1[i] = rem_r[t0 + i];
-      w2[i] = k > 0 ? rr_prev[t0 + i] : 0.f;
+    for (int j = threadIdx.x; j < cnt; j += AM_THREADS) {
+      const size_t g = (size_t)b * m + t0 + j;
+      s_pt[j] = am_stage(xyz2, sq2, g);
+      s_w[j] = make_double2(
+          k > 0 ? remain_r[g] : multi_r,
+          PREV ? ratio_r[(size_t)(k - 1) * nb * m + g] : 0.0);
     }
     __syncthreads();
-    if (live) {
-      for (int j = part; j < cnt; j += NSPLIT) {
-        const float d = gram_d(rs, ss[j], dot3(rx, ry, rz, sx[j], sy[j],
-                                               sz[j]));
-        s_cur = fmaf(expf(lev * d), w1[j], s_cur);
-        if (k > 0) s_prev = fmaf(expf(lev_prev * d), w2[j], s_prev);
+#pragma unroll 4
+    for (int j = w; j < cnt; j += AM_SPLIT) {
+      const float4 q = s_pt[j];
+      const double2 wt = s_w[j];
+#pragma unroll
+      for (int i = 0; i < AM_RPT; i++) {
+        const float d = am_d_row(rx[i], ry[i], rz[i], rs[i], q);
+        cur[i] = EXP ? fma((double)expf(lev * d), wt.x, cur[i])
+                     : cur[i] + wt.x;
+        if (PREV) prev[i] = fma((double)expf(lev_prev * d), wt.y, prev[i]);
       }
     }
   }
-  s_cur = split_sum(s_cur);
-  s_prev = split_sum(s_prev);
-  if (live && part == 0) {
-    const size_t i = (size_t)b * n + r;
-    float rem = remain_l[i];
-    if (k > 0)
-      rem = fmaxf(0.f, rem - ratio_l[(size_t)(k - 1) * nb * n + i] * s_prev);
-    remain_l[i] = rem;
-    ratio_l[(size_t)k * nb * n + i] = rem / (1e-9f + s_cur);
+#pragma unroll
+  for (int i = 0; i < AM_RPT; i++) {
+    s_part[0][w][i * 32 + lane] = cur[i];
+    if (PREV) s_part[1][w][i * 32 + lane] = prev[i];
+  }
+  __syncthreads();
+  for (int row = threadIdx.x; row < AM_ROWS; row += AM_THREADS) {
+    const int r = r0 + row;
+    if (r >= n) break;
+    const size_t g = (size_t)b * n + r;
+    double rem = k > 0 ? remain_l[g] : multi_l;
+    if (PREV)
+      rem = fmax(rem - ratio_l[(size_t)(k - 1) * nb * n + g] *
+                           am_total(s_part[1], row), 0.0);
+    remain_l[g] = rem;
+    ratio_l[(size_t)k * nb * n + g] = rem / (1e-9 + am_total(s_part[0], row));
   }
 }
 
-// Column pass of level k over the points of xyz2:
-//   sumr = (sum_n e_k ratio_l[k]) * remain_r
-//   ratio_r[k] = min(remain_r / (sumr + 1e-9), 1) * remain_r
-//   remain_r = max(0, remain_r - sumr)
-__global__ void __launch_bounds__(THREADS)
+// Column pass of level k over the points of xyz2. EXP: k < LEVELS - 1.
+template <bool EXP>
+__global__ void __launch_bounds__(AM_THREADS)
 am_col(const float* __restrict__ xyz1, const float* __restrict__ sq1, int n,
        const float* __restrict__ xyz2, const float* __restrict__ sq2, int m,
-       int nb, int k, const float* __restrict__ ratio_l,
-       float* __restrict__ remain_r, float* __restrict__ ratio_r) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], ss[TILE], w1[TILE];
-  const int b = blockIdx.y;
+       int nb, int k, double multi_r, const double* __restrict__ ratio_l,
+       double* __restrict__ remain_r, double* __restrict__ ratio_r) {
+  __shared__ float4 s_pt[AM_TILE];
+  __shared__ double s_w[AM_TILE];
+  __shared__ double s_part[AM_SPLIT][AM_ROWS];
+  const int b = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * AM_ROWS;
   const float lev = kLevels[k];
-  const float* p1 = xyz1 + (size_t)b * n * 3;
-  const float* p2 = xyz2 + (size_t)b * m * 3;
-  const float* rl = ratio_l + ((size_t)k * nb + b) * n;
-  const int c = blockIdx.x * ROWS + threadIdx.x / NSPLIT;
-  const int part = threadIdx.x % NSPLIT;
-  const bool live = c < m;
-  float cx = 0.f, cy = 0.f, cz = 0.f, cs = 0.f;
-  if (live) {
-    cx = p2[3 * c];
-    cy = p2[3 * c + 1];
-    cz = p2[3 * c + 2];
-    cs = sq2[(size_t)b * m + c];
+  const double* rl = ratio_l + (size_t)k * nb * n;
+  float cx[AM_RPT], cy[AM_RPT], cz[AM_RPT], cs[AM_RPT];
+  double acc[AM_RPT];
+#pragma unroll
+  for (int i = 0; i < AM_RPT; i++) {
+    const int c = min(c0 + i * 32 + lane, m - 1);
+    const size_t g = (size_t)b * m + c;
+    cx[i] = xyz2[3 * g];
+    cy[i] = xyz2[3 * g + 1];
+    cz[i] = xyz2[3 * g + 2];
+    cs[i] = sq2[g];
+    acc[i] = 0.0;
   }
-  float s = 0.f;
-  for (int t0 = 0; t0 < n; t0 += TILE) {
-    const int cnt = min(TILE, n - t0);
+  for (int t0 = 0; t0 < n; t0 += AM_TILE) {
+    const int cnt = min(AM_TILE, n - t0);
     __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      sx[i] = p1[3 * (t0 + i)];
-      sy[i] = p1[3 * (t0 + i) + 1];
-      sz[i] = p1[3 * (t0 + i) + 2];
-      ss[i] = sq1[(size_t)b * n + t0 + i];
-      w1[i] = rl[t0 + i];
+    for (int j = threadIdx.x; j < cnt; j += AM_THREADS) {
+      const size_t g = (size_t)b * n + t0 + j;
+      s_pt[j] = am_stage(xyz1, sq1, g);
+      s_w[j] = rl[g];
     }
     __syncthreads();
-    if (live) {
-      for (int j = part; j < cnt; j += NSPLIT) {
-        const float d = gram_d(ss[j], cs, dot3(sx[j], sy[j], sz[j], cx, cy,
-                                               cz));
-        s = fmaf(expf(lev * d), w1[j], s);
-      }
+#pragma unroll 4
+    for (int j = w; j < cnt; j += AM_SPLIT) {
+      const float4 q = s_pt[j];
+      const double wt = s_w[j];
+#pragma unroll
+      for (int i = 0; i < AM_RPT; i++)
+        acc[i] = EXP ? fma((double)expf(lev * am_d_col(cx[i], cy[i], cz[i],
+                                                       cs[i], q)),
+                           wt, acc[i])
+                     : acc[i] + wt;
     }
   }
-  s = split_sum(s);
-  if (live && part == 0) {
-    const size_t i = (size_t)b * m + c;
-    const float rem = remain_r[i];
-    const float sumr = s * rem;
-    const float cons = fminf(rem / (sumr + 1e-9f), 1.f);
-    ratio_r[(size_t)k * nb * m + i] = cons * rem;
-    remain_r[i] = fmaxf(0.f, rem - sumr);
+#pragma unroll
+  for (int i = 0; i < AM_RPT; i++) s_part[w][i * 32 + lane] = acc[i];
+  __syncthreads();
+  for (int row = threadIdx.x; row < AM_ROWS; row += AM_THREADS) {
+    const int c = c0 + row;
+    if (c >= m) break;
+    const size_t g = (size_t)b * m + c;
+    const double rem = k > 0 ? remain_r[g] : multi_r;
+    const double sumr = am_total(s_part, row) * rem;
+    ratio_r[(size_t)k * nb * m + g] = fmin(rem / (sumr + 1e-9), 1.0) * rem;
+    remain_r[g] = fmax(rem - sumr, 0.0);
   }
 }
 
-// match[b][c][r] = sum_k (e_k[r,c] * ratio_l[k][r]) * ratio_r[k][c], in
-// level order. Threads run along r (the fastest axis of match), a block
-// covers MATCH_ROWS columns c (blockIdx.y), blockIdx.z = batch.
-__global__ void __launch_bounds__(256)
+// match[b][c][r] = sum_k (e_k ratio_l[k][r]) ratio_r[k][c] in f32, in
+// level order, each product and sum rounded as the plain version's, from
+// the f64 ratios rounded to f32 once. Threads run along r (the fastest axis
+// of match), AM_MATCH_RPT rows a thread; a block covers AM_MATCH_COLS
+// columns c (blockIdx.y), blockIdx.z = batch.
+__global__ void __launch_bounds__(AM_MATCH_THREADS)
 am_match(const float* __restrict__ xyz1, const float* __restrict__ sq1,
          int n, const float* __restrict__ xyz2,
          const float* __restrict__ sq2, int m, int nb,
-         const float* __restrict__ ratio_l,
-         const float* __restrict__ ratio_r, float* __restrict__ match) {
-  __shared__ float cpt[MATCH_ROWS][4];
-  __shared__ float crr[MATCH_ROWS][LEVELS];
+         const double* __restrict__ ratio_l,
+         const double* __restrict__ ratio_r, float* __restrict__ match) {
+  __shared__ float4 s_pt[AM_MATCH_COLS];
+  __shared__ float s_rr[AM_MATCH_COLS][LEVELS];
   const int b = blockIdx.z;
-  const int c0 = blockIdx.y * MATCH_ROWS;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  for (int i = threadIdx.x; i < MATCH_ROWS * (4 + LEVELS); i += blockDim.x) {
-    const int row = i / (4 + LEVELS), f = i % (4 + LEVELS);
-    const int c = c0 + row;
-    float v = 0.f;
-    if (c < m) {
-      if (f < 3)
-        v = xyz2[((size_t)b * m + c) * 3 + f];
-      else if (f == 3)
-        v = sq2[(size_t)b * m + c];
-      else
-        v = ratio_r[((size_t)(f - 4) * nb + b) * m + c];
-    }
-    if (f < 4)
-      cpt[row][f] = v;
+  const int c0 = blockIdx.y * AM_MATCH_COLS;
+  const int ncol = min(AM_MATCH_COLS, m - c0);
+  for (int i = threadIdx.x; i < ncol * (1 + LEVELS); i += AM_MATCH_THREADS) {
+    const int col = i / (1 + LEVELS), f = i % (1 + LEVELS);
+    const size_t g = (size_t)b * m + c0 + col;
+    if (f == 0)
+      s_pt[col] = am_stage(xyz2, sq2, g);
     else
-      crr[row][f - 4] = v;
+      s_rr[col][f - 1] = (float)ratio_r[(size_t)(f - 1) * nb * m + g];
   }
   __syncthreads();
-  if (r >= n) return;
-  const float rx = xyz1[((size_t)b * n + r) * 3];
-  const float ry = xyz1[((size_t)b * n + r) * 3 + 1];
-  const float rz = xyz1[((size_t)b * n + r) * 3 + 2];
-  const float rs = sq1[(size_t)b * n + r];
-  float rl[LEVELS];
+  const int rbase = blockIdx.x * AM_MATCH_THREADS * AM_MATCH_RPT +
+                    threadIdx.x;
+  float rx[AM_MATCH_RPT], ry[AM_MATCH_RPT], rz[AM_MATCH_RPT],
+      rs[AM_MATCH_RPT], rl[AM_MATCH_RPT][LEVELS];
 #pragma unroll
-  for (int k = 0; k < LEVELS; k++)
-    rl[k] = ratio_l[((size_t)k * nb + b) * n + r];
-  for (int row = 0; row < MATCH_ROWS; row++) {
-    const int c = c0 + row;
-    if (c >= m) break;
-    const float d = gram_d(rs, cpt[row][3],
-                           dot3(rx, ry, rz, cpt[row][0], cpt[row][1],
-                                cpt[row][2]));
-    float acc = 0.f;
+  for (int i = 0; i < AM_MATCH_RPT; i++) {
+    const int r = min(rbase + i * AM_MATCH_THREADS, n - 1);
+    const size_t g = (size_t)b * n + r;
+    rx[i] = xyz1[3 * g];
+    ry[i] = xyz1[3 * g + 1];
+    rz[i] = xyz1[3 * g + 2];
+    rs[i] = sq1[g];
 #pragma unroll
     for (int k = 0; k < LEVELS; k++)
-      acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(expf(kLevels[k] * d), rl[k]),
-                                     crr[row][k]));
-    match[((size_t)b * m + c) * n + r] = acc;
+      rl[i][k] = (float)ratio_l[(size_t)k * nb * n + g];
+  }
+  for (int col = 0; col < ncol; col++) {
+    const float4 q = s_pt[col];
+#pragma unroll
+    for (int i = 0; i < AM_MATCH_RPT; i++) {
+      const float d = am_d_row(rx[i], ry[i], rz[i], rs[i], q);
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < LEVELS - 1; k++)
+        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(expf(kLevels[k] * d),
+                                                 rl[i][k]),
+                                       s_rr[col][k]));
+      acc = __fadd_rn(acc, __fmul_rn(rl[i][LEVELS - 1],               // e = 1
+                                     s_rr[col][LEVELS - 1]));
+      const int r = rbase + i * AM_MATCH_THREADS;
+      if (r < n) match[((size_t)b * m + c0 + col) * n + r] = acc;
+    }
+  }
+}
+
+// For a test: d of the pairs of xyz1's first min(n, AM_ROWS) points and
+// xyz2's first min(m, AM_TILE), [rows, cols] each, from the row pass's and
+// the match's form (out[0]), the column pass's (out[1]), and gram_d of
+// dot3 as K6a and K6c compute it (out[2]).
+__global__ void __launch_bounds__(AM_THREADS)
+am_d_tile(const float* __restrict__ xyz1, const float* __restrict__ sq1,
+          int n, const float* __restrict__ xyz2,
+          const float* __restrict__ sq2, int m, float* __restrict__ out) {
+  const int rows = min(n, AM_ROWS), cols = min(m, AM_TILE);
+  const size_t plane = (size_t)rows * cols;
+  for (int p = threadIdx.x; p < rows * cols; p += AM_THREADS) {
+    const int r = p / cols, c = p % cols;
+    const float4 q2 = am_stage(xyz2, sq2, c), q1 = am_stage(xyz1, sq1, r);
+    out[p] = am_d_row(xyz1[3 * r], xyz1[3 * r + 1], xyz1[3 * r + 2], sq1[r],
+                      q2);
+    out[plane + p] = am_d_col(xyz2[3 * c], xyz2[3 * c + 1], xyz2[3 * c + 2],
+                              sq2[c], q1);
+    out[2 * plane + p] = gram_d(
+        sq1[r], sq2[c],
+        dot3(xyz1[3 * r], xyz1[3 * r + 1], xyz1[3 * r + 2], xyz2[3 * c],
+             xyz2[3 * c + 1], xyz2[3 * c + 2]));
   }
 }
 
@@ -475,30 +584,57 @@ extern "C" int nn_distance_launch(const float* xyz1, const float* sq1, int n,
   return (int)cudaGetLastError();
 }
 
-// remain_l [B,n] and remain_r [B,m] hold the starting masses on entry
-// (multi_l, multi_r) and are scratch; ratio_l [LEVELS,B,n] and ratio_r
-// [LEVELS,B,m] are scratch; match is [B,m,n].
+// remain_l [B,n], remain_r [B,m], ratio_l [LEVELS,B,n] and ratio_r
+// [LEVELS,B,m] are f64 scratch; multi_l and multi_r are the starting
+// masses; match is [B,m,n].
 extern "C" int approx_match_launch(const float* xyz1, const float* sq1,
                                    int n, const float* xyz2,
                                    const float* sq2, int m, int batch,
-                                   float* remain_l, float* remain_r,
-                                   float* ratio_l, float* ratio_r,
+                                   double multi_l, double multi_r,
+                                   double* remain_l, double* remain_r,
+                                   double* ratio_l, double* ratio_r,
                                    float* match, cudaStream_t stream) {
-  const dim3 grow(blocks(n, ROWS), batch), gcol(blocks(m, ROWS), batch);
+  const dim3 grow(blocks(n, AM_ROWS), batch), gcol(blocks(m, AM_ROWS), batch);
   for (int k = 0; k < LEVELS; k++) {
-    am_row<<<grow, THREADS, 0, stream>>>(xyz1, sq1, n, xyz2, sq2, m, batch,
-                                         k, remain_l, remain_r, ratio_l,
-                                         ratio_r);
+    const bool last = k == LEVELS - 1;
+    if (k == 0)
+      am_row<false, true><<<grow, AM_THREADS, 0, stream>>>(
+          xyz1, sq1, n, xyz2, sq2, m, batch, k, multi_l, multi_r, remain_l,
+          remain_r, ratio_l, ratio_r);
+    else if (!last)
+      am_row<true, true><<<grow, AM_THREADS, 0, stream>>>(
+          xyz1, sq1, n, xyz2, sq2, m, batch, k, multi_l, multi_r, remain_l,
+          remain_r, ratio_l, ratio_r);
+    else
+      am_row<true, false><<<grow, AM_THREADS, 0, stream>>>(
+          xyz1, sq1, n, xyz2, sq2, m, batch, k, multi_l, multi_r, remain_l,
+          remain_r, ratio_l, ratio_r);
     int err = (int)cudaGetLastError();
     if (err) return err;
-    am_col<<<gcol, THREADS, 0, stream>>>(xyz1, sq1, n, xyz2, sq2, m, batch,
-                                         k, ratio_l, remain_r, ratio_r);
+    if (!last)
+      am_col<true><<<gcol, AM_THREADS, 0, stream>>>(
+          xyz1, sq1, n, xyz2, sq2, m, batch, k, multi_r, ratio_l, remain_r,
+          ratio_r);
+    else
+      am_col<false><<<gcol, AM_THREADS, 0, stream>>>(
+          xyz1, sq1, n, xyz2, sq2, m, batch, k, multi_r, ratio_l, remain_r,
+          ratio_r);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
-  const dim3 gm(blocks(n, 256), blocks(m, MATCH_ROWS), batch);
-  am_match<<<gm, 256, 0, stream>>>(xyz1, sq1, n, xyz2, sq2, m, batch, ratio_l,
-                                   ratio_r, match);
+  const dim3 gm(blocks(n, AM_MATCH_THREADS * AM_MATCH_RPT),
+                blocks(m, AM_MATCH_COLS), batch);
+  am_match<<<gm, AM_MATCH_THREADS, 0, stream>>>(
+      xyz1, sq1, n, xyz2, sq2, m, batch, ratio_l, ratio_r, match);
+  return (int)cudaGetLastError();
+}
+
+// out [3, min(n, 128), min(m, 512)]: see am_d_tile (one cloud pair).
+extern "C" int approx_match_d_tile(const float* xyz1, const float* sq1,
+                                   int n, const float* xyz2,
+                                   const float* sq2, int m, float* out,
+                                   cudaStream_t stream) {
+  am_d_tile<<<1, AM_THREADS, 0, stream>>>(xyz1, sq1, n, xyz2, sq2, m, out);
   return (int)cudaGetLastError();
 }
 

@@ -37,20 +37,27 @@ LEVELS = [-float(4.0 ** j) for j in range(7, -2, -1)] + [0.0]
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    return bind(build())
+
+
+def bind(path) -> ctypes.CDLL:
+    """Load a build of csrc/metrics.cu and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.nn_distance_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp,
                                        vp, vp, vp]
-    lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp,
-                                        vp, vp, vp, vp]
+    cd = ctypes.c_double
+    lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, cd, cd,
+                                        vp, vp, vp, vp, vp, vp]
+    lib.approx_match_d_tile.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp]
     lib.match_cost_parts.argtypes = [ci]
     lib.match_cost_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
                                       vp]
     lib.match_cost_grad_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp,
                                            vp, vp]
     for name in ("nn_distance_launch", "approx_match_launch",
-                 "match_cost_parts", "match_cost_launch",
-                 "match_cost_grad_launch"):
+                 "approx_match_d_tile", "match_cost_parts",
+                 "match_cost_launch", "match_cost_grad_launch"):
         getattr(lib, name).restype = ci
     return lib
 
@@ -191,11 +198,15 @@ def _masses(n: int, m: int) -> tuple[float, float]:
 
 def approx_match_plain(xyz1: torch.Tensor, xyz2: torch.Tensor
                        ) -> torch.Tensor:
+    """The auction in PyTorch ops, in the inputs' dtype throughout: float32
+    is the kernel's plain version, float64 its referee."""
     _, n, m = _clouds(xyz1, xyz2)
     multi_l, multi_r = _masses(n, m)
     d = _pairwise_sqdist(xyz1, xyz2)  # [B,N,M]
-    remain_l = torch.full(xyz1.shape[:-1], multi_l, device=xyz1.device)
-    remain_r = torch.full(xyz2.shape[:-1], multi_r, device=xyz1.device)
+    remain_l = torch.full(xyz1.shape[:-1], multi_l, dtype=xyz1.dtype,
+                          device=xyz1.device)
+    remain_r = torch.full(xyz2.shape[:-1], multi_r, dtype=xyz1.dtype,
+                          device=xyz1.device)
     match = torch.zeros_like(d)
     for level in LEVELS:
         e = torch.exp(level * d)
@@ -219,22 +230,54 @@ def approx_match(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     moved from xyz1[k] to xyz2[l]. xyz1 [B,N,3] (the GT cloud in the
     protocol), xyz2 [B,M,3]."""
     dev = _device_of(xyz1, xyz2)
-    b, n, m = _clouds(xyz1, xyz2)
+    _clouds(xyz1, xyz2)
     if dev.type == "cpu":
         return approx_match_plain(xyz1, xyz2)
-    multi_l, multi_r = _masses(n, m)
-    remain_l = torch.full((b, n), multi_l, device=dev)
-    remain_r = torch.full((b, m), multi_r, device=dev)
-    ratio_l = torch.empty((len(LEVELS), b, n), device=dev)
-    ratio_r = torch.empty((len(LEVELS), b, m), device=dev)
-    match = torch.empty((b, m, n), device=dev)
-    sq1, sq2 = _sq(xyz1), _sq(xyz2)
-    _raise_on(_lib().approx_match_launch(
-        xyz1.data_ptr(), sq1.data_ptr(), n, xyz2.data_ptr(), sq2.data_ptr(),
-        m, b, remain_l.data_ptr(), remain_r.data_ptr(), ratio_l.data_ptr(),
-        ratio_r.data_ptr(), match.data_ptr(), _stream(xyz1)), "approx_match")
+    match = _approx_match_run(_lib(), xyz1, xyz2)
     approx_match.launches += 1
     return match
+
+
+def _approx_match_run(lib: ctypes.CDLL, xyz1: torch.Tensor,
+                      xyz2: torch.Tensor) -> torch.Tensor:
+    """One approx_match_launch of `lib` (this checkout's library, or another
+    build of the same entry point) on checked CUDA clouds; the auction's
+    remainders and ratios are float64 scratch."""
+    b, n, m = _clouds(xyz1, xyz2)
+    dev = xyz1.device
+    multi_l, multi_r = _masses(n, m)
+    f64 = dict(dtype=torch.float64, device=dev)
+    remain_l, remain_r = torch.empty((b, n), **f64), torch.empty((b, m), **f64)
+    ratio_l = torch.empty((len(LEVELS), b, n), **f64)
+    ratio_r = torch.empty((len(LEVELS), b, m), **f64)
+    match = torch.empty((b, m, n), device=dev)
+    sq1, sq2 = _sq(xyz1), _sq(xyz2)
+    _raise_on(lib.approx_match_launch(
+        xyz1.data_ptr(), sq1.data_ptr(), n, xyz2.data_ptr(), sq2.data_ptr(),
+        m, b, multi_l, multi_r, remain_l.data_ptr(), remain_r.data_ptr(),
+        ratio_l.data_ptr(), ratio_r.data_ptr(), match.data_ptr(),
+        _stream(xyz1)), "approx_match")
+    return match
+
+
+def approx_match_d_tile(xyz1: torch.Tensor, xyz2: torch.Tensor
+                        ) -> torch.Tensor:
+    """For tests: [3, min(N, 128), min(M, 512)] f32 on the card, the squared
+    distances of the first points of one cloud pair (xyz1 [N,3], xyz2
+    [M,3]) as K6b's row pass and match (0) and its column pass (1) compute
+    them, and as gram_d(dot3) of K6a and K6c (2)."""
+    if xyz1.dim() != 2 or xyz2.dim() != 2:
+        raise ValueError("want one cloud pair [N,3], [M,3]")
+    dev = _device_of(xyz1, xyz2)
+    if dev.type != "cuda":
+        raise ValueError("the d tile is computed by the kernel on the card")
+    n, m = xyz1.shape[0], xyz2.shape[0]
+    out = torch.empty((3, min(n, 128), min(m, 512)), device=dev)
+    sq1, sq2 = _sq(xyz1), _sq(xyz2)
+    _raise_on(_lib().approx_match_d_tile(
+        xyz1.data_ptr(), sq1.data_ptr(), n, xyz2.data_ptr(), sq2.data_ptr(),
+        m, out.data_ptr(), _stream(xyz1)), "approx_match_d_tile")
+    return out
 
 
 approx_match.launches = 0

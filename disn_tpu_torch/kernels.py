@@ -29,10 +29,12 @@ def build_lock(name: str) -> threading.Lock:
         return _LOCKS.setdefault(name, threading.Lock())
 
 
-def nvcc_build(name: str, defines: tuple[str, ...] = ()) -> Path:
-    """Compile csrc/<name>.cu with `defines` (once per hash of the source
-    and the flags) and return the library's path."""
-    src = CSRC / f"{name}.cu"
+def nvcc_build(name: str, defines: tuple[str, ...] = (),
+               src: Path | None = None) -> Path:
+    """Compile csrc/<name>.cu, or the source `src` (another checkout's, for
+    a comparison), with `defines` (once per hash of the source and the
+    flags) and return the library's path."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(flags).encode()).hexdigest()[:12]

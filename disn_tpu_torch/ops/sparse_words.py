@@ -7,15 +7,16 @@ the sparse-words flow never builds the [R^3] volume. The CUDA source is
 ``csrc/sparse_words.cu``; its header note gives what it computes, its bound
 (bytes: the rows read once, the words written once) and the design.
 
-``sparse_cell_words`` launches the kernel for CUDA tensors and runs the
-plain version, ``ops/marching._sparse_cell_words``, only for CPU tensors;
-there is no fallback from the kernel to the plain version. The wrapper
-builds the own-slot table and guard term (1) with PyTorch ops, zeroes the
-bits and cand arrays, and launches the kernel once.
-``sparse_cell_words.launches`` counts kernel launches; when
-``sparse_cell_words.events`` is a list, each launch appends a (start, end)
-pair of CUDA events recorded around the kernel alone, and when
-``sparse_cell_words.inputs`` is a list, each launch appends its (args,
+``sparse_cell_words`` runs the whole step on the card for CUDA tensors
+and the plain version, ``ops/marching._sparse_cell_words``, only for CPU
+tensors; there is no fallback from the kernel to the plain version. On the
+card the wrapper allocates the outputs and makes one call into the library
+(``sparse_words_step``: the own-slot table, guard terms (1) and (2), the
+zeroing of bits and cand, and the words), with no PyTorch op on the device.
+``sparse_cell_words.launches`` counts those calls; when
+``sparse_cell_words.events`` is a list, each call appends a (start, end)
+pair of CUDA events recorded around the step, and when
+``sparse_cell_words.inputs`` is a list, each call appends its (args,
 kwargs), so that a caller can hold a launch against the plain version.
 
 The kernel is built with nvcc into ``build/kernels/`` under the repository
@@ -47,10 +48,9 @@ def _lib() -> ctypes.CDLL:
         raise AssertionError(f"owned edge order changed: {pair_j}")
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sparse_words_launch.argtypes = [vp, vp, ci, ci, vp, vp, ci,
-                                        ctypes.c_float, ci, vp, vp, vp, vp,
-                                        vp]
-    lib.sparse_words_launch.restype = ci
+    lib.sparse_words_step.argtypes = [vp, vp, ci, ci, vp, ci, ctypes.c_float,
+                                      ci, vp, vp, vp, vp, vp, vp]
+    lib.sparse_words_step.restype = ci
     return lib
 
 
@@ -99,16 +99,13 @@ def sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor, count: int,
                                            iso)
     dev = rows.device
     nk = cell_ids.shape[0]
-    B3 = c + 1
     nw = 2 if marching._tq_bits(R) == 8 else 4
-    own_tbl = marching._own_table(cell_ids, count, c)
-    guard = marching._coarse_guard(vol_c, own_tbl, iso).reshape(1)
     words = torch.empty((nw, nk * marching.LANES), dtype=torch.int32,
                         device=dev)
-    bits = torch.zeros((B3 ** 3, 2), dtype=torch.int32, device=dev)
-    cand = torch.zeros(B3 ** 3, dtype=torch.bool, device=dev)  # 1 B each
-    if nk == 0:
-        return words, bits, cand, own_tbl, guard[0]
+    bits = torch.empty(((c + 1) ** 3, 2), dtype=torch.int32, device=dev)
+    cand = torch.empty((c + 1) ** 3, dtype=torch.bool, device=dev)  # 1 B
+    own_tbl = torch.empty(c ** 3, dtype=torch.int32, device=dev)
+    guard = torch.empty(1, dtype=torch.int32, device=dev)
     if sparse_cell_words.inputs is not None:
         sparse_cell_words.inputs.append(((rows, cell_ids, count, vol_c),
                                          dict(R=R, iso=iso)))
@@ -118,14 +115,13 @@ def sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor, count: int,
     if timed:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(cur)
-    err = lib.sparse_words_launch(
-        rows.data_ptr(), cell_ids.data_ptr(), nk, count, vol_c.data_ptr(),
-        own_tbl.data_ptr(), c, float(iso),
-        int(nw == 2), words.data_ptr(), bits.data_ptr(), cand.data_ptr(),
-        guard.data_ptr(), cur.cuda_stream)
+    err = lib.sparse_words_step(
+        rows.data_ptr(), cell_ids.data_ptr(), nk, count, vol_c.data_ptr(), c,
+        float(iso), int(nw == 2), words.data_ptr(), bits.data_ptr(),
+        cand.data_ptr(), own_tbl.data_ptr(), guard.data_ptr(),
+        cur.cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sparse_words kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"sparse_words step failed: CUDA error {err}")
     if timed:
         end.record(cur)
         sparse_cell_words.events.append((start, end))

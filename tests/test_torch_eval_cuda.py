@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from disn_tpu_torch.eval import metrics as mt
+from disn_tpu_torch.eval import referee
 
 EPS32 = 2.0 ** -23
 NN_ULPS = 8           # a.b and the Gram sum rounded in another order
@@ -126,3 +127,46 @@ def test_chamfer_emd_and_f_score_on_the_card_match_the_cpu():
     fc, fh = mt.f_score(x, y, th), mt.f_score(x.cpu(), y.cpu(), th)
     for k in ("precision", "recall"):
         assert float((fc[k].cpu() - fh[k]).abs().max()) <= 1 / 650
+
+
+REFEREE_CASES = ([(b, n, m, 1) for b, n, m in referee.SHAPES]
+                 + [(b, n, m, s) for b, n, m in referee.SEEDED
+                    for s in range(4)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m,seed", REFEREE_CASES)
+def test_approx_match_kernel_against_the_float64_referee(b, n, m, seed):
+    """K6b's marginals per xyz1 and per xyz2 point and its EMD no further
+    from the float64 plain version than RATIO x the f32 plain version's
+    distance + ABS (eval/referee.py), B = 1 with N > M and N < M among
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    x, y = referee.clouds(b, n, m, seed)
+    ref = referee.referee(x, y)
+    dk = referee.distance(mt.approx_match(x, y), ref)
+    dp = referee.distance(mt.approx_match_plain(x, y), ref)
+    assert referee.within(dk, dp), (dk, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(3, 2047, 1537), (24, 2048, 2048)])
+def test_approx_match_kernel_gives_the_same_bits_twice(b, n, m):
+    x, y = clouds(b, n, m, seed=5)
+    assert torch.equal(mt.approx_match(x, y), mt.approx_match(x, y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,n,m", [(0.5, 128, 512), (3.0, 100, 300),
+                                       (1e-3, 128, 512), (40.0, 7, 5)])
+def test_approx_match_d_is_gram_d(scale, n, m):
+    """d as K6b's row pass, match and column pass compute it (the other
+    cloud staged as -2 p) equals gram_d(dot3) of K6a and K6c bit for bit,
+    with a duplicated point (d near 0, clamped) among them."""
+    x, y = clouds(1, n, m, seed=int(scale * 10) + n)
+    x, y = (scale * x[0]).contiguous(), (scale * y[0]).contiguous()
+    y[3] = x[2]
+    tile = mt.approx_match_d_tile(x, y)
+    assert tile.shape == (3, min(n, 128), min(m, 512))
+    assert torch.equal(tile[0], tile[2]) and torch.equal(tile[1], tile[2])

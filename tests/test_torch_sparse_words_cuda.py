@@ -85,6 +85,74 @@ def test_kernel_equals_plain_on_random_inputs(card, R, nk, count):
     assert sw.sparse_cell_words.launches == before + 1
 
 
+def lattice_inputs(R, stride, seed, dev, pad=0):
+    """Every `stride`-th coarse cell along each axis active (stride 1:
+    every "+1" and "-1" neighbour active; 2: none), rows and coarse grid
+    around the iso; `pad` more ids past the count, copies of active cells."""
+    c = (R - 1) // 4
+    rng = np.random.RandomState(seed)
+    ax = np.arange(0, c, stride)
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    ids = ((z * c + y) * c + x).reshape(-1).astype(np.int32)
+    count = len(ids)
+    ids = np.concatenate([ids, rng.choice(ids, pad)]).astype(np.int32)
+    rows = (0.3 * rng.randn(len(ids) * 64)).astype(np.float32)
+    rows[rng.rand(len(ids) * 64) < 0.05] = 0.0
+    vol_c = (0.3 * rng.randn(c + 1, c + 1, c + 1)).astype(np.float32)
+    return (torch.from_numpy(rows).to(dev), torch.from_numpy(ids).to(dev),
+            count, torch.from_numpy(vol_c).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [65, 257])
+def test_kernel_equals_plain_with_no_cells(card, R):
+    """nk = 0: the step still fills the own-slot table, zeroes bits and
+    cand and counts guard term (1), in one call."""
+    c = (R - 1) // 4
+    vol_c = torch.from_numpy((0.3 * np.random.RandomState(R).randn(
+        c + 1, c + 1, c + 1)).astype(np.float32)).to(card)
+    empty = (torch.empty(0, device=card),
+             torch.empty(0, dtype=torch.int32, device=card), 0, vol_c)
+    before = sw.sparse_cell_words.launches
+    words, bits, cand, own, guard = hold(empty, R)
+    assert sw.sparse_cell_words.launches == before + 1
+    assert words.shape[1] == 0 and int(guard) > 0 and not bool(cand.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [65, 129])
+@pytest.mark.parametrize("stride,pad", [(1, 0), (2, 0), (1, 37), (2, 37)])
+def test_kernel_equals_plain_on_lattices(card, R, stride, pad):
+    """Every neighbour active (the patch from neighbours' rows, guard term
+    (2) skipped) or none (the patch's faces from coarse lerps, every low
+    face checked), with and without padded ids past the count that repeat
+    active cells."""
+    hold(lattice_inputs(R, stride, seed=R + stride + pad, dev=card, pad=pad),
+         R)
+
+
+@pytest.mark.cuda
+def test_one_step_is_only_the_librarys_work(card):
+    """torch.profiler over one CUDA step: the device runs the library's
+    memset of the own-slot table and its two kernels, and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = random_inputs(257, 500, 450, seed=3, dev=card)
+    sw.sparse_cell_words(*args, R=257, iso=0.0)  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sw.sparse_cell_words(*args, R=257, iso=0.0)
+        torch.cuda.synchronize()
+    names = sorted(e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    assert len(names) == 3, names
+    assert any("Memset" in k for k in names), names
+    assert any("own_scatter" in k for k in names), names
+    assert any("sparse_words_grid" in k for k in names), names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,R", [("sphere", 65), ("box", 129),
                                     ("sphere", 257)])
