@@ -70,17 +70,26 @@ on failure:
    the card in the protocol's argument order, at B = 24, N = M = 2048 on
    vertices drawn from the main path's bf16 257^3 mesh (predictions) and
    an f32 mesh of the same head at sdf_res 128 (GT), and on seeded randn
-   clouds (both timed with CUDA events, median of 5 after a warm-up,
-   beside a bound and, for K6a, torch.cdist), and at B = 3 with (N, M) =
+   clouds (both timed with CUDA events after a warm-up, the kernels'
+   wrappers median of 20, the plain versions of 5, beside a bound and, for
+   K6a, torch.cdist), and at B = 3 with (N, M) =
    (2048, 1000), (1000, 2048), (2047, 1537) and at B = N = M = 1; the
    tolerances and their reasons are the constants NN_ULPS ... NN_BWD_REL_TOL;
-   on every shape K6b and its f32 plain version against the float64
-   referee (eval/referee.py: the marginals per xyz1 and per xyz2 point and
-   the EMD), K6b within 2x the plain version's distance + 1e-7, and with
-   --parent DIR that checkout's K6b measured beside them; at the
-   protocol's shape K6b's split by pass (torch.profiler) beside its bound
-   and the three-pass floor; nn_distance's backward on the card against
-   the CPU. [eval farm]:
+   on every shape: K6a bit for bit the lowest-index minimum both ways of
+   its own gram_d tile (approx_match_d_tile) on the first 128 x 512 points,
+   as drawn and with duplicated points and exact ties; the kernels' norms
+   (sq3) equal to _sq's bits; K6b and its f32 plain version against the
+   float64 referee (eval/referee.py: the marginals per xyz1 and per xyz2
+   point and the EMD), K6b within 2x the plain version's distance + 1e-7,
+   and with --parent DIR that checkout's K6b measured beside them; K6c
+   within 2x the f32 plain version's distance from match_cost_plain in
+   float64 + 1e-6 relative; at the protocol's shapes K6b's split by pass
+   (torch.profiler) beside its bound and the three-pass floor, K6a's and
+   K6c's kernel alone (CUDA events around the library call) and wrapper's
+   work, in turns with --parent DIR's (parent, change, change, parent),
+   beside the bound and the floor, and a torch.profiler split of one call
+   of each (the library's device work and nothing else); nn_distance's
+   backward on the card against the CPU. [eval farm]:
    reconstruct_split writes 2 objects x 24 views from in-memory records
    (seeded u8 images, the demo camera; full-width net, analytic head,
    sdf_res 256, bf16), evaluate_tree scores them on the card against GT
@@ -234,7 +243,7 @@ def phase_build() -> None:
     print(f"[swords build] sparse_words.cu built in {k5_s:.2f} s -> "
           f"{sparse_words.build().name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
-            "setmaxnreg")
+            "setmaxnreg", "entry function")
     for tag, lib in (("[build]", fused_decode.build()),
                      ("[eval build]", metrics.build()),
                      ("[swords build]", sparse_words.build())):
@@ -1580,6 +1589,20 @@ MARGINAL_TOL = 1e-3
 # of |terms| bounds them; 1e-4 of that scale is n * eps for n = 2048
 COST_REL_TOL = 1e-4
 GRAD_REL_TOL = 1e-4
+# K6c against match_cost_plain run in float64 on the same match: no further
+# from it than this many times the f32 plain version's distance + this
+# relative share of the cost (the kernel sums in f64 and takes d with FMAs,
+# the plain version sums in f32 after a cuBLAS a.b)
+COST_F64_RATIO = 2.0
+COST_F64_REL = 1e-6
+# K6a's floor in issue slots a pair: d once (FMUL, 2 FFMA, 2 FADD, FMNMX for
+# the clamp), then a compare and two selects for the row and the same for
+# the column; 128 lanes a clock per SM issue them at half the f32 flop peak
+NN_SLOTS_PER_PAIR = 12
+# K6a against the gram_d tile (approx_match_d_tile, at most 128 x 512): the
+# first points of batch 0 of each shape, as they are and with duplicated
+# points (d clamped to 0) and exact ties
+NN_TILE_ROWS, NN_TILE_COLS = 128, 512
 # nn_distance's backward on the card against the CPU: index_add_ adds with
 # atomics in any order; an entry sums the few points whose neighbour it is
 NN_BWD_REL_TOL = 1e-5
@@ -1698,6 +1721,8 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
     check(err <= tol and worst_tie <= tol,
           f"{tag}: nn_distance disagrees with its plain version")
     out["nn_distance"] = {"max_abs_err": err}
+    hold_nn_tile(tag, pred, gt)
+    hold_norms(tag, pred, gt)
     # K6b
     mk, mp = mt.approx_match(gt, pred), mt.approx_match_plain(gt, pred)
     ck = mt.match_cost_plain(gt, pred, mk)
@@ -1726,6 +1751,19 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
     check(err_c <= lim_c, f"{tag}: match_cost disagrees with its plain "
                           "version")
     out["match_cost"] = {"max_abs_err": err_c}
+    ref_c = mt.match_cost_plain(gt.double(), pred.double(), mk.double())
+    dk_c = (got_c.double() - ref_c).abs()
+    dp_c = (want_c.double() - ref_c).abs()
+    ok_c = bool((dk_c <= COST_F64_RATIO * dp_c
+                 + COST_F64_REL * ref_c.abs()).all())
+    print(f"{tag} K6c float64 match_cost on the same match: kernel max "
+          f"rel |diff| {float((dk_c / ref_c.abs()).max()):.3e}, f32 plain "
+          f"{float((dp_c / ref_c.abs()).max()):.3e}; kernel within "
+          f"{COST_F64_RATIO} x plain + {COST_F64_REL} relative on every "
+          f"batch entry: {ok_c}")
+    check(ok_c, f"{tag}: match_cost is further from float64 than "
+                f"{COST_F64_RATIO} x its plain version")
+    del ref_c
     # K6d through autograd against the plain backward
     g = torch.from_numpy(np.random.RandomState(5).rand(b).astype(
         np.float32) + 0.5).cuda()
@@ -1778,7 +1816,7 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
 
         for name, (kern, plain) in calls.items():
             r = out[name]
-            r["ms"] = median_ms(kern, True)
+            r["ms"] = median_ms(kern, True, reps=20)
             r["plain_ms"] = median_ms(plain, True)
             r["bound_ms"], r["bound_by"] = bounds[name]
             r["library_ms"] = (median_ms(library, True)
@@ -1790,7 +1828,236 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
                   f"({r['bound_by']}) share {r['bound_ms'] / r['ms']:.4f}"
                   f"{lib}")
         am_split(tag, gt, pred, out["approx_match"])
+        time_k6_turns(tag, pred, gt, mk, out)
+        profile_k6(tag, pred, gt, mk)
     return out
+
+
+def hold_nn_tile(tag: str, pred, gt) -> None:
+    """K6a's dist and idx both ways equal, bit for bit, the lowest-index
+    minimum of the kernel's own gram_d tile (approx_match_d_tile(...)[2]) on
+    the first points of batch 0: as drawn, and with points of xyz1 copied
+    into xyz2 (d clamped to 0, two candidates at 0 for a row) and points of
+    xyz2 repeated (exact ties)."""
+    import torch
+    from disn_tpu_torch.eval import metrics as mt
+
+    x = pred[0, :NN_TILE_ROWS].contiguous()
+    y = gt[0, :NN_TILE_COLS].contiguous()
+    cases = [("as drawn", y)]
+    if len(x) > 3 and len(y) > 40:
+        yd = y.clone()
+        yd[7], yd[30], yd[31] = x[2], x[2], x[3]
+        yd[40] = yd[7]
+        cases.append(("duplicates and ties", yd))
+    for label, yy in cases:
+        tile = mt.approx_match_d_tile(x, yy)[2]
+        got = mt.nn_distance(x[None], yy[None])
+        want = (tile.min(1).values, tile.argmin(1).int(),
+                tile.min(0).values, tile.argmin(0).int())
+        same = [torch.equal(got[k][0].view(torch.int32),
+                            want[k].view(torch.int32)) for k in range(4)]
+        print(f"{tag} K6a vs its gram_d tile "
+              f"{tuple(tile.shape)} {label}: dist1, idx1, dist2, idx2 equal "
+              f"bit for bit {same}")
+        check(all(same), f"{tag}: nn_distance is not the lowest-index "
+                         f"minimum of its gram_d tile ({label})")
+
+
+def hold_norms(tag: str, pred, gt) -> None:
+    """K6a and K6c compute |p|^2 themselves (sq3): its bits must be _sq's,
+    the plain versions' torch.sum(p * p, -1) on the card."""
+    import torch
+    from disn_tpu_torch.eval import metrics as mt
+
+    bad = sum(int((mt.kernel_norms(c).view(torch.int32)
+                   != mt._sq(c).view(torch.int32)).sum()) for c in (pred, gt))
+    print(f"{tag} kernel norms (sq3) against _sq: {bad} of "
+          f"{pred.shape[0] * (pred.shape[1] + gt.shape[1])} differ")
+    check(bad == 0, f"{tag}: the kernels' norms differ from _sq")
+
+
+PARENT_K6: dict = {}  # another checkout's K6 (--parent), run beside
+
+
+def k6_runners(path) -> dict:
+    """Launchers of a build of some checkout's csrc/metrics.cu with its own
+    entry points' signatures: for K6a and K6c, "prep"(clouds[, match])
+    allocates every buffer once and returns a function that only launches
+    (the kernel alone), "call" does what that checkout's wrapper does on
+    the card (allocation, norms where that build takes them, the launch);
+    for K6b, referee.load's auction. Builds from before the one-pass K6a
+    take the norms from the caller and sum K6c's shares in f32 scratch."""
+    import torch
+    from disn_tpu_torch.eval import metrics as mt
+    from disn_tpu_torch.eval import referee
+
+    lib = ctypes.CDLL(str(path))
+    out = {"approx_match": referee.load(path)[1]}
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    new = hasattr(lib, "cloud_norms")
+    if new:
+        lib = mt.bind(path)
+    else:
+        lib.nn_distance_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp,
+                                           vp, vp, vp]
+        lib.match_cost_parts.argtypes = [ci]
+        lib.match_cost_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp,
+                                          vp, vp]
+        for f in ("nn_distance_launch", "match_cost_parts",
+                  "match_cost_launch"):
+            getattr(lib, f).restype = ci
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def nn_prep(x, y):
+        b, n, m = x.shape[0], x.shape[1], y.shape[1]
+        o = [torch.empty((b, k), dtype=t, device=x.device)
+             for k, t in ((n, torch.float32), (n, torch.int32),
+                          (m, torch.float32), (m, torch.int32))]
+        p = [t.data_ptr() for t in o]
+        if new:
+            keys = torch.empty((b * (n + m),), dtype=torch.int64,
+                               device=x.device)
+            args = (x.data_ptr(), n, y.data_ptr(), m, b, keys.data_ptr(), *p)
+            hold = (keys,)
+        else:
+            s1, s2 = mt._sq(x), mt._sq(y)
+            args = (x.data_ptr(), s1.data_ptr(), n, y.data_ptr(),
+                    s2.data_ptr(), m, b, *p)
+            hold = (s1, s2)
+
+        def launch():
+            mt._raise_on(lib.nn_distance_launch(*args, stream()),
+                         "nn_distance")
+            return o
+        launch.hold = hold
+        return launch
+
+    def mc_prep(x, y, match):
+        b, n, m = x.shape[0], x.shape[1], y.shape[1]
+        cost = torch.empty((b,), device=x.device)
+        if new:
+            part = torch.empty((b, lib.match_cost_parts(n, m)),
+                               dtype=torch.float64, device=x.device)
+            args = (x.data_ptr(), n, y.data_ptr(), m, b, match.data_ptr(),
+                    part.data_ptr(), cost.data_ptr())
+            hold = (part,)
+        else:
+            s1, s2 = mt._sq(x), mt._sq(y)
+            part = torch.empty((b, lib.match_cost_parts(m)), device=x.device)
+            args = (x.data_ptr(), s1.data_ptr(), n, y.data_ptr(),
+                    s2.data_ptr(), m, b, match.data_ptr(), part.data_ptr(),
+                    cost.data_ptr())
+            hold = (s1, s2, part)
+
+        def launch():
+            mt._raise_on(lib.match_cost_launch(*args, stream()),
+                         "match_cost")
+            return cost
+        launch.hold = hold
+        return launch
+
+    out["nn_distance"] = {
+        "prep": nn_prep,
+        "call": ((lambda x, y: mt._nn_run(lib, x, y)) if new
+                 else (lambda x, y: nn_prep(x, y)()))}
+    out["match_cost"] = {
+        "prep": mc_prep,
+        "call": ((lambda x, y, w: mt._match_cost_run(lib, x, y, w)) if new
+                 else (lambda x, y, w: mc_prep(x, y, w)()))}
+    return out
+
+
+def time_k6_turns(tag: str, pred, gt, mk, out: dict) -> None:
+    """K6a and K6c: the kernel alone (CUDA events around the library call,
+    buffers allocated before) and the wrapper's work without its checks
+    (allocation, norms where the build takes them, the call), median of 20
+    after a warm-up; with --parent both in turns (parent, change, change,
+    parent), else this checkout's twice; the public wrapper beside each
+    run of this checkout's. Beside them the bound and the
+    floor (K6a: NN_SLOTS_PER_PAIR issue slots a pair; K6c: its bound,
+    bytes), and whether the two builds give the same bits."""
+    import torch
+    from disn_tpu_torch.eval import metrics as mt
+
+    b, n, m = pred.shape[0], pred.shape[1], gt.shape[1]
+    builds = {"change": k6_runners(mt.build())}
+    if PARENT_K6:
+        builds["parent"] = PARENT_K6
+    order = (["parent", "change", "change", "parent"] if PARENT_K6
+             else ["change", "change"])
+    floors = {"nn_distance": NN_SLOTS_PER_PAIR * b * n * m
+              / (H100_F32_FLOPS / 2) * 1e3,
+              "match_cost": out["match_cost"]["bound_ms"]}
+    for name, args, public in (
+            ("nn_distance", (pred, gt), lambda: mt.nn_distance(pred, gt)),
+            ("match_cost", (gt, pred, mk),
+             lambda: mt.match_cost(gt, pred, mk))):
+        kern = {k: v[name]["prep"](*args) for k, v in builds.items()}
+        alone, wrap, pub = [], [], []
+        for k in order:
+            alone.append((k, median_ms(kern[k], True, reps=20)))
+            wrap.append((k, median_ms(lambda k=k: builds[k][name]["call"](
+                *args), True, reps=20)))
+            if k == "change":
+                pub.append(median_ms(public, True, reps=20))
+        r = out[name]
+        kernel_ms = float(np.median([t for k, t in alone if k == "change"]))
+        bound, floor = r["bound_ms"], floors[name]
+        print(f"{tag} {name} in turns (CUDA events, median of 20): kernel "
+              f"alone {[(k, round(t, 5)) for k, t in alone]}, wrapper's work "
+              f"{[(k, round(t, 5)) for k, t in wrap]}, the public wrapper "
+              f"{[round(t, 5) for t in pub]} ({r['ms']:.5f} before); bound {bound:.5f} ms (share of "
+              f"the kernel alone {bound / kernel_ms:.4f}, of the "
+              f"wrapper {bound / r['ms']:.4f}), floor {floor:.5f} ms "
+              f"(share {floor / kernel_ms:.4f} / {floor / r['ms']:.4f})")
+        if "parent" in kern:
+            a, c = kern["parent"](), kern["change"]()
+            a = a if isinstance(a, list) else [a]
+            c = c if isinstance(c, list) else [c]
+            same = all(torch.equal(u, v) for u, v in zip(a, c))
+            diff = max(float((u.double() - v.double()).abs().max())
+                       for u, v in zip(a, c))
+            print(f"{tag} {name} parent and change give the same bits: "
+                  f"{same} (max|diff| {diff:.3e}; not gated: K6c's sums "
+                  f"run in another order)")
+
+
+def profile_k6(tag: str, pred, gt, mk) -> None:
+    """torch.profiler over 3 K6a and 3 K6c calls through the public
+    wrappers: the device runs the library's work alone (K6a: the keys'
+    memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total), and each kernel's
+    time a call. The profiler does not record every event of a window (the
+    first is sometimes missing), so a kernel need only be seen."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from disn_tpu_torch.eval import metrics as mt
+
+    for name, fn, kerns in (
+            ("nn_distance", lambda: mt.nn_distance(pred, gt),
+             ("nn_pass", "nn_unpack")),
+            ("match_cost", lambda: mt.match_cost(gt, pred, mk),
+             ("mc_pass", "mc_total"))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        dev = [(e.key, e.count, _device_time(e, True) / e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        print(f"{tag} {name} profile (3 calls; event, count, us a call): "
+              f"{[(k[:40], c, round(us, 2)) for k, c, us in dev]}")
+        check(all(any(o in k for o in ("Memset", *kerns)) for k, _, _ in dev)
+              and all(any(o in k for k, _, _ in dev) for o in kerns),
+              f"{tag}: {name} ran other device work than its library's: "
+              f"{dev}")
 
 
 def am_split(tag: str, xyz1, xyz2, res: dict) -> None:
@@ -1830,9 +2097,6 @@ def am_split(tag: str, xyz1, xyz2, res: dict) -> None:
           f"other device work (the norms): {[k[:40] for k in other]}")
 
 
-PARENT_K6B: list = []  # another checkout's K6b (--parent), run beside
-
-
 def hold_referee(tag: str, xyz1, xyz2, mk=None, mp=None) -> None:
     """K6b and its f32 plain version against the float64 referee
     (eval/referee.py) on approx_match(xyz1, xyz2): each one's largest
@@ -1853,8 +2117,8 @@ def hold_referee(tag: str, xyz1, xyz2, mk=None, mp=None) -> None:
         return " ".join(f"{k} {d[k]:.3e}" for k in referee.KEYS)
 
     parent = ""
-    for run in PARENT_K6B:
-        dq = referee.distance(run(xyz1, xyz2), ref)
+    if PARENT_K6:
+        dq = referee.distance(PARENT_K6["approx_match"](xyz1, xyz2), ref)
         parent = f"; parent kernel {fmt(dq)}"
     print(f"{tag} K6b float64 referee (largest |diff| of the marginal per "
           f"xyz1 point n, per xyz2 point m, relative of the EMD): kernel "
@@ -2129,9 +2393,11 @@ def main() -> int:
                                              "on one NVIDIA GPU.")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout (for example the parent "
-                         "commit's, unpacked with git archive) whose K6b "
-                         "also runs on [eval hold]'s and [eval farm]'s "
-                         "clouds, measured against the float64 referee")
+                         "commit's, unpacked with git archive) whose K6 "
+                         "also runs: its K6b on [eval hold]'s and [eval "
+                         "farm]'s clouds, measured against the float64 "
+                         "referee, its K6a and K6c timed in turns with this "
+                         "checkout's at the protocol's shape")
     args = ap.parse_args()
     try:
         import torch
@@ -2156,11 +2422,9 @@ def main() -> int:
         phase_build()
         if args.parent:
             from disn_tpu_torch import kernels
-            from disn_tpu_torch.eval import referee
-            src = os.path.join(args.parent, "disn_tpu_torch", "csrc",
-                               "metrics.cu")
-            PARENT_K6B.append(referee.load(kernels.nvcc_build(
-                "metrics", src=src))[1])
+            PARENT_K6.update(k6_runners(kernels.nvcc_build(
+                "metrics", src=os.path.join(args.parent, "disn_tpu_torch",
+                                            "csrc", "metrics.cu"))))
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])

@@ -10,39 +10,38 @@
 // f32 tensor is 403 MB, and the XLA form makes several a level.
 //
 // What bounds them on the H100 (80 GB at 3.35 TB/s, 67 TFLOP/s f32 FMA,
-// 16 special-function results a clock per SM):
-//   K6a ~8 flops a pair and direction, inputs and outputs ~2 MB: operations,
-//       ~0.02 ms at the protocol shape.
+// 16 special-function results a clock per SM), and each design's floor:
+//   K6a ~10 flops a pair (d once, a compare a direction), inputs and
+//       outputs ~2 MB: operations, 0.015 ms at the protocol shape. Its
+//       floor is issue slots, ~12 a pair (see its kernel): 0.036 ms.
 //   K6b one exp a pair and level (10 levels, 1e9 at the protocol shape) on
 //       the special-function units, and the 403 MB match written once
 //       (see its kernels for its own design).
-//   K6c, K6d one read of match (403 MB): bytes, ~0.12 ms each.
-// What the design does about it: no kernel stores a [B,N,M] tensor other
-// than match itself. Distances are recomputed from the coordinates, held in
-// shared memory a tile at a time, in the JAX package's Gram form
-// (|a|^2 - 2 a.b) + |b|^2 clamped at 0, with |a|^2 and |b|^2 precomputed by
-// the caller exactly as the plain PyTorch versions compute them, so that
-// only a.b differs from those by rounding. In K6a a row is reduced by
-// NSPLIT neighbouring threads (merged with shuffles in a fixed order), so a
-// pass has B*N*NSPLIT threads in flight; every sum has a fixed order and
-// no atomics are used: two runs give the same bits.
-//
-// Simple and right first: no tensor cores, no asynchronous copies.
+//   K6c, K6d one read of match (403 MB): bytes, 0.12 ms each. K6c's
+//       arithmetic, ~15 issue slots a pair with an IEEE sqrt, is ~0.05 ms.
+// No kernel stores a [B,N,M] tensor other than match itself. Distances are
+// recomputed from the coordinates in the JAX package's Gram form
+// (|a|^2 - 2 a.b) + |b|^2 clamped at 0 (gram_d of dot3). |a|^2 and |b|^2 are
+// rounded as the plain versions' torch.sum(p * p, -1) rounds them on the
+// card: K6a and K6c compute them (sq3), K6b takes them from the caller. So
+// only a.b differs from the plain versions by rounding. Where a cloud is
+// staged it is one float4 a point (-2x, -2y, -2z, |p|^2): -2 is a power of
+// 2, so ((|a|^2 + a.(-2b)) + |b|^2) is gram_d's d to the bit. Every sum has
+// a fixed order, a minimum is order-free, and no float atomics are used:
+// two runs give the same bits. No tensor cores: the products have depth 3,
+// and TF32 would not give gram_d's bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int NSPLIT = 4;              // threads that share one row
-constexpr int ROWS = 64;               // rows a block
-constexpr int THREADS = ROWS * NSPLIT; // 256
-constexpr int TILE = 512;              // points of the other cloud staged
 constexpr int LEVELS = 10;
 __constant__ float kLevels[LEVELS] = {-16384.f, -4096.f, -1024.f, -256.f,
                                       -64.f, -16.f, -4.f, -1.f, -0.25f, 0.f};
-constexpr int COST_ROWS = 4;           // rows m a block of match_cost
 
 // (|p1|^2 - 2 p1.p2) + |p2|^2, clamped at 0: the plain versions' order, p1
 // from the first cloud of _pairwise_sqdist. No contraction across the
@@ -56,74 +55,213 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
   return fmaf(az, bz, fmaf(ay, by, ax * bx));
 }
 
+// |p|^2 as torch.sum(p * p, -1) rounds it on the card: PyTorch's reduction
+// gives an output of 3 inputs two lanes, the first summing elements 0 and
+// 2, so (x^2 + z^2) + y^2, each step rounded (a GPU test holds the bits).
+__device__ __forceinline__ float sq3(float x, float y, float z) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(z, z)),
+                   __fmul_rn(y, y));
+}
+
+// -2 * p and |p|^2 of point i of a cloud [.,3] with norms sq
+__device__ __forceinline__ float4 am_stage(const float* __restrict__ xyz,
+                                           const float* __restrict__ sq,
+                                           size_t i) {
+  return make_float4(-2.f * xyz[3 * i], -2.f * xyz[3 * i + 1],
+                     -2.f * xyz[3 * i + 2], sq[i]);
+}
+
+// d of a point (x, y, z) of xyz1 with norm s1 and a staged point q of xyz2
+// (row pass and match), or of a staged point q of xyz1 and a point of xyz2
+// with norm s2 (column pass): the parent's gram_d(s1, s2, dot3(p1, p2)).
+__device__ __forceinline__ float am_d_row(float x, float y, float z,
+                                          float s1, float4 q) {
+  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));   // -2 a.b
+  return fmaxf(__fadd_rn(__fadd_rn(s1, ab2), q.w), 0.f);
+}
+__device__ __forceinline__ float am_d_col(float x, float y, float z,
+                                          float s2, float4 q) {
+  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));
+  return fmaxf(__fadd_rn(__fadd_rn(q.w, ab2), s2), 0.f);
+}
+
+// am_stage with |p|^2 from sq3 (K6a and K6c take no norms)
+__device__ __forceinline__ float4 stage(const float* __restrict__ xyz,
+                                        size_t i) {
+  const float x = xyz[3 * i], y = xyz[3 * i + 1], z = xyz[3 * i + 2];
+  return make_float4(-2.f * x, -2.f * y, -2.f * z, sq3(x, y, z));
+}
+
 // ---------------------------------------------------------------- K6a ----
-// blockIdx.z = batch, blockIdx.y = direction (0: rows of xyz1 against
-// xyz2; 1: rows of xyz2 against xyz1), blockIdx.x = tile of ROWS rows.
-__global__ void __launch_bounds__(THREADS)
-nn_kernel(const float* __restrict__ xyz1, const float* __restrict__ sq1,
-          int n, const float* __restrict__ xyz2,
-          const float* __restrict__ sq2, int m, float* __restrict__ dist1,
-          int* __restrict__ idx1, float* __restrict__ dist2,
-          int* __restrict__ idx2) {
-  __shared__ float sx[TILE], sy[TILE], sz[TILE], ss[TILE];
-  const int b = blockIdx.z;
-  const bool first = blockIdx.y == 0;
-  const int nr = first ? n : m, no = first ? m : n;
-  if (blockIdx.x * ROWS >= nr) return;  // uniform across the block
-  const float* rows = first ? xyz1 + (size_t)b * n * 3
-                            : xyz2 + (size_t)b * m * 3;
-  const float* rsq = first ? sq1 + (size_t)b * n : sq2 + (size_t)b * m;
-  const float* oth = first ? xyz2 + (size_t)b * m * 3
-                           : xyz1 + (size_t)b * n * 3;
-  const float* osq = first ? sq2 + (size_t)b * m : sq1 + (size_t)b * n;
-  const int r = blockIdx.x * ROWS + threadIdx.x / NSPLIT;
-  const int part = threadIdx.x % NSPLIT;
-  const bool live = r < nr;
-  float rx = 0.f, ry = 0.f, rz = 0.f, rs = 0.f;
-  if (live) {
-    rx = rows[3 * r];
-    ry = rows[3 * r + 1];
-    rz = rows[3 * r + 2];
-    rs = rsq[r];
-  }
-  float best = INFINITY;
-  int bi = 0x7fffffff;
-  for (int t0 = 0; t0 < no; t0 += TILE) {
-    const int cnt = min(TILE, no - t0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += THREADS) {
-      sx[i] = oth[3 * (t0 + i)];
-      sy[i] = oth[3 * (t0 + i) + 1];
-      sz[i] = oth[3 * (t0 + i) + 2];
-      ss[i] = osq[t0 + i];
+// One pass computes d once a pair and serves both directions: the minimum
+// over the columns (points of xyz2) of each row (a point of xyz1: dist1,
+// idx1) and over the rows of each column (dist2, idx2).
+//
+// Bound and floor: the bound counts ~10 flops a pair (0.015 ms at 24 x
+// 2048 x 2048). A pair costs at least FMUL + 2 FFMA (a.(-2b)), 2 FADD and
+// an FMNMX (the clamp) for d, then a compare and two selects for the row's
+// running minimum and its index, and the same for the column's: ~12 issue
+// slots, 0.036 ms at the f32 peak's clock (2.4x the bound).
+//
+// Design: a block holds NN_ROWS rows of xyz1 (a row panel) and walks a
+// panel of at most NN_PANEL columns of xyz2, staged once in shared memory;
+// grid (row panels, column panels, batch), the column panels cut narrower
+// when B is small so that at least NN_TARGET_BLOCKS blocks fill the card.
+// A warp holds NN_R rows in registers, the same in every lane, and its
+// lanes take a tile's columns, NN_C each, with the row minima in registers
+// across the whole panel and each column's minimum over the thread's rows
+// taken per tile: a 2-D register tile, GEMM micro-tile style. Each shared
+// load of a column serves NN_R pairs. The inner loop is ~13 instructions a
+// pair (SASS); on an H100 the pass runs at ~60% of the floor, and panels of
+// 512 columns, 8 rows and 4 columns a thread at 3 blocks a SM, 4 columns at
+// 1 block, or blocks of 4 warps were no faster.
+//
+// Merging: a partial minimum is the 64-bit key (bits(d) << 32) | index;
+// d >= 0 after the clamp (a -0 is made +0), so keys order as (d, index),
+// and the least key is the lowest index among equal d, the plain version's
+// tie rule (a thread takes its candidates in increasing index with a
+// strict <, so it keeps the lowest of its own). A tile's column keys go to
+// shared memory, one row a row group; after the panel a block takes the
+// least key over its row groups (columns) and over its lanes (rows) and
+// merges it into a [B, N+M] u64 scratch with atomicMin, which the launcher
+// fills with all ones first. A minimum is exact and order-free, so two
+// runs give the same bits; nn_unpack splits the keys into dist and idx.
+constexpr int NN_R = 16;                    // rows a thread (and a warp)
+constexpr int NN_C = 2;                     // columns a lane and tile
+constexpr int NN_WARPS = 8;                 // row groups a block
+constexpr int NN_THREADS = 32 * NN_WARPS;
+constexpr int NN_ROWS = NN_WARPS * NN_R;    // 128 rows a block
+constexpr int NN_TILE = 32 * NN_C;          // 64 columns a tile
+constexpr int NN_PANEL = 1024;              // most columns a block
+constexpr int NN_TARGET_BLOCKS = 2 * 132;   // two a SM of the H100
+constexpr int NN_KEYS = NN_WARPS * NN_PANEL > 32 * (NN_ROWS + 1)
+                            ? NN_WARPS * NN_PANEL
+                            : 32 * (NN_ROWS + 1);
+
+typedef unsigned long long u64;
+
+__device__ __forceinline__ u64 nn_key(float d, int i) {
+  return ((u64)(__float_as_uint(d) & 0x7fffffffu) << 32) | (unsigned)i;
+}
+
+// The dynamic shared memory of a block with a panel of `panel` columns: the
+// staged columns, then the keys (by row group and column during the walk,
+// by lane and row at the end).
+inline size_t nn_smem(int panel) {
+  return (size_t)panel * sizeof(float4) + (size_t)NN_KEYS * sizeof(u64);
+}
+
+__global__ void __launch_bounds__(NN_THREADS, 2)
+nn_pass(const float* __restrict__ xyz1, int n, const float* __restrict__ xyz2,
+        int m, int panel, u64* __restrict__ key1, u64* __restrict__ key2) {
+  extern __shared__ float4 nn_shared[];
+  float4* s_pt = nn_shared;                                  // [panel]
+  u64* s_key = reinterpret_cast<u64*>(nn_shared + panel);    // [NN_KEYS]
+  const int b = blockIdx.z, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * NN_ROWS + w * NN_R;            // this warp's
+  const int c0 = blockIdx.y * panel;
+  const int cnt = min(panel, m - c0);
+  const int tiles = (cnt + NN_TILE - 1) / NN_TILE;
+  // columns past m: d = inf (|p|^2 = inf), never below a real d
+  for (int j = threadIdx.x; j < tiles * NN_TILE; j += NN_THREADS)
+    s_pt[j] = j < cnt ? stage(xyz2, (size_t)b * m + c0 + j)
+                      : make_float4(0.f, 0.f, 0.f, INFINITY);
+  // rows past n: the same
+  float rx[NN_R], ry[NN_R], rz[NN_R], rs[NN_R], rb[NN_R];
+  int ri[NN_R];
+#pragma unroll
+  for (int i = 0; i < NN_R; i++) {
+    const int r = r0 + i;
+    rx[i] = ry[i] = rz[i] = 0.f;
+    rs[i] = INFINITY;
+    if (r < n) {
+      const float* p = xyz1 + 3 * ((size_t)b * n + r);
+      rx[i] = p[0];
+      ry[i] = p[1];
+      rz[i] = p[2];
+      rs[i] = sq3(rx[i], ry[i], rz[i]);
     }
-    __syncthreads();
-    if (live) {
-      for (int j = part; j < cnt; j += NSPLIT) {
-        const float ab = dot3(rx, ry, rz, sx[j], sy[j], sz[j]);
-        const float d = first ? gram_d(rs, ss[j], ab) : gram_d(ss[j], rs, ab);
-        if (d < best) {  // increasing j: the lowest index wins a tie
-          best = d;
-          bi = t0 + j;
+    rb[i] = INFINITY;
+    ri[i] = 0;
+  }
+  __syncthreads();
+  for (int t = 0; t < tiles; t++) {
+    float4 q[NN_C];
+    int col[NN_C];
+    float cb[NN_C];
+    int ci[NN_C];
+#pragma unroll
+    for (int j = 0; j < NN_C; j++) {
+      const int k = t * NN_TILE + j * 32 + lane;
+      q[j] = s_pt[k];
+      col[j] = c0 + k;
+    }
+#pragma unroll
+    for (int i = 0; i < NN_R; i++) {
+#pragma unroll
+      for (int j = 0; j < NN_C; j++) {
+        const float d = am_d_row(rx[i], ry[i], rz[i], rs[i], q[j]);
+        if (d < rb[i]) {  // increasing column: the lowest index wins a tie
+          rb[i] = d;
+          ri[i] = col[j];
+        }
+        if (i == 0) {
+          cb[j] = d;
+          ci[j] = 0;
+        } else if (d < cb[j]) {  // increasing row, likewise
+          cb[j] = d;
+          ci[j] = i;
         }
       }
     }
-  }
 #pragma unroll
-  for (int off = 1; off < NSPLIT; off <<= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (ob < best || (ob == best && oi < bi)) {
-      best = ob;
-      bi = oi;
-    }
+    for (int j = 0; j < NN_C; j++)
+      s_key[w * panel + t * NN_TILE + j * 32 + lane] = nn_key(cb[j],
+                                                              r0 + ci[j]);
   }
-  if (live && part == 0) {
-    float* dist = first ? dist1 + (size_t)b * n : dist2 + (size_t)b * m;
-    int* idx = first ? idx1 + (size_t)b * n : idx2 + (size_t)b * m;
-    dist[r] = best;
-    idx[r] = bi;
+  __syncthreads();
+  for (int j = threadIdx.x; j < cnt; j += NN_THREADS) {
+    u64 k = s_key[j];
+#pragma unroll
+    for (int g = 1; g < NN_WARPS; g++) k = min(k, s_key[g * panel + j]);
+    atomicMin(key2 + (size_t)b * m + c0 + j, k);
   }
+  __syncthreads();
+  // the rows' keys by lane (a row of NN_ROWS + 1: no bank conflict between
+  // lanes), then the least over the lanes
+#pragma unroll
+  for (int i = 0; i < NN_R; i++)
+    s_key[lane * (NN_ROWS + 1) + w * NN_R + i] = nn_key(rb[i], ri[i]);
+  __syncthreads();
+  const int row = threadIdx.x, r = blockIdx.x * NN_ROWS + row;
+  if (row < NN_ROWS && r < n) {
+    u64 k = s_key[row];
+    for (int l = 1; l < 32; l++) k = min(k, s_key[l * (NN_ROWS + 1) + row]);
+    atomicMin(key1 + (size_t)b * n + r, k);
+  }
+}
+
+// dist = the keys' high words as floats, idx = their low words: the first
+// `split` keys to dist1 and idx1, the rest to dist2 and idx2
+__global__ void __launch_bounds__(256)
+nn_unpack(const u64* __restrict__ keys, size_t split, size_t count,
+          float* __restrict__ dist1, int* __restrict__ idx1,
+          float* __restrict__ dist2, int* __restrict__ idx2) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const u64 k = keys[i];
+  float* dist = i < split ? dist1 + i : dist2 + (i - split);
+  int* idx = i < split ? idx1 + i : idx2 + (i - split);
+  *dist = __uint_as_float((unsigned)(k >> 32));
+  *idx = (int)(unsigned)k;
+}
+
+// For a test: sq3 of each point of a cloud [count, 3].
+__global__ void __launch_bounds__(256)
+norms_kernel(const float* __restrict__ xyz, size_t count,
+             float* __restrict__ out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = sq3(xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2]);
 }
 
 // ---------------------------------------------------------------- K6b ----
@@ -175,28 +313,6 @@ constexpr int AM_TILE = 512;                   // staged points of the other
 constexpr int AM_MATCH_RPT = 2;                // match: rows a thread
 constexpr int AM_MATCH_THREADS = 256;
 constexpr int AM_MATCH_COLS = 8;               // match: columns a block
-
-// -2 * p and |p|^2 of point i of a cloud [.,3] with norms sq
-__device__ __forceinline__ float4 am_stage(const float* __restrict__ xyz,
-                                           const float* __restrict__ sq,
-                                           size_t i) {
-  return make_float4(-2.f * xyz[3 * i], -2.f * xyz[3 * i + 1],
-                     -2.f * xyz[3 * i + 2], sq[i]);
-}
-
-// d of a point (x, y, z) of xyz1 with norm s1 and a staged point q of xyz2
-// (row pass and match), or of a staged point q of xyz1 and a point of xyz2
-// with norm s2 (column pass): the parent's gram_d(s1, s2, dot3(p1, p2)).
-__device__ __forceinline__ float am_d_row(float x, float y, float z,
-                                          float s1, float4 q) {
-  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));   // -2 a.b
-  return fmaxf(__fadd_rn(__fadd_rn(s1, ab2), q.w), 0.f);
-}
-__device__ __forceinline__ float am_d_col(float x, float y, float z,
-                                          float s2, float4 q) {
-  const float ab2 = fmaf(z, q.z, fmaf(y, q.y, x * q.x));
-  return fmaxf(__fadd_rn(__fadd_rn(q.w, ab2), s2), 0.f);
-}
 
 // a row's total of the AM_SPLIT warps' partials part[w][row]: a balanced
 // tree in warp order
@@ -428,59 +544,130 @@ am_d_tile(const float* __restrict__ xyz1, const float* __restrict__ sq1,
 }
 
 // ---------------------------------------------------------------- K6c ----
-// partial[b][blockIdx.x] = sum over COST_ROWS rows c of match[b] and every
-// r of match[b][c][r] * sqrt(d(xyz2_c, xyz1_r)): the plain version's
-// _pairwise_sqdist(xyz2, xyz1), so the xyz2 point comes first.
-__device__ __forceinline__ float block_sum(float v, float* red) {
+// cost[b] = sum over c, r of match[b][c][r] * sqrt(d(xyz2_c, xyz1_r)): the
+// plain version's _pairwise_sqdist(xyz2, xyz1), so the xyz2 point comes
+// first (am_d_col with xyz2 staged).
+//
+// Bound and floor: bytes, the 403 MB of match read once at the protocol
+// shape, 0.12 ms; the arithmetic (d as in K6a, an IEEE sqrt, an FFMA,
+// ~15 issue slots a pair) is ~0.05 ms under it.
+//
+// Design: a stream of 16-byte loads. A thread owns 4 consecutive points r
+// of xyz1 in registers (x, y, z, |p|^2 each) and a block of MC_THREADS
+// threads the 4 * MC_THREADS points of a column chunk; a block walks
+// MC_ROWS rows c of match, whose xyz2 points are staged in shared memory
+// (-2x, -2y, -2z, |c|^2) and read as broadcasts, and reads one float4 of
+// a row a thread, MC_UNROLL rows in flight (streaming loads: match is read
+// once; on the card 4 read faster than 8 or 16, whose registers leave
+// fewer blocks a SM, and than prefetching before the staging or 256-thread
+// blocks). Grid (column chunks, row chunks, batch). When n % 4 != 0 (rows do
+// not start on 16 bytes) or match is not 16-byte aligned, the same walk
+// reads four scalars a row. IEEE sqrt (__fsqrt_rn), as torch.sqrt.
+//
+// Sums: a row's 4 terms in f32 (an FFMA chain), then f64 across the rows,
+// a block's threads in a fixed tree (mc_block_sum), the blocks of a batch
+// in a fixed order by mc_total in the same library call. No float atomics:
+// two runs give the same bits.
+constexpr int MC_THREADS = 128;                // points r: 4 a thread
+constexpr int MC_ROWS = 64;                    // rows c a block
+constexpr int MC_UNROLL = 4;                   // rows in flight a thread
+
+// a block's total of one double a thread: a fixed tree (valid in thread 0)
+__device__ __forceinline__ double mc_block_sum(double v, double* red) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncthreads();
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  float t = 0.f;
+  double t = 0.0;
   if (threadIdx.x == 0)
-    for (int w = 0; w < (int)(blockDim.x / 32); w++) t += red[w];
-  return t;  // valid in thread 0
+    for (int w = 0; w < (int)(blockDim.x >> 5); w++) t += red[w];
+  return t;
 }
 
-__global__ void __launch_bounds__(256)
-mc_partial(const float* __restrict__ xyz1, const float* __restrict__ sq1,
-           int n, const float* __restrict__ xyz2,
-           const float* __restrict__ sq2, int m,
-           const float* __restrict__ match, float* __restrict__ partial) {
-  __shared__ float red[8];
-  const int b = blockIdx.y;
-  float acc = 0.f;
-  for (int row = 0; row < COST_ROWS; row++) {
-    const int c = blockIdx.x * COST_ROWS + row;
-    if (c >= m) break;
-    const float cx = xyz2[((size_t)b * m + c) * 3];
-    const float cy = xyz2[((size_t)b * m + c) * 3 + 1];
-    const float cz = xyz2[((size_t)b * m + c) * 3 + 2];
-    const float cs = sq2[(size_t)b * m + c];
-    const float* mrow = match + ((size_t)b * m + c) * n;
-    for (int r = threadIdx.x; r < n; r += blockDim.x) {
-      const float* p = xyz1 + ((size_t)b * n + r) * 3;
-      const float d = gram_d(cs, sq1[(size_t)b * n + r],
-                             dot3(cx, cy, cz, p[0], p[1], p[2]));
-      acc = fmaf(mrow[r], sqrtf(d), acc);
+// sum_k v_k * sqrt(d(q, p_k)) of one row's four entries, in f32
+__device__ __forceinline__ float mc_row(float4 v, float4 q, const float* px,
+                                        const float* py, const float* pz,
+                                        const float* ps) {
+  const float e[4] = {v.x, v.y, v.z, v.w};
+  float t = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+    t = fmaf(e[k], __fsqrt_rn(am_d_col(px[k], py[k], pz[k], ps[k], q)), t);
+  return t;
+}
+
+template <bool VEC>
+__device__ __forceinline__ float4 mc_load(const float* p, int left) {
+  if (VEC) return __ldcs(reinterpret_cast<const float4*>(p));
+  return make_float4(left > 0 ? __ldcs(p) : 0.f,
+                     left > 1 ? __ldcs(p + 1) : 0.f,
+                     left > 2 ? __ldcs(p + 2) : 0.f,
+                     left > 3 ? __ldcs(p + 3) : 0.f);
+}
+
+// part[b][blockIdx.y][blockIdx.x] = a block's share of cost[b]. VEC: n % 4
+// == 0 and match 16-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(MC_THREADS)
+mc_pass(const float* __restrict__ xyz1, int n, const float* __restrict__ xyz2,
+        int m, const float* __restrict__ match, double* __restrict__ part) {
+  __shared__ float4 s_pt[MC_ROWS];
+  __shared__ double red[MC_THREADS / 32];
+  const int b = blockIdx.z, c0 = blockIdx.y * MC_ROWS;
+  const int rows = min(MC_ROWS, m - c0);
+  const int r0 = (blockIdx.x * MC_THREADS + threadIdx.x) * 4;
+  for (int j = threadIdx.x; j < rows; j += MC_THREADS)
+    s_pt[j] = stage(xyz2, (size_t)b * m + c0 + j);
+  // points past n: zeros (their entries of match read as 0)
+  float px[4], py[4], pz[4], ps[4];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    px[k] = py[k] = pz[k] = ps[k] = 0.f;
+    if (r0 + k < n) {
+      const float* p = xyz1 + 3 * ((size_t)b * n + r0 + k);
+      px[k] = p[0];
+      py[k] = p[1];
+      pz[k] = p[2];
+      ps[k] = sq3(px[k], py[k], pz[k]);
     }
   }
-  const float t = block_sum(acc, red);
-  if (threadIdx.x == 0) partial[(size_t)b * gridDim.x + blockIdx.x] = t;
+  __syncthreads();
+  double acc = 0.0;
+  if (r0 < n) {
+    const int left = n - r0;
+    const float* row = match + ((size_t)b * m + c0) * n + r0;
+    int j = 0;
+    for (; j + MC_UNROLL <= rows; j += MC_UNROLL) {
+      float4 v[MC_UNROLL];
+#pragma unroll
+      for (int u = 0; u < MC_UNROLL; u++)
+        v[u] = mc_load<VEC>(row + (size_t)(j + u) * n, left);
+#pragma unroll
+      for (int u = 0; u < MC_UNROLL; u++)
+        acc += (double)mc_row(v[u], s_pt[j + u], px, py, pz, ps);
+    }
+    for (; j < rows; j++)
+      acc += (double)mc_row(mc_load<VEC>(row + (size_t)j * n, left), s_pt[j],
+                            px, py, pz, ps);
+  }
+  const double t = mc_block_sum(acc, red);
+  if (threadIdx.x == 0)
+    part[((size_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = t;
 }
 
+// cost[b] = the sum of batch b's `parts` block shares, in a fixed order
 __global__ void __launch_bounds__(256)
-mc_total(const float* __restrict__ partial, int parts,
+mc_total(const double* __restrict__ part, int parts,
          float* __restrict__ cost) {
-  __shared__ float red[8];
+  __shared__ double red[8];
   const int b = blockIdx.x;
-  float acc = 0.f;
+  double acc = 0.0;
   for (int i = threadIdx.x; i < parts; i += blockDim.x)
-    acc += partial[(size_t)b * parts + i];
-  const float t = block_sum(acc, red);
-  if (threadIdx.x == 0) cost[b] = t;
+    acc += part[(size_t)b * parts + i];
+  const double t = mc_block_sum(acc, red);
+  if (threadIdx.x == 0) cost[b] = (float)t;
 }
 
 // ---------------------------------------------------------------- K6d ----
@@ -573,14 +760,39 @@ inline int blocks(int count, int per) { return (count + per - 1) / per; }
 // Each entry point launches on `stream`, checks every launch and returns
 // its CUDA error code (0 on success). The caller allocates every buffer.
 
-extern "C" int nn_distance_launch(const float* xyz1, const float* sq1, int n,
-                                  const float* xyz2, const float* sq2, int m,
-                                  int batch, float* dist1, int* idx1,
-                                  float* dist2, int* idx2,
+// keys [B*(n+m)] is u64 scratch; dist1, idx1 are [B,n], dist2, idx2 [B,m].
+extern "C" int nn_distance_launch(const float* xyz1, int n, const float* xyz2,
+                                  int m, int batch, u64* keys, float* dist1,
+                                  int* idx1, float* dist2, int* idx2,
                                   cudaStream_t stream) {
-  const dim3 grid(blocks(n > m ? n : m, ROWS), 2, batch);
-  nn_kernel<<<grid, THREADS, 0, stream>>>(xyz1, sq1, n, xyz2, sq2, m, dist1,
-                                          idx1, dist2, idx2);
+  static const int attr = (int)cudaFuncSetAttribute(
+      nn_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)nn_smem(NN_PANEL));
+  if (attr) return attr;
+  const size_t count = (size_t)batch * (n + m);
+  int err = (int)cudaMemsetAsync(keys, 0xff, count * sizeof(u64), stream);
+  if (err) return err;
+  // column panels: as few as NN_PANEL allows, more while the grid has
+  // fewer than NN_TARGET_BLOCKS blocks, each a whole number of tiles
+  const int rp = blocks(n, NN_ROWS);
+  const int want = blocks(NN_TARGET_BLOCKS, rp * batch);
+  const int parts = std::max(blocks(m, NN_PANEL),
+                             std::min(want, blocks(m, NN_TILE)));
+  const int panel = blocks(blocks(m, parts), NN_TILE) * NN_TILE;
+  nn_pass<<<dim3(rp, blocks(m, panel), batch), NN_THREADS, nn_smem(panel),
+            stream>>>(xyz1, n, xyz2, m, panel, keys,
+                      keys + (size_t)batch * n);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  nn_unpack<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+      keys, (size_t)batch * n, count, dist1, idx1, dist2, idx2);
+  return (int)cudaGetLastError();
+}
+
+// out [count]: sq3 of each point of xyz [count, 3] (for a test)
+extern "C" int cloud_norms(const float* xyz, int count, float* out,
+                           cudaStream_t stream) {
+  norms_kernel<<<blocks(count, 256), 256, 0, stream>>>(xyz, count, out);
   return (int)cudaGetLastError();
 }
 
@@ -638,20 +850,31 @@ extern "C" int approx_match_d_tile(const float* xyz1, const float* sq1,
   return (int)cudaGetLastError();
 }
 
-extern "C" int match_cost_parts(int m) { return blocks(m, COST_ROWS); }
+inline dim3 mc_grid(int n, int m, int batch) {
+  return dim3(blocks(n, 4 * MC_THREADS), blocks(m, MC_ROWS), batch);
+}
 
-// partial is [B, match_cost_parts(m)] scratch; cost is [B].
-extern "C" int match_cost_launch(const float* xyz1, const float* sq1, int n,
-                                 const float* xyz2, const float* sq2, int m,
-                                 int batch, const float* match,
-                                 float* partial, float* cost,
+// the f64 scratch match_cost_launch takes: doubles a batch
+extern "C" int match_cost_parts(int n, int m) {
+  const dim3 g = mc_grid(n, m, 1);
+  return (int)(g.x * g.y);
+}
+
+// part is [B, match_cost_parts(n, m)] f64 scratch; cost is [B].
+extern "C" int match_cost_launch(const float* xyz1, int n, const float* xyz2,
+                                 int m, int batch, const float* match,
+                                 double* part, float* cost,
                                  cudaStream_t stream) {
-  const int parts = blocks(m, COST_ROWS);
-  mc_partial<<<dim3(parts, batch), 256, 0, stream>>>(xyz1, sq1, n, xyz2,
-                                                     sq2, m, match, partial);
+  const dim3 grid = mc_grid(n, m, batch);
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(match) % 16 == 0)
+    mc_pass<true><<<grid, MC_THREADS, 0, stream>>>(xyz1, n, xyz2, m, match,
+                                                   part);
+  else
+    mc_pass<false><<<grid, MC_THREADS, 0, stream>>>(xyz1, n, xyz2, m, match,
+                                                    part);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  mc_total<<<batch, 256, 0, stream>>>(partial, parts, cost);
+  mc_total<<<batch, 256, 0, stream>>>(part, (int)(grid.x * grid.y), cost);
   return (int)cudaGetLastError();
 }
 

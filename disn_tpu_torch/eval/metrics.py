@@ -3,24 +3,32 @@ disn_tpu/eval/metrics.py).
 
 K6, the point-cloud metrics, run as hand-written CUDA kernels
 (``csrc/metrics.cu``, built with nvcc at first use and loaded with ctypes;
-its header note gives what bounds each and what the design does about it):
+its header note gives what bounds each, each design's floor and what the
+design does about it):
 
 * ``nn_distance`` (K6a): squared distance to the nearest point of the
-  other cloud and its index, both ways, with the reference op's gradient
-  (a gather and an ``index_add_`` scatter in PyTorch ops on both devices);
+  other cloud and its index, both ways, from one pass that computes d once
+  a pair (partial minima merged as 64-bit (d, index) keys), with the
+  reference op's gradient (a gather and an ``index_add_`` scatter in
+  PyTorch ops on both devices);
 * ``approx_match`` (K6b): the auction's soft matching [B, M, N], 10
   temperature levels -4^j for j = 7..-1 then 0, three phases a level;
-* ``match_cost`` (K6c): sum of match x Euclidean distance [B], with its
-  gradient ``match_cost_grad`` (K6d) wrt both clouds.
+* ``match_cost`` (K6c): sum of match x Euclidean distance [B], one
+  streaming read of match with the per-batch total in the same call, with
+  its gradient ``match_cost_grad`` (K6d) wrt both clouds.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``<wrapper>.launches`` (one a call: a call's kernels share one entry
-point); it uses the plain PyTorch version beside it (``*_plain``, the JAX
-package's arithmetic: Gram distances (|a|^2 - 2 a.b) + |b|^2 clamped at 0,
-einsums) only for CPU tensors, and raises on any other device. ``f_score``,
-``chamfer_emd`` and ``iou_volumes`` are PyTorch ops around them; the
-samplers are numpy on the host, drawing from ``RandomState`` exactly as the
-JAX package does.
+point, which also does the call's memset); it uses the plain PyTorch
+version beside it (``*_plain``, the JAX package's arithmetic: Gram
+distances (|a|^2 - 2 a.b) + |b|^2 clamped at 0, einsums) only for CPU
+tensors, and raises on any other device. On the card K6a and K6c compute
+|p|^2 themselves, with the bits of ``_sq`` (``kernel_norms`` shows them to
+a test); K6b takes ``_sq`` from its wrapper. The wrappers allocate their
+outputs and scratch with one ``empty`` each and run no other PyTorch op on
+the device. ``f_score``, ``chamfer_emd`` and ``iou_volumes`` are PyTorch
+ops around them; the samplers are numpy on the host, drawing from
+``RandomState`` exactly as the JAX package does.
 """
 from __future__ import annotations
 
@@ -43,19 +51,18 @@ def _lib() -> ctypes.CDLL:
 def bind(path) -> ctypes.CDLL:
     """Load a build of csrc/metrics.cu and declare its entry points."""
     lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.nn_distance_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp,
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.nn_distance_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp,
                                        vp, vp, vp]
-    cd = ctypes.c_double
+    lib.cloud_norms.argtypes = [vp, ci, vp, vp]
     lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, cd, cd,
                                         vp, vp, vp, vp, vp, vp]
     lib.approx_match_d_tile.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp]
-    lib.match_cost_parts.argtypes = [ci]
-    lib.match_cost_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, vp, vp, vp,
-                                      vp]
+    lib.match_cost_parts.argtypes = [ci, ci]
+    lib.match_cost_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, vp]
     lib.match_cost_grad_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp,
                                            vp, vp]
-    for name in ("nn_distance_launch", "approx_match_launch",
+    for name in ("nn_distance_launch", "cloud_norms", "approx_match_launch",
                  "approx_match_d_tile", "match_cost_parts",
                  "match_cost_launch", "match_cost_grad_launch"):
         getattr(lib, name).restype = ci
@@ -69,7 +76,9 @@ def build():
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device, without building
+    a torch.cuda.Stream object (host time that a small call would show)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -124,21 +133,42 @@ def nn_distance_plain(xyz1: torch.Tensor, xyz2: torch.Tensor):
 
 
 def _nn_forward(xyz1: torch.Tensor, xyz2: torch.Tensor):
-    dev = _device_of(xyz1, xyz2)
-    b, n, m = _clouds(xyz1, xyz2)
-    if dev.type == "cpu":
+    if _device_of(xyz1, xyz2).type == "cpu":
+        _clouds(xyz1, xyz2)
         return nn_distance_plain(xyz1, xyz2)
+    out = _nn_run(_lib(), xyz1, xyz2)
+    nn_distance.launches += 1
+    return out
+
+
+def _nn_run(lib: ctypes.CDLL, xyz1: torch.Tensor, xyz2: torch.Tensor):
+    """One nn_distance_launch of `lib` on checked CUDA clouds: the keys'
+    memset, the pass and the unpack, in one call."""
+    b, n, m = _clouds(xyz1, xyz2)
+    dev = xyz1.device
+    keys = torch.empty((b * (n + m),), dtype=torch.int64, device=dev)
     dist1 = torch.empty((b, n), dtype=torch.float32, device=dev)
     dist2 = torch.empty((b, m), dtype=torch.float32, device=dev)
     idx1 = torch.empty((b, n), dtype=torch.int32, device=dev)
     idx2 = torch.empty((b, m), dtype=torch.int32, device=dev)
-    sq1, sq2 = _sq(xyz1), _sq(xyz2)
-    _raise_on(_lib().nn_distance_launch(
-        xyz1.data_ptr(), sq1.data_ptr(), n, xyz2.data_ptr(), sq2.data_ptr(),
-        m, b, dist1.data_ptr(), idx1.data_ptr(), dist2.data_ptr(),
-        idx2.data_ptr(), _stream(xyz1)), "nn_distance")
-    nn_distance.launches += 1
+    _raise_on(lib.nn_distance_launch(
+        xyz1.data_ptr(), n, xyz2.data_ptr(), m, b, keys.data_ptr(),
+        dist1.data_ptr(), idx1.data_ptr(), dist2.data_ptr(), idx2.data_ptr(),
+        _stream(xyz1)), "nn_distance")
     return dist1, idx1, dist2, idx2
+
+
+def kernel_norms(xyz: torch.Tensor) -> torch.Tensor:
+    """For tests: |p|^2 of each point of a CUDA cloud [.., 3] as K6a and K6c
+    compute it (sq3), to hold against _sq's bits."""
+    dev = _device_of(xyz)
+    if dev.type != "cuda" or xyz.shape[-1] != 3:
+        raise ValueError("want a CUDA cloud [.., 3]")
+    out = torch.empty(xyz.shape[:-1], device=dev)
+    _raise_on(_lib().cloud_norms(xyz.data_ptr(), out.numel(),
+                                 out.data_ptr(), _stream(xyz)),
+              "cloud_norms")
+    return out
 
 
 def nn_distance_backward(xyz1, xyz2, idx1, idx2, g1, g2):
@@ -178,11 +208,20 @@ class _NNDistance(torch.autograd.Function):
         return nn_distance_backward(*ctx.saved_tensors, g1, g2)
 
 
+def _recording(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a call on these inputs: only then do the
+    wrappers go through their autograd.Function (its host time is most of
+    a small call's)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def nn_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """Chamfer components (dist1 [B,N] f32, idx1 [B,N] i32, dist2 [B,M],
     idx2 [B,M]): squared distances to the nearest point of the other cloud
     and its index (the lowest on ties). xyz1 [B,N,3], xyz2 [B,M,3] f32."""
-    return _NNDistance.apply(xyz1, xyz2)
+    if _recording(xyz1, xyz2):
+        return _NNDistance.apply(xyz1, xyz2)
+    return _nn_forward(xyz1, xyz2)
 
 
 nn_distance.launches = 0
@@ -312,18 +351,25 @@ def _check_match(xyz1, xyz2, match) -> tuple[torch.device, int, int, int]:
 
 
 def _match_cost_forward(xyz1, xyz2, match) -> torch.Tensor:
-    dev, b, n, m = _check_match(xyz1, xyz2, match)
+    dev, _, _, _ = _check_match(xyz1, xyz2, match)
     if dev.type == "cpu":
         return match_cost_plain(xyz1, xyz2, match)
-    lib = _lib()
-    partial = torch.empty((b, lib.match_cost_parts(m)), device=dev)
-    cost = torch.empty((b,), device=dev)
-    sq1, sq2 = _sq(xyz1), _sq(xyz2)
-    _raise_on(lib.match_cost_launch(
-        xyz1.data_ptr(), sq1.data_ptr(), n, xyz2.data_ptr(), sq2.data_ptr(),
-        m, b, match.data_ptr(), partial.data_ptr(), cost.data_ptr(),
-        _stream(xyz1)), "match_cost")
+    cost = _match_cost_run(_lib(), xyz1, xyz2, match)
     match_cost.launches += 1
+    return cost
+
+
+def _match_cost_run(lib: ctypes.CDLL, xyz1, xyz2, match) -> torch.Tensor:
+    """One match_cost_launch of `lib` on checked CUDA inputs: the pass and
+    the per-batch total, the blocks' f64 shares in scratch."""
+    b, n, m = _clouds(xyz1, xyz2)
+    dev = xyz1.device
+    part = torch.empty((b, lib.match_cost_parts(n, m)), dtype=torch.float64,
+                       device=dev)
+    cost = torch.empty((b,), device=dev)
+    _raise_on(lib.match_cost_launch(
+        xyz1.data_ptr(), n, xyz2.data_ptr(), m, b, match.data_ptr(),
+        part.data_ptr(), cost.data_ptr(), _stream(xyz1)), "match_cost")
     return cost
 
 
@@ -365,7 +411,9 @@ def match_cost(xyz1: torch.Tensor, xyz2: torch.Tensor,
     """[B] transport cost sum(match[l,k] * |x1_k - x2_l|), Euclidean (not
     squared). The forward takes distances in the Gram form, the gradient
     (match held constant) the direct difference, as the reference does."""
-    return _MatchCost.apply(xyz1, xyz2, match)
+    if _recording(xyz1, xyz2, match):
+        return _MatchCost.apply(xyz1, xyz2, match)
+    return _match_cost_forward(xyz1, xyz2, match)
 
 
 match_cost.launches = 0

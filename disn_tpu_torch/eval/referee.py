@@ -104,12 +104,15 @@ def load(path: Path):
     """(library, run) of a build of some checkout's csrc/metrics.cu: run(x,
     y) is one auction on the card. A build from before the float64
     bookkeeping (it has no approx_match_d_tile) takes f32 scratch that
-    holds the starting masses on entry."""
+    holds the starting masses on entry. Only approx_match_launch is
+    declared: the other entry points differ between builds."""
     lib = ctypes.CDLL(str(path))
+    vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     if hasattr(lib, "approx_match_d_tile"):
-        lib = metrics.bind(path)
+        lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, cd,
+                                            cd] + [vp] * 6
+        lib.approx_match_launch.restype = ci
         return lib, lambda x, y: metrics._approx_match_run(lib, x, y)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci] + [vp] * 6
     lib.approx_match_launch.restype = ci
 

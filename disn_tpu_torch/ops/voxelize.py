@@ -72,7 +72,10 @@ def occupancy_device(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
     """Boolean [dim,dim,dim] surface occupancy sampled on `device` (the GPU
     by default; it raises without one): triangles drawn by area through a
     cumulative sum and searchsorted, uniform points on them, the corners,
-    and a scatter into a [dim^3] grid. The sample count is the JAX
+    and a scatter into a [dim^3] grid. The cumulative sum is taken on the
+    host in float64: CUDA's float cumsum is not deterministic, and a grid
+    must repeat for a seed (a mesh's IoU with itself is 1). The sample
+    count is the JAX
     package's (a power of two between 2^12 and 2^22); the draws come from a
     torch.Generator on `device` seeded with `seed`, so they are not the JAX
     package's, nor the same on the CPU and on the card."""
@@ -89,10 +92,9 @@ def occupancy_device(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
                     np.ceil(samples_per_cell * areas.sum() / cell ** 2)))
     n = _pow2(min(max(total, 1 << 12), 1 << 22))
     tri = torch.from_numpy(v_np).to(dev)[torch.from_numpy(f_np).to(dev)]
-    e1, e2 = tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
-    cdf = torch.cumsum(0.5 * torch.linalg.norm(torch.cross(e1, e2, dim=1),
-                                               dim=1), 0)
-    cdf = cdf / torch.clamp_min(cdf[-1], 1e-12)
+    cdf = np.cumsum(areas, dtype=np.float64)
+    cdf = torch.from_numpy((cdf / max(cdf[-1], 1e-12)).astype(np.float32)
+                           ).to(dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     u = torch.rand(n, generator=gen, device=dev)

@@ -170,3 +170,122 @@ def test_approx_match_d_is_gram_d(scale, n, m):
     tile = mt.approx_match_d_tile(x, y)
     assert tile.shape == (3, min(n, 128), min(m, 512))
     assert torch.equal(tile[0], tile[2]) and torch.equal(tile[1], tile[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale,n,m", [(0.5, 128, 512), (3.0, 100, 300),
+                                       (1e-3, 128, 512), (40.0, 7, 5),
+                                       (0.5, 1, 1)])
+def test_nn_distance_kernel_is_the_gram_d_tiles_lowest_minimum(scale, n, m):
+    """K6a's dist and idx both ways equal, bit for bit, the lowest-index
+    min/argmin of the kernel's own gram_d tile (approx_match_d_tile(...)[2])
+    with points of xyz1 copied into xyz2 (d near 0 or clamped to it, two
+    equal candidates for a row) and points of xyz2 repeated (exact ties)."""
+    x, y = clouds(1, n, m, seed=int(scale * 10) + n + 11)
+    x, y = (scale * x[0]).contiguous(), (scale * y[0]).contiguous()
+    if n > 3 and m > 4:
+        y[1], y[3] = x[2], x[2]
+        y[4] = y[1]
+        y[m - 1] = y[0]
+    tile = mt.approx_match_d_tile(x, y)[2]
+    assert tile.shape == (n, m)
+    got = mt.nn_distance(x[None], y[None])
+    want = (tile.min(1).values, tile.argmin(1).int(), tile.min(0).values,
+            tile.argmin(0).int())
+    for k in range(4):
+        assert torch.equal(got[k][0].view(torch.int32),
+                           want[k].view(torch.int32)), k
+    if n > 3 and m > 4:  # the copies of x[2] tie: the lower index wins
+        assert int(got[1][0, 2]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [0.5, 1.0, 40.0, 1e-3])
+def test_kernel_norms_are_sq_bit_for_bit(scale):
+    """K6a and K6c compute |p|^2 themselves (sq3); its bits are _sq's (the
+    plain versions' torch.sum(p * p, -1) on the card), on random clouds
+    and on mesh-like ones (grid points k/128 - 1)."""
+    x, y = clouds(24, 2048, 2047, seed=int(scale * 100))
+    grid = torch.from_numpy((np.random.RandomState(9).randint(
+        0, 257, (24, 2048, 3)) / 128.0 - 1.0).astype(np.float32)).cuda()
+    for c in (scale * x, scale * y, grid, (grid * 0.6).contiguous()):
+        c = c.contiguous()
+        assert torch.equal(mt.kernel_norms(c).view(torch.int32),
+                           mt._sq(c).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(3, 2047, 1537), (24, 2048, 2048)])
+def test_nn_distance_kernel_gives_the_same_bits_twice(b, n, m):
+    x, y = clouds(b, n, m, seed=6)
+    one, two = mt.nn_distance(x, y), mt.nn_distance(x, y)
+    for u, v in zip(one, two):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(3, 2047, 1537), (24, 2048, 2048)])
+def test_match_cost_kernel_gives_the_same_bits_twice(b, n, m):
+    x, y = clouds(b, n, m, seed=7)
+    match = mt.approx_match(x, y)
+    assert torch.equal(mt.match_cost(x, y, match), mt.match_cost(x, y, match))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SHAPES + [(3, 2047, 1537),
+                                            (24, 2048, 2048)])
+def test_match_cost_kernel_against_float64(b, n, m):
+    """K6c's total no further from match_cost_plain in float64, on the same
+    match, than 2x the f32 plain version's distance + 1e-6 relative."""
+    x, y = clouds(b, n, m, seed=8)
+    match = mt.approx_match(x, y)
+    ref = mt.match_cost_plain(x.double(), y.double(), match.double())
+    dk = (mt.match_cost(x, y, match).double() - ref).abs()
+    dp = (mt.match_cost_plain(x, y, match).double() - ref).abs()
+    assert bool((dk <= 2.0 * dp + 1e-6 * ref.abs()).all()), (dk, dp, ref)
+
+
+@pytest.mark.cuda
+def test_match_cost_kernel_reads_an_unaligned_match():
+    """The scalar walk: a match that does not start on 16 bytes (n % 4 ==
+    0, so only the pointer decides) gives the aligned walk's cost."""
+    x, y = clouds(2, 256, 100, seed=9)
+    match = mt.approx_match(x, y)
+    buf = torch.empty(match.numel() + 1, device="cuda")
+    shifted = buf[1:].view_as(match)
+    shifted.copy_(match)
+    got, want = mt.match_cost(x, y, shifted), mt.match_cost(x, y, match)
+    assert float((got - want).abs().max()) <= \
+        SUM_REL_TOL * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["nn_distance", "match_cost"])
+def test_one_call_is_only_the_librarys_work(kernel):
+    """torch.profiler over calls of the public wrapper: the device runs the
+    library's work and nothing else (K6a: the keys' memset, nn_pass,
+    nn_unpack; K6c: mc_pass, mc_total), no PyTorch op's kernel. The
+    profiler does not record every event of a window (the first is
+    sometimes missing), so it watches 3 calls and a kernel need only be
+    seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, y = clouds(3, 500, 400, seed=10)
+    if kernel == "nn_distance":
+        call, kerns = lambda: mt.nn_distance(x, y), ("nn_pass", "nn_unpack")
+    else:
+        match = mt.approx_match(x, y)
+        call, kerns = (lambda: mt.match_cost(x, y, match),
+                       ("mc_pass", "mc_total"))
+    call()  # build and load first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+    names = sorted(e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    assert all(any(o in k for o in ("Memset", *kerns)) for k in names), names
+    assert all(any(o in k for k in names) for o in kerns), names
