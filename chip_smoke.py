@@ -11,7 +11,8 @@ on failure:
    assembler from native/meshassemble.cpp and the OBJ formatter, OBJ parser
    and voxelizer of evaluation (g++), all started together, and report the
    build seconds and the compiler's register/shared-memory/wgmma report; a
-   wgmma the compiler serialised fails the run;
+   wgmma the compiler serialised, or a spill in K1's f32 kernel, fails the
+   run;
 2. drive the main path, pipeline.image_to_mesh with the default Config at
    sdf_res=256 on the full-width VGG-16 two-stream net (analytic octahedron
    head, r=0.6, the demo camera): a warm-up image and 3 fresh seeded u8
@@ -46,7 +47,11 @@ on failure:
    (c) at ragged cell counts (1, 3, 5 and the fine pass's count minus one,
    which the bf16 wrapper pads to whole clusters), the same way; (d) on 200
    random cells of a 49^3 grid, whose spacing 2/48 is inexact in f32 (the
-   main path's 2/64 and 2/256 are exact), the same way;
+   main path's 2/64 and 2/256 are exact), the same way; then [k1 turns]:
+   K1 on the kept main-path inputs of both passes in f32 and bf16 through
+   each checkout's own wrapper launch, in turns with --parent DIR's K1
+   (parent, change, change, parent), per pass and per image beside the
+   bound;
 4. hold the extraction routes against each other on the card, on the volume
    flow's volume and scan of one bf16 main-path image (257^3) and of an f32
    image at sdf_res=48 (49^3): the candidate scan's ids equal the full
@@ -119,11 +124,12 @@ on failure:
    ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
    latest.npz after step 3 holds exactly the JAX package's names, and
    restored into a fresh state it gives the same state and step-4 loss;
-8. print per-stage times of both flows, each bf16 main-path launch's share
-   of its bound and the weight bytes it moves from L2, the card, and the
-   kernel table as JSON (K1's and K5's launches from the main path's run of
-   phase 2, K6's from the farm's evaluate_tree, where K6d is not called: it
-   serves autograd).
+8. print per-stage times of both flows, each main-path K1 launch's share
+   of its bound (bf16 and f32, per pass and per image) and the weight bytes
+   it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
+   f32 kernels and K5's launches from the main path's run of phase 2, K6's
+   from the farm's evaluate_tree, where K6d is not called: it serves
+   autograd).
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before printing it.
@@ -148,10 +154,12 @@ H100_BYTES_PER_S = 3.35e12
 # and f32 accumulation order decides ties)
 F32_REL_TOL = 1e-4
 BF16_MAX_REL, BF16_MEAN_REL = 0.02, 0.003
-# the bf16 kernel's weight stream per fetch: w2, w3, wp, w4 of both streams
-# in bf16 plus small_params' f32 biases, w1 and w5
-K1_WEIGHT_BYTES = 2 * 2 * (64 * 256 + 256 * 512 + 512 * 512 + 512 * 256) \
-    + 2 * 2308 * 4
+# K1's weight stream per fetch (one fetch serves a cluster of cells): w2,
+# w3, wp, w4 of both streams in the compute type (2 or 4 bytes) plus
+# small_params' f32 biases, w1 and w5
+K1_GEMM_WEIGHTS = 2 * (64 * 256 + 256 * 512 + 512 * 512 + 512 * 256)
+K1_WEIGHT_BYTES = {"bf16": 2 * K1_GEMM_WEIGHTS + 2 * 2308 * 4,
+                   "f32": 4 * K1_GEMM_WEIGHTS + 2 * 2308 * 4}
 RAGGED_CELLS = (1, 3, 5)
 # vertex distance from the octahedron surface |x|+|y|+|z| = 0.6. Grid
 # coordinates k/128 - 1 are exact in bf16, and near the surface their sum
@@ -254,6 +262,29 @@ def phase_build() -> None:
         check("serialized" not in log,
               f"the compiler serialised wgmma instructions (see {lib.name}"
               ".log)")
+    f32 = [r for name, r in ptxas_report(
+        fused_decode.build().with_suffix(".log").read_text()).items()
+        if "3f32" in name and "decode_kernel" in name]
+    print(f"[build] f32 K1 kernel: {f32}")
+    check(len(f32) == 1 and f32[0]["spill_stores"] == 0
+          and f32[0]["spill_loads"] == 0,
+          f"ptxas reports spills in the f32 K1 kernel (or no f32 kernel): "
+          f"{f32}")
+
+
+def ptxas_report(log: str) -> dict:
+    """The ptxas -v report per entry function: stack frame, spill stores
+    and loads (bytes) and registers."""
+    import re
+    out = {}
+    for m in re.finditer(r"Function properties for (\S+)\n\s*(\d+) bytes "
+                         r"stack frame, (\d+) bytes spill stores, (\d+) "
+                         r"bytes spill loads\n.*?Used (\d+) registers", log):
+        out[m.group(1)] = dict(stack=int(m.group(2)),
+                               spill_stores=int(m.group(3)),
+                               spill_loads=int(m.group(4)),
+                               registers=int(m.group(5)))
+    return out
 
 
 def hold_k1(label: str, args, kw, timed: bool = True) -> dict:
@@ -365,22 +396,102 @@ def grid49() -> tuple:
             cells.sort().values.int())
 
 
-def print_k1_shares(kept: dict, ref: list) -> None:
-    """Each bf16 main-path launch's share of its bound and the weight bytes
-    the design moves from L2 for it: one fetch per cluster of cells."""
+def print_k1_shares(kept: dict, res: dict) -> None:
+    """Each main-path launch's share of its bound, per pass and per image,
+    in both types, and the weight bytes the design moves from L2 for it:
+    one fetch per cluster of cells."""
     from disn_tpu_torch.ops import fused_decode
 
     cluster = fused_decode._lib().fused_decode_cluster()
-    l2_total = 0
-    for (args, kw), r, pass_ in zip(kept["bf16"], ref, ("coarse", "fine")):
-        l2 = -(-args[4].numel() // cluster) * K1_WEIGHT_BYTES
-        l2_total += l2
-        print(f"[k1] bf16 main-path {pass_}: share of bound "
-              f"{r['bound_ms'] / r['ms']:.4f}, l2_weight_bytes={l2} "
-              f"(cluster of {cluster})")
-    print(f"[k1] bf16 main-path per image: share of bound "
-          f"{sum(r['bound_ms'] for r in ref) / sum(r['ms'] for r in ref):.4f}"
-          f", l2_weight_bytes={l2_total}")
+    for dt in ("bf16", "f32"):
+        ref = [res[(dt, "main", p)] for p in ("coarse", "fine")]
+        l2_total = 0
+        for (args, kw), r, pass_ in zip(kept[dt], ref, ("coarse", "fine")):
+            l2 = -(-args[4].numel() // cluster) * K1_WEIGHT_BYTES[dt]
+            l2_total += l2
+            print(f"[k1] {dt} main-path {pass_}: ms {r['ms']:.4f} bound "
+                  f"{r['bound_ms']:.4f} share of bound "
+                  f"{r['bound_ms'] / r['ms']:.4f}, l2_weight_bytes={l2} "
+                  f"(cluster of {cluster})")
+        ms, bound = sum(r["ms"] for r in ref), sum(r["bound_ms"] for r in ref)
+        print(f"[k1] {dt} main-path per image: ms {ms:.4f} bound {bound:.4f}"
+              f" share of bound {bound / ms:.4f}, l2_weight_bytes={l2_total}")
+
+
+PARENT_K1: dict = {}  # another checkout's K1 (--parent): its wrapper, build
+
+
+def k1_parent(root: str) -> dict:
+    """Another checkout's K1: its wrapper module (ops/fused_decode.py, loaded
+    under another name; it imports this checkout's helpers) and its
+    csrc/fused_decode.cu built and bound. Builds whose C entry still takes
+    the 24 weight pointers (before the f32 ring kernel) have no bind()."""
+    import importlib.util
+
+    from disn_tpu_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_fused_decode",
+        os.path.join(root, "disn_tpu_torch", "ops", "fused_decode.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    path = kernels.nvcc_build("fused_decode", src=os.path.join(
+        root, "disn_tpu_torch", "csrc", "fused_decode.cu"))
+    if hasattr(mod, "bind"):
+        lib = mod.bind(path)
+    else:
+        lib = ctypes.CDLL(str(path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.fused_decode_launch.argtypes = [ci, vp, ctypes.POINTER(vp), vp,
+                                            vp, vp, vp, vp, ci, ci, ci, ci,
+                                            ci, ci, vp, vp]
+        lib.fused_decode_launch.restype = ci
+        lib.fused_decode_cluster.argtypes = []
+        lib.fused_decode_cluster.restype = ci
+    return {"module": mod, "lib": lib}
+
+
+def time_k1_turns(kept: dict, res: dict) -> None:
+    """K1 on the main path's kept launch inputs, both passes of an image in
+    f32 and bf16: this checkout's kernel and, with --parent, that
+    checkout's, each through its own wrapper's launch (tiles, padding,
+    output allocation), in turns (parent, change, change, parent; CUDA
+    events, mean of `reps` after a warm-up); else this checkout's twice.
+    Prints each turn per pass and per image beside the bound, and how far
+    the two builds' outputs are apart."""
+    import torch
+    from disn_tpu_torch.ops import fused_decode
+
+    runs = {"change": (fused_decode, fused_decode._lib())}
+    if PARENT_K1:
+        runs["parent"] = (PARENT_K1["module"], PARENT_K1["lib"])
+    order = (["parent", "change", "change", "parent"] if PARENT_K1
+             else ["change", "change"])
+    for dt, reps in (("f32", 3), ("bf16", 10)):
+        turns = {p: [] for p in ("coarse", "fine")}
+        for (args, kw), pass_ in zip(kept[dt], ("coarse", "fine")):
+            fns = {k: (lambda m=m, lib=lib: m._launch(lib, *args, **kw))
+                   for k, (m, lib) in runs.items()}
+            turns[pass_] = [(k, cuda_ms(fns[k], reps)) for k in order]
+            bound = res[(dt, "main", pass_)]["bound_ms"]
+            print(f"[k1 turns] {dt} main-path {pass_} cells="
+                  f"{args[4].numel()}: ms "
+                  f"{[(k, round(t, 4)) for k, t in turns[pass_]]}, shares of "
+                  f"the bound {bound:.4f} ms "
+                  f"{[(k, round(bound / t, 4)) for k, t in turns[pass_]]}")
+            if "parent" in fns:
+                a, c = fns["parent"](), fns["change"]()
+                rel = float((a - c).abs().max() / c.abs().max().clamp_min(
+                    1e-30))
+                print(f"[k1 turns] {dt} {pass_}: parent vs change max|diff|/"
+                      f"max|change| {rel:.3e}")
+        bound = sum(res[(dt, "main", p)]["bound_ms"] for p in turns)
+        image = [(k, c + f) for (k, c), (_, f)
+                 in zip(turns["coarse"], turns["fine"])]
+        print(f"[k1 turns] {dt} main-path per image: ms "
+              f"{[(k, round(t, 4)) for k, t in image]}, shares of the bound "
+              f"{bound:.4f} ms {[(k, round(bound / t, 4)) for k, t in image]}")
+    torch.cuda.synchronize()
 
 
 def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
@@ -424,7 +535,8 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         launches = k1.launches - before[0]
         k5_launches = k5.launches - before[1]
         dist = np.abs(np.abs(verts).sum(1) - 0.6)
-        stats.update(image=i, wall_ms=wall_ms, k1_ms=k1_ms, k5_ms=k5_ms,
+        stats.update(label=label, image=i, wall_ms=wall_ms, k1_ms=k1_ms,
+                     k5_ms=k5_ms,
                      k1_launches=launches, k5_launches=k5_launches,
                      faces=len(faces), verts=len(verts),
                      max_surface_dist=float(dist.max()) if len(verts)
@@ -500,6 +612,11 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     runs += run_main_path(cfg32, params, imgs[4:], trans, "f32", 0, kept,
                           held)
     launches = {"k1": k1.launches, "k5": k5.launches}
+    for dt in ("bf16", "f32"):
+        launches[f"k1 {dt}"] = sum(r["k1_launches"] for r in runs
+                                   if r["label"] == dt)
+    check(launches["k1 bf16"] + launches["k1 f32"] == launches["k1"],
+          f"K1 launches by type do not add up: {launches}")
     cfgv = cfg.replace(sparse_words=False)
     torch.cuda.synchronize()
     k1.launches = k5.launches = 0
@@ -2377,6 +2494,27 @@ def hold_device_iou(tree_card: float, tree_cpu: float, gt_mesh,
           "eval farm: --device-iou differs between the card and the CPU")
 
 
+def k1_entries(res: dict, launches: dict) -> list[dict]:
+    """K1's two kernels, each per image: its coarse + fine launch on the
+    main path's own inputs (the error: the worst of every timed hold of the
+    type, random weights included); no single PyTorch call computes K1."""
+    out = []
+    for dt in ("bf16", "f32"):
+        ref = [res[(dt, "main", p)] for p in ("coarse", "fine")]
+        out.append({
+            "name": f"fused_cell_decode[{dt}]", "route": "cuda",
+            "source": "disn_tpu_torch/csrc/fused_decode.cu",
+            "replaces": "disn_tpu/ops/pallas_fused.py:46",
+            "launches": launches[f"k1 {dt}"],
+            "max_abs_err": max(r["max_abs_err"] for k, r in res.items()
+                               if k[0] == dt),
+            "ms": sum(r["ms"] for r in ref),
+            "plain_ms": sum(r["plain_ms"] for r in ref),
+            "bound_ms": sum(r["bound_ms"] for r in ref),
+            "bound_by": ref[1]["bound_by"], "library_ms": None})
+    return out
+
+
 def k6_entries(hold: dict, counts: dict) -> list[dict]:
     lines = {"nn_distance": 38, "approx_match": 75, "match_cost": 116,
              "match_cost_grad": 129}
@@ -2393,11 +2531,13 @@ def main() -> int:
                                              "on one NVIDIA GPU.")
     ap.add_argument("--parent", default=None,
                     help="root of another checkout (for example the parent "
-                         "commit's, unpacked with git archive) whose K6 "
-                         "also runs: its K6b on [eval hold]'s and [eval "
-                         "farm]'s clouds, measured against the float64 "
-                         "referee, its K6a and K6c timed in turns with this "
-                         "checkout's at the protocol's shape")
+                         "commit's, unpacked with git archive) whose K1 and "
+                         "K6 also run: its K1 timed in turns with this "
+                         "checkout's on the main path's kept inputs, its "
+                         "K6b on [eval hold]'s and [eval farm]'s clouds, "
+                         "measured against the float64 referee, its K6a and "
+                         "K6c timed in turns with this checkout's at the "
+                         "protocol's shape")
     args = ap.parse_args()
     try:
         import torch
@@ -2425,11 +2565,13 @@ def main() -> int:
             PARENT_K6.update(k6_runners(kernels.nvcc_build(
                 "metrics", src=os.path.join(args.parent, "disn_tpu_torch",
                                             "csrc", "metrics.cu"))))
+            PARENT_K1.update(k1_parent(args.parent))
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])
         k5 = hold_swords(*main_inputs, kept)
         k1 = phase_k1_check(kept)
+        time_k1_turns(kept, k1)
         hold_routes("257^3 bf16", held["257"],
                     main_mesh=held["bf16 volume"][1])
         hold_routes("49^3 f32", held["49"])
@@ -2472,21 +2614,9 @@ def main() -> int:
             timeout=60).stdout.strip()
         print(f"[card] {smi}")
         print(f"[total] {time.perf_counter() - t0:.1f} s")
-        # K1 per bf16 image: its coarse + fine launch on the main path's
-        # own inputs (image 1); no single PyTorch call computes K1
-        ref = [k1[("bf16", "main", p)] for p in ("coarse", "fine")]
-        print_k1_shares(kept, ref)
-        print(json.dumps({"kernels": [{
-            "name": "fused_cell_decode", "route": "cuda",
-            "source": "disn_tpu_torch/csrc/fused_decode.cu",
-            "replaces": "disn_tpu/ops/pallas_fused.py:46",
-            "launches": launches["k1"],
-            "max_abs_err": max(r["max_abs_err"] for r in ref),
-            "ms": sum(r["ms"] for r in ref),
-            "plain_ms": sum(r["plain_ms"] for r in ref),
-            "bound_ms": sum(r["bound_ms"] for r in ref),
-            "bound_by": ref[1]["bound_by"], "library_ms": None},
-            *k6_entries(k6, k6_counts), {
+        print_k1_shares(kept, k1)
+        print(json.dumps({"kernels": [
+            *k1_entries(k1, launches), *k6_entries(k6, k6_counts), {
             "name": "sparse_cell_words", "route": "cuda",
             "source": "disn_tpu_torch/csrc/sparse_words.cu",
             "replaces": "disn_tpu/ops/marching.py:1102",

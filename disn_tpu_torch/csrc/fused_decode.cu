@@ -11,14 +11,18 @@
 //
 // Bound. One point costs 2 streams x (3*64 + 64*256 + 256*512 + 512*512 +
 // 512*256 + 256*out) = 1,082,240 MACs (~2.16 MFLOP); the map (19 MB in
-// bf16) and the weights (2.2 MB) are read once per launch, so at any
-// realistic cell count the kernel is bound by tensor-core operations: at
-// 989 TFLOP/s dense bf16 (H100 SXM), 3.079 ms for the 4,096 + 17,888 cells
-// of one bf16 image at 257^3.
+// bf16, 38 MB in f32) and the weights (2.2 / 4.3 MB) are read once per
+// launch, so at any realistic cell count the kernel is bound by operations:
+// at 989 TFLOP/s dense bf16 (H100 SXM), 3.079 ms for the 4,096 + 17,888
+// cells of one bf16 image at 257^3; at 67 TFLOP/s on the FMA units, 45.45
+// ms for the same cells in f32.
 //
-// bf16, the path users time: 384 threads per block, one 64-point cell at
-// a time; the grid is persistent (as many blocks as fit, one per SM), each
-// block walking its cells.
+// Both types share the delivery of the weights: a persistent grid (one
+// block per SM, each walking its cells, one 64-point cell at a time), a
+// producer feeding a ring of weight tiles with cp.async.bulk and full/empty
+// mbarriers, and clusters of CS = 2 blocks that multicast each tile.
+//
+// bf16: 384 threads per block.
 //  * Tensor cores through wgmma (m64n128k16). Two consumer warpgroups each
 //    compute 128 output columns for all 64 rows per pass: one pass for the
 //    256-wide layers, two for the 512-wide ones. A is the activation
@@ -65,13 +69,48 @@
 // ~5 MB a cell at 128 B a clock), the feature gathers stretch the local
 // stream's 512-wide layer, and the epilogues, the first layer and the
 // set-up leave the tensor cores idle for ~30% of a cell's time.
-// f32 is the exactness reference, not the timed path: it keeps a SIMT
-// block GEMM (32 points per block, two [32, 516] ping-pong buffers,
-// double-buffered 32x128 weight tiles, FMA units), unchanged.
+//
+// f32, the path the default Config() runs (compute_dtype "float32"): the
+// FMA units, no tensor cores (no TF32), 384 threads per block: 8 consumer
+// warps (232 registers each by setmaxnreg) and a producer warpgroup.
+//  * Each consumer thread owns 8 points x N/32 columns of a layer (8 x 8
+//    for the 256-wide layers, 8 x 16 for the 512-wide ones), all of N in
+//    one pass, the sums in registers (up to 128 a thread). A step of k
+//    reads the thread's 8 activations and its columns' weights with 16-byte
+//    shared loads, 6 per 128 FFMA (4 per 64 in the 256-wide layers): the 8
+//    lanes of a quarter warp share their points and read 128 contiguous
+//    bytes of the weight row, and the four quarters share those weights.
+//  * One [512, 64] f32 activation buffer (128 KB), K-major (a column's 64
+//    points in 256 bytes, 16-byte chunks swizzled by the column, chunk_off),
+//    so a step reads one column; each layer is written over its input once
+//    every warp has read it (a named barrier), from the registers.
+//  * Weights stream through a ring of 4 stages of 16 KB: a tile is 16 rows
+//    of a 256-wide weight or 8 of a 512-wide one, i.e. the weights as they
+//    lie in memory, concatenated in consumption order by tile_weights. One
+//    producer thread keeps the ring full; each block of the cluster copies
+//    half of a tile with .multicast::cluster, so one L2 fetch serves 128
+//    points (4.33 MB a cluster's cell pair: 47.5 GB per f32 image at 257^3,
+//    against 190 GB when each 32-point block fetched them all). Each
+//    consumer warp releases a stage to every block of the cluster.
+//  * The epilogues stay in registers: f32 bias after the f32 sums, then the
+//    sampled feature, NaN-keeping ReLU. The last layer (256 -> out) runs in
+//    the epilogue of the layer before it: each thread's partial sums over
+//    its columns, a shuffle across the quarter warp and a sum of the four
+//    column quarters in shared memory.
+//  * The local stream's feature gathers run under the 512-wide fold2/conv1
+//    products: a thread gathers its own outputs' features a slice a tile
+//    and leaves each sum where its epilogue reads it (Gather).
+//  * fold1/conv1 (K = 3) runs on the FMA units into the buffer.
+// What holds it at ~72% of the bound (K1_TRACE stamps, PERF.md): the
+// product loops, 98% of a cell's time, issue at 0.72-0.78 of the FMA floor
+// (their code is 92% FFMA; loading the activations once per 4 steps
+// instead of every step gained ~4%, so shared memory is not the limit),
+// and the gathers slow the local stream's wp loop from ~0.77 to ~0.70.
+//
 // Rounding follows _fused_kernel: bilinear weights are cast to the compute
 // type, sampled features are stored in the compute type, every ReLU output
 // is cast to the compute type, biases are f32 and added after the f32
-// accumulation, then the feature.
+// accumulation, then the feature; taps past the last row or column weigh 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,15 +142,13 @@ __device__ __forceinline__ float relu(float v) {
   return (v != v) ? v : (v > 0.f ? v : 0.f);
 }
 
-struct StreamW {
-  const void* w[6];   // [3,64] [64,256] [256,512] [512,512] [512,256] [256,O]
-  const float* b[6];  // f32 biases, [N]
-};
-
 struct Args {
-  StreamW s[2];  // 0: global stream (g_contrib folded into b[3]), 1: local
-  const void* tiles;  // bf16: w[1..4] of both streams as ring tiles
-  const float* params;  // bf16: small_params, [2, P_STREAM] f32
+  // w2, w3, wp, w4 of the global stream, then of the local one, as ring
+  // tiles in the compute type (tile_weights)
+  const void* tiles;
+  // small_params: per stream the f32 biases (g_contrib folded into the
+  // global stream's fold2/conv1 bias), w1 and w5, [2, P_STREAM]
+  const float* params;
   const void* map;
   const float* trans;  // [4,3]
   const float* geom;   // [6] lo_xyz, hi_xyz
@@ -176,205 +213,34 @@ __device__ __forceinline__ void point_taps(const Args& args, size_t p0, int i,
   tw[i * 4 + 3] = (vx1 && vy1) ? round_cd<T>(__fmul_rn(wx, wy)) : 0.f;
 }
 
-// ===================== f32: SIMT block GEMM (reference) =====================
-
-namespace f32 {
-
-constexpr int THREADS = 256;
-constexpr int M = 32;     // points per block
-constexpr int LD = 516;   // activation row stride (padded)
-constexpr int NT = 128;   // output columns per GEMM pass
-constexpr int KT = 32;    // reduction depth of one staged weight tile
-constexpr int WLD = NT;   // weight tile row stride
-
-constexpr size_t align(size_t x) { return (x + 127) / 128 * 128; }
-constexpr size_t act = align(sizeof(float) * M * LD);
-constexpr size_t wtile = align(sizeof(float) * KT * WLD);
-constexpr size_t off_a = 0;
-constexpr size_t off_b = off_a + act;
-constexpr size_t off_w = off_b + act;
-constexpr size_t off_pts = off_w + 2 * wtile;
-constexpr size_t off_tidx = off_pts + align(sizeof(float) * M * 3);
-constexpr size_t off_tw = off_tidx + align(sizeof(int) * M * 4);
-constexpr size_t off_pred = off_tw + align(sizeof(float) * M * 4);
-constexpr size_t smem_total = off_pred + align(sizeof(float) * M * 2);
-
-// act_out[:, :N] = relu(act_in[:, :K] @ W + bias (+ feat)) for the block's
-// M points. W is [K, N] row-major in device memory. Ends with the
-// epilogue's writes issued; callers sync before reading act_out.
-template <bool ADD_FEAT>
-__device__ void gemm_layer(const float* act_in, int K,
-                           const float* __restrict__ W, int N,
-                           const float* __restrict__ bias, float* act_out,
-                           float* wbuf, const float* __restrict__ map,
-                           const int* tidx, const float* tw) {
-  constexpr int VROW = NT / 4;              // 16-byte vectors per tile row
-  constexpr int PER = KT * VROW / THREADS;  // vectors per thread per tile
-  static_assert(PER * THREADS == KT * VROW, "tile split");
-  const int tid = threadIdx.x;
-  const int nk = K / KT;
-
-  for (int n0 = 0; n0 < N; n0 += NT) {
-    float4 regs[PER];
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int v = tid + i * THREADS;
-        const int r = v / VROW, c = (v % VROW) * 4;
-        regs[i] = __ldg(reinterpret_cast<const float4*>(
-            W + (size_t)(k0 + r) * N + n0 + c));
-      }
-    };
-    auto store = [&](float* buf) {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int v = tid + i * THREADS;
-        const int r = v / VROW, c = (v % VROW) * 4;
-        *reinterpret_cast<float4*>(buf + r * WLD + c) = regs[i];
-      }
-    };
-    load(0);
-    store(wbuf);
-    __syncthreads();
-
-    // thread (tr, tc) owns rows tr*4..+4, columns tc*4..+4
-    const int tr = tid / 32, tc = tid % 32;
-    float acc[4][4] = {};
-    for (int kt = 0; kt < nk; ++kt) {
-      const float* cur = wbuf + (kt & 1) * KT * WLD;
-      if (kt + 1 < nk) load((kt + 1) * KT);
-#pragma unroll 8
-      for (int kk = 0; kk < KT; ++kk) {
-        const float4 w = *reinterpret_cast<const float4*>(cur + kk * WLD +
-                                                          tc * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = act_in[(tr * 4 + i) * LD + kt * KT + kk];
-          acc[i][0] = fmaf(a, w.x, acc[i][0]);
-          acc[i][1] = fmaf(a, w.y, acc[i][1]);
-          acc[i][2] = fmaf(a, w.z, acc[i][2]);
-          acc[i][3] = fmaf(a, w.w, acc[i][3]);
-        }
-      }
-      if (kt + 1 < nk) store(wbuf + ((kt + 1) & 1) * KT * WLD);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = tr * 4 + i;
-      const int n = n0 + tc * 4;
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ADD_FEAT) {
-        // four taps summed in f32 (f32 is the compute type: no rounding)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(
-              map + (size_t)tidx[m * 4 + t] * C_FEAT + n));
-          const float wt = tw[m * 4 + t];
-          f[0] = fmaf(wt, v.x, f[0]);
-          f[1] = fmaf(wt, v.y, f[1]);
-          f[2] = fmaf(wt, v.z, f[2]);
-          f[3] = fmaf(wt, v.w, f[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v = acc[i][j] + bias[n + j];
-        if (ADD_FEAT) v += f[j];
-        act_out[m * LD + n + j] = relu(v);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* act_a = reinterpret_cast<float*>(smem + off_a);
-  float* act_b = reinterpret_cast<float*>(smem + off_b);
-  float* wbuf = reinterpret_cast<float*>(smem + off_w);
-  float* pts = reinterpret_cast<float*>(smem + off_pts);
-  int* tidx = reinterpret_cast<int*>(smem + off_tidx);
-  float* tw = reinterpret_cast<float*>(smem + off_tw);
-  float* pred = reinterpret_cast<float*>(smem + off_pred);
-  const float* map = reinterpret_cast<const float*>(args.map);
-  const int tid = threadIdx.x;
-  const size_t p0 = (size_t)blockIdx.x * M;  // first point of this block
-
-  if (tid < M) point_taps<float>(args, p0, tid, pts, tidx, tw);
-  __syncthreads();
-
-  for (int s = 0; s < 2; ++s) {
-    const StreamW& sw = args.s[s];
-    const float* w1 = reinterpret_cast<const float*>(sw.w[0]);
-    // fold1 conv1, 3 -> 64
-    for (int e = tid; e < M * 64; e += THREADS) {
-      const int m = e / 64, n = e % 64;
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < 3; ++i) v = fmaf(pts[m * 3 + i], w1[i * 64 + n], v);
-      act_a[m * LD + n] = relu(v + sw.b[0][n]);
-    }
-    __syncthreads();
-    auto w = [&](int l) { return reinterpret_cast<const float*>(sw.w[l]); };
-    gemm_layer<false>(act_a, 64, w(1), 256, sw.b[1], act_b, wbuf, map, tidx,
-                      tw);
-    gemm_layer<false>(act_b, 256, w(2), 512, sw.b[2], act_a, wbuf, map, tidx,
-                      tw);
-    if (s == 0)
-      gemm_layer<false>(act_a, 512, w(3), 512, sw.b[3], act_b, wbuf, map,
-                        tidx, tw);
-    else
-      gemm_layer<true>(act_a, 512, w(3), 512, sw.b[3], act_b, wbuf, map,
-                       tidx, tw);
-    gemm_layer<false>(act_b, 512, w(4), 256, sw.b[4], act_a, wbuf, map, tidx,
-                      tw);
-    __syncthreads();
-    // fold2 last, 256 -> out: one warp per point, lanes split K
-    const float* w5 = w(5);
-    const int O = args.out_dim;
-    const int warp = tid / 32, lane = tid % 32;
-    for (int m = warp; m < M; m += THREADS / 32) {
-      for (int o = 0; o < O; ++o) {
-        float v = 0.f;
-        for (int k = lane; k < 256; k += 32)
-          v = fmaf(act_a[m * LD + k], w5[k * O + o], v);
-#pragma unroll
-        for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffff, v, d);
-        if (lane == 0) {
-          v += sw.b[5][o];
-          if (s == 0)
-            pred[m * 2 + o] = v;
-          else
-            args.out[(p0 + m) * O + o] = pred[m * 2 + o] + v;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-}  // namespace f32
-
 // ================ bf16: wgmma, bulk-copy weight ring, cluster ================
 
 namespace hop {
 
 // Phase stamps for the trace build (-DK1_TRACE, disn_tpu_torch/ops/
-// k1_trace.py): thread 0 of each consumer warpgroup writes clock64() at the
-// end of each phase into k1_trace[(block * 2 + warpgroup) * TRACE_EVENTS].
+// k1_trace.py), in both kernels: threads 0 and 128 (the first thread of
+// each consumer warpgroup, or of f32's warps 0 and 4) write clock64() at
+// the end of each phase into k1_trace[(block * 2 + w) * TRACE_EVENTS].
 // Events: 0 entry, 1 set-up done, then per stream s at 2 + 9 s: +0 first
-// layer, +1/+2 MMA loop / epilogue of w2, +3/+4 w3, +5/+6 wp, +7/+8 w4
-// (its epilogue runs the last layer).
+// layer, +1/+2 product loop / epilogue of w2, +3/+4 w3, +5/+6 wp, +7/+8 w4
+// (its epilogue runs the last layer). f32 only, event GATHER_EVENT: the
+// clocks the local stream's feature gathers took in its wp layer (a
+// duration, not a stamp).
 #ifdef K1_TRACE
-constexpr int TRACE_EVENTS = 20;
+constexpr int TRACE_EVENTS = 21;
+constexpr int GATHER_EVENT = 20;
 __device__ long long* k1_trace;
-#define K1_STAMP(e)                                                     \
+#define K1_RECORD(e, v)                                                 \
   do {                                                                  \
     if ((threadIdx.x & 127) == 0 && threadIdx.x < 256)                  \
-      k1_trace[((size_t)blockIdx.x * 2 + (threadIdx.x >> 7)) *          \
-                   TRACE_EVENTS + (e)] = clock64();                     \
+      hop::k1_trace[((size_t)blockIdx.x * 2 + (threadIdx.x >> 7)) *     \
+                        hop::TRACE_EVENTS + (e)] = (v);                 \
   } while (0)
+#define K1_STAMP(e) K1_RECORD(e, clock64())
 #else
+#define K1_RECORD(e, v) \
+  do {                  \
+  } while (0)
 #define K1_STAMP(e) \
   do {              \
   } while (0)
@@ -970,46 +836,531 @@ __global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
   }
 }
 
-int launch(const Args& a, cudaStream_t stream) {
+}  // namespace hop
+
+// ================ f32: FMA units, bulk-copy weight ring, cluster ================
+
+namespace f32 {
+
+using hop::P_B1;
+using hop::P_B2;
+using hop::P_B3;
+using hop::P_B4;
+using hop::P_B5;
+using hop::P_B6;
+using hop::P_STREAM;
+using hop::P_W1;
+using hop::P_W5;
+
+constexpr int M = 64;            // points per block (one cell)
+constexpr int CS = hop::CS;      // blocks (cells) per cluster sharing a tile
+constexpr int CONSUMERS = 256;   // 8 warps: 2 point halves x 4 column quarters
+constexpr int THREADS = 384;     // + one producer warpgroup
+// setmaxnreg moves registers between the warpgroups within the block's
+// launch allocation (384 threads x 168): the consumers' sums and a slice
+// of gathered taps need more than 168 a thread
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
+                  THREADS * 168,
+              "register split exceeds the launch allocation");
+constexpr int STAGES = 4;
+constexpr int TILE_FLOATS = 4096;  // a ring tile: 4096 / N rows of [K, N]
+constexpr int TILE_BYTES = TILE_FLOATS * 4;
+constexpr int TILES_PER_STREAM =
+    (64 * 256 + 256 * 512 + 512 * 512 + 512 * 256) / TILE_FLOATS;  // 132
+constexpr int TILES = 2 * TILES_PER_STREAM;
+constexpr int COL_BYTES = M * 4;  // one activation column: 64 points
+// the local stream's wp: features of its columns >= F_COL0 (the last its
+// products read) wait in their own buffer; the others in the column itself
+constexpr int F_COL0 = 448;
+constexpr int SLICES = 16;  // a thread's gather slices (Gather)
+
+// shared memory, from a 128-byte-aligned base
+constexpr uint32_t off_act = 0;  // [512 columns][64 points], chunk_off
+constexpr uint32_t off_ring = off_act + 512 * COL_BYTES;
+constexpr uint32_t off_feat = off_ring + STAGES * TILE_BYTES;
+constexpr uint32_t off_pts = off_feat + (512 - F_COL0) * COL_BYTES;
+constexpr uint32_t off_tidx = off_pts + M * 3 * 4;
+constexpr uint32_t off_tw = off_tidx + M * 4 * 4;
+constexpr uint32_t off_pred = off_tw + M * 4 * 4;
+constexpr uint32_t off_red = off_pred + M * 2 * 4;  // [4 quarters][64][2]
+constexpr uint32_t off_bar = off_red + 4 * M * 2 * 4;  // full, empty
+constexpr uint32_t smem_total = off_bar + 2 * STAGES * 8 + 128;
+static_assert(smem_total <= 232448, "over the 227 KB a block can have");
+
+// Byte offset of the 16-byte chunk of activation column k that holds points
+// 4 ch .. 4 ch + 3. Chunks are swizzled by (k / 4) % 8: the 8 lanes of a
+// quarter warp store columns 4 apart in an epilogue and so hit 8 different
+// bank groups; a product step reads one column, a permutation of its chunks.
+__device__ __forceinline__ uint32_t chunk_off(int k, int ch) {
+  return k * COL_BYTES + ((ch ^ ((k >> 2) & 7)) << 4);
+}
+
+// What a consumer thread needs across layers. Warp w, lane l: point half
+// w / 4, column quarter w % 4; quarter warp l / 8 picks 8 points, lane
+// l % 8 four columns of each 128.
+struct Ctx {
+  unsigned char* act;         // [512, 64] f32 activations, K-major
+  unsigned char* feat;        // [512 - F_COL0, 64] the late features
+  const unsigned char* ring;  // stage 0
+  uint32_t full, empty;
+  int rc;    // the thread's points: 4 rc .. 4 rc + 7 (chunks rc, rc + 1)
+  int col0;  // its columns: 128 j + col0 + [0, 4)
+  const float* map;
+  const int* tidx;  // [64, 4] bilinear taps: map rows
+  const float* tw;  // [64, 4] and their weights
+};
+
+// The last layer, 256 -> out, fused into the epilogue of the layer before.
+struct Last {
+  const float* w5;  // [256, 2] (small_params, device memory)
+  const float* b6;
+  int O;
+  float* pred;  // [64, 2] shared: the global stream's output
+  float* red;   // [4, 64, 2] shared: each column quarter's partial sums
+  float* out;   // the block's first output row
+  bool to_out;  // local stream: write pred + this to out
+};
+
+// This warp is done with stage s: lane q < CS arrives on block q's empty
+// barrier, which counts the consumer warps of all CS blocks.
+__device__ __forceinline__ void release(const Ctx& c, int s) {
+  __syncwarp();
+  const uint32_t lane = threadIdx.x & 31;
+  if (lane < CS) hop::mbar_arrive_cluster(c.empty + 8 * s, lane);
+}
+
+// The local stream's sampled features for wp, gathered while its products
+// run. A thread's 8 points x 16 columns are SLICES slices of 2 points x 4
+// columns x 4 taps (8 loads of 16 bytes). A slice's sums go where the
+// thread's epilogue reads them: into activation column n itself once no
+// warp reads input column n any more, or, for n >= F_COL0, into feat,
+// which is free throughout. When a thread passes tile t's full barrier,
+// every warp has released tile t - STAGES (the ring refills a stage only
+// then), so the columns below 8 (t - STAGES + 1) are free. A thread takes
+// its feat slices first, then its columns in order, each group once the
+// whole warp's columns are free (a warp whose lanes took their slices at
+// different tiles would run the gather path once for each); it issues a
+// slice's loads at one tile and sums and stores them at the next, under
+// the products; the last slice, issued at the last tile at the latest
+// (gather_fits), is stored after the loop, its place already free.
+struct Gather {
+  float4 raw[2][4];  // [point][tap]
+  int next;          // the next slice to issue
+  bool pending;      // slice next - 1 is in flight
+};
+
+// Both of a warp's column quarter wq (its columns 128 j + 32 wq + [0, 32)
+// lie wholly below or at or past F_COL0): the 4-column group j of slice s,
+// the j = 3 group first where it waits in feat, and the first tile (8 input
+// columns each) at which group j's place is free.
+static_assert(F_COL0 % 32 == 0, "a warp's columns of a group share a place");
+__host__ __device__ constexpr int slice_group(int wq, int s) {
+  return 384 + 32 * wq >= F_COL0 ? ((s >> 2) + 3) & 3 : s >> 2;
+}
+__host__ __device__ constexpr int free_tile(int wq, int j) {
+  return 128 * j + 32 * wq >= F_COL0
+             ? 0
+             : (128 * j + 32 * wq + 32 + 7) / 8 + STAGES - 1;
+}
+// every warp issues its last slice by the wp layer's last tile (64 of 8
+// input columns), one slice a tile
+constexpr bool gather_fits() {
+  for (int wq = 0; wq < 4; ++wq) {
+    int next = 0;
+    for (int t = 0; t < 64; ++t)
+      if (next < SLICES && t >= free_tile(wq, slice_group(wq, next))) ++next;
+    if (next < SLICES) return false;
+  }
+  return true;
+}
+static_assert(gather_fits(), "a gather slice would miss the wp loop");
+__device__ __forceinline__ unsigned char* feat_at(const Ctx& c, int n,
+                                                  int ch) {
+  return n >= F_COL0 ? c.feat + chunk_off(n - F_COL0, ch)
+                     : c.act + chunk_off(n, ch);
+}
+__device__ __forceinline__ void gather_issue(const Ctx& c, Gather& g,
+                                             int s) {
+  const int n = 128 * slice_group(c.col0 >> 5, s) + c.col0;
+  const int m0 = 4 * c.rc + 2 * (s & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int tp = 0; tp < 4; ++tp)
+      g.raw[i][tp] = __ldg(reinterpret_cast<const float4*>(
+          c.map + (size_t)c.tidx[(m0 + i) * 4 + tp] * C_FEAT + n));
+}
+// four taps summed in f32 (the compute type: no rounding between)
+__device__ __forceinline__ void gather_store(const Ctx& c, const Gather& g,
+                                             int s) {
+  const int n = 128 * slice_group(c.col0 >> 5, s) + c.col0;
+  const int m0 = 4 * c.rc + 2 * (s & 3);
+  float f[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 w = *reinterpret_cast<const float4*>(c.tw + (m0 + i) * 4);
+    const float wt[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[i][e] = 0.f;
+#pragma unroll
+    for (int tp = 0; tp < 4; ++tp) {
+      const float4 v = g.raw[i][tp];
+      f[i][0] = fmaf(wt[tp], v.x, f[i][0]);
+      f[i][1] = fmaf(wt[tp], v.y, f[i][1]);
+      f[i][2] = fmaf(wt[tp], v.z, f[i][2]);
+      f[i][3] = fmaf(wt[tp], v.w, f[i][3]);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    *reinterpret_cast<float2*>(feat_at(c, n + e, m0 >> 2) + (m0 & 3) * 4) =
+        make_float2(f[0][e], f[1][e]);
+}
+
+enum Epilogue { STORE, FEAT, LAST };
+
+// One layer, act[:, :K] @ W[K, N] on the FMA units, all N columns in one
+// pass: the thread's sums acc[point][4 j + e] for its 8 points and columns
+// 128 j + col0 + e. Tiles of TK = 4096 / N weight rows come from the ring.
+// Then, over the input once every warp has read it, act[:, :N] =
+// relu(sum + bias) (STORE), with the sampled feature added after the bias
+// (FEAT); LAST instead feeds those values straight into the last layer and
+// writes the block's output.
+template <int K, int N, Epilogue EPI>
+__device__ __forceinline__ void layer(const Ctx& c, int& it,
+                                      const float* bias, int ev,
+                                      const Last& last) {
+  constexpr int CW = N / 32;  // columns a thread
+  constexpr int J = CW / 4;   // its 4-column groups, 128 apart
+  constexpr int TK = TILE_FLOATS / N;
+  constexpr int NT = K / TK;
+  static_assert(TK % 4 == 0 && K % TK == 0, "whole tiles of 4-row steps");
+  static_assert(EPI != FEAT || (K == 512 && N == 512),
+                "the gather schedule is the 512-wide layer's");
+  float acc[8][CW];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int i = 0; i < CW; ++i) acc[r][i] = 0.f;
+  Gather g;
+  g.next = 0;
+  g.pending = false;
+#ifdef K1_TRACE
+  long long gather_clk = 0;
+#endif
+
+#pragma unroll 1
+  for (int t = 0; t < NT; ++t, ++it) {
+    const int s = it % STAGES;
+    hop::mbar_wait(c.full + 8 * s, (it / STAGES) & 1);
+    if constexpr (EPI == FEAT) {
+#ifdef K1_TRACE
+      const long long t0 = clock64();
+#endif
+      if (g.pending) {
+        gather_store(c, g, g.next - 1);
+        g.pending = false;
+      }
+      const int wq = c.col0 >> 5;
+      if (g.next < SLICES && t >= free_tile(wq, slice_group(wq, g.next))) {
+        gather_issue(c, g, g.next);
+        ++g.next;
+        g.pending = true;
+      }
+#ifdef K1_TRACE
+      gather_clk += clock64() - t0;
+#endif
+    }
+    const unsigned char* w = c.ring + s * TILE_BYTES + c.col0 * 4;
+#pragma unroll
+    for (int k4 = 0; k4 < TK; k4 += 4) {
+      const int k = t * TK + k4;
+      const unsigned char* a = c.act + k * COL_BYTES;
+      const int ch = c.rc ^ ((k >> 2) & 7);  // chunk_off; rc is even
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 a0 = *reinterpret_cast<const float4*>(
+            a + kk * COL_BYTES + (ch << 4));
+        const float4 a1 = *reinterpret_cast<const float4*>(
+            a + kk * COL_BYTES + ((ch ^ 1) << 4));
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                             a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const float4 wv = *reinterpret_cast<const float4*>(
+              w + (k4 + kk) * N * 4 + j * 512);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            acc[r][4 * j + 0] = fmaf(av[r], wv.x, acc[r][4 * j + 0]);
+            acc[r][4 * j + 1] = fmaf(av[r], wv.y, acc[r][4 * j + 1]);
+            acc[r][4 * j + 2] = fmaf(av[r], wv.z, acc[r][4 * j + 2]);
+            acc[r][4 * j + 3] = fmaf(av[r], wv.w, acc[r][4 * j + 3]);
+          }
+        }
+      }
+    }
+    release(c, s);
+  }
+  if constexpr (EPI == FEAT) {
+    if (g.pending) gather_store(c, g, g.next - 1);  // its place was free
+  }
+  K1_STAMP(ev);
+  hop::consumer_sync();  // every warp has read the layer's input
+
+  if constexpr (EPI == LAST) {
+    float sum[8][2];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) sum[r][0] = sum[r][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float4 b4 = __ldg(
+          reinterpret_cast<const float4*>(bias + 128 * j + c.col0));
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 128 * j + c.col0 + e;
+        const float2 wo = __ldg(reinterpret_cast<const float2*>(last.w5) + n);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const float v = relu(acc[r][4 * j + e] + bb[e]);
+          sum[r][0] = fmaf(v, wo.x, sum[r][0]);
+          sum[r][1] = fmaf(v, wo.y, sum[r][1]);
+        }
+      }
+    }
+    // the 8 lanes of a quarter warp hold a point's column groups; the four
+    // column quarters then meet in shared memory
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+#pragma unroll
+        for (int d = 1; d < 8; d <<= 1)
+          sum[r][o] += __shfl_xor_sync(0xffffffff, sum[r][o], d);
+    if ((threadIdx.x & 7) == 0) {
+      const int wq = (threadIdx.x >> 5) & 3;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int m = 4 * c.rc + r;
+        last.red[(wq * M + m) * 2 + 0] = sum[r][0];
+        last.red[(wq * M + m) * 2 + 1] = sum[r][1];
+      }
+    }
+    hop::consumer_sync();
+    if (threadIdx.x < M) {
+      const int m = threadIdx.x;
+      for (int o = 0; o < last.O; ++o) {
+        float v = last.red[m * 2 + o];
+#pragma unroll
+        for (int wq = 1; wq < 4; ++wq) v += last.red[(wq * M + m) * 2 + o];
+        v += __ldg(last.b6 + o);
+        if (last.to_out)
+          last.out[m * last.O + o] = last.pred[m * 2 + o] + v;
+        else
+          last.pred[m * 2 + o] = v;
+      }
+    }
+    K1_STAMP(ev + 1);
+    return;  // no activations written: the next writer follows a barrier
+  } else {
+#ifdef K1_TRACE
+    if constexpr (EPI == FEAT) K1_RECORD(hop::GATHER_EVENT, gather_clk);
+#endif
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float4 b4 = __ldg(
+          reinterpret_cast<const float4*>(bias + 128 * j + c.col0));
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 128 * j + c.col0 + e;
+        float v[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) v[r] = acc[r][4 * j + e] + bb[e];
+        if constexpr (EPI == FEAT) {
+          const float4 f0 =
+              *reinterpret_cast<const float4*>(feat_at(c, n, c.rc));
+          const float4 f1 =
+              *reinterpret_cast<const float4*>(feat_at(c, n, c.rc + 1));
+          v[0] += f0.x;
+          v[1] += f0.y;
+          v[2] += f0.z;
+          v[3] += f0.w;
+          v[4] += f1.x;
+          v[5] += f1.y;
+          v[6] += f1.z;
+          v[7] += f1.w;
+        }
+        *reinterpret_cast<float4*>(c.act + chunk_off(n, c.rc)) =
+            make_float4(relu(v[0]), relu(v[1]), relu(v[2]), relu(v[3]));
+        *reinterpret_cast<float4*>(c.act + chunk_off(n, c.rc + 1)) =
+            make_float4(relu(v[4]), relu(v[5]), relu(v[6]), relu(v[7]));
+      }
+    }
+    hop::consumer_sync();  // the output is complete before the next layer
+    K1_STAMP(ev + 1);
+  }
+}
+
+// fold1/conv1, 3 -> 64, into activation columns 0..63: thread owns column
+// n = tid % 64 for the points of chunks tid / 64 + 4 i
+__device__ __forceinline__ void first_layer(const Ctx& c, const float* ps,
+                                            const float* pts) {
+  const int n = threadIdx.x & 63;
+  const float wa = __ldg(ps + P_W1 + n), wb = __ldg(ps + P_W1 + 64 + n);
+  const float wc = __ldg(ps + P_W1 + 128 + n), bn = __ldg(ps + P_B1 + n);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ch = (threadIdx.x >> 6) + 4 * i;
+    float v[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = 4 * ch + r;
+      float x = fmaf(pts[m * 3], wa, 0.f);
+      x = fmaf(pts[m * 3 + 1], wb, x);
+      x = fmaf(pts[m * 3 + 2], wc, x);
+      v[r] = relu(x + bn);
+    }
+    *reinterpret_cast<float4*>(c.act + chunk_off(n, ch)) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) decode_kernel(const Args args) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the same offset in every block of the cluster, so multicast copies
+  // land at the same place
+  unsigned char* smem =
+      smem_raw + ((128 - (hop::smem_u32(smem_raw) & 127)) & 127);
+  float* pts = reinterpret_cast<float*>(smem + off_pts);
+  int* tidx = reinterpret_cast<int*>(smem + off_tidx);
+  float* tw = reinterpret_cast<float*>(smem + off_tw);
+  float* pred = reinterpret_cast<float*>(smem + off_pred);
+  float* red = reinterpret_cast<float*>(smem + off_red);
+  const uint32_t full = hop::smem_u32(smem + off_bar);
+  const uint32_t empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
+  // Persistent: cluster k of the grid's n_clusters decodes the groups of CS
+  // cells k, k + n_clusters, ...; its block of rank r the cell g * CS + r.
+  const int n_clusters = gridDim.x / CS;
+  const int rank = (int)hop::cluster_rank();
+  const int groups = args.n_cells / CS;
+  const int first = blockIdx.x / CS;
+  const int n_mine = first < groups ? (groups - first - 1) / n_clusters + 1
+                                    : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(full + 8 * s, 1);
+      hop::mbar_init(empty + 8 * s, (CONSUMERS / 32) * CS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  hop::cluster_sync();  // peers' barriers are initialised
+
+  if (tid >= CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS)
+                 : "memory");
+    if (tid == CONSUMERS) {  // one thread keeps the ring full
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(args.tiles);
+      const uint32_t ring = hop::smem_u32(smem + off_ring);
+      constexpr uint32_t SLICE = TILE_BYTES / CS;
+      const int n = n_mine * TILES;  // the same weights for every cell
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES)
+          hop::mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        hop::mbar_expect_tx(full + 8 * s, TILE_BYTES);
+        hop::bulk_g2s_multicast(
+            ring + s * TILE_BYTES + rank * SLICE,
+            src + (size_t)(i % TILES) * TILE_BYTES + rank * SLICE, SLICE,
+            full + 8 * s, (uint16_t)((1u << CS) - 1));
+      }
+      // the last releases, some of them remote, land before this block ends
+      for (int i = n; i < n + STAGES; ++i)
+        if (i >= STAGES)
+          hop::mbar_wait(empty + 8 * (i % STAGES), ((i / STAGES) - 1) & 1);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS)
+               : "memory");
+  const int warp = tid >> 5, lane = tid & 31;
+  Ctx c;
+  c.act = smem + off_act;
+  c.feat = smem + off_feat;
+  c.ring = smem + off_ring;
+  c.full = full;
+  c.empty = empty;
+  c.rc = 2 * (4 * (warp >> 2) + (lane >> 3));
+  c.col0 = 32 * (warp & 3) + 4 * (lane & 7);
+  c.map = static_cast<const float*>(args.map);
+  c.tidx = tidx;
+  c.tw = tw;
+  int it = 0;
+  for (int k = 0; k < n_mine; ++k) {
+    const size_t p0 = ((size_t)(first + k * n_clusters) * CS + rank) * M;
+    K1_STAMP(0);
+    // the previous cell's last reads of the taps are behind a barrier
+    if (tid < M) point_taps<float>(args, p0, tid, pts, tidx, tw);
+    hop::consumer_sync();
+    K1_STAMP(1);
+#pragma unroll 1
+    for (int s = 0; s < 2; ++s) {
+      const float* ps = args.params + s * P_STREAM;
+      first_layer(c, ps, pts);
+      hop::consumer_sync();
+      const int ev = 2 + 9 * s;
+      K1_STAMP(ev);
+      const Last last = {ps + P_W5, ps + P_B6, args.out_dim, pred, red,
+                         args.out + p0 * args.out_dim, s == 1};
+      layer<64, 256, STORE>(c, it, ps + P_B2, ev + 1, last);   // 64->256
+      layer<256, 512, STORE>(c, it, ps + P_B3, ev + 3, last);  // 256->512
+      if (s == 0)                                               // 512->512
+        layer<512, 512, STORE>(c, it, ps + P_B4, ev + 5, last);
+      else
+        layer<512, 512, FEAT>(c, it, ps + P_B4, ev + 5, last);
+      // 512 -> 256 -> out
+      layer<512, 256, LAST>(c, it, ps + P_B5, ev + 7, last);
+    }
+  }
+}
+
+}  // namespace f32
+
+// A persistent launch in clusters of CS blocks: as many clusters as fit at
+// once (the occupancy query, made once per kernel into `clusters`), or one
+// per group of CS cells.
+int launch_persistent(void (*kernel)(Args), int threads, uint32_t smem,
+                      int& clusters, const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_total);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CS);  // one cluster, for the occupancy query
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem_total;
+  cfg.gridDim = dim3(hop::CS);  // one cluster, for the occupancy query
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.x = hop::CS;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // persistent: as many clusters as fit at once, or one per group of cells
-  static int clusters = 0;
   if (clusters == 0) {
-    err = cudaOccupancyMaxActiveClusters(&clusters, decode_kernel, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return (int)err;
     if (clusters <= 0) return (int)cudaErrorInvalidConfiguration;
   }
-  const int groups = a.n_cells / CS;
-  cfg.gridDim = dim3((unsigned)(CS * (groups < clusters ? groups : clusters)));
-  err = cudaLaunchKernelEx(&cfg, decode_kernel, a);
+  const int groups = a.n_cells / hop::CS;
+  cfg.gridDim =
+      dim3((unsigned)(hop::CS * (groups < clusters ? groups : clusters)));
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-}  // namespace hop
-
-int launch_f32(const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      f32::decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)f32::smem_total);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)(a.n_cells * (PTS_PER_CELL / f32::M));
-  f32::decode_kernel<<<grid, f32::THREADS, f32::smem_total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1022,14 +1373,11 @@ extern "C" int fused_decode_set_trace(void* buf) {
 }
 #endif
 
-// tensors: 24 device pointers, per stream (global, then local) w1 b1 w2 b2
-// w3 b3 wp bp w4 b4 w5 b5; weights in the compute type, biases f32.
-// bf16 only: tiles, tile_weights' layout of w2..w4 of both streams;
-// params, small_params' f32 biases, w1 and w5 of both streams; n_cells a
-// multiple of fused_decode_cluster(). Returns a cudaError_t code (0 on
-// success); launches on `stream`.
+// tiles: tile_weights' layout of w2..w4 of both streams in the compute
+// type; params: small_params' f32 biases, w1 and w5 of both streams;
+// n_cells a multiple of fused_decode_cluster(). Returns a cudaError_t code
+// (0 on success); launches on `stream`.
 extern "C" int fused_decode_launch(int is_bf16, const void* map,
-                                   const void* const* tensors,
                                    const void* tiles, const void* params,
                                    const void* trans,
                                    const void* geom, const void* cells,
@@ -1037,12 +1385,9 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
                                    int img_w, int img_h, int out_dim,
                                    void* out, void* stream) {
   if (n_cells <= 0) return 0;
+  if (!tiles || !params || n_cells % hop::CS != 0)
+    return (int)cudaErrorInvalidValue;
   Args a;
-  for (int s = 0; s < 2; ++s)
-    for (int l = 0; l < 6; ++l) {
-      a.s[s].w[l] = tensors[s * 12 + 2 * l];
-      a.s[s].b[l] = static_cast<const float*>(tensors[s * 12 + 2 * l + 1]);
-    }
   a.tiles = tiles;
   a.params = static_cast<const float*>(params);
   a.map = map;
@@ -1057,12 +1402,14 @@ extern "C" int fused_decode_launch(int is_bf16, const void* map,
   a.img_h = img_h;
   a.out_dim = out_dim;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) return launch_f32(a, st);
-  if (!tiles || !params || n_cells % hop::CS != 0)
-    return (int)cudaErrorInvalidValue;
-  return hop::launch(a, st);
+  static int bf16_clusters = 0, f32_clusters = 0;
+  if (is_bf16)
+    return launch_persistent(hop::decode_kernel, hop::THREADS,
+                             hop::smem_total, bf16_clusters, a, st);
+  return launch_persistent(f32::decode_kernel, f32::THREADS, f32::smem_total,
+                           f32_clusters, a, st);
 }
 
-// blocks per cluster of the bf16 kernel: a bf16 launch's cell count must be
-// a multiple of it
+// blocks per cluster of both kernels: a launch's cell count must be a
+// multiple of it
 extern "C" int fused_decode_cluster() { return hop::CS; }

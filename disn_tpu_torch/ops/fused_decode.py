@@ -5,8 +5,9 @@ _fused_kernel``. For each stride-4 cell id it decodes the cell's 64 grid
 points: project (divide by w, clamp), bilinearly sample the folded
 [137,137,512] map, run both point MLPs, and return pred_g + pred_l raw as
 f32 [n*64, out_dim]. The CUDA source is ``csrc/fused_decode.cu``; its
-header note gives the bound (tensor-core operations: ~2.16 MFLOP per point
-against 19 MB of map) and what the design does about it.
+header note gives the bound (operations: ~2.16 MFLOP per point on the
+tensor cores in bf16 or the FMA units in f32, against 19 or 38 MB of map)
+and what each kernel's design does about it.
 
 ``fused_cell_decode`` launches the kernel for CUDA tensors and uses
 ``fused_decode_plain`` only for CPU tensors; there is no fallback from the
@@ -16,14 +17,15 @@ a (start, end) pair of CUDA events recorded around it, for timing, and when
 ``fused_cell_decode.inputs`` is a list, each launch appends its (args,
 kwargs), so that a caller can hold a launch against the plain version.
 
-The bf16 kernel streams the GEMM weights of both streams from one buffer
-laid out by ``tile_weights`` (ring tiles in consumption order, already in
-the swizzled layout its tensor-core instructions read) and copies the
-biases and the small first and last weights from ``small_params``; the
-wrapper builds both once per ``pack_weights`` result (``pack_weights``
-gives back the same tuple for the same unchanged parameters, so the coarse
-and the fine launch of an image share them). It runs in clusters of
-blocks that share each weight tile (the library's
+Both kernels (bf16 on the tensor cores, f32 on the FMA units) stream the
+GEMM weights of both streams from one buffer laid out by ``tile_weights``
+(ring tiles in consumption order: bf16 already in the swizzled layout its
+tensor-core instructions read, f32 the weights as they lie, concatenated)
+and read the biases and the small first and last weights from
+``small_params``; the wrapper builds both once per ``pack_weights`` result
+(``pack_weights`` gives back the same tuple for the same unchanged
+parameters, so the coarse and the fine launch of an image share them).
+Both run in clusters of blocks that share each weight tile (the library's
 ``fused_decode_cluster()`` blocks): the wrapper pads the cell ids to a
 multiple of that with ``pad_cells`` and keeps the first n*64 rows.
 
@@ -51,6 +53,9 @@ CHUNK_CELLS = 1024  # cells per step of the plain version (bounds memory)
 # bf16 weight ring: a tile is 64 rows x 256 columns of one [K, N] weight
 TILE_K, TILE_N = 64, 256
 TILE_ELEMS = TILE_K * TILE_N
+# f32 weight ring: a tile is 16 KB, F32_TILE_ELEMS / N whole rows of a
+# [K, N] weight
+F32_TILE_ELEMS = 4096
 GEMM_SHAPES = ((64, 256), (256, 512), (512, 512), (512, 256))  # w2..w4
 
 
@@ -181,18 +186,24 @@ def _tile_index(device: torch.device) -> torch.Tensor:
 
 
 def tile_weights(weights: tuple) -> torch.Tensor:
-    """pack_weights' bf16 output -> the bf16 kernel's weight stream: w2, w3,
-    wp, w4 of the global stream then of the local one, each laid out by
-    tile_layout, concatenated ([2 * 33 * TILE_ELEMS]), with one gather."""
+    """pack_weights' output -> the kernel's weight stream: w2, w3, wp, w4 of
+    the global stream then of the local one. bf16: each laid out by
+    tile_layout, concatenated ([2 * 33 * TILE_ELEMS]), with one gather.
+    f32: each as it lies (row-major [K, N]), concatenated, so that the
+    kernel's tile t of a layer, F32_TILE_ELEMS contiguous elements, holds
+    its rows t * TK .. (t + 1) * TK - 1 with TK = F32_TILE_ELEMS / N."""
     flat = torch.cat([weights[s * 12 + 2 * layer].reshape(-1)
                       for s in range(2) for layer in range(1, 5)])
+    if flat.dtype == torch.float32:
+        return flat
     return flat[_tile_index(flat.device)]
 
 
 def small_params(weights: tuple) -> torch.Tensor:
-    """pack_weights' output -> the bf16 kernel's small parameters, f32
-    [2 * 2308]: per stream (global, local) the biases b1..b6 (b6 padded to
-    4), w1 [3, 64] and w5 [256, out] padded to [256, 2]."""
+    """pack_weights' output -> the kernel's small parameters, f32 [2 *
+    2308] in either compute type: per stream (global, local) the biases
+    b1..b6 (b6 padded to 4), w1 [3, 64] and w5 [256, out] padded to [256,
+    2]."""
     parts = []
     for s in range(2):
         ws = weights[s * 12:(s + 1) * 12]
@@ -205,7 +216,7 @@ def small_params(weights: tuple) -> torch.Tensor:
     return torch.cat(parts)
 
 
-# the bf16 kernel's weight stream and small parameters, once per packing
+# the kernel's weight stream and small parameters, once per packing
 _kernel_weights = _LastCall(lambda w: (tile_weights(w), small_params(w)))
 
 
@@ -291,17 +302,21 @@ def _build(defines: tuple[str, ...]) -> Path:
     return kernels.nvcc_build("fused_decode", defines)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build(defines)))
+def bind(path) -> ctypes.CDLL:
+    """Load a build of csrc/fused_decode.cu and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fused_decode_launch.argtypes = [ci, vp, ctypes.POINTER(vp), vp, vp,
-                                        vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                        vp, vp]
+    lib.fused_decode_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci,
+                                        ci, ci, ci, ci, vp, vp]
     lib.fused_decode_launch.restype = ci
     lib.fused_decode_cluster.argtypes = []
     lib.fused_decode_cluster.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    return bind(_build(defines))
 
 
 def build_seconds() -> float:
@@ -352,11 +367,9 @@ def _check(fmap, weights, trans_mat, geom, cell_ids, fine_r, coarse_c,
             raise ValueError(f"all inputs must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError("all inputs must be contiguous")
-    # the kernel reads the map and the weights in 16-byte vectors
-    for t in (fmap, *weights[0::2]) if dev.type == "cuda" else ():
-        if t.data_ptr() % 16:
-            raise ValueError("the map and the weights must be 16-byte "
-                             "aligned")
+    # the kernel reads the map in 16-byte vectors
+    if dev.type == "cuda" and fmap.data_ptr() % 16:
+        raise ValueError("the map must be 16-byte aligned")
     return out_dim
 
 
@@ -405,23 +418,17 @@ def _launch(lib: ctypes.CDLL, fmap, weights, trans_mat, geom, cell_ids,
             fine_r, coarse_c, img_w, img_h) -> torch.Tensor:
     """One launch of `lib`'s kernel on checked, non-empty CUDA inputs, on
     the current stream: [n*64, out_dim] f32."""
-    ptrs = (ctypes.c_void_p * 24)(*[w.data_ptr() for w in weights])
-    bf16 = fmap.dtype == torch.bfloat16
-    tiles = params = None
-    cells = cell_ids
-    if bf16:
-        tiles, params = _kernel_weights(weights)
-        cells = pad_cells(cell_ids, lib.fused_decode_cluster())
+    tiles, params = _kernel_weights(weights)
+    cells = pad_cells(cell_ids, lib.fused_decode_cluster())
     out_dim = weights[10].shape[-1]
     out = torch.empty((cells.shape[0] * K, out_dim), dtype=torch.float32,
                       device=fmap.device)
     err = lib.fused_decode_launch(
-        int(bf16), fmap.data_ptr(), ptrs,
-        None if tiles is None else tiles.data_ptr(),
-        None if params is None else params.data_ptr(),
-        trans_mat.data_ptr(), geom.data_ptr(), cells.data_ptr(),
-        cells.shape[0], fine_r, coarse_c, img_w, img_h, out_dim,
-        out.data_ptr(), torch.cuda.current_stream(fmap.device).cuda_stream)
+        int(fmap.dtype == torch.bfloat16), fmap.data_ptr(), tiles.data_ptr(),
+        params.data_ptr(), trans_mat.data_ptr(), geom.data_ptr(),
+        cells.data_ptr(), cells.shape[0], fine_r, coarse_c, img_w, img_h,
+        out_dim, out.data_ptr(),
+        torch.cuda.current_stream(fmap.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error "
                            f"{err}")

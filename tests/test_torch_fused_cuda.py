@@ -101,3 +101,51 @@ def test_cell_points_divide_exactly_on_gpu(fine_r):
     want, _ = fused_decode.cell_points(cells, c, fine_r, geom)  # CPU
     got, _ = fused_decode.cell_points(cells.cuda(), c, fine_r, geom.cuda())
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_at_one_cluster_of_cells(dtype, offset):
+    """One cluster of cells, and one cell fewer or more: the wrapper pads
+    to whole clusters and keeps the first n*64 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n = fused_decode._lib().fused_decode_cluster() + offset
+    out = _hold(_inputs(dtype, None, n),
+                dict(fine_r=FINE_R, coarse_c=COARSE_C), dtype)
+    assert out.shape == (n * 64, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_in_a_tapped_texel_reaches_the_output(dtype):
+    """A NaN in one channel of a texel the first point taps: the points
+    that tap it give NaN in the kernel as in the plain version (the feature
+    is NaN even where the tap weighs 0, and the ReLUs keep it), and every
+    other point agrees within the usual bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from disn_tpu_torch.core import camera
+
+    fmap, w, trans, geom, cells = _inputs(dtype, None)
+    pts, _ = fused_decode.cell_points(cells, COARSE_C, FINE_R, geom)
+    px = camera.project_points(pts[:1], trans, 137, 137)
+    x0, y0 = (int(torch.floor(px[0, i])) for i in (0, 1))
+    fmap = fmap.clone()
+    fmap[y0, x0, 17] = float("nan")
+    args = (fmap, w, trans, geom, cells)
+    kw = dict(fine_r=FINE_R, coarse_c=COARSE_C)
+    got = fused_decode.fused_cell_decode(*args, **kw)
+    want = fused_decode.fused_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert bool(nan[0].all()) and not bool(nan.all())
+    assert torch.equal(torch.isnan(got), nan)
+    err = (got[~nan] - want[~nan]).abs()
+    scale = want[~nan].abs().max().item()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-4 * scale
+    else:
+        assert err.max().item() <= 0.02 * scale
+        assert err.mean().item() <= 0.003 * scale

@@ -1,8 +1,8 @@
-"""Layouts that the bf16 K1 kernel reads, checked on the CPU: the weight ring
-tiles of tile_weights (tile order and the 128-byte swizzle, stated here
-again in numpy), the small-parameter block of small_params, the cluster
-padding of pad_cells, and that the wrapper lays them out once per
-pack_weights result."""
+"""Layouts that the K1 kernels read, checked on the CPU: the weight ring
+tiles of tile_weights (bf16: tile order and the 128-byte swizzle; f32:
+16 KB tiles of whole weight rows; both stated here again in numpy), the
+small-parameter block of small_params, the cluster padding of pad_cells,
+and that the wrapper lays them out once per pack_weights result."""
 import numpy as np
 import pytest
 import torch
@@ -14,16 +14,26 @@ SHAPES = [(64, 256), (256, 512), (512, 512), (512, 256)]  # w2, w3, wp, w4
 ALL_SHAPES = [(3, 64), *SHAPES, (256, 2)]
 
 
-def _pack(seed: int = 0) -> tuple:
-    """A pack_weights-shaped tuple of seeded bf16 weights, f32 biases."""
+def _pack(seed: int = 0, dtype=torch.bfloat16) -> tuple:
+    """A pack_weights-shaped tuple of seeded weights in `dtype`, f32
+    biases."""
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(2):
         for k, n in ALL_SHAPES:
             out.append(torch.from_numpy(rng.randn(k, n).astype(np.float32)
-                                        ).bfloat16())
+                                        ).to(dtype))
             out.append(torch.from_numpy(rng.randn(n).astype(np.float32)))
     return tuple(out)
+
+
+def _with_out_dim(weights: tuple, out_dim: int) -> tuple:
+    """weights with each stream's last layer cut to [256, out_dim]."""
+    weights = list(weights)
+    for s in range(2):
+        weights[s * 12 + 10] = weights[s * 12 + 10][:, :out_dim].contiguous()
+        weights[s * 12 + 11] = weights[s * 12 + 11][:out_dim].contiguous()
+    return tuple(weights)
 
 
 def _np_position(k_dim: int, n_dim: int) -> np.ndarray:
@@ -69,13 +79,45 @@ def test_tile_weights_layout(shape):
                               w.view(torch.int16).numpy())
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_f32_tile_weights_layout(shape):
+    """The f32 stream: per stream w2, w3, wp, w4, each cut into tiles of
+    F32_TILE_ELEMS elements, tile t of a [K, N] weight holding its rows
+    t * TK .. (t + 1) * TK - 1 row-major, TK = F32_TILE_ELEMS / N; every
+    weight is rebuilt from its tiles bit for bit."""
+    weights = _pack(1, torch.float32)
+    tiled = fused_decode.tile_weights(weights)
+    te = fused_decode.F32_TILE_ELEMS
+    assert tiled.dtype == torch.float32
+    assert tiled.numel() == 2 * sum(k * n for k, n in SHAPES)
+    assert tiled.numel() % te == 0
+    tiles = tiled.numpy().reshape(-1, te)
+    per_stream = sum(k * n for k, n in SHAPES) // te
+    layer = SHAPES.index(shape)
+    k_dim, n_dim = shape
+    tk = te // n_dim
+    for s in range(2):
+        first = s * per_stream + sum(k * n for k, n in SHAPES[:layer]) // te
+        rebuilt = np.concatenate(
+            [tiles[first + t].reshape(tk, n_dim) for t in range(k_dim // tk)])
+        w = weights[s * 12 + 2 * (layer + 1)].numpy()
+        assert np.array_equal(rebuilt.view(np.uint32), w.view(np.uint32))
+
+
 @pytest.mark.parametrize("out_dim", [1, 2])
 def test_small_params_layout(out_dim):
-    weights = list(_pack())
-    for s in range(2):  # last layer [256, out_dim]
-        weights[s * 12 + 10] = weights[s * 12 + 10][:, :out_dim].contiguous()
-        weights[s * 12 + 11] = weights[s * 12 + 11][:out_dim].contiguous()
-    got = fused_decode.small_params(tuple(weights)).numpy()
+    _check_small_params(_with_out_dim(_pack(), out_dim), out_dim)
+
+
+@pytest.mark.parametrize("out_dim", [1, 2])
+def test_f32_small_params_layout(out_dim):
+    """The f32 kernel reads the same block, made from f32 weights."""
+    _check_small_params(_with_out_dim(_pack(2, torch.float32), out_dim),
+                        out_dim)
+
+
+def _check_small_params(weights: tuple, out_dim: int) -> None:
+    got = fused_decode.small_params(weights).numpy()
     assert got.dtype == np.float32 and got.shape == (2 * 2308,)
     for s in range(2):
         ws = weights[s * 12:(s + 1) * 12]
@@ -159,7 +201,16 @@ def test_pack_weights_reused_while_unchanged(change):
 def test_kernel_weights_laid_out_once_per_packing(change):
     """The wrapper's tiles and small parameters are made once per packed
     tuple and made again when a packed array changes."""
-    weights = _pack(3)
+    _check_laid_out_once(change, torch.bfloat16)
+
+
+@pytest.mark.parametrize("change", ["none", "weight_in_place", "new_pack"])
+def test_f32_kernel_weights_laid_out_once_per_packing(change):
+    _check_laid_out_once(change, torch.float32)
+
+
+def _check_laid_out_once(change: str, dtype) -> None:
+    weights = _pack(3, dtype)
     tiles, small = fused_decode._kernel_weights(weights)
     if change == "weight_in_place":
         weights[4].mul_(2)
@@ -168,5 +219,28 @@ def test_kernel_weights_laid_out_once_per_packing(change):
     tiles2, small2 = fused_decode._kernel_weights(weights)
     assert (tiles2 is tiles) == (change == "none")
     assert (small2 is small) == (change == "none")
+    assert tiles2.dtype == dtype
     assert torch.equal(tiles2, fused_decode.tile_weights(weights))
     assert torch.equal(small2, fused_decode.small_params(weights))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4095, 17887])
+def test_f32_launch_layout_from_a_pack(n):
+    """What the wrapper hands the f32 kernel for a pack_weights result: the
+    f32 stream and small parameters of that pack, made once and reused for
+    a second launch, and the cell ids padded to whole clusters of the
+    kernel's size (2), the first n unchanged."""
+    params, g = _params(n)
+    weights = fused_decode.pack_weights(params, g, torch.float32)
+    tiles, small = fused_decode._kernel_weights(weights)
+    again = fused_decode.pack_weights(params, g, torch.float32)
+    assert again is weights
+    assert fused_decode._kernel_weights(again)[0] is tiles
+    assert tiles.dtype == torch.float32 and small.dtype == torch.float32
+    flat = torch.cat([weights[s * 12 + 2 * layer].reshape(-1)
+                      for s in range(2) for layer in range(1, 5)])
+    assert torch.equal(tiles, flat)
+    ids = torch.arange(n, dtype=torch.int32)
+    padded = fused_decode.pad_cells(ids, 2)
+    assert padded.shape[0] == n + n % 2
+    assert torch.equal(padded[:n], ids) and int(padded[-1]) == n - 1
