@@ -88,20 +88,26 @@ on failure:
    point and the EMD), K6b within 2x the plain version's distance + 1e-7,
    and with --parent DIR that checkout's K6b measured beside them; K6c
    within 2x the f32 plain version's distance from match_cost_plain in
-   float64 + 1e-6 relative; at the protocol's shapes K6b's split by pass
-   (torch.profiler) beside its bound and the three-pass floor, K6a's and
-   K6c's kernel alone (CUDA events around the library call) and wrapper's
-   work, in turns with --parent DIR's (parent, change, change, parent),
-   beside the bound and the floor, and a torch.profiler split of one call
-   of each (the library's device work and nothing else); nn_distance's
-   backward on the card against the CPU. [eval farm]:
+   float64 + 1e-6 relative; K6d (one launch a backward) within
+   GRAD_REL_TOL of the plain backward and within 2x the f32 plain
+   version's distance from match_cost_grad_plain in float64 + 1 ulp of
+   max g x max marginal (eval/referee.py), --parent DIR's K6d measured
+   beside it; at the protocol's shapes K6b's split by pass
+   (torch.profiler) beside its bound and the three-pass floor, K6a's,
+   K6c's and K6d's kernel alone (CUDA events around the library call) and
+   wrapper's work, in turns with --parent DIR's (parent, change, change,
+   parent), beside the bound and the floor (and K6d's distances from the
+   float64 referee), and a torch.profiler split of one call of each (the
+   library's device work and nothing else); nn_distance's backward on the
+   card against the CPU. [eval farm]:
    reconstruct_split writes 2 objects x 24 views from in-memory records
    (seeded u8 images, the demo camera; full-width net, analytic head,
    sdf_res 256, bf16), evaluate_tree scores them on the card against GT
    meshes written with the port's write_obj (K6a-K6c launched, every value
    finite, F1 at 20% = 1.0), the images per second and each object's host
-   and device halves are printed, K6b is held to the float64 referee on
-   each object's clouds as on [eval hold]'s, and 1 object x 4 views is
+   and device halves are printed, K6b and K6d are held to their float64
+   referees on each object's clouds as on [eval hold]'s, and 1 object x 4
+   views is
    scored again
    on the CPU (CD and EMD within 1e-3 relative, precision and recall
    within 1/2048, IoU equal) and with the device IoU on both, which
@@ -118,8 +124,9 @@ on failure:
    gradients. [train f32] / [train bf16]: the default full-width Config
    (B = 20, N = 2048): 2 warm-up and 10 timed steps (CUDA events), samples
    per second, peak memory, the share of the wall time blocked on the
-   loader; in f32 also 20 steps on one batch, whose sdf_loss must fall
-   (the median of the last 5 steps below that of the first 5).
+   loader; in f32 also 20 steps on one batch from a fresh seed-0 state,
+   whose sdf_loss must fall (the median of the last 5 steps below that of
+   the first 5).
    [train profile]: torch.profiler over 3 steps of each: idle share, top
    ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
    latest.npz after step 3 holds exactly the JAX package's names, and
@@ -1534,13 +1541,20 @@ def phase_train_steps(records) -> None:
         loader.shutdown()
     step = trainer.make_train_step(cfg)
     batch = on(host_batch(cfg, records, seed=2), CARD)
+    # from a fresh seed-0 state, so that the run repeats: after the timed
+    # steps the state depends on the order in which the loader's workers
+    # delivered their batches, and one run in seven on an H100 spiked late
+    # (4338.7 at step 15) and ended above its start; from the fresh state
+    # four runs gave the same losses up to cuDNN's summation order
+    # (medians 3353.85 -> 2950.6-2951.4). Adam at lr 1e-4 and beta1 0.5
+    # moves each of the 119M randomly initialised fc6/fc7 weights by ~lr a
+    # step: single steps spike (9397.4 at step 4 from the fresh state), so
+    # the medians of the first and the last five steps are compared
+    del state
+    torch.cuda.empty_cache()
+    state = trainer.create_state(cfg, seed=0)
     losses = [step(state, batch)[1]["sdf_loss"] for _ in range(20)]
     losses = [x.item() for x in losses]
-    # Adam at lr 1e-4 and beta1 0.5 moves each of the 119M randomly
-    # initialised fc6/fc7 weights by ~lr a step, the embedding by several
-    # units: single steps spike (5934.3 after 2688.3 at step 20 in one run,
-    # where the first steps read 3055 -> 2660), so the medians of the
-    # first and the last five steps are compared
     first, last = np.median(losses[:5]), np.median(losses[-5:])
     print(f"[train f32] 20 steps on one batch: sdf_loss "
           f"{[round(x, 2) for x in losses]}; median of the first 5 "
@@ -1716,6 +1730,11 @@ COST_F64_REL = 1e-6
 # the clamp), then a compare and two selects for the row and the same for
 # the column; 128 lanes a clock per SM issue them at half the f32 flop peak
 NN_SLOTS_PER_PAIR = 12
+# K6d's floor in issue slots a pair: 3 FSUB, 5 for |d|^2 in the plain
+# version's order, the clamp, one rsqrtf, w, 2 x 3 FFMA, a quarter of a
+# global and of a shared load (17.5), the rows' warp sums, 18 SHFL, 18 FADD
+# and 18 selects a thread for 4 rows of 4 pairs (3.4), the chunk sums (0.2)
+MG_SLOTS_PER_PAIR = 21
 # K6a against the gram_d tile (approx_match_d_tile, at most 128 x 512): the
 # first points of batch 0 of each shape, as they are and with duplicated
 # points (d clamped to 0) and exact ties
@@ -1881,23 +1900,10 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
     check(ok_c, f"{tag}: match_cost is further from float64 than "
                 f"{COST_F64_RATIO} x its plain version")
     del ref_c
-    # K6d through autograd against the plain backward
+    # K6d through autograd against the plain backward and float64
     g = torch.from_numpy(np.random.RandomState(5).rand(b).astype(
         np.float32) + 0.5).cuda()
-    gt_r = gt.clone().requires_grad_(True)
-    pred_r = pred.clone().requires_grad_(True)
-    (mt.match_cost(gt_r, pred_r, mk) * g).sum().backward()
-    w1, w2 = mt.match_cost_grad_plain(gt, pred, mk, g)
-    scale_g = float(g.max()) * max(float(mk.sum(1).max()),
-                                   float(mk.sum(2).max()))
-    err_d = max(float((gt_r.grad - w1).abs().max()),
-                float((pred_r.grad - w2).abs().max()))
-    print(f"{tag} K6d match_cost_grad (autograd): max|diff| {err_d:.3e} "
-          f"(tol {GRAD_REL_TOL * scale_g:.3e} = {GRAD_REL_TOL} x max g x "
-          f"max marginal)")
-    check(err_d <= GRAD_REL_TOL * scale_g,
-          f"{tag}: match_cost's gradient disagrees with its plain version")
-    out["match_cost_grad"] = {"max_abs_err": err_d}
+    out["match_cost_grad"] = {"max_abs_err": hold_k6d(tag, gt, pred, mk, g)}
     # nn_distance's backward (PyTorch ops) on the card against the CPU,
     # from the card's indices
     rng = np.random.RandomState(6)
@@ -1945,9 +1951,63 @@ def hold_k6(kind: str, b: int, n: int, m: int, pred_mesh, gt_mesh,
                   f"({r['bound_by']}) share {r['bound_ms'] / r['ms']:.4f}"
                   f"{lib}")
         am_split(tag, gt, pred, out["approx_match"])
-        time_k6_turns(tag, pred, gt, mk, out)
-        profile_k6(tag, pred, gt, mk)
+        time_k6_turns(tag, pred, gt, mk, g, out)
+        profile_k6(tag, pred, gt, mk, g)
     return out
+
+
+def hold_k6d(tag: str, xyz1, xyz2, match, g) -> float:
+    """K6d through autograd, match_cost(xyz1, xyz2, match) weighted by g:
+    one match_cost_grad launch a backward; its gradients within
+    GRAD_REL_TOL x max g x max marginal of the f32 plain backward, and
+    within referee.RATIO x the plain version's distance from the float64
+    referee + referee.GRAD_ULPS ulps of the scale (eval/referee.py). With
+    --parent, that checkout's K6d is measured too (not gated). Returns the
+    largest difference from the plain version."""
+    from disn_tpu_torch.eval import metrics as mt
+    from disn_tpu_torch.eval import referee
+
+    x1r = xyz1.clone().requires_grad_(True)
+    x2r = xyz2.clone().requires_grad_(True)
+    before = mt.match_cost_grad.launches
+    (mt.match_cost(x1r, x2r, match) * g).sum().backward()
+    check(mt.match_cost_grad.launches == before + 1,
+          f"{tag}: a backward made {mt.match_cost_grad.launches - before} "
+          "match_cost_grad launches, not 1")
+    w1, w2 = mt.match_cost_grad_plain(xyz1, xyz2, match, g)
+    scale_g = float(g.max()) * max(float(match.sum(1).max()),
+                                   float(match.sum(2).max()))
+    err_d = max(float((x1r.grad - w1).abs().max()),
+                float((x2r.grad - w2).abs().max()))
+    print(f"{tag} K6d match_cost_grad (autograd): max|diff| {err_d:.3e} "
+          f"(tol {GRAD_REL_TOL * scale_g:.3e} = {GRAD_REL_TOL} x max g x "
+          f"max marginal)")
+    check(err_d <= GRAD_REL_TOL * scale_g,
+          f"{tag}: match_cost's gradient disagrees with its plain version")
+    ref = referee.grad_referee(xyz1, xyz2, match, g)
+    dk = referee.grad_distance((x1r.grad, x2r.grad), ref)
+    dp = referee.grad_distance((w1, w2), ref)
+    ok = referee.grad_within(dk, dp, ref)
+
+    def fmt(d):
+        return " ".join(f"{k} {float(d[k].max()):.3e}"
+                        for k in referee.GRAD_KEYS)
+
+    ratio = max(float((dk[k] / dp[k].clamp_min(1e-300)).max())
+                for k in referee.GRAD_KEYS)
+    parent = ""
+    if PARENT_K6:
+        dq = referee.grad_distance(PARENT_K6["match_cost_grad"]["call"](
+            xyz1, xyz2, match, g), ref)
+        parent = f"; parent kernel {fmt(dq)}"
+    print(f"{tag} K6d float64 referee (largest |diff| of g1 and g2 over the "
+          f"batch entries): kernel {fmt(dk)}; f32 plain {fmt(dp)}{parent}; "
+          f"worst kernel / plain ratio of an entry {ratio:.3f}; kernel "
+          f"within {referee.RATIO} x plain + {referee.GRAD_ULPS} ulp of "
+          f"max|g| x max marginal on every batch entry: {ok}")
+    check(ok, f"{tag}: match_cost's gradient is further from the float64 "
+              f"referee than {referee.RATIO} x its plain version")
+    return err_d
 
 
 def hold_nn_tile(tag: str, pred, gt) -> None:
@@ -1999,12 +2059,14 @@ PARENT_K6: dict = {}  # another checkout's K6 (--parent), run beside
 
 def k6_runners(path) -> dict:
     """Launchers of a build of some checkout's csrc/metrics.cu with its own
-    entry points' signatures: for K6a and K6c, "prep"(clouds[, match])
-    allocates every buffer once and returns a function that only launches
-    (the kernel alone), "call" does what that checkout's wrapper does on
-    the card (allocation, norms where that build takes them, the launch);
-    for K6b, referee.load's auction. Builds from before the one-pass K6a
-    take the norms from the caller and sum K6c's shares in f32 scratch."""
+    entry points' signatures: for K6a, K6c and K6d, "prep"(clouds[, match[,
+    g]]) allocates every buffer once and returns a function that only
+    launches (the kernel alone), "call" does what that checkout's wrapper
+    does on the card (allocation, norms where that build takes them, the
+    launch); for K6b, referee.load's auction. Builds from before the
+    one-pass K6a take the norms from the caller and sum K6c's shares in f32
+    scratch; builds from before the one-pass K6d (no match_cost_grad_parts)
+    take no scratch for it."""
     import torch
     from disn_tpu_torch.eval import metrics as mt
     from disn_tpu_torch.eval import referee
@@ -2024,6 +2086,10 @@ def k6_runners(path) -> dict:
         for f in ("nn_distance_launch", "match_cost_parts",
                   "match_cost_launch"):
             getattr(lib, f).restype = ci
+    grad_new = hasattr(lib, "match_cost_grad_parts")
+    if not grad_new:
+        lib.match_cost_grad_launch.argtypes = [vp, ci, vp, ci, ci] + [vp] * 5
+        lib.match_cost_grad_launch.restype = ci
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -2076,6 +2142,24 @@ def k6_runners(path) -> dict:
         launch.hold = hold
         return launch
 
+    def mg_prep(x, y, match, g):
+        b, n, m = x.shape[0], x.shape[1], y.shape[1]
+        o = [torch.empty((b, k, 3), device=x.device) for k in (n, m)]
+        scratch = ()
+        if grad_new:
+            scratch = (torch.empty((b, lib.match_cost_grad_parts(n, m)),
+                                   device=x.device),)
+        args = (x.data_ptr(), n, y.data_ptr(), m, b, match.data_ptr(),
+                g.data_ptr(), *(t.data_ptr() for t in scratch),
+                o[0].data_ptr(), o[1].data_ptr())
+
+        def launch():
+            mt._raise_on(lib.match_cost_grad_launch(*args, stream()),
+                         "match_cost_grad")
+            return o
+        launch.hold = scratch
+        return launch
+
     out["nn_distance"] = {
         "prep": nn_prep,
         "call": ((lambda x, y: mt._nn_run(lib, x, y)) if new
@@ -2084,18 +2168,26 @@ def k6_runners(path) -> dict:
         "prep": mc_prep,
         "call": ((lambda x, y, w: mt._match_cost_run(lib, x, y, w)) if new
                  else (lambda x, y, w: mc_prep(x, y, w)()))}
+    out["match_cost_grad"] = {
+        "prep": mg_prep,
+        "call": ((lambda x, y, w, g: list(mt._match_cost_grad_run(
+            lib, x, y, w, g))) if grad_new
+            else (lambda x, y, w, g: mg_prep(x, y, w, g)()))}
     return out
 
 
-def time_k6_turns(tag: str, pred, gt, mk, out: dict) -> None:
-    """K6a and K6c: the kernel alone (CUDA events around the library call,
-    buffers allocated before) and the wrapper's work without its checks
-    (allocation, norms where the build takes them, the call), median of 20
-    after a warm-up; with --parent both in turns (parent, change, change,
-    parent), else this checkout's twice; the public wrapper beside each
-    run of this checkout's. Beside them the bound and the
-    floor (K6a: NN_SLOTS_PER_PAIR issue slots a pair; K6c: its bound,
-    bytes), and whether the two builds give the same bits."""
+def time_k6_turns(tag: str, pred, gt, mk, g, out: dict) -> None:
+    """K6a, K6c and K6d: the kernel alone (CUDA events around the library
+    call, buffers allocated before) and the wrapper's work without its
+    checks (allocation, norms where the build takes them, the call), median
+    of 20 after a warm-up; with --parent both in turns (parent, change,
+    change, parent), else this checkout's twice; the public wrapper beside
+    each run of this checkout's. Beside them the bound and the floor (K6a:
+    NN_SLOTS_PER_PAIR issue slots a pair; K6c: its bound, bytes; K6d:
+    MG_SLOTS_PER_PAIR issue slots a pair), whether the two builds give the
+    same bits and whether this checkout's kernel alone was faster in every
+    turn. Both builds' K6d distances from the float64 referee on these
+    inputs are hold_k6d's line, printed before."""
     import torch
     from disn_tpu_torch.eval import metrics as mt
 
@@ -2105,13 +2197,16 @@ def time_k6_turns(tag: str, pred, gt, mk, out: dict) -> None:
         builds["parent"] = PARENT_K6
     order = (["parent", "change", "change", "parent"] if PARENT_K6
              else ["change", "change"])
-    floors = {"nn_distance": NN_SLOTS_PER_PAIR * b * n * m
-              / (H100_F32_FLOPS / 2) * 1e3,
-              "match_cost": out["match_cost"]["bound_ms"]}
+    slots = H100_F32_FLOPS / 2 / (b * n * m) / 1e3  # ms a slot a pair
+    floors = {"nn_distance": NN_SLOTS_PER_PAIR / slots,
+              "match_cost": out["match_cost"]["bound_ms"],
+              "match_cost_grad": MG_SLOTS_PER_PAIR / slots}
     for name, args, public in (
             ("nn_distance", (pred, gt), lambda: mt.nn_distance(pred, gt)),
             ("match_cost", (gt, pred, mk),
-             lambda: mt.match_cost(gt, pred, mk))):
+             lambda: mt.match_cost(gt, pred, mk)),
+            ("match_cost_grad", (gt, pred, mk, g),
+             lambda: mt.match_cost_grad(gt, pred, mk, g))):
         kern = {k: v[name]["prep"](*args) for k, v in builds.items()}
         alone, wrap, pub = [], [], []
         for k in order:
@@ -2126,10 +2221,11 @@ def time_k6_turns(tag: str, pred, gt, mk, out: dict) -> None:
         print(f"{tag} {name} in turns (CUDA events, median of 20): kernel "
               f"alone {[(k, round(t, 5)) for k, t in alone]}, wrapper's work "
               f"{[(k, round(t, 5)) for k, t in wrap]}, the public wrapper "
-              f"{[round(t, 5) for t in pub]} ({r['ms']:.5f} before); bound {bound:.5f} ms (share of "
-              f"the kernel alone {bound / kernel_ms:.4f}, of the "
-              f"wrapper {bound / r['ms']:.4f}), floor {floor:.5f} ms "
-              f"(share {floor / kernel_ms:.4f} / {floor / r['ms']:.4f})")
+              f"{[round(t, 5) for t in pub]} ({r['ms']:.5f} before); bound "
+              f"{bound:.5f} ms (share of the kernel alone "
+              f"{bound / kernel_ms:.4f}, of the wrapper "
+              f"{bound / r['ms']:.4f}), floor {floor:.5f} ms (share "
+              f"{floor / kernel_ms:.4f} / {floor / r['ms']:.4f})")
         if "parent" in kern:
             a, c = kern["parent"](), kern["change"]()
             a = a if isinstance(a, list) else [a]
@@ -2137,17 +2233,21 @@ def time_k6_turns(tag: str, pred, gt, mk, out: dict) -> None:
             same = all(torch.equal(u, v) for u, v in zip(a, c))
             diff = max(float((u.double() - v.double()).abs().max())
                        for u, v in zip(a, c))
+            faster = max(t for k, t in alone if k == "change") < min(
+                t for k, t in alone if k == "parent")
             print(f"{tag} {name} parent and change give the same bits: "
-                  f"{same} (max|diff| {diff:.3e}; not gated: K6c's sums "
-                  f"run in another order)")
+                  f"{same} (max|diff| {diff:.3e}; not gated: K6c's and "
+                  f"K6d's sums run in another order); the change's kernel "
+                  f"alone faster in every turn: {faster}")
 
 
-def profile_k6(tag: str, pred, gt, mk) -> None:
-    """torch.profiler over 3 K6a and 3 K6c calls through the public
+def profile_k6(tag: str, pred, gt, mk, g) -> None:
+    """torch.profiler over 3 K6a, 3 K6c and 3 K6d calls through the public
     wrappers: the device runs the library's work alone (K6a: the keys'
-    memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total), and each kernel's
-    time a call. The profiler does not record every event of a window (the
-    first is sometimes missing), so a kernel need only be seen."""
+    memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total; K6d: mc_grad_pass,
+    mc_grad_total, one read of match), and each kernel's time a call. The
+    profiler does not record every event of a window (the first is
+    sometimes missing), so a kernel need only be seen."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2158,7 +2258,9 @@ def profile_k6(tag: str, pred, gt, mk) -> None:
             ("nn_distance", lambda: mt.nn_distance(pred, gt),
              ("nn_pass", "nn_unpack")),
             ("match_cost", lambda: mt.match_cost(gt, pred, mk),
-             ("mc_pass", "mc_total"))):
+             ("mc_pass", "mc_total")),
+            ("match_cost_grad", lambda: mt.match_cost_grad(gt, pred, mk, g),
+             ("mc_grad_pass", "mc_grad_total"))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2384,8 +2486,13 @@ def phase_eval_farm(gt_mesh) -> dict:
         # the auction as _object_device runs it: GT first, broadcast
         pred = torch.from_numpy(host[0].astype(np.float32)).cuda()
         gt = torch.from_numpy(host[1].astype(np.float32)).cuda()
-        hold_referee(f"[eval farm] {obj}", gt.expand(len(pred), -1, -1)
-                     .contiguous(), pred)
+        gt = gt.expand(len(pred), -1, -1).contiguous()
+        mk = mt.approx_match(gt, pred)
+        hold_referee(f"[eval farm] {obj}", gt, pred, mk)
+        g = torch.from_numpy(np.random.RandomState(5).rand(len(pred)).astype(
+            np.float32) + 0.5).cuda()
+        hold_k6d(f"[eval farm] {obj}", gt, pred, mk, g)
+        del mk
         torch.cuda.empty_cache()
     # 1 object x 4 views: the card against the CPU, and the device IoU
     card = runner.evaluate_tree(pred_dir, gt_dir, lst_one, view_num=4)
@@ -2535,9 +2642,9 @@ def main() -> int:
                          "K6 also run: its K1 timed in turns with this "
                          "checkout's on the main path's kept inputs, its "
                          "K6b on [eval hold]'s and [eval farm]'s clouds, "
-                         "measured against the float64 referee, its K6a and "
-                         "K6c timed in turns with this checkout's at the "
-                         "protocol's shape")
+                         "measured against the float64 referee, its K6d "
+                         "likewise, its K6a, K6c and K6d timed in turns "
+                         "with this checkout's at the protocol's shape")
     args = ap.parse_args()
     try:
         import torch

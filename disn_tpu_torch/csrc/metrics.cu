@@ -18,10 +18,12 @@
 //       the special-function units, and the 403 MB match written once
 //       (see its kernels for its own design).
 //   K6c, K6d one read of match (403 MB): bytes, 0.12 ms each. K6c's
-//       arithmetic, ~15 issue slots a pair with an IEEE sqrt, is ~0.05 ms.
+//       arithmetic, ~15 issue slots a pair with an IEEE sqrt, is ~0.05 ms;
+//       K6d's, ~21 with one rsqrtf and the rows' warp sums, ~0.063 ms.
 // No kernel stores a [B,N,M] tensor other than match itself. Distances are
 // recomputed from the coordinates in the JAX package's Gram form
-// (|a|^2 - 2 a.b) + |b|^2 clamped at 0 (gram_d of dot3). |a|^2 and |b|^2 are
+// (|a|^2 - 2 a.b) + |b|^2 clamped at 0 (gram_d of dot3; K6d takes the
+// direct difference, as the reference's gradient does). |a|^2 and |b|^2 are
 // rounded as the plain versions' torch.sum(p * p, -1) rounds them on the
 // card: K6a and K6c compute them (sq3), K6b takes them from the caller. So
 // only a.b differs from the plain versions by rounding. Where a cloud is
@@ -671,86 +673,234 @@ mc_total(const double* __restrict__ part, int parts,
 }
 
 // ---------------------------------------------------------------- K6d ----
-// unit(x1_r - x2_c): the direct difference, |diff| as sqrt((dx^2 + dy^2)
-// + dz^2) with every step rounded, divided by max(|diff|, 1e-12).
-__device__ __forceinline__ void unit_diff(float ax, float ay, float az,
-                                          float bx, float by, float bz,
-                                          float* ux, float* uy, float* uz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by),
-              dz = __fsub_rn(az, bz);
-  const float dist = sqrtf(__fadd_rn(
-      __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz)));
-  const float den = fmaxf(dist, 1e-12f);
-  *ux = __fdiv_rn(dx, den);
-  *uy = __fdiv_rn(dy, den);
-  *uz = __fdiv_rn(dz, den);
+// match_cost's gradient with match held constant (match_cost_grad_plain,
+// the reference's MatchCostGrad):
+//   grad1[b][r] =  g[b] * sum_c match[b][c][r] * unit(x1_r - x2_c)
+//   grad2[b][c] = -g[b] * sum_r match[b][c][r] * unit(x1_r - x2_c)
+//   unit(d) = d / max(|d|, 1e-12)
+//
+// Bound and floor: bytes, the 403 MB of match read once at the protocol
+// shape, 0.121 ms. A pair costs 3 FSUB, 5 for |d|^2 in the plain version's
+// order ((dx^2 + dy^2) + dz^2, each step rounded), the clamp, one MUFU
+// reciprocal square root, w = match * that, 2 x 3 FFMA, and a quarter of a
+// global and of a shared load: ~17.5 issue slots; the rows' warp sums (18
+// SHFL, 18 FADD and 18 selects a thread for 4 rows, 16 pairs) add ~3.4 and
+// the chunk sums ~0.2: ~21 a pair, 0.063 ms at half the f32 flop peak,
+// under the bytes. On an H100 (700 W) the pass takes 0.146 ms by the
+// profiler (83% of the bound; K6c's 0.133). Both kernels back to back
+// there: a shuffle butterfly a row (60 SHFL + 60 FADD for 4 rows) and one
+// f32 chain over the panel 0.191 ms, with entries at 2.01x the plain
+// version's distance from the float64 referee (8.1x where N = 1); halving
+// and chunks 0.180; the next group's loads issued before this group's
+// arithmetic 0.155, and 6 blocks a SM (80 registers against 96) 0.149;
+// 256-thread blocks no faster.
+//
+// Design: K6c's stream with two sums. A thread owns 4 consecutive points
+// r of xyz1 in registers and their grad1 sums; a block walks MG_ROWS rows
+// c of match (a panel), whose xyz2 points it stages in shared memory, and
+// reads a float4 of a row a thread, MC_UNROLL rows at a time, the next
+// group's loads issued before this group is used (mc_load's scalar walk
+// when n % 4 != 0 or match is not 16-byte aligned). A pair
+// takes d once, |d|^2, one rsqrtf of max(|d|^2, 1e-24) (1 / max(|d|,
+// 1e-12); a zero d gives a zero term, and a denormal |d|^2 meets the clamp
+// as it is: the build has no -ftz) and w = match * that; w * d goes to the
+// point's grad1 sum and to the row's sum. (__frsqrt_rn, correctly rounded,
+// was 12% slower on an H100 and no closer to the referee.) The rows' sums
+// over the thread's 4 points are reduced across the warp four rows at a
+// time (mg_warp_rows), then across the block's warps through shared memory
+// in warp order: the block's share of grad2 from its strip of 4 *
+// MG_THREADS points.
+//
+// Sums: f32 inside a block (a point's share: FFMA chains of MG_CHUNK rows,
+// added up over the panel); the shares go to f32 scratch, [B, panels, N,
+// 3] for grad1 and [B, strips, M, 3] for grad2 (5.9% of match's bytes at
+// the protocol shape, written and read), and mc_grad_total, in the same
+// library call, sums them in f64 in a fixed order and applies g[b] and
+// -g[b]. No float atomics: two runs give the same bits. The float64 referee
+// (eval/referee.py) holds the result to 2x the plain version's distance.
+constexpr int MG_THREADS = 128;                // points r: 4 a thread
+constexpr int MG_ROWS = 128;                   // rows c a block (a panel)
+constexpr int MG_CHUNK = 16;                   // rows a grad1 chunk sum
+constexpr int MG_WARPS = MG_THREADS / 32;
+static_assert(MC_UNROLL == 4, "mg_warp_rows reduces four rows at a time");
+static_assert(MG_ROWS % MG_CHUNK == 0 && MG_CHUNK % MC_UNROLL == 0,
+              "a panel is whole chunks of whole groups");
+
+// one row's four pairs: w * (x1_r - x2_c) added to each point's sum (gx,
+// gy, gz) and to the row's (row), w = match / max(|x1_r - x2_c|, 1e-12)
+__device__ __forceinline__ void mg_row(float4 v, float4 q, const float* px,
+                                       const float* py, const float* pz,
+                                       float* gx, float* gy, float* gz,
+                                       float* row) {
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const float dx = __fsub_rn(px[k], q.x), dy = __fsub_rn(py[k], q.y),
+                dz = __fsub_rn(pz[k], q.z);
+    const float s = __fadd_rn(
+        __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+    const float w = __fmul_rn(e[k], rsqrtf(fmaxf(s, 1e-24f)));
+    gx[k] = fmaf(w, dx, gx[k]);
+    gy[k] = fmaf(w, dy, gy[k]);
+    gz[k] = fmaf(w, dz, gz[k]);
+    row[0] = fmaf(w, dx, row[0]);
+    row[1] = fmaf(w, dy, row[1]);
+    row[2] = fmaf(w, dz, row[2]);
+  }
 }
 
-// grad1[b][r] = g[b] * sum_c match[b][c][r] * unit(x1_r - x2_c): a thread a
-// point r (consecutive threads read consecutive match entries of a row).
-__global__ void __launch_bounds__(256)
-mc_grad1(const float* __restrict__ xyz1, int n,
-         const float* __restrict__ xyz2, int m,
-         const float* __restrict__ match, const float* __restrict__ g,
-         float* __restrict__ grad1) {
-  const int b = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float* p = xyz1 + ((size_t)b * n + r) * 3;
-  const float ax = p[0], ay = p[1], az = p[2];
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int c = 0; c < m; c++) {
-    const float* q = xyz2 + ((size_t)b * m + c) * 3;
-    float ux, uy, uz;
-    unit_diff(ax, ay, az, q[0], q[1], q[2], &ux, &uy, &uz);
-    const float w = match[((size_t)b * m + c) * n + r];
-    sx = __fadd_rn(sx, __fmul_rn(w, ux));
-    sy = __fadd_rn(sy, __fmul_rn(w, uy));
-    sz = __fadd_rn(sz, __fmul_rn(w, uz));
-  }
-  const float gb = g[b];
-  float* o = grad1 + ((size_t)b * n + r) * 3;
-  o[0] = gb * sx;
-  o[1] = gb * sy;
-  o[2] = gb * sz;
+// row j of the panel, the thread's 4 entries (zeros past n and past the
+// panel's last row)
+template <bool VEC>
+__device__ __forceinline__ float4 mg_load(const float* row, int j, int rows,
+                                          int n, int left) {
+  return left > 0 && j < rows ? mc_load<VEC>(row + (size_t)j * n, left)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// grad2[b][c] = -g[b] * sum_r match[b][c][r] * unit(x1_r - x2_c): a warp a
-// row c, its lanes along r.
+// The thread's sums r[u] of rows j + u (u < 4) summed across the warp by
+// recursive halving: a lane gives the lane 16 apart half of its values
+// (two rows) and adds the other half it gets back, then likewise a row
+// with the lane 8 apart, and the 8 lanes then holding row u = lane >> 3
+// finish with a butterfly over 4, 2, 1 (every one with the same bits);
+// lane 8u writes row j + u's sums to s_row[warp]. 18 shuffles for 4 rows
+// against 60 for a butterfly a row, in a fixed order.
+__device__ __forceinline__ void mg_warp_rows(const float (&r)[4][3],
+                                             float* s_row, int j) {
+  const int lane = threadIdx.x & 31;
+  const bool h16 = lane & 16, h8 = lane & 8;
+  float a[6], c[3];
+#pragma unroll
+  for (int i = 0; i < 6; i++) {
+    const float lo = r[i / 3][i % 3], hi = r[2 + i / 3][i % 3];
+    a[i] = (h16 ? hi : lo) + __shfl_xor_sync(0xffffffffu, h16 ? lo : hi, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; i++)
+    c[i] = (h8 ? a[3 + i] : a[i]) +
+           __shfl_xor_sync(0xffffffffu, h8 ? a[i] : a[3 + i], 8);
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < 3; i++)
+      c[i] += __shfl_xor_sync(0xffffffffu, c[i], off);
+  if ((lane & 7) == 0) {
+    float* o = s_row + ((threadIdx.x >> 5) * MG_ROWS + j + (lane >> 3)) * 3;
+    o[0] = c[0];
+    o[1] = c[1];
+    o[2] = c[2];
+  }
+}
+
+// The block's shares: part1[b][blockIdx.y][r] (its panel's sum for each of
+// its points r) and part2[b][blockIdx.x][c] (its strip's sum for each row
+// c of its panel). VEC: n % 4 == 0 and match 16-byte aligned; its walk
+// is held to 80 registers, 6 blocks a SM (the scalar walk would spill).
+template <bool VEC>
+__global__ void __launch_bounds__(MG_THREADS, VEC ? 6 : 1)
+mc_grad_pass(const float* __restrict__ xyz1, int n,
+             const float* __restrict__ xyz2, int m,
+             const float* __restrict__ match, float* __restrict__ part1,
+             float* __restrict__ part2) {
+  __shared__ float4 s_pt[MG_ROWS];
+  __shared__ float s_row[MG_WARPS * MG_ROWS * 3];
+  const int b = blockIdx.z, c0 = blockIdx.y * MG_ROWS;
+  const int rows = min(MG_ROWS, m - c0);
+  const int r0 = (blockIdx.x * MG_THREADS + threadIdx.x) * 4;
+  // rows past the panel's last: zeros, whose entries read as 0
+  for (int j = threadIdx.x; j < MG_ROWS; j += MG_THREADS) {
+    const float* q = xyz2 + 3 * ((size_t)b * m + c0 + j);
+    s_pt[j] = j < rows ? make_float4(q[0], q[1], q[2], 0.f)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // points past n: zeros, whose entries of match read as 0 (zero terms)
+  float px[4], py[4], pz[4], gx[4], gy[4], gz[4];
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    px[k] = py[k] = pz[k] = gx[k] = gy[k] = gz[k] = 0.f;
+    if (r0 + k < n) {
+      const float* p = xyz1 + 3 * ((size_t)b * n + r0 + k);
+      px[k] = p[0];
+      py[k] = p[1];
+      pz[k] = p[2];
+    }
+  }
+  __syncthreads();
+  // every lane takes part in the warp sums, those past n with zero terms;
+  // a point's share is summed in chunks of MG_CHUNK rows (f32 chains of 16
+  // and of panel / 16 terms, not one of the whole panel)
+  const int left = n - r0;
+  const float* row = match + ((size_t)b * m + c0) * n + r0;
+  // the next group's rows are loaded before this group's are used
+  float4 v[MC_UNROLL];
+#pragma unroll
+  for (int u = 0; u < MC_UNROLL; u++)
+    v[u] = mg_load<VEC>(row, u, rows, n, left);
+  for (int j0 = 0; j0 < rows; j0 += MG_CHUNK) {
+    float cx[4] = {0.f, 0.f, 0.f, 0.f}, cy[4] = {0.f, 0.f, 0.f, 0.f},
+          cz[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int j = j0; j < min(j0 + MG_CHUNK, rows); j += MC_UNROLL) {
+      float4 next[MC_UNROLL];
+#pragma unroll
+      for (int u = 0; u < MC_UNROLL; u++)
+        next[u] = mg_load<VEC>(row, j + MC_UNROLL + u, rows, n, left);
+      float r[MC_UNROLL][3] = {};
+#pragma unroll
+      for (int u = 0; u < MC_UNROLL; u++)
+        mg_row(v[u], s_pt[j + u], px, py, pz, cx, cy, cz, r[u]);
+      mg_warp_rows(r, s_row, j);
+#pragma unroll
+      for (int u = 0; u < MC_UNROLL; u++) v[u] = next[u];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      gx[k] += cx[k];
+      gy[k] += cy[k];
+      gz[k] += cz[k];
+    }
+  }
+  __syncthreads();
+  float* p2 = part2 + (((size_t)b * gridDim.x + blockIdx.x) * m + c0) * 3;
+  for (int i = threadIdx.x; i < rows * 3; i += MG_THREADS) {
+    float t = s_row[i];
+#pragma unroll
+    for (int w = 1; w < MG_WARPS; w++) t += s_row[w * MG_ROWS * 3 + i];
+    p2[i] = t;
+  }
+  float* p1 = part1 + (((size_t)b * gridDim.y + blockIdx.y) * n + r0) * 3;
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+    if (r0 + k < n) {
+      p1[3 * k] = gx[k];
+      p1[3 * k + 1] = gy[k];
+      p1[3 * k + 2] = gz[k];
+    }
+}
+
+// grad1 = g[b] * the sum of an entry's `panels` shares, grad2 = -g[b] *
+// the sum of its `strips` shares: f64 in share order, rounded once; a
+// thread an entry of grad1, then of grad2.
 __global__ void __launch_bounds__(256)
-mc_grad2(const float* __restrict__ xyz1, int n,
-         const float* __restrict__ xyz2, int m,
-         const float* __restrict__ match, const float* __restrict__ g,
-         float* __restrict__ grad2) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (c >= m) return;  // uniform across the warp
-  const float* q = xyz2 + ((size_t)b * m + c) * 3;
-  const float bx = q[0], by = q[1], bz = q[2];
-  const float* mrow = match + ((size_t)b * m + c) * n;
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int r = lane; r < n; r += 32) {
-    const float* p = xyz1 + ((size_t)b * n + r) * 3;
-    float ux, uy, uz;
-    unit_diff(p[0], p[1], p[2], bx, by, bz, &ux, &uy, &uz);
-    const float w = mrow[r];
-    sx = __fadd_rn(sx, __fmul_rn(w, ux));
-    sy = __fadd_rn(sy, __fmul_rn(w, uy));
-    sz = __fadd_rn(sz, __fmul_rn(w, uz));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    sx += __shfl_xor_sync(0xffffffffu, sx, off);
-    sy += __shfl_xor_sync(0xffffffffu, sy, off);
-    sz += __shfl_xor_sync(0xffffffffu, sz, off);
-  }
-  if (lane == 0) {
-    const float gb = -g[b];
-    float* o = grad2 + ((size_t)b * m + c) * 3;
-    o[0] = gb * sx;
-    o[1] = gb * sy;
-    o[2] = gb * sz;
-  }
+mc_grad_total(const float* __restrict__ part1,
+              const float* __restrict__ part2, int n, int m, int batch,
+              int panels, int strips, const float* __restrict__ g,
+              float* __restrict__ grad1, float* __restrict__ grad2) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t e1 = (size_t)3 * n, e2 = (size_t)3 * m;
+  const bool first = i < batch * e1;
+  const size_t j = first ? i : i - batch * e1, e = first ? e1 : e2;
+  if (j >= batch * e) return;
+  const size_t b = j / e;
+  const int parts = first ? panels : strips;
+  const float* p = (first ? part1 : part2) + b * parts * e + (j - b * e);
+  double s = 0.0;
+  for (int k = 0; k < parts; k++) s += (double)p[k * e];
+  const double gb = g[b];
+  if (first)
+    grad1[j] = (float)(gb * s);
+  else
+    grad2[j] = (float)(-gb * s);
 }
 
 inline int blocks(int count, int per) { return (count + per - 1) / per; }
@@ -878,16 +1028,37 @@ extern "C" int match_cost_launch(const float* xyz1, int n, const float* xyz2,
   return (int)cudaGetLastError();
 }
 
+inline dim3 mg_grid(int n, int m, int batch) {
+  return dim3(blocks(n, 4 * MG_THREADS), blocks(m, MG_ROWS), batch);
+}
+
+// the f32 scratch match_cost_grad_launch takes: floats a batch entry
+extern "C" int match_cost_grad_parts(int n, int m) {
+  const dim3 g = mg_grid(n, m, 1);
+  return 3 * (int)(g.y * n + g.x * m);
+}
+
+// part is [B * match_cost_grad_parts(n, m)] f32 scratch (the grad1 shares
+// of every batch entry, then the grad2 shares); g is [B]; grad1 [B,n,3],
+// grad2 [B,m,3].
 extern "C" int match_cost_grad_launch(const float* xyz1, int n,
                                       const float* xyz2, int m, int batch,
                                       const float* match, const float* g,
-                                      float* grad1, float* grad2,
-                                      cudaStream_t stream) {
-  mc_grad1<<<dim3(blocks(n, 256), batch), 256, 0, stream>>>(
-      xyz1, n, xyz2, m, match, g, grad1);
+                                      float* part, float* grad1,
+                                      float* grad2, cudaStream_t stream) {
+  const dim3 grid = mg_grid(n, m, batch);
+  float* part1 = part;
+  float* part2 = part + (size_t)batch * grid.y * n * 3;
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(match) % 16 == 0)
+    mc_grad_pass<true><<<grid, MG_THREADS, 0, stream>>>(xyz1, n, xyz2, m,
+                                                        match, part1, part2);
+  else
+    mc_grad_pass<false><<<grid, MG_THREADS, 0, stream>>>(
+        xyz1, n, xyz2, m, match, part1, part2);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  mc_grad2<<<dim3(blocks(m, 8), batch), 256, 0, stream>>>(xyz1, n, xyz2, m,
-                                                          match, g, grad2);
+  const size_t count = (size_t)batch * 3 * ((size_t)n + m);
+  mc_grad_total<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
+      part1, part2, n, m, batch, (int)grid.y, (int)grid.x, g, grad1, grad2);
   return (int)cudaGetLastError();
 }

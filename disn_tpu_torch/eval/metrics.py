@@ -15,7 +15,8 @@ design does about it):
   temperature levels -4^j for j = 7..-1 then 0, three phases a level;
 * ``match_cost`` (K6c): sum of match x Euclidean distance [B], one
   streaming read of match with the per-batch total in the same call, with
-  its gradient ``match_cost_grad`` (K6d) wrt both clouds.
+  its gradient ``match_cost_grad`` (K6d) wrt both clouds, likewise one
+  read of match for both, their totals in the same call.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``<wrapper>.launches`` (one a call: a call's kernels share one entry
@@ -49,22 +50,28 @@ def _lib() -> ctypes.CDLL:
 
 
 def bind(path) -> ctypes.CDLL:
-    """Load a build of csrc/metrics.cu and declare its entry points."""
+    """Load a build of csrc/metrics.cu and declare its entry points. A
+    build of an older checkout lacks the newer ones (match_cost_grad_parts
+    and the scratch argument of match_cost_grad_launch): only
+    match_cost_grad_parts is checked for, and without it the caller
+    declares match_cost_grad_launch itself."""
     lib = ctypes.CDLL(str(path))
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.nn_distance_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp,
-                                       vp, vp, vp]
-    lib.cloud_norms.argtypes = [vp, ci, vp, vp]
-    lib.approx_match_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci, cd, cd,
-                                        vp, vp, vp, vp, vp, vp]
-    lib.approx_match_d_tile.argtypes = [vp, vp, ci, vp, vp, ci, vp, vp]
-    lib.match_cost_parts.argtypes = [ci, ci]
-    lib.match_cost_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp, vp]
-    lib.match_cost_grad_launch.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp,
-                                           vp, vp]
-    for name in ("nn_distance_launch", "cloud_norms", "approx_match_launch",
-                 "approx_match_d_tile", "match_cost_parts",
-                 "match_cost_launch", "match_cost_grad_launch"):
+    sigs = {
+        "nn_distance_launch": [vp, ci, vp, ci, ci, vp, vp, vp, vp, vp, vp],
+        "cloud_norms": [vp, ci, vp, vp],
+        "approx_match_launch": [vp, vp, ci, vp, vp, ci, ci, cd, cd, vp, vp,
+                                vp, vp, vp, vp],
+        "approx_match_d_tile": [vp, vp, ci, vp, vp, ci, vp, vp],
+        "match_cost_parts": [ci, ci],
+        "match_cost_launch": [vp, ci, vp, ci, ci, vp, vp, vp, vp],
+    }
+    if hasattr(lib, "match_cost_grad_parts"):
+        sigs["match_cost_grad_parts"] = [ci, ci]
+        sigs["match_cost_grad_launch"] = [vp, ci, vp, ci, ci, vp, vp, vp, vp,
+                                          vp, vp]
+    for name, args in sigs.items():
+        getattr(lib, name).argtypes = args
         getattr(lib, name).restype = ci
     return lib
 
@@ -381,13 +388,23 @@ def match_cost_grad(xyz1, xyz2, match, g):
         raise ValueError(f"g must be [{b}] float32 on {dev}")
     if dev.type == "cpu":
         return match_cost_grad_plain(xyz1, xyz2, match, g)
+    grads = _match_cost_grad_run(_lib(), xyz1, xyz2, match, g)
+    match_cost_grad.launches += 1
+    return grads
+
+
+def _match_cost_grad_run(lib: ctypes.CDLL, xyz1, xyz2, match, g):
+    """One match_cost_grad_launch of `lib` on checked CUDA inputs: the pass
+    and the totals, the blocks' f32 shares in scratch."""
+    b, n, m = _clouds(xyz1, xyz2)
+    dev = xyz1.device
+    part = torch.empty((b, lib.match_cost_grad_parts(n, m)), device=dev)
     grad1 = torch.empty((b, n, 3), device=dev)
     grad2 = torch.empty((b, m, 3), device=dev)
-    _raise_on(_lib().match_cost_grad_launch(
+    _raise_on(lib.match_cost_grad_launch(
         xyz1.data_ptr(), n, xyz2.data_ptr(), m, b, match.data_ptr(),
-        g.data_ptr(), grad1.data_ptr(), grad2.data_ptr(), _stream(xyz1)),
-        "match_cost_grad")
-    match_cost_grad.launches += 1
+        g.data_ptr(), part.data_ptr(), grad1.data_ptr(), grad2.data_ptr(),
+        _stream(xyz1)), "match_cost_grad")
     return grad1, grad2
 
 

@@ -1,5 +1,6 @@
-"""The float64 referee of K6b (approx_match), and a comparison on the card
-of this checkout's kernel with another checkout's.
+"""The float64 referees of K6b (approx_match) and K6d (match_cost_grad),
+and a comparison on the card of this checkout's K6b with another
+checkout's.
 
 The auction amplifies rounding: at level -16384 a change delta in a squared
 distance moves exp(level * d) by a factor of about 16384 * delta. Two
@@ -19,10 +20,19 @@ same clouds:
 ``within`` holds a kernel to at most ``RATIO`` times the plain version's
 distance plus ``ABS`` on each of the three.
 
+K6d (match_cost_grad) has a referee of its own: ``grad_referee`` runs
+match_cost_grad_plain with every intermediate float64 on the same match
+and g, and ``grad_distance`` gives a float32 gradient's largest absolute
+difference from it, of g1 and of g2, per batch entry. ``grad_within``
+holds a kernel to ``RATIO`` times the plain version's distance plus
+``GRAD_ULPS`` float32 ulps of the gradient's scale, |g[b]| times the
+larger of match's two largest marginals.
+
     python -m disn_tpu_torch.eval.referee [--parent DIR] [--out FILE]
 
 runs the inputs of ``referee_inputs`` on the card: the distances of this
-checkout's kernel and of the float32 plain version, and, given the root of
+checkout's K6b and of the float32 plain version, those of its K6d and of
+match_cost_grad_plain on that K6b's match, and, given the root of
 another checkout (for example the parent commit, unpacked with ``git
 archive``), that checkout's csrc/metrics.cu built beside this one and run
 on the same clouds. It prints one JSON line an input, whether the two
@@ -48,6 +58,12 @@ from disn_tpu_torch.eval import metrics
 RATIO = 2.0
 ABS = 1e-7
 KEYS = ("n", "m", "emd")
+# K6d's absolute term: one float32 ulp (2^-23) of the gradient's scale, what
+# the last rounding (the product by g[b]) alone can cost; it matters only
+# where the plain version lands on the referee exactly, as it can when a
+# gradient entry has a single term (N or M = 1)
+GRAD_ULPS = 1.0
+GRAD_KEYS = ("g1", "g2")
 # the GPU tests' shapes (tests/test_torch_eval_cuda.py SHAPES, seed 1),
 # then ragged shapes at many seeds, then the protocol's size
 SHAPES = ((1, 1, 1), (2, 5, 3), (3, 256, 100), (3, 100, 256),
@@ -98,6 +114,33 @@ def distance(match: torch.Tensor, ref: dict) -> dict:
 def within(kernel: dict, plain: dict) -> bool:
     """Each distance of `kernel` at most RATIO x the plain version's + ABS."""
     return all(kernel[k] <= RATIO * plain[k] + ABS for k in KEYS)
+
+
+def grad_referee(xyz1: torch.Tensor, xyz2: torch.Tensor, match: torch.Tensor,
+                 g: torch.Tensor) -> dict:
+    """match_cost_grad_plain run in float64 on these inputs (float64 in
+    every intermediate), and the gradient's scale per batch entry: |g[b]|
+    times the larger of match's largest marginal per xyz1 and per xyz2
+    point."""
+    x, y, mm, gg = xyz1.double(), xyz2.double(), match.double(), g.double()
+    g1, g2 = metrics.match_cost_grad_plain(x, y, mm, gg)
+    marginal = torch.maximum(mm.sum(1).amax(-1), mm.sum(2).amax(-1))
+    return {"g1": g1, "g2": g2, "scale": gg.abs() * marginal}
+
+
+def grad_distance(grads, ref: dict) -> dict:
+    """Largest |difference| from the referee of g1 and of g2 of a gradient
+    pair (g1 [B,N,3], g2 [B,M,3]), per batch entry [B], in float64."""
+    return {k: (t.double() - ref[k]).abs().flatten(1).amax(1)
+            for k, t in zip(GRAD_KEYS, grads)}
+
+
+def grad_within(kernel: dict, plain: dict, ref: dict) -> bool:
+    """Each batch entry's distance of `kernel` at most RATIO x the plain
+    version's + GRAD_ULPS float32 ulps of the entry's scale."""
+    tol = GRAD_ULPS * 2.0 ** -23 * ref["scale"]
+    return all(bool((kernel[k] <= RATIO * plain[k] + tol).all())
+               for k in GRAD_KEYS)
 
 
 def load(path: Path):
@@ -177,6 +220,21 @@ def main(argv: list[str] | None = None) -> int:
             rec[k] = distance(mk, ref)
             rec[f"{k}_within"] = within(rec[k], rec["plain"])
         ok &= rec["change_within"]
+        # K6d on the kernel's match, g = 0.5 + rand
+        g = torch.from_numpy((0.5 + np.random.RandomState(seed + 5).rand(b))
+                             .astype(np.float32)).cuda()
+        gref = grad_referee(x, y, matches["change"], g)
+        gd = {"plain": grad_distance(metrics.match_cost_grad_plain(
+                  x, y, matches["change"], g), gref),
+              "change": grad_distance(metrics.match_cost_grad(
+                  x, y, matches["change"], g), gref)}
+        rec["grad_within"] = grad_within(gd["change"], gd["plain"], gref)
+        for k, d in gd.items():
+            rec[f"grad_{k}"] = {key: float(v.max()) for key, v in d.items()}
+        rec["grad_ratio"] = max(float((gd["change"][k] / gd["plain"][k]
+                                       .clamp_min(1e-300)).max())
+                                for k in GRAD_KEYS)
+        ok &= rec["grad_within"]
         if "parent" in matches:
             rec["same_bits"] = torch.equal(matches["change"],
                                            matches["parent"])
@@ -189,13 +247,14 @@ def main(argv: list[str] | None = None) -> int:
         print(line, flush=True)
         if out:
             out.write(line + "\n")
-        del ref, matches
+        del ref, matches, gref
         torch.cuda.empty_cache()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"card: {smi.strip()}; this checkout's kernel within {RATIO} x "
-          f"the plain version's distance + {ABS} on every input: {ok}")
+    print(f"card: {smi.strip()}; this checkout's K6b within {RATIO} x the "
+          f"plain version's distance + {ABS}, and its K6d within {RATIO} x "
+          f"+ {GRAD_ULPS} ulp of the scale, on every input: {ok}")
     return 0 if ok else 1
 
 

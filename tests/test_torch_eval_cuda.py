@@ -260,24 +260,30 @@ def test_match_cost_kernel_reads_an_unaligned_match():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["nn_distance", "match_cost"])
+@pytest.mark.parametrize("kernel", ["nn_distance", "match_cost",
+                                    "match_cost_grad"])
 def test_one_call_is_only_the_librarys_work(kernel):
     """torch.profiler over calls of the public wrapper: the device runs the
     library's work and nothing else (K6a: the keys' memset, nn_pass,
-    nn_unpack; K6c: mc_pass, mc_total), no PyTorch op's kernel. The
-    profiler does not record every event of a window (the first is
-    sometimes missing), so it watches 3 calls and a kernel need only be
-    seen."""
+    nn_unpack; K6c: mc_pass, mc_total; K6d: mc_grad_pass, mc_grad_total),
+    no PyTorch op's kernel. The profiler does not record every event of a
+    window (the first is sometimes missing), so it watches 3 calls and a
+    kernel need only be seen."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x, y = clouds(3, 500, 400, seed=10)
     if kernel == "nn_distance":
         call, kerns = lambda: mt.nn_distance(x, y), ("nn_pass", "nn_unpack")
-    else:
+    elif kernel == "match_cost":
         match = mt.approx_match(x, y)
         call, kerns = (lambda: mt.match_cost(x, y, match),
                        ("mc_pass", "mc_total"))
+    else:
+        match = mt.approx_match(x, y)
+        g = torch.linspace(0.5, 1.5, 3, device="cuda")
+        call, kerns = (lambda: mt.match_cost_grad(x, y, match, g),
+                       ("mc_grad_pass", "mc_grad_total"))
     call()  # build and load first
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -289,3 +295,101 @@ def test_one_call_is_only_the_librarys_work(kernel):
                    if e.device_type == DeviceType.CUDA)
     assert all(any(o in k for o in ("Memset", *kerns)) for k in names), names
     assert all(any(o in k for k in names) for o in kerns), names
+
+
+def _hold_grad(x, y, match, g):
+    """K6d on these inputs within SUM_REL_TOL x max|g| x max marginal of
+    its plain version, and within referee.RATIO x the plain version's
+    distance from the float64 referee + referee.GRAD_ULPS ulps of the
+    scale (eval/referee.py); returns the kernel's gradients."""
+    got = mt.match_cost_grad(x, y, match, g)
+    want = mt.match_cost_grad_plain(x, y, match, g)
+    scale = float(g.abs().max()) * max(float(match.sum(1).max()),
+                                       float(match.sum(2).max()))
+    for u, v in zip(got, want):
+        assert u.shape == v.shape
+        assert float((u - v).abs().max()) <= SUM_REL_TOL * scale
+    ref = referee.grad_referee(x, y, match, g)
+    dk, dp = (referee.grad_distance(t, ref) for t in (got, want))
+    assert referee.grad_within(dk, dp, ref), (dk, dp)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", SHAPES)
+def test_match_cost_grad_kernel_against_the_float64_referee(b, n, m):
+    x, y = clouds(b, n, m, seed=12)
+    _hold_grad(x, y, mt.approx_match(x, y),
+               torch.linspace(0.5, 1.5, b, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(3, 1, 300), (3, 300, 1), (2, 1, 1),
+                                   (2, 1001, 64), (2, 1022, 130),
+                                   (1, 3, 700), (2, 2047, 513)])
+def test_match_cost_grad_kernel_single_points_and_ragged_n(b, n, m):
+    """N = 1 or M = 1 (a gradient entry of a single term), and n % 4 != 0
+    (rows that do not start on 16 bytes: the scalar walk)."""
+    x, y = clouds(b, n, m, seed=13)
+    _hold_grad(x, y, mt.approx_match(x, y),
+               torch.linspace(0.5, 1.5, b, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_match_cost_grad_kernel_coincident_points():
+    """Points of xyz2 that are copies of points of xyz1: a zero difference
+    gives a zero term, as in the plain version (unit(0) = 0)."""
+    x, y = clouds(2, 300, 200, seed=14)
+    y[:, ::7] = x[:, :29]
+    y[1, 5] = x[1, 299]
+    match = mt.approx_match(x, y)
+    got = _hold_grad(x, y, match, torch.tensor([0.8, 1.2], device="cuda"))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+
+
+@pytest.mark.cuda
+def test_match_cost_grad_kernel_negative_and_zero_g():
+    x, y = clouds(3, 256, 100, seed=15)
+    match = mt.approx_match(x, y)
+    g = torch.tensor([-1.3, 0.0, 0.7], device="cuda")
+    g1, g2 = _hold_grad(x, y, match, g)
+    assert not bool(g1[1].any()) and not bool(g2[1].any())
+
+
+@pytest.mark.cuda
+def test_match_cost_grad_kernel_reads_an_unaligned_match():
+    """The scalar walk: a match that does not start on 16 bytes (n % 4 ==
+    0, so only the pointer decides) gives the aligned walk's bits, as both
+    walks do the same arithmetic."""
+    x, y = clouds(2, 256, 100, seed=16)
+    match = mt.approx_match(x, y)
+    buf = torch.empty(match.numel() + 1, device="cuda")
+    shifted = buf[1:].view_as(match)
+    shifted.copy_(match)
+    g = torch.tensor([0.9, 1.1], device="cuda")
+    for u, v in zip(_hold_grad(x, y, shifted, g),
+                    mt.match_cost_grad(x, y, match, g)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,m", [(3, 2047, 1537), (24, 2048, 2048)])
+def test_match_cost_grad_kernel_gives_the_same_bits_twice(b, n, m):
+    x, y = clouds(b, n, m, seed=17)
+    match = mt.approx_match(x, y)
+    g = torch.linspace(0.5, 1.5, b, device="cuda")
+    for u, v in zip(mt.match_cost_grad(x, y, match, g),
+                    mt.match_cost_grad(x, y, match, g)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_match_cost_backward_launches_match_cost_grad_once():
+    """One match_cost_grad launch a backward, whichever clouds record."""
+    x, y = clouds(2, 300, 200, seed=18)
+    match = mt.approx_match(x, y)
+    for grads in ((True, True), (True, False), (False, True)):
+        xr, yr = (c.clone().requires_grad_(r) for c, r in zip((x, y), grads))
+        before = mt.match_cost_grad.launches
+        mt.match_cost(xr, yr, match).sum().backward()
+        assert mt.match_cost_grad.launches == before + 1
