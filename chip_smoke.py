@@ -131,12 +131,43 @@ on failure:
    ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
    latest.npz after step 3 holds exactly the JAX package's names, and
    restored into a fresh state it gives the same state and step-4 loss;
-8. print per-stage times of both flows, each main-path K1 launch's share
+8. the estimated-camera path (models/posenet, pipeline.reconstruct_image,
+   pipeline.estimate_cameras, the camera train step; no kernel of its own:
+   it runs K1 and K5 through image_to_mesh). [cam full]: a full-width
+   camera net whose heads' last kernels are zeroed and whose biases
+   predict the demo camera whatever the image, then reconstruct_image
+   (the `demo` subcommand's body) on the main path's image 1 at sdf_res
+   256, bf16, analytic head, its K1 and K5 counts set to 0 just before and
+   read just after: the predicted camera within CAM_REL_TOL of the demo
+   camera, route records_sparse, guard 0, K1 x2, K5 x1, and the mesh equal
+   (faces in order, vertices) to the main path's mesh of that image; the
+   net's forward at B = 1 and 64 (bf16 and f32, CUDA events, median of
+   5), [cam profile]: its heads alone and one forward under
+   torch.profiler, and the demo's wall time (median of 3). [cam farm]: estimate_cameras
+   over 64 in-memory views in one forward (every camera the demo camera),
+   then 4 of them through reconstruct_split(cam_est=True) and its keyword
+   readers into the camest_ tree, every mesh over 1000 faces. [cam hold]:
+   the bundled float16 nets (demo/tiny_posenet.npz, demo/tiny_synth.npz)
+   through reconstruct_image on a torus view rendered in memory at sdf_res
+   64, on the card and on the CPU: the cameras within CAM_HOLD_REL, the
+   same route, face counts within CAM_HOLD_FACES, the symmetric max
+   nearest-vertex distance within a cell. [cam train]: the camera step on
+   the card and the CPU at width 0.25, B = 2, shift head on, every loss
+   term: the f32 loss within CAM_LOSS_REL, every float64 gradient leaf
+   within HOLD_GRAD_REL; then 20 full-width steps (B = 20) from a fresh
+   seed-0 state on one batch, whose loss must fall (the median of the last
+   5 below that of the first 5), with ms/step;
+9. print per-stage times of both flows, each main-path K1 launch's share
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
    f32 kernels and K5's launches from the main path's run of phase 2, K6's
    from the farm's evaluate_tree, where K6d is not called: it serves
    autograd).
+
+A torch.profiler window that a check reads is taken again, up to
+PROFILE_TRIES windows, when it misses a device event the traced work
+always launches (the profiler drops events now and then); every window
+taken is printed and the check reads the last one.
 
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before printing it.
@@ -742,21 +773,56 @@ def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
     return res
 
 
-def profile_k5(args, kw) -> None:
-    """[k5 profile]: torch.profiler over one step on these inputs; the
-    device must run the library's work alone (the own-slot memset and its
-    two kernels), no PyTorch op's kernel."""
+# torch.profiler windows taken before a check reads one: now and then the
+# H100's profiler returns a window without some device events of the work
+# it traced, or without any (seen on kernels' memsets and on a whole K6a
+# window); the work itself does not change, so a window that misses an
+# event the work always launches is taken again
+PROFILE_TRIES = 3
+
+
+def profiled(fn, want: tuple = (), tdir: str | None = None):
+    """torch.profiler (CPU and the card) over fn() and a device sync,
+    taken again, up to PROFILE_TRIES windows, while the window holds no
+    device event, or no device event whose name contains one of `want`.
+    With tdir the window's Chrome trace is written to tdir/trace.json.
+    Returns (the profiler of the last window taken, fn's last result); the
+    caller's checks read that window as they would any other."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from disn_tpu_torch.utils.logging import trace
+
+    for i in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with (trace(tdir) if tdir else profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA])) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        missing = [w for w in want if not any(w in k for k in keys)]
+        if keys and not missing:
+            break
+        print(f"[profiler] window {i + 1} of {PROFILE_TRIES} held "
+              f"{len(keys)} device events"
+              + (f", none named {missing}" if keys else ""))
+    return prof, out
+
+
+def profile_k5(args, kw) -> None:
+    """[k5 profile]: torch.profiler over one step on these inputs; the
+    device must run the library's work alone (the own-slot memset and its
+    two kernels), no PyTorch op's kernel."""
+    from torch.autograd import DeviceType
+
     from disn_tpu_torch.ops import sparse_words
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sparse_words.sparse_cell_words(*args, **kw)
-        torch.cuda.synchronize()
+    ours = ("Memset", "own_scatter", "sparse_words_grid")
+    prof, _ = profiled(lambda: sparse_words.sparse_cell_words(*args, **kw),
+                       want=ours)
     avg = prof.key_averages()
     dev = [(e.key, e.count, _device_time(e, True)) for e in avg
            if e.device_type == DeviceType.CUDA]
@@ -766,7 +832,6 @@ def profile_k5(args, kw) -> None:
         print(f"[k5 profile] device: {key[:90]} x{count} {us:.2f} us")
     print(f"[k5 profile] {len(dev)} device events in one step; PyTorch ops "
           f"on the host (allocation and views, no device work): {ops}")
-    ours = ("Memset", "own_scatter", "sparse_words_grid")
     check(len(dev) == 3 and all(any(o in k for o in ours) for k, _, _ in dev),
           f"[k5 profile] the step ran other device work: {dev}")
 
@@ -896,7 +961,6 @@ def profile_phase_a(cfg, params, img, trans) -> None:
 
     from disn_tpu_torch import device as device_mod
     from disn_tpu_torch.infer import dense, pipeline, sparse
-    from disn_tpu_torch.utils.logging import trace
 
     dev = torch.device("cuda")
     params = device_mod.tree_to(params, dev)
@@ -907,11 +971,8 @@ def profile_phase_a(cfg, params, img, trans) -> None:
 
     wall = median_ms(run, False)
     tdir = os.path.join(TRACE_DIR, "phase_a")
-    for _ in range(2):  # the first profiled call also starts the tracer
-        torch.cuda.synchronize()
-        with trace(tdir) as prof:
-            _, _, vol_c, _, count = run()
-            torch.cuda.synchronize()
+    profiled(run, tdir=tdir)  # the first profiled call starts the tracer
+    prof, (_, _, vol_c, _, count) = profiled(run, tdir=tdir)
     busy, window, n_ev, syncs = trace_busy(tdir)
     tag = "[phase_a profile]"
     print(f"{tag} one phase_a: wall {wall:.3f} ms without the profiler "
@@ -1591,19 +1652,18 @@ def profile_steps(cfg, state, batch, label: str) -> None:
     kernels with the most self time on the device, with their share of the
     busy time, and the sampler's gather (forward) and scatter-add (its
     backward)."""
-    import torch
     from torch.autograd import DeviceType
 
     from disn_tpu_torch.train import trainer
-    from disn_tpu_torch.utils.logging import trace
 
     step = trainer.make_train_step(cfg)
     tdir = os.path.join(TRACE_DIR, label)
-    torch.cuda.synchronize()
-    with trace(tdir) as prof:
+
+    def steps():
         for _ in range(3):
             step(state, batch)
-        torch.cuda.synchronize()
+
+    prof, _ = profiled(steps, tdir=tdir)
     busy, window, n_ev, syncs = trace_busy(tdir)
     tag = f"[train profile {label}]"
     print(f"{tag} 3 steps: device busy {busy / 1e3:.3f} ms of a "
@@ -1681,7 +1741,8 @@ def phase_train_ckpt(records) -> None:
     check(rel <= 1e-5, "train ckpt: step 4's loss differs after resume")
 
 
-def phase_train() -> None:
+def phase_train() -> tuple[dict, dict]:
+    """The [train ...] phases; returns their in-memory records."""
     import torch
 
     t0 = time.perf_counter()
@@ -1695,6 +1756,7 @@ def phase_train() -> None:
     phase_train_ckpt(records)
     torch.cuda.empty_cache()
     print(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    return records
 
 
 # -- evaluation ---------------------------------------------------------------
@@ -2247,10 +2309,9 @@ def profile_k6(tag: str, pred, gt, mk, g) -> None:
     memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total; K6d: mc_grad_pass,
     mc_grad_total, one read of match), and each kernel's time a call. The
     profiler does not record every event of a window (the first is
-    sometimes missing), so a kernel need only be seen."""
-    import torch
+    sometimes missing), so a kernel need only be seen (and a window that
+    misses one is taken again: profiled)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from disn_tpu_torch.eval import metrics as mt
 
@@ -2262,12 +2323,7 @@ def profile_k6(tag: str, pred, gt, mk, g) -> None:
             ("match_cost_grad", lambda: mt.match_cost_grad(gt, pred, mk, g),
              ("mc_grad_pass", "mc_grad_total"))):
         fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
+        prof, _ = profiled(lambda: [fn() for _ in range(3)], want=kerns)
         dev = [(e.key, e.count, _device_time(e, True) / e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -2285,18 +2341,14 @@ def am_split(tag: str, xyz1, xyz2, res: dict) -> None:
     (2 a row pass, 1 a column pass and match write, none at the last level,
     0) at the special-function rate, the rate the bound counts 9 exps a
     pair at."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from disn_tpu_torch.eval import metrics as mt
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            mt.approx_match(xyz1, xyz2)
-        torch.cuda.synchronize()
     split = {"row": 0.0, "col": 0.0, "match": 0.0}
+    prof, _ = profiled(lambda: [mt.approx_match(xyz1, xyz2)
+                                for _ in range(3)],
+                       want=tuple(f"am_{k}" for k in split))
     other = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -2601,6 +2653,385 @@ def hold_device_iou(tree_card: float, tree_cpu: float, gt_mesh,
           "eval farm: --device-iou differs between the card and the CPU")
 
 
+# -- the estimated-camera path -----------------------------------------------
+
+# [cam full]: the camera net's predicted camera against the demo camera it
+# is built to predict, relative to max|demo_trans_mat| (164.2): the heads'
+# last kernels are zero, so their outputs are their biases exactly; what is
+# left is Gram-Schmidt on an orthonormal pair and f32 products, a few ulp
+# (~1e-7 on the host)
+CAM_REL_TOL = 1e-5
+# [cam hold]: the bundled tiny nets (float16 leaves) on the card and the CPU,
+# TF32 off: f32 convolutions and matmuls summed in other orders move the
+# camera by ~1e-6 of its scale
+CAM_HOLD_REL = 1e-4
+# their meshes at sdf_res 64: a grid value within rounding of the iso can
+# take the other sign on the other device, which moves or adds the vertices
+# on its edges within their cells: face counts within 2%, every vertex
+# within one cell edge (2/64) of the other mesh's nearest vertex
+CAM_HOLD_FACES = 0.02
+CAM_HOLD_RES = 64
+# [cam train]: the camera loss on the card and the CPU: a sum of squared
+# differences of the predicted matrices (scale ~150) from the GT ones,
+# where the encoder's summation order moves the prediction by ~1e-6
+CAM_LOSS_REL = 1e-4
+CAM_FARM_VIEWS = 64  # one forward of the create path
+CAM_DIR = os.path.join(ROOT, "build", "chip_smoke_cam")  # removed after
+
+
+def card_name() -> str:
+    """nvidia-smi's name and power limit of the card, as the records keep
+    them beside every time."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def cam_demo_params(cfg):
+    """A full-width camera net (posenet.init, seed 0, on the card) whose
+    heads predict the demo camera whatever the image: each head's last
+    kernel zeroed and its bias set to scale 1, the first two columns of the
+    demo view's regress_mat[:3] (orthonormal, det +1) and its translation
+    minus POSENET_T_BIAS; the demo view's K is K_137. Scaffolding for the
+    smoke run, like the analytic octahedron head."""
+    import torch
+    from disn_tpu_torch.core import camera
+    from disn_tpu_torch.models import posenet
+
+    params = posenet.init(cfg, seed=0)
+    _, regress, K, _ = camera.view_params_to_trans_mat(
+        45.0, 20.0, 1.1, np.zeros(3), 1.0)
+    r = regress[:3].astype(np.float64)
+    check(np.array_equal(K, camera.K_137)
+          and np.abs(r @ r.T - np.eye(3)).max() < 1e-6
+          and np.linalg.det(r) > 0,
+          "the demo view's K is not K_137 or its regress_mat[:3] is not a "
+          "rotation")
+    heads = params["cameraprediction"]
+    for name, bias in (("scale", [1.0]),
+                       ("ortho6d", np.r_[regress[:3, 0], regress[:3, 1]]),
+                       ("translation", regress[3] - camera.POSENET_T_BIAS)):
+        fc3 = heads[name]["fc3"]
+        fc3["weights"] = torch.zeros_like(fc3["weights"])
+        fc3["biases"] = torch.tensor(np.asarray(bias, np.float32),
+                                     device=fc3["biases"].device)
+    return params
+
+
+def cam_rel_err(trans: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(trans - want).max() / np.abs(want).max())
+
+
+def time_posenet(params, cfg, b: int) -> float:
+    """The camera net's forward (posenet.predict_trans_mat) on B seeded u8
+    images on the card: CUDA events, median of 5 after a warm-up."""
+    import torch
+    from disn_tpu_torch.models import posenet
+
+    img = torch.from_numpy(np.random.RandomState(b).randint(
+        0, 256, (b, 137, 137, 3), dtype=np.uint8)).to(CARD)
+    return median_ms(lambda: posenet.predict_trans_mat(params, img, cfg),
+                     True)
+
+
+def profile_posenet(params, cfg, smi: str) -> None:
+    """[cam profile]: the four heads alone (posenet.apply_heads on a
+    seeded embedding, CUDA events, median of 5) at B = 1 and 64, and one
+    bf16 forward at B = 1 under torch.profiler (the second of two
+    profiled calls): the device's busy time and idle share of the span of
+    its activity, and the 5 kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from disn_tpu_torch.models import posenet
+
+    heads = params["cameraprediction"]
+    for b in (1, 64):
+        emb = torch.from_numpy(np.random.RandomState(b).randn(
+            b, cfg.num_classes).astype(np.float32)).to(CARD)
+
+        def run():
+            with torch.no_grad():
+                return posenet.apply_heads(heads, emb)["pred_RT"]
+
+        print(f"[cam profile] the four heads alone at B={b}: "
+              f"{median_ms(run, True):.4f} ms (CUDA events, median of 5); "
+              f"{smi}")
+    img = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (1, 137, 137, 3), dtype=np.uint8)).to(CARD)
+    tdir = os.path.join(TRACE_DIR, "posenet")
+
+    def forward():
+        return posenet.predict_trans_mat(params, img, cfg)
+
+    profiled(forward, tdir=tdir)  # the first profiled call starts the tracer
+    prof, _ = profiled(forward, tdir=tdir)
+    busy, window, n_ev, _ = trace_busy(tdir)
+    print(f"[cam profile] one bf16 forward at B=1: device busy "
+          f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms span, idle share "
+          f"{1 - busy / window:.4f}, {n_ev} device events; {smi}")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    for e in sorted(rows, key=lambda e: -_device_time(e, True))[:5]:
+        t = _device_time(e, True)
+        print(f"[cam profile] top kernel: {e.key[:100]} {t / 1e3:.4f} ms in "
+              f"{e.count} calls ({t / busy:.4f} of busy)")
+
+
+def phase_cam_full(img, main_mesh, encode_ms: float, smi: str):
+    """[cam full]: pipeline.reconstruct_image (the demo subcommand's body)
+    on the main path's image 1 with the demo-camera net at full width and
+    the analytic octahedron head, sdf_res 256, bf16, its K1 and K5 counts
+    set to 0 just before and read just after; then the net's forward and
+    the demo's wall time. Returns the net."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    sdf_params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    cam = cam_demo_params(cfg)
+    demo = synthetic.demo_trans_mat()
+    stats: dict = {}
+    torch.cuda.synchronize()
+    k1.launches = k5.launches = 0
+    verts, faces = pipeline.reconstruct_image(sdf_params, img, cfg,
+                                              cam_params=cam, stats=stats)
+    launches = (k1.launches, k5.launches)
+    err = cam_rel_err(stats["trans_mat"], demo)
+    print(f"[cam full] predicted camera vs the demo camera: max|diff| / "
+          f"max|demo| {err:.3e} (limit {CAM_REL_TOL}); route "
+          f"{stats['route']}, guard {stats.get('guard')}, words guard "
+          f"{stats.get('swords_guard')}, K1 {launches[0]} and K5 "
+          f"{launches[1]} launches; {len(faces)} faces, {len(verts)} verts")
+    check(err <= CAM_REL_TOL, "cam full: the predicted camera is not the "
+                              "demo camera")
+    check(stats["route"] == "records_sparse" and stats.get("guard") == 0
+          and stats.get("swords_guard", 0) == 0 and launches == (2, 1),
+          "cam full: expected route records_sparse, guard 0, K1 x2, K5 x1")
+    mv, mf = main_mesh
+    same = (np.array_equal(faces, mf) and verts.shape == mv.shape
+            and np.array_equal(verts, mv))
+    print(f"[cam full] mesh equal to the main path's mesh of the image under "
+          f"the demo camera (faces in order, vertices): {same}")
+    check(same, "cam full: the estimated-camera mesh is not the main "
+                "path's (the analytic head's field does not depend on the "
+                "camera)")
+    for dt, c in (("bf16", cfg), ("f32", cfg.replace(compute_dtype=
+                                                     "float32"))):
+        ms = {b: time_posenet(cam, c, b) for b in (1, 64)}
+        print(f"[cam full] posenet forward {dt} (full width, CUDA events, "
+              f"median of 5): B=1 {ms[1]:.3f} ms, B=64 {ms[64]:.3f} ms = "
+              f"{ms[64] / 64:.3f} ms an image; the main path's encode_ms "
+              f"(bf16, B=1) {encode_ms:.3f}; {smi}")
+    profile_posenet(cam, cfg, smi)
+    wall = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.reconstruct_image(sdf_params, img, cfg, cam_params=cam)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    print(f"[cam full] demo wall (posenet + image_to_mesh, bf16 257^3, host "
+          f"clock, median of 3 after the gated run) {np.median(wall):.3f} "
+          f"ms, all {[round(w, 3) for w in wall]}; {smi}")
+    return cam, sdf_params, cfg
+
+
+def phase_cam_hold(smi: str) -> None:
+    """[cam hold]: the bundled tiny nets (demo/tiny_posenet.npz and
+    demo/tiny_synth.npz, float16 leaves; width 0.25, 128 classes) through
+    reconstruct_image on a torus view rendered in memory, sdf_res 64, TF32
+    off, on the card and with device='cpu'."""
+    import torch
+    from disn_tpu_torch import convert
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+
+    cfg = Config(width_mult=0.25, num_classes=128, sdf_res=CAM_HOLD_RES)
+    cam = convert.load_npz(os.path.join(ROOT, "demo", "tiny_posenet.npz"))
+    sdf = convert.load_npz(os.path.join(ROOT, "demo", "tiny_synth.npz"))
+    img = np.ascontiguousarray(synthetic.render_view(
+        synthetic.sdf_torus, 40.0, 25.0, 0.85)[0][:, :, :3])
+    out = {}
+    for dev in (CARD, "cpu"):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        mesh = pipeline.reconstruct_image(sdf["params"], img, cfg,
+                                          cam_params=cam["params"],
+                                          device=dev, stats=stats)
+        out[dev] = (mesh, stats, (time.perf_counter() - t0) * 1e3)
+    (cv, cf), cst, cms = out[CARD]
+    (pv, pf), pst, pms = out["cpu"]
+    rel = cam_rel_err(cst["trans_mat"], pst["trans_mat"])
+    share = abs(len(cf) - len(pf)) / max(len(pf), 1)
+    a, b = torch.from_numpy(cv).to(CARD), torch.from_numpy(pv).to(CARD)
+    d = torch.cat([torch.cdist(a[i:i + 4096], b).min(1).values
+                   for i in range(0, len(a), 4096)]).max().item()
+    d = max(d, torch.cat([torch.cdist(b[i:i + 4096], a).min(1).values
+                          for i in range(0, len(b), 4096)]).max().item())
+    cell = 2.0 / CAM_HOLD_RES
+    print(f"[cam hold] bundled nets, torus view, sdf_res {CAM_HOLD_RES}: "
+          f"camera card vs cpu max|diff|/max|cpu| {rel:.3e} (limit "
+          f"{CAM_HOLD_REL}); faces card {len(cf)} cpu {len(pf)} (share "
+          f"{share:.4f}, limit {CAM_HOLD_FACES}); symmetric max "
+          f"nearest-vertex distance {d:.3e} (limit one cell, {cell:.4f}); "
+          f"routes {cst['route']} / {pst['route']}; wall card {cms:.1f} ms "
+          f"(first call) cpu {pms:.1f} ms; {smi}")
+    check(len(pf) > 1000 and cst["route"] == pst["route"],
+          "cam hold: the CPU mesh has too few faces, or the routes differ")
+    check(rel <= CAM_HOLD_REL, "cam hold: the cameras differ")
+    check(share <= CAM_HOLD_FACES and d <= cell,
+          "cam hold: the card's mesh is not the CPU's")
+
+
+def phase_cam_train(records, smi: str) -> None:
+    """[cam train]: the camera step on the card and with device='cpu' at
+    width 0.25, B = 2 (shift head on, every loss term), from the same
+    params and batch: the f32 losses, every gradient leaf in float64; then
+    20 steps of the full-width default Config (B = 20) from a fresh seed-0
+    state on one batch of the in-memory records, whose loss must fall."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.models import posenet
+    from disn_tpu_torch.train import checkpoint, trainer
+
+    cfg = Config(width_mult=0.25, num_classes=64, batch_size=2,
+                 num_sample_points=256, cam_shift=True, cam_loss_mode="all")
+    params = posenet.init(cfg, seed=0, device="cpu")
+    batch = trainer.to_cam_batch(host_batch(cfg, records, seed=1))
+    check("shifts" in batch, "cam train: the batch has no shifts")
+    for dtype in ("float32", "float64"):
+        c = cfg.replace(compute_dtype=dtype)
+        devs = (("card", CARD), ("cpu", "cpu"))
+        st = {k: trainer.create_state(c, params=params, device=d)
+              for k, d in devs}
+        loss = {k: trainer.compute_gradients(st[k], on(batch, d),
+                                             trainer.cam_loss_fn)
+                ["overall_loss"].item() for k, d in devs}
+        rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+        ratios = []
+        for (path, pg), (_, pc) in zip(checkpoint.leaves(st["card"].params),
+                                       checkpoint.leaves(st["cpu"].params)):
+            scale = max(pc.grad.abs().max().item(), 1e-30)
+            ratios.append(((pg.grad.cpu() - pc.grad).abs().max().item()
+                           / scale, path))
+        worst = max(ratios)
+        over = sum(r > HOLD_GRAD_REL for r, _ in ratios)
+        print(f"[cam train] hold {dtype}: loss card {loss['card']!r} cpu "
+              f"{loss['cpu']!r} rel {rel:.3e} (limit {CAM_LOSS_REL}); "
+              f"gradients: worst leaf {worst[1]} max|diff|/max|grad| "
+              f"{worst[0]:.3e}, {over} of {len(ratios)} leaves over "
+              f"{HOLD_GRAD_REL}")
+        check(rel <= CAM_LOSS_REL, f"cam train {dtype}: the loss differs")
+        if dtype == "float64":
+            check(over == 0, "cam train: a float64 gradient leaf differs "
+                             "between the card and the CPU")
+    cfg = Config()
+    state = trainer.create_state(cfg, seed=0, init_fn=posenet.init)
+    step = trainer.make_cam_train_step(cfg)
+    batch = on(trainer.to_cam_batch(host_batch(cfg, records, seed=2)), CARD)
+    losses, ms = [], []
+    for _ in range(20):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        losses.append(step(state, batch)[1]["overall_loss"])
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    losses = [x.item() for x in losses]
+    first, last = np.median(losses[:5]), np.median(losses[-5:])
+    print(f"[cam train] full width, B = {cfg.batch_size}, f32, 20 steps on "
+          f"one batch: overall_loss {[round(x, 2) for x in losses]}; median "
+          f"of the first 5 {first:.2f}, of the last 5 {last:.2f}; ms/step "
+          f"median of steps 3-20 {np.median(ms[2:]):.3f} (CUDA events), "
+          f"all {[round(x, 2) for x in ms]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+    check(all(np.isfinite(losses)) and last < first,
+          "cam train: the loss did not fall over 20 steps on one batch")
+
+
+def phase_cam_farm(cam, sdf_params, cfg, smi: str) -> None:
+    """[cam farm]: the create path (pipeline.estimate_cameras, one forward
+    of 64 in-memory views, seeded u8 RGBA images) with the demo-camera
+    net, every camera within CAM_REL_TOL of the demo camera; then the first
+    4 views' estimated records through reconstruct_split(cam_est=True) and
+    its keyword readers (sdf_res 256, bf16, analytic head) into the
+    camest_ tree: every mesh over 1000 faces."""
+    import shutil
+
+    import torch
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.data import listing, synthetic
+    from disn_tpu_torch.infer import pipeline
+
+    shutil.rmtree(CAM_DIR, ignore_errors=True)
+    paths = listing.SplitPaths(os.path.join(CAM_DIR, "sdf"),
+                               os.path.join(CAM_DIR, "renders_camest"))
+    rng = np.random.RandomState(5)
+    items = [((FARM_CAT, "cam0", v), codecs.ViewRecord(
+        img_arr=rng.randint(0, 256, (137, 137, 4), dtype=np.uint8),
+        trans_mat=np.zeros((4, 3), np.float32),
+        K=np.eye(3, dtype=np.float32), RT=np.zeros((3, 4), np.float32),
+        obj_rot_mat=np.eye(3, dtype=np.float32),
+        regress_mat=np.zeros((4, 3), np.float32)))
+        for v in range(CAM_FARM_VIEWS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = list(pipeline.estimate_cameras(cam, iter(items), cfg,
+                                         batch=CAM_FARM_VIEWS))
+    est_ms = (time.perf_counter() - t0) * 1e3
+    demo = synthetic.demo_trans_mat()
+    err = max(cam_rel_err(r.trans_mat, demo) for _, r in est)
+    check([k for k, _ in est] == [k for k, _ in items],
+          "cam farm: estimate_cameras changed the order")
+    check(err <= CAM_REL_TOL, "cam farm: an estimated camera is not the "
+                              "demo camera")
+    views = {paths.img_path(*k): r for k, r in est[:4]}
+    sdf = {paths.sdf_path(FARM_CAT, "cam0"): pipeline.UNIT_BOX}
+    t0 = time.perf_counter()
+    written = pipeline.reconstruct_split(
+        sdf_params, cfg, paths, [k for k, _ in est[:4]], CAM_DIR,
+        cam_est=True, read_view=views.__getitem__,
+        read_sdf_params=sdf.__getitem__)
+    rec_s = time.perf_counter() - t0
+    faces = [len(codecs.read_obj(p)[1]) for p in written]
+    root = pipeline.result_dir(CAM_DIR, cfg, cam_est=True)
+    print(f"[cam farm] estimate_cameras: {CAM_FARM_VIEWS} views in one "
+          f"forward, {est_ms:.3f} ms host clock (images from memory), worst "
+          f"camera vs demo {err:.3e}; reconstruct_split(cam_est=True): "
+          f"{len(written)} meshes in {rec_s:.3f} s under "
+          f"{os.path.relpath(root, CAM_DIR)}, faces {faces}; {smi}")
+    check(len(written) == 4 and all(p.startswith(root + os.sep)
+                                    for p in written)
+          and os.path.basename(root).startswith("camest_"),
+          "cam farm: the meshes are not in the camest_ tree")
+    check(all(f > 1000 for f in faces), "cam farm: a mesh has too few faces")
+    shutil.rmtree(CAM_DIR, ignore_errors=True)
+
+
+def phase_cam(records, img, main_mesh, encode_ms: float) -> None:
+    import torch
+
+    t0 = time.perf_counter()
+    smi = card_name()
+    cam, sdf_params, cfg = phase_cam_full(img, main_mesh, encode_ms, smi)
+    phase_cam_farm(cam, sdf_params, cfg, smi)
+    del cam, sdf_params
+    torch.cuda.empty_cache()
+    phase_cam_hold(smi)
+    phase_cam_train(records, smi)
+    torch.cuda.empty_cache()
+    print(f"[cam] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def k1_entries(res: dict, launches: dict) -> list[dict]:
     """K1's two kernels, each per image: its coarse + fine launch on the
     main path's own inputs (the error: the worst of every timed hold of the
@@ -2687,6 +3118,8 @@ def main() -> int:
         compare_flows(held["cfg"], held["params"], held["trans"])
         profile_phase_a(*main_inputs)
         pred_mesh = held["bf16"][1]
+        cam_inputs = (held["img"], pred_mesh,
+                      float(np.median([r["encode_ms"] for r in runs[1:4]])))
         del held, main_inputs
         torch.cuda.empty_cache()
         gt_mesh = octahedron_mesh(128, "float32")
@@ -2694,7 +3127,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         k6_counts = phase_eval_farm(gt_mesh)
         torch.cuda.empty_cache()
-        phase_train()
+        records = phase_train()
+        phase_cam(records, *cam_inputs)
         for flow, timed, keys in (
                 ("words", runs[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
                                       "phase_b_ms", "scan_ms",
@@ -2715,11 +3149,7 @@ def main() -> int:
                   f"{[r['faces'] for r in timed]} verts="
                   f"{[r['verts'] for r in timed]} route="
                   f"{[r['route'] for r in timed]}")
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-        print(f"[card] {smi}")
+        print(f"[card] {card_name()}")
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         print_k1_shares(kept, k1)
         print(json.dumps({"kernels": [

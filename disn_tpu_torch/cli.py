@@ -1,5 +1,6 @@
-"""Command-line interface of the port (the `train`, `create-sdf`,
-`evaluate` and `evaluate-acc` subcommands of disn_tpu/cli.py):
+"""Command-line interface of the port (the `train`, `train-cam`,
+`create-sdf`, `demo`, `evaluate` and `evaluate-acc` subcommands of
+disn_tpu/cli.py):
 
     python -m disn_tpu_torch train --data-root DIR [--device cpu]
 
@@ -18,7 +19,18 @@ reconstruct every view of a split into
 {log-dir}/test_objs/{R}_{iso}/{cat}/{cat}_{obj}_{view:02d}.obj, score such
 a tree against {G}/{cat}/{obj}/isosurf.obj (CD, EMD, F-score, IoU; the
 result JSON on stdout and in --out), and print the SDF accuracy and losses
-over a split. Every subcommand runs on the GPU unless --device cpu.
+over a split.
+
+    python -m disn_tpu_torch train-cam --data-root DIR [--mode train|test|create]
+    python -m disn_tpu_torch create-sdf --data-root DIR --restore CKPT --cam-est
+    python -m disn_tpu_torch demo --image IMG --restore CKPT [--cam-est]
+
+train the camera net (latest.npz every 1000 steps), report its losses and
+point distances over a split, or write DIR/renders_camest/, the view tree
+with every trans_mat replaced by the net's prediction, which create-sdf
+--cam-est reconstructs into test_objs/camest_{R}_{iso}/. demo turns one
+image (a view h5, or a PNG with --trans-mat or an estimated camera) into
+an OBJ. Every subcommand runs on the GPU unless --device cpu.
 """
 from __future__ import annotations
 
@@ -54,8 +66,10 @@ def apply_overrides(cfg: Config, pairs: list[str]) -> Config:
     return cfg.replace(**kw)
 
 
-def data_handles(cfg: Config, data_root: str, split: str):
-    """(listinfo, cats_limit, SplitPaths) of a dataset tree."""
+def data_handles(cfg: Config, data_root: str, split: str,
+                 cam_est: bool = False):
+    """(listinfo, cats_limit, SplitPaths) of a dataset tree; with cam_est
+    the views are read from renders_camest/ instead of renders/."""
     from disn_tpu_torch.data import listing
 
     lst_dir = os.path.join(data_root, "filelists")
@@ -69,8 +83,9 @@ def data_handles(cfg: Config, data_root: str, split: str):
             cats[cat] = cat
     listinfo, cats_limit = listing.load_split(lst_dir, cats, split,
                                               view_num=cfg.view_num)
-    paths = listing.SplitPaths(os.path.join(data_root, "sdf"),
-                               os.path.join(data_root, "renders"))
+    paths = listing.SplitPaths(
+        os.path.join(data_root, "sdf"),
+        os.path.join(data_root, "renders_camest" if cam_est else "renders"))
     return listinfo, cats_limit, paths
 
 
@@ -106,7 +121,7 @@ def cmd_train(args) -> None:
             continue
         donor = checkpoint.restore_params(donor_path)
         merged, skipped = checkpoint.merge_scopes(
-            state.state_tree()["params"], donor.get("params", donor),
+            state.params_tree(), donor.get("params", donor),
             scopes=scopes, skip_substr=skip)
         state.load_params(merged)
         logger.log(f"restored {donor_path} (scopes {scopes or 'all'}); "
@@ -142,6 +157,140 @@ def cmd_train(args) -> None:
         logger.close()
 
 
+def cmd_train_cam(args) -> None:
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.data import pipeline
+    from disn_tpu_torch.models import posenet
+    from disn_tpu_torch.train import checkpoint, trainer
+    from disn_tpu_torch.utils.logging import MetricLogger
+
+    dev = device_mod.resolve(args.device)
+    cfg = apply_overrides(Config(), args.set)
+    logger = MetricLogger(args.log_dir, name="cam")
+    state = trainer.create_state(cfg, seed=args.seed, device=dev,
+                                 init_fn=posenet.init)
+    if args.restore:
+        # where the paths and shapes agree
+        donor = checkpoint.restore_params(args.restore)
+        merged, _ = checkpoint.merge_scopes(state.params_tree(),
+                                            donor.get("params", donor))
+        state.load_params(merged)
+    if args.mode == "create":
+        _cam_create_h5(args, cfg, state.params, logger, dev)
+        return
+    if args.mode == "test":
+        _cam_eval(args, cfg, state.params, logger, dev)
+        return
+    listinfo, cats_limit, paths = data_handles(cfg, args.data_root, "train")
+    loader = pipeline.make_loader(cfg, paths, listinfo, cats_limit,
+                                  epochs=args.epochs, workers=args.workers,
+                                  seed=args.seed, device=dev)
+    step_fn = trainer.make_cam_train_step(cfg, device=dev)
+    mgr = checkpoint.CheckpointManager(args.log_dir, period=10)
+    loader.start()
+    try:
+        for i, batch in enumerate(loader):
+            state, losses = step_fn(state, trainer.to_cam_batch(batch))
+            if i % args.log_every == 0:
+                logger.metrics(i, losses)
+            if i % 1000 == 999:
+                mgr.save_latest({"params": state.params_tree()},
+                                state.step)
+    finally:
+        loader.shutdown()
+        logger.close()
+
+
+def _cam_eval(args, cfg: Config, params, logger, dev) -> None:
+    """--mode test: the camera loss graph over one unshuffled epoch of the
+    split's batches; every loss averaged over batches, and the average,
+    largest and smallest per-batch 2D and 3D point distances."""
+    import numpy as np
+
+    from disn_tpu_torch.data import pipeline
+    from disn_tpu_torch.train import trainer
+
+    listinfo, cats_limit, paths = data_handles(cfg, args.data_root,
+                                               args.split)
+    loader = pipeline.make_loader(cfg, paths, listinfo, cats_limit,
+                                  epochs=1, shuffle=False,
+                                  workers=args.workers, seed=args.seed,
+                                  device=dev)
+    ev = trainer.make_eval_step(cfg, device=dev,
+                                objective=trainer.cam_loss_fn)
+    sums: dict[str, float] = {}
+    d2, d3 = [], []
+    loader.start()
+    try:
+        for batch in loader:
+            losses = {k: float(v) for k, v in
+                      ev(params, trainer.to_cam_batch(batch)).items()}
+            for k, v in losses.items():
+                sums[k] = sums.get(k, 0.0) + v
+            d2.append(losses["rot2d_dist"])
+            d3.append(losses["rot3d_dist"])
+    finally:
+        loader.shutdown()
+    if not d2:
+        logger.log("cam eval: empty split")
+        return
+    for k in sorted(sums):
+        logger.log(f"cam eval {k}: {sums[k] / len(d2):.6f}")
+    for name, d in (("2d", np.asarray(d2)), ("3d", np.asarray(d3))):
+        logger.log(f"avg {name} dist {d.mean():.6f}, max {name} dist "
+                   f"{d.max():.6f}, min {name} dist {d.min():.6f}")
+    logger.close()
+
+
+def _cam_create_h5(args, cfg: Config, params, logger, dev,
+                   batch: int = 64) -> None:
+    """--mode create: rewrite the split's view h5s into
+    DATA_ROOT/renders_camest/{cat}/{obj}/{view:02d}.h5 with trans_mat
+    replaced by the camera net's prediction (everything else copied):
+    pipeline.estimate_cameras, BATCH views a forward, fed by a reader pool
+    that prefetches the h5s (gzip decompression is the host's cost) up to
+    2 x BATCH ahead and drained by a writer pool with at most 4 x BATCH
+    writes pending."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.infer import pipeline
+
+    listinfo, _, paths = data_handles(cfg, args.data_root, args.split)
+    out_root = os.path.join(args.data_root, "renders_camest")
+
+    def prefetched(readers):
+        pending: deque = deque()
+        todo = iter(listinfo)
+        while True:
+            while len(pending) < 2 * batch:
+                key = next(todo, None)
+                if key is None:
+                    break
+                pending.append((key, readers.submit(
+                    codecs.read_view_h5, paths.img_path(*key))))
+            if not pending:
+                return
+            key, fut = pending.popleft()
+            yield key, fut.result()
+
+    with ThreadPoolExecutor(2) as writers, ThreadPoolExecutor(2) as readers:
+        writes: deque = deque()
+        for (cat_id, obj, view), rec in pipeline.estimate_cameras(
+                params, prefetched(readers), cfg, batch=batch, device=dev):
+            writes.append(writers.submit(
+                codecs.write_view_h5,
+                os.path.join(out_root, cat_id, obj, f"{view:02d}.h5"), rec))
+            while len(writes) > 4 * batch:
+                writes.popleft().result()
+        for f in writes:
+            f.result()
+    logger.log(f"wrote {len(listinfo)} estimated-camera view h5s to "
+               f"{out_root}")
+    logger.close()
+
+
 def cmd_create_sdf(args) -> None:
     from disn_tpu_torch import convert
     from disn_tpu_torch import device as device_mod
@@ -150,21 +299,80 @@ def cmd_create_sdf(args) -> None:
 
     if args.multi_view:
         raise NotImplementedError("--multi-view: the multiview fusion is "
-                                  "not ported yet (ROADMAP item 14)")
-    if args.cam_est:
-        raise NotImplementedError("--cam-est: the camera net is not ported "
-                                  "yet (ROADMAP item 13)")
+                                  "not ported yet (ROADMAP Queue 1 item 5)")
     dev = device_mod.resolve(args.device)
     cfg = apply_overrides(Config(), args.set)
     logger = MetricLogger(args.log_dir, name="test")
-    listinfo, _, paths = data_handles(cfg, args.data_root, args.split)
+    listinfo, _, paths = data_handles(cfg, args.data_root, args.split,
+                                      cam_est=args.cam_est)
     donor = convert.load_npz(args.restore)
     written = pipeline.reconstruct_split(
         donor.get("params", donor), cfg, paths, listinfo, args.log_dir,
-        sparse=not args.dense, logger=logger, shard_index=args.shard,
-        shard_count=args.shards, device=dev)
+        cam_est=args.cam_est, sparse=not args.dense, logger=logger,
+        shard_index=args.shard, shard_count=args.shards, device=dev)
     logger.log(f"wrote {len(written)} meshes")
     logger.close()
+
+
+# the bundled camera net (demo/make_assets.py trains it on the synthetic
+# dataset), used by `demo` without --cam-restore at its own config only
+BUNDLED_POSENET = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "demo",
+    "tiny_posenet.npz")
+
+
+def cmd_demo(args) -> None:
+    import numpy as np
+
+    from disn_tpu_torch import convert
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.utils.logging import MetricLogger
+
+    dev = device_mod.resolve(args.device)
+    cfg = apply_overrides(Config(), args.set)
+    logger = MetricLogger(None)
+    if args.image.endswith(".h5"):
+        rec = codecs.read_view_h5(args.image)
+        img = rec.img_arr[:, :, :cfg.img_channels]  # u8, /255 on the device
+        trans = rec.trans_mat
+    else:
+        img = codecs.read_png(args.image, "RGBA" if cfg.alpha else "RGB")
+        trans = None
+    if args.trans_mat:
+        trans = np.loadtxt(args.trans_mat, dtype=np.float32,
+                           comments="#").reshape(4, 3)
+    cam_params = None
+    if args.cam_est or trans is None:
+        cam_restore = args.cam_restore
+        if (not cam_restore and cfg.width_mult == 0.25
+                and cfg.num_classes == 128
+                and os.path.exists(BUNDLED_POSENET)):
+            # the bundled net only at its own training config: at another
+            # width its shapes do not fit, and a toy camera for a real
+            # photo would mislead
+            cam_restore = BUNDLED_POSENET
+            logger.log(f"using bundled posenet checkpoint {cam_restore} "
+                       "(synthetically trained; pass --cam-restore for a "
+                       "real one)")
+        if not cam_restore:
+            raise SystemExit(
+                "a plain image carries no camera: pass --trans-mat "
+                "<4x3 txt> or --cam-restore <posenet ckpt> (or use a view "
+                ".h5 with a trans_mat)")
+        donor = convert.load_npz(cam_restore)
+        cam_params = donor.get("params", donor)
+        trans = None
+    donor = convert.load_npz(args.restore)
+    verts, faces = pipeline.reconstruct_image(
+        donor.get("params", donor), img, cfg, trans_mat=trans,
+        cam_params=cam_params, sparse=not args.dense, clean=args.clean,
+        device=dev)
+    if cam_params is not None:
+        logger.log("camera estimated by posenet")
+    codecs.write_obj(args.out, verts, faces)
+    logger.log(f"wrote {args.out}: {len(verts)} verts, {len(faces)} faces")
 
 
 def cmd_evaluate(args) -> None:
@@ -254,13 +462,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "either package's")
     p.set_defaults(fn=cmd_train)
 
+    p = sub.add_parser("train-cam", help="camera pose training / eval / h5")
+    _common(p)
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--mode", choices=["train", "test", "create"],
+                   default="train",
+                   help="train; test: losses and point distances over "
+                        "--split; create: write renders_camest/")
+    p.add_argument("--split", default="test",
+                   help="the split of --mode test and create")
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--restore", default=None,
+                   help="camera-net params from a checkpoint (shape "
+                        "mismatches skipped); either package's")
+    p.set_defaults(fn=cmd_train_cam)
+
     p = sub.add_parser("create-sdf", help="test-split reconstruction")
     _common(p)
     p.add_argument("--data-root", required=True)
     p.add_argument("--restore", required=True)
     p.add_argument("--split", default="test")
     p.add_argument("--cam-est", action="store_true",
-                   help="not ported yet: raises")
+                   help="read the estimated-camera tree renders_camest/ "
+                        "and write test_objs/camest_{R}_{iso}/")
     p.add_argument("--dense", action="store_true",
                    help="exact dense path (default: sparse two-level)")
     p.add_argument("--shard", type=int, default=0,
@@ -270,6 +497,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multi-view", action="store_true",
                    help="not ported yet: raises")
     p.set_defaults(fn=cmd_create_sdf)
+
+    p = sub.add_parser("demo", help="single image -> mesh")
+    _common(p)
+    p.add_argument("--image", required=True, help="png or view h5")
+    p.add_argument("--restore", required=True)
+    p.add_argument("--trans-mat", default=None,
+                   help="4x3 world->pixel matrix txt for a plain png "
+                        "(e.g. demo/chair_trans_mat.txt)")
+    p.add_argument("--cam-est", action="store_true",
+                   help="estimate the camera with the camera net")
+    p.add_argument("--cam-restore", default=None,
+                   help="the camera net's checkpoint (default: the bundled "
+                        "demo/tiny_posenet.npz, at width_mult 0.25 and 128 "
+                        "classes only)")
+    p.add_argument("--dense", action="store_true")
+    p.add_argument("--clean", action="store_true")
+    p.add_argument("--out", default="result.obj")
+    p.set_defaults(fn=cmd_demo)
 
     p = sub.add_parser("evaluate", help="cd/emd/f-score/iou over a result tree")
     _common(p)

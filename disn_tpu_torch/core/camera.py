@@ -1,10 +1,12 @@
-"""Camera math: Blender-style projection, world->pixel matrix composition and
-the point->pixel projector (port of disn_tpu/core/camera.py).
+"""Camera math: Blender-style projection, world->pixel matrix composition,
+the point->pixel projector and the camera net's rotation helpers (port of
+disn_tpu/core/camera.py).
 
 The composed world->pixel transform is a TRANSPOSED 4x3 matrix that
 right-multiplies homogeneous points; the projector divides by the third
 (depth) column and clamps to the image box. The host helpers are numpy in
-float64, the projector is torch in float32.
+float64, the projector and the rotation helpers are torch (float32, or
+float64 on float64 inputs).
 """
 from __future__ import annotations
 
@@ -28,8 +30,18 @@ CAM_ROT = np.array(
     ]
 )
 
+# Fixed intrinsics at 137x137: f_pix = 35 * 137 / 32, c = 68.5.
+K_137 = np.array(
+    [[149.84375, 0.0, 68.5], [0.0, 149.84375, 68.5], [0.0, 0.0, 1.0]],
+    dtype=np.float32,
+)
+
 # Fixed 90-degree turn about y of the view-frame point rotation.
 ROT90Y = np.array([[0, 0, -1], [0, 1, 0], [1, 0, 0]], dtype=np.float32)
+
+# Translation-head bias of the camera net (dataset statistics).
+POSENET_T_BIAS = np.array([-0.00193892, 0.00169222, 1.3949631],
+                          dtype=np.float32)
 
 
 def blender_proj(az: float, el: float, distance_ratio: float,
@@ -81,6 +93,15 @@ def norm_matrix(centroid: np.ndarray, m: float) -> np.ndarray:
     return T_inv @ M_inv
 
 
+def compose_trans_mat(K: np.ndarray, RT: np.ndarray, rot_mat: np.ndarray,
+                      norm_mat: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(trans_mat, regress_mat) = ((K RT rot norm)^T, (RT rot norm)^T),
+    both 4x3 right-multiply matrices in float32."""
+    trans = np.linalg.multi_dot([K, RT, rot_mat, norm_mat])
+    regress = np.linalg.multi_dot([RT, rot_mat, norm_mat])
+    return trans.T.astype(np.float32), regress.T.astype(np.float32)
+
+
 def view_params_to_trans_mat(az: float, el: float, distance_ratio: float,
                              centroid: np.ndarray, m: float,
                              img_w: int = 137, img_h: int = 137
@@ -91,10 +112,8 @@ def view_params_to_trans_mat(az: float, el: float, distance_ratio: float,
     K, RT = blender_proj(az, el, distance_ratio, img_w=img_w, img_h=img_h)
     rot = rotate_matrix(-np.pi / 2)
     nm = norm_matrix(centroid, m)
-    trans = np.linalg.multi_dot([K, RT, rot, nm])
-    regress = np.linalg.multi_dot([RT, rot, nm])
-    return (trans.T.astype(np.float32), regress.T.astype(np.float32),
-            K.astype(np.float32), RT.astype(np.float32))
+    trans, regress = compose_trans_mat(K, RT, rot, nm)
+    return trans, regress, K.astype(np.float32), RT.astype(np.float32)
 
 
 def obj_rot_matrix(az_deg: float, el_deg: float, inl_deg: float
@@ -118,22 +137,58 @@ def obj_rot_matrix(az_deg: float, el_deg: float, inl_deg: float
 
 
 def project_points(sample_pc: torch.Tensor, trans_mat: torch.Tensor,
-                   img_w: int = 137, img_h: int = 137) -> torch.Tensor:
+                   img_w: int = 137, img_h: int = 137,
+                   xyshift: torch.Tensor | None = None,
+                   clamp: bool = True) -> torch.Tensor:
     """Project [..., N, 3] points with a [..., 4, 3] matrix -> [..., N, 2]
     (x, y) pixel coordinates clamped to [0, img_w-1] x [0, img_h-1]:
-    homogeneous append, matmul, divide by the z column, clamp.
+    homogeneous append, matmul, divide by the z column, clamp. clamp=False
+    gives the raw projection (the camera net's 2D loss trains on it); a
+    [..., 2] xyshift adds the camera net's half-image-relative shift,
+    xyshift / 2 * img_h pixels, before the clamp.
 
-    Float32 throughout, with the dot products written out term by term in
-    the order the CUDA decode kernel evaluates them (no matmul, so no
-    reduced-precision path can touch them: a bf16-rounded projection moves
-    samples by ~0.3 px). NaN survives the clamp, as in jnp.clip."""
-    pc = sample_pc.float()
-    t = trans_mat.float()[..., None, :, :]  # broadcast over the point axis
+    Float32 (float64 when an input is float64) throughout, with the dot
+    products written out term by term in the order the CUDA decode kernel
+    evaluates them (no matmul, so no reduced-precision path can touch
+    them: a bf16-rounded projection moves samples by ~0.3 px). NaN
+    survives the clamp, as in jnp.clip."""
+    dt = torch.promote_types(
+        torch.promote_types(sample_pc.dtype, trans_mat.dtype), torch.float32)
+    pc = sample_pc.to(dt)
+    t = trans_mat.to(dt)[..., None, :, :]  # broadcast over the point axis
     u = (pc[..., 0] * t[..., 0, 0] + pc[..., 1] * t[..., 1, 0]
          + pc[..., 2] * t[..., 2, 0] + t[..., 3, 0])
     v = (pc[..., 0] * t[..., 0, 1] + pc[..., 1] * t[..., 1, 1]
          + pc[..., 2] * t[..., 2, 1] + t[..., 3, 1])
     w = (pc[..., 0] * t[..., 0, 2] + pc[..., 1] * t[..., 1, 2]
          + pc[..., 2] * t[..., 2, 2] + t[..., 3, 2])
-    return torch.stack([torch.clamp(u / w, 0.0, img_w - 1.0),
-                        torch.clamp(v / w, 0.0, img_h - 1.0)], dim=-1)
+    x, y = u / w, v / w
+    if xyshift is not None:
+        shift = xyshift.to(dt)[..., None, :] / 2.0 * img_h
+        x, y = x + shift[..., 0], y + shift[..., 1]
+    if clamp:
+        x = torch.clamp(x, 0.0, img_w - 1.0)
+        y = torch.clamp(y, 0.0, img_h - 1.0)
+    return torch.stack([x, y], dim=-1)
+
+
+def ortho6d_to_rotation(poses: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt [B, 6] -> rotation matrices [B, 3, 3] whose COLUMNS are
+    x, y, z: x = normalise(poses[:, :3]), z = normalise(x cross
+    poses[:, 3:]), y = z cross x; norms are clamped at 1e-8."""
+    def normalize(v):
+        mag = torch.sqrt(torch.sum(v * v, dim=1, keepdim=True))
+        return v / torch.clamp(mag, min=1e-8)
+
+    x = normalize(poses[:, 0:3])
+    z = normalize(torch.linalg.cross(x, poses[:, 3:6], dim=1))
+    y = torch.linalg.cross(z, x, dim=1)
+    return torch.stack([x, y, z], dim=2)
+
+
+def geodesic_distance(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Angle between rotation matrices [B, 3, 3]: arccos((tr(m1 m2^T) - 1)
+    / 2), the cosine clipped to [-1, 1] first."""
+    m = m1 @ m2.transpose(-1, -2)
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))

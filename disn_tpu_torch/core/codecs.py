@@ -2,8 +2,9 @@
 readers): the SDF-sample h5 and the image+camera h5 of each object and
 view, the `.dist` distance-field writer, and OBJ meshes.
 
-`h5py` is imported when a file is read or written, not with the module, and
-a clear error says so when it is missing. Large OBJ files go through the C
+`h5py` (and Pillow, for a PNG) is imported when a file is read or
+written, not with the module, and a clear error says so when it is
+missing. Large OBJ files go through the C
 formatter and parser of ``disn_tpu_torch.native`` (above 4096 vertices and
 64 KB, the JAX package's thresholds, so both packages write the same
 bytes); a failed build of those raises. The Python loops below the
@@ -31,6 +32,23 @@ def _h5py():
             "reading or writing the dataset's h5 files needs the h5py "
             "package, which is not installed") from e
     return h5py
+
+
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "reading a PNG image needs the Pillow package, which is not "
+            "installed; pass a view h5 instead") from e
+    return Image
+
+
+def read_png(path: str, mode: str = "RGB") -> np.ndarray:
+    """An image file -> [H,W,C] float32 in [0,1], converted to `mode`
+    (RGB or RGBA)."""
+    with _pil_image().open(path) as im:
+        return np.asarray(im.convert(mode), np.float32) / 255.0
 
 
 def write_dist(path: str, res: int, params: np.ndarray,

@@ -17,14 +17,22 @@ software pipeline) is not ported.
 the reference's output tree: a reader thread prefetches the records, the
 calling thread owns all device work, and a bounded writer pool writes the
 OBJ files.
+
+The estimated-camera path: ``reconstruct_image`` is image_to_mesh with the
+camera net's camera when the image has none (the `demo` subcommand), and
+``estimate_cameras`` replaces a stream of view records' cameras by the
+net's, a batch of views a forward (`train-cam --mode create`, whose tree
+``reconstruct_split(cam_est=True)`` reads).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
 from threading import Event, Thread
-from typing import Any, Callable
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -34,6 +42,7 @@ from disn_tpu_torch.config import Config
 from disn_tpu_torch.core import codecs
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import sparse as sparse_mod
+from disn_tpu_torch.models import posenet
 from disn_tpu_torch.ops import marching
 from disn_tpu_torch.postprocessing import clean_small_parts
 
@@ -160,14 +169,86 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     return verts, faces
 
 
-def result_dir(log_dir: str, cfg: Config) -> str:
-    """The reference's output root: {log_dir}/test_objs/{R}_{iso}."""
+def reconstruct_image(params: Params, img, cfg: Config, trans_mat=None,
+                      cam_params: Params | None = None, sparse: bool = True,
+                      clean: bool = False,
+                      device: str | torch.device | None = None,
+                      stats: dict | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """One image -> (verts, faces) with its camera given or estimated: the
+    body of the `demo` subcommand. img [H,W,C] (uint8, or float in [0,1]);
+    trans_mat [4,3], or None with `cam_params`, the camera net's params,
+    whose pred_trans_mat (posenet.predict_trans_mat on the image's RGB)
+    is then the camera; params are the SDF net's. Runs on `device` (the
+    GPU by default; it raises without one). With `stats`, the estimated
+    camera goes into stats["trans_mat"] and image_to_mesh's entries
+    follow."""
+    dev = device_mod.resolve(device)
+    if trans_mat is None:
+        if cam_params is None:
+            raise ValueError("an image without a camera needs the camera "
+                             "net's params (cam_params)")
+        img_t = torch.as_tensor(np.asarray(img)).to(dev)
+        trans_mat = posenet.predict_trans_mat(cam_params, img_t[None],
+                                              cfg, device=dev)[0]
+        if stats is not None:
+            stats["trans_mat"] = trans_mat.cpu().numpy()
+    return image_to_mesh(params, img, trans_mat, cfg, sparse=sparse,
+                         clean=clean, device=dev, stats=stats)
+
+
+def estimate_cameras(cam_params: Params, records: Iterable, cfg: Config,
+                     batch: int = 64,
+                     device: str | torch.device | None = None
+                     ) -> Iterator[tuple[Any, codecs.ViewRecord]]:
+    """(key, ViewRecord) pairs -> the same pairs, in order, each record's
+    trans_mat replaced by the camera net's prediction from its image's
+    RGB: the images go through the net BATCH at a time (the last batch
+    may be shorter) on `device` (the GPU by default; it raises without
+    one), and one batch's predictions are copied to the host while the
+    next batch runs."""
+    dev = device_mod.resolve(device)
+    cam_params = device_mod.tree_to(cam_params, dev)
+    inflight: deque = deque()
+    keys: list = []
+    recs: list = []
+
+    def dispatch():
+        imgs = torch.from_numpy(np.stack([r.img_arr[:, :, :3]
+                                          for r in recs]))
+        inflight.append((posenet.predict_trans_mat(cam_params, imgs, cfg,
+                                                   device=dev), keys, recs))
+
+    def collect():
+        preds, ks, rs = inflight.popleft()
+        for key, rec, pred in zip(ks, rs, preds.cpu().numpy()):
+            yield key, dataclasses.replace(rec, trans_mat=pred)
+
+    for key, rec in records:
+        keys.append(key)
+        recs.append(rec)
+        if len(keys) == batch:
+            dispatch()
+            keys, recs = [], []
+            if len(inflight) > 1:
+                yield from collect()
+    if keys:
+        dispatch()
+    while inflight:
+        yield from collect()
+
+
+def result_dir(log_dir: str, cfg: Config, cam_est: bool = False) -> str:
+    """The reference's output root: {log_dir}/test_objs/{R}_{iso}, with
+    the prefix camest_ on the tag for estimated cameras."""
+    tag = f"{cfg.grid_resolution}_{cfg.iso}"
     return os.path.join(log_dir, "test_objs",
-                        f"{cfg.grid_resolution}_{cfg.iso}")
+                        "camest_" + tag if cam_est else tag)
 
 
 def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
-                      log_dir: str, sparse: bool = True, logger: Any = None,
+                      log_dir: str, cam_est: bool = False,
+                      sparse: bool = True, logger: Any = None,
                       shard_index: int = 0, shard_count: int = 1,
                       device: str | torch.device | None = None,
                       read_view: Callable = codecs.read_view_h5,
@@ -176,6 +257,9 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
     """Reconstruct every (cat, obj, view) of `listinfo` whose position i
     has i % shard_count == shard_index into
     {result_dir}/{cat}/{cat}_{obj}_{view:02d}.obj; returns the paths.
+    cam_est=True writes under the camest_ tag; the records then come from
+    the estimated-camera tree that `paths` names (the camera net's
+    `train-cam --mode create` writes it).
 
     The reader thread reads each view with ``read_view(paths.img_path(..))``
     and each object's sdf_params once with
@@ -188,7 +272,7 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
     params = device_mod.tree_to(params, dev)
     my_list = [t for i, t in enumerate(listinfo)
                if i % shard_count == shard_index]
-    out_root = result_dir(log_dir, cfg)
+    out_root = result_dir(log_dir, cfg, cam_est)
     writers = max(1, min(WRITERS, (os.cpu_count() or 2) - 1))
     q: Queue = Queue(maxsize=PREFETCH)
     stop = Event()

@@ -30,6 +30,16 @@ def xavier_uniform(gen: torch.Generator, shape: tuple[int, ...],
     return u * (2 * limit) - limit
 
 
+def truncated_normal(gen: torch.Generator, shape: tuple[int, ...],
+                     stddev: float, device: torch.device) -> torch.Tensor:
+    """Normal draws cut at +-2 standard deviations, times stddev: uniform
+    draws mapped through the normal's inverse cdf over [-2, 2]."""
+    lo, hi = (math.erf(x / math.sqrt(2.0)) for x in (-2.0, 2.0))
+    u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    z = torch.erfinv(u * (hi - lo) + lo) * math.sqrt(2.0)
+    return torch.clamp(z, -2.0, 2.0) * stddev
+
+
 def init_conv(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
               device: torch.device) -> Params:
     return {"weights": xavier_uniform(gen, (kh, kw, cin, cout), device),
@@ -37,9 +47,11 @@ def init_conv(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
 
 
 def init_dense(gen: torch.Generator, cin: int, cout: int,
-               device: torch.device) -> Params:
-    return {"weights": xavier_uniform(gen, (cin, cout), device),
-            "biases": torch.zeros(cout, device=device)}
+               device: torch.device, stddev: float | None = None) -> Params:
+    """Xavier-uniform weights, or truncated_normal(stddev) when given."""
+    w = (xavier_uniform(gen, (cin, cout), device) if stddev is None
+         else truncated_normal(gen, (cin, cout), stddev, device))
+    return {"weights": w, "biases": torch.zeros(cout, device=device)}
 
 
 def conv2d(p: Params, x: torch.Tensor, relu: bool = True,

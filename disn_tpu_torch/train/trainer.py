@@ -12,7 +12,9 @@ cfg.lr_floor. The loss is the L1 SDF loss of models/disn.get_loss on
 The step is eager PyTorch: the folded forward pass, autograd's backward
 (the sampler's gather becomes a scatter-add into the folded map) and the
 optimizer's update, which is one fused kernel on the card. Parameters are
-leaf tensors with ``requires_grad``; a step updates them in place.
+leaf tensors with ``requires_grad``; a step updates them in place. The
+camera net's step (make_cam_train_step) is the same step on
+models/posenet's forward pass and loss.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from disn_tpu_torch import convert
 from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config
-from disn_tpu_torch.models import disn
+from disn_tpu_torch.models import disn, posenet
 from disn_tpu_torch.train import checkpoint
 
 Params = dict[str, Any]
@@ -78,11 +80,14 @@ class TrainState:
         self.step += 1
         return lr
 
+    def params_tree(self) -> Params:
+        """The parameters as a tree of numpy arrays."""
+        return _map(self.params, lambda t: t.detach().cpu().numpy())
+
     def state_tree(self) -> dict:
         """{"params", "opt_state", "step"} under the JAX package's names,
         numpy leaves: what a full-state checkpoint holds."""
-        return {"params": _map(self.params,
-                               lambda t: t.detach().cpu().numpy()),
+        return {"params": self.params_tree(),
                 "opt_state": convert.opt_state_to_reference(
                     self.opt, self.params, self.step),
                 "step": np.asarray(self.step, np.int32)}
@@ -109,13 +114,15 @@ class TrainState:
 
 
 def create_state(cfg: Config, seed: int = 0, params: Params | None = None,
-                 device: str | torch.device | None = None) -> TrainState:
+                 device: str | torch.device | None = None,
+                 init_fn: Callable[..., Params] = disn.init) -> TrainState:
     """A fresh TrainState on `device` (the GPU by default; it raises
     without one): `params` (copied, e.g. convert.params_from_jax of a JAX
-    tree) or disn.init(cfg, seed)."""
+    tree) or init_fn(cfg, seed=seed, device=device), the SDF net's
+    disn.init by default (posenet.init for the camera net)."""
     dev = device_mod.resolve(device)
     if params is None:
-        params = disn.init(cfg, seed=seed, device=dev)
+        params = init_fn(cfg, seed=seed, device=dev)
 
     def leaf(t):
         return torch.as_tensor(t).detach().to(dev, copy=True
@@ -151,12 +158,33 @@ def loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: Config
     return disn.get_loss(end_points, gt, params, cfg)
 
 
-def compute_gradients(state: TrainState, batch: dict[str, torch.Tensor]
+def to_cam_batch(batch: dict) -> dict:
+    """Loader keys -> the camera net's batch keys: the image's RGB, the
+    SDF sample points, RT (the view's regress_mat), trans_mat and, when
+    the loader shifted the image, shifts."""
+    out = {"img": batch["img"][..., :3], "sample_pc": batch["sdf_pt"],
+           "RT": batch["regress_mat"], "trans_mat": batch["trans_mat"]}
+    if "shifts" in batch:
+        out["shifts"] = batch["shifts"]
+    return out
+
+
+def cam_loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: Config
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The camera net's loss on a to_cam_batch batch."""
+    end_points = posenet.apply(params, batch["img"], cfg)
+    return posenet.get_loss(end_points, batch, params, cfg)
+
+
+def compute_gradients(state: TrainState, batch: dict[str, torch.Tensor],
+                      objective: Callable = loss_fn
                       ) -> dict[str, torch.Tensor]:
-    """Forward and backward: fills every parameter's .grad; returns the
-    detached losses (0-d tensors on the device, not read here)."""
+    """Forward and backward of `objective` (loss_fn, the SDF loss, by
+    default): fills
+    every parameter's .grad; returns the detached losses (0-d tensors on
+    the device, not read here)."""
     state.opt.zero_grad(set_to_none=True)
-    loss, losses = loss_fn(state.params, batch, state.cfg)
+    loss, losses = objective(state.params, batch, state.cfg)
     loss.backward()
     return {k: v.detach() for k, v in losses.items()}
 
@@ -168,7 +196,8 @@ def _on(batch: dict, dev: torch.device) -> dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def make_train_step(cfg: Config, device: str | torch.device | None = None):
+def make_train_step(cfg: Config, device: str | torch.device | None = None,
+                    objective: Callable = loss_fn):
     """SDF train step on `device` (the GPU by default; it raises without
     one): (state, batch) -> (state, losses). The batch is moved to the
     device unless it is there (PrefetchLoader puts it there). The state is
@@ -180,20 +209,30 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None):
     def step(state: TrainState, batch: dict):
         if state.cfg != cfg:
             raise ValueError("the state was made for another Config")
-        losses = compute_gradients(state, _on(batch, dev))
+        losses = compute_gradients(state, _on(batch, dev), objective)
         losses["lr"] = state.apply_gradients()
         return state, losses
 
     return step
 
 
-def make_eval_step(cfg: Config, device: str | torch.device | None = None):
+def make_cam_train_step(cfg: Config,
+                        device: str | torch.device | None = None):
+    """The camera net's train step, make_train_step's on cam_loss_fn: the
+    batch has to_cam_batch's keys (img, sample_pc, RT, trans_mat, optional
+    shifts); the state holds posenet params (create_state(init_fn=
+    posenet.init))."""
+    return make_train_step(cfg, device=device, objective=cam_loss_fn)
+
+
+def make_eval_step(cfg: Config, device: str | torch.device | None = None,
+                   objective: Callable = loss_fn):
     """Metric-only step on `device`: (params, batch) -> losses, without
-    gradients."""
+    gradients (the SDF loss by default, cam_loss_fn for the camera net)."""
     dev = device_mod.resolve(device)
 
     def step(params: Params, batch: dict):
         with torch.no_grad():
-            return loss_fn(params, _on(batch, dev), cfg)[1]
+            return objective(params, _on(batch, dev), cfg)[1]
 
     return step

@@ -46,7 +46,8 @@ def test_every_module_is_listed():
             "disn_tpu_torch.data.pipeline", "disn_tpu_torch.cli",
             "disn_tpu_torch.eval.metrics", "disn_tpu_torch.eval.runner",
             "disn_tpu_torch.ops.voxelize", "disn_tpu_torch.core.meshes",
-            "disn_tpu_torch.kernels"} <= names
+            "disn_tpu_torch.kernels", "disn_tpu_torch.models.posenet",
+            "disn_tpu_torch.core.camera"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
@@ -78,7 +79,9 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "cli_train", "reconstruct_split",
                                    "evaluate_tree", "occupancy_device",
                                    "cli_create_sdf", "cli_evaluate",
-                                   "cli_evaluate_acc"])
+                                   "cli_evaluate_acc", "posenet_init",
+                                   "make_cam_train_step", "cli_demo",
+                                   "cli_train_cam"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -87,7 +90,7 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.eval import runner
     from disn_tpu_torch.infer import pipeline
-    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.models import disn, posenet
     from disn_tpu_torch.ops import marching, voxelize
     from disn_tpu_torch.train import trainer
 
@@ -132,5 +135,15 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
         elif entry == "cli_evaluate_acc":
             cli.main(["evaluate-acc", "--data-root", "unused", "--restore",
                       "unused", "--log-dir", str(tmp_path)])
+        elif entry == "posenet_init":
+            posenet.init(cfg)
+        elif entry == "make_cam_train_step":
+            trainer.make_cam_train_step(cfg)
+        elif entry == "cli_demo":
+            cli.main(["demo", "--image", "unused.h5", "--restore",
+                      "unused", "--out", str(tmp_path / "x.obj")])
+        elif entry == "cli_train_cam":
+            cli.main(["train-cam", "--data-root", "unused", "--log-dir",
+                      str(tmp_path)])
         else:
             synthetic.analytic_octahedron_params(cfg)
