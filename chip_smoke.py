@@ -157,7 +157,29 @@ on failure:
    within HOLD_GRAD_REL; then 20 full-width steps (B = 20) from a fresh
    seed-0 state on one batch, whose loss must fall (the median of the last
    5 below that of the first 5), with ms/step;
-9. print per-stage times of both flows, each main-path K1 launch's share
+9. multi-view fusion (infer/multiview, pipeline.multiview_to_mesh and
+   reconstruct_multiview; no kernel of its own: the reference decodes it
+   with XLA ops, here PyTorch ops, and neither K1 nor K5 runs). [mv full]:
+   multiview_to_mesh on 24 seeded u8 views of one object under 24 cameras
+   around the demo camera, full-width net with the analytic octahedron
+   head, sdf_res 256: bf16 the median of 3 after a warm-up, the default
+   Config (f32, TF32 off) once, the K1 and K5 counts set to 0 just before
+   each object and read just after (0 both): the sparse flow with no cap
+   overflow, > 1000 faces, every vertex on the surface (f32 within
+   SURFACE_TOL, bf16 within MV_BF16_SURFACE_TOL: the plain decode rounds
+   the head's output layer to bf16), the faces those of phase 2's
+   volume-flow mesh; stage times, peak memory, active cells, the decode
+   beside its bound (mv_bound), and [mv profile]: one bf16 object under
+   torch.profiler. [mv hold]: the flow on the card against the CPU at
+   width 0.25, V = 3, sdf_res 64, f32, random seeded params: the dense
+   stream on the folded (tf1) and the general (native) arm, the sparse
+   flow's two phases on both arms and with a binary head (the sign cull),
+   the dense fallback forced by a tiny cap, all within MV_HOLD_REL; the
+   analytic head's sparse mesh against its dense mesh on the card. [mv
+   cli]: `create-sdf --multi-view` through the port's CLI on the card on
+   a temporary split of 2 objects x 3 views (in-memory readers), one
+   fused mesh an object;
+10. print per-stage times of both flows, each main-path K1 launch's share
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
    f32 kernels and K5's launches from the main path's run of phase 2, K6's
@@ -3032,6 +3054,405 @@ def phase_cam(records, img, main_mesh, encode_ms: float) -> None:
     print(f"[cam] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# -- multi-view fusion -------------------------------------------------------
+
+MV_VIEWS = 24  # the renders an object has in the reference's split
+# [mv full], bf16: the plain decode rounds the head's output layer, 10 s
+# (s = |x|+|y|+|z|, a multiple of 1/128 at grid points), to bf16, whose
+# ulp near 6 is 1/32: a grid value is off the field by up to 1/64 / 10 =
+# 1/640, and a vertex, interpolated along a tet edge on which the field is
+# linear, by at most that. K1 computes that layer in f32 and the reference
+# decodes multi-view as the port does; f32 is held to SURFACE_TOL
+MV_BF16_SURFACE_TOL = SURFACE_TOL + 1.0 / 640
+# [mv hold]: card against CPU, f32, TF32 off: summation order alone (the
+# encoder's convolutions, the fold's matmuls and the heads), relative to
+# the volume's largest value, as K1's f32 hold
+MV_HOLD_REL = F32_REL_TOL
+MV_HOLD = dict(width_mult=0.25, sdf_res=64, compute_dtype="float32")
+MV_HOLD_VIEWS = 3
+MV_CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_mv")  # removed after
+
+
+def mv_cameras(v: int) -> np.ndarray:
+    """V cameras around the demo camera (az 45 + 360 i / V, el 20, distance
+    ratio 1.1): [V,4,3]."""
+    from disn_tpu_torch.core import camera
+    return np.stack([camera.view_params_to_trans_mat(
+        45.0 + 360.0 * i / v, 20.0, 1.1, np.zeros(3), 1.0)[0]
+        for i in range(v)]).astype(np.float32)
+
+
+def mv_bound(n_pts: int, views: int, dtype: str, map_bytes: int,
+             weight_bytes: int) -> dict:
+    """The least time the card could take for the multi-view decode of
+    n_pts points: the two MLP streams (K1's work a point: k1_macs), the V x
+    4 tap lerps and the view mean (per view and channel 4 multiply-adds and
+    an add, in f32 on the FMA units, as the reference lerps a bf16 map in
+    f32), and the bytes: the V maps and the weights read once, the values
+    written once. bf16: the MLP on the tensor cores, the taps on the FMA
+    units (either may hide the other); f32: both on the FMA units."""
+    mlp = 2.0 * n_pts * k1_macs(1)
+    taps = 9.0 * n_pts * views * 512
+    if dtype == "bf16":
+        parts = {"mlp": mlp / H100_BF16_FLOPS, "taps": taps / H100_F32_FLOPS}
+        ops = max(parts.values())
+    else:
+        parts = {"mlp": mlp / H100_F32_FLOPS, "taps": taps / H100_F32_FLOPS}
+        ops = sum(parts.values())
+    nbytes = map_bytes + weight_bytes + 4 * n_pts
+    parts["bytes"] = nbytes / H100_BYTES_PER_S
+    bound = max(ops, parts["bytes"])
+    by = ("bytes" if parts["bytes"] >= ops else
+          "operations (" + max(("mlp", "taps"), key=parts.get) + ")")
+    return {"bound_ms": bound * 1e3, "bound_by": by,
+            **{f"{k}_ms": t * 1e3 for k, t in parts.items()}}
+
+
+def mv_object(params, imgs, trans, cfg, label: str) -> tuple:
+    """pipeline.multiview_to_mesh on one object on the card, the K1 and K5
+    counts set to 0 just before and read just after (the multi-view decode
+    is PyTorch ops: neither kernel may run). Gates: the sparse flow (no
+    cap overflow), > 1000 faces, finite vertices. Returns (stats, verts,
+    faces)."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k5.launches = 0
+    stats: dict = {}
+    t0 = time.perf_counter()
+    verts, faces = pipeline.multiview_to_mesh(params, imgs, trans,
+                                              pipeline.UNIT_BOX, cfg,
+                                              stats=stats)
+    stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats.update(k1_launches=k1.launches, k5_launches=k5.launches,
+                 faces=len(faces), verts=len(verts))
+    print(f"[mv full] {label}: " + json.dumps(stats))
+    check(k1.launches == 0 and k5.launches == 0,
+          f"[mv full] {label}: the multi-view path launched K1 "
+          f"{k1.launches} and K5 {k5.launches} times")
+    check(not stats["dense_fallback"],
+          f"[mv full] {label}: the active cells ({stats['active_cells']}) "
+          f"overflowed the cap ({stats['cell_cap']}): dense fallback")
+    check(len(faces) > 1000 and np.isfinite(verts).all(),
+          f"[mv full] {label}: {len(faces)} faces or bad vertices")
+    return stats, verts, faces
+
+
+def phase_mv_full(main_mesh, smi: str) -> None:
+    """[mv full]: multiview_to_mesh (the body of create-sdf --multi-view)
+    on V = 24 seeded u8 views of one object under 24 cameras, full-width
+    VGG-16 two-stream net with the analytic octahedron head, 257^3: bf16
+    the median of 3 after a warm-up, then the default Config (f32, TF32
+    off) once. Every vertex on |x|+|y|+|z| = 0.6 (f32 within SURFACE_TOL,
+    bf16 within MV_BF16_SURFACE_TOL), the faces those of the main path's
+    volume-flow mesh of the same field. Stage times, peak memory, active
+    cells; the decode beside its bound; one bf16 object under
+    torch.profiler (device kernels and the idle share)."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.models import layers
+
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    trans = mv_cameras(MV_VIEWS)
+    rng = np.random.RandomState(13)
+    n_weights = sum(layers.param_count(params[k]) for k in
+                    ("sdfprediction", "sdfprediction_imgfeat"))
+    weight_bytes = {"bf16": 2 * n_weights, "f32": 4 * n_weights}
+    runs = {"bf16": [], "f32": []}
+    for label, c, reps in (("bf16", cfg, 4), ("f32", Config(sdf_res=256),
+                                              1)):
+        for rep in range(reps):
+            imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3),
+                               dtype=np.uint8)
+            stats, verts, faces = mv_object(params, imgs, trans, c,
+                                            f"{label} object {rep}")
+            dist = np.abs(np.abs(verts).sum(1) - 0.6)
+            tol = MV_BF16_SURFACE_TOL if label == "bf16" else SURFACE_TOL
+            same = np.array_equal(faces, main_mesh[1])
+            print(f"[mv full] {label} object {rep}: vertices off the "
+                  f"surface by {dist.max():.3e} (tolerance {tol:.3e}); faces "
+                  f"equal to the main path's volume-flow mesh: {same} "
+                  f"({len(faces)} against {len(main_mesh[1])})")
+            check(float(dist.max()) <= tol,
+                  f"[mv full] {label}: a vertex is {dist.max():.3e} off the "
+                  f"surface")
+            check(same, f"[mv full] {label}: the faces are not the main "
+                        f"path's")
+            if label == "f32" or rep > 0:
+                runs[label].append(stats)
+    n_pts = (cfg.sdf_res // 4 + 1) ** 3 + 64 * runs["bf16"][0]["active_cells"]
+    for label, timed in runs.items():
+        keys = ("encode_ms", "prep_ms", "phase_a_ms", "finish_ms",
+                "extraction_ms", "wall_ms", "peak_gib")
+        for key in keys:
+            vals = [r[key] for r in timed]
+            print(f"[mv full] {label} {key} median={np.median(vals):.3f} "
+                  f"all={[round(v, 3) for v in vals]}")
+        decode = [r["phase_a_ms"] + r["finish_ms"] for r in timed]
+        map_bytes = MV_VIEWS * 137 * 137 * 512 * (2 if label == "bf16" else 4)
+        b = mv_bound(n_pts, MV_VIEWS, label, map_bytes, weight_bytes[label])
+        print(f"[mv full] {label} decode (phase_a + finish) per object: "
+              f"median {np.median(decode):.3f} ms, all "
+              f"{[round(v, 3) for v in decode]}; {n_pts} points "
+              f"({timed[0]['active_cells']} active cells); bound "
+              f"{json.dumps({k: round(v, 5) if isinstance(v, float) else v for k, v in b.items()})}; "
+              f"share of the bound {b['bound_ms'] / np.median(decode):.5f}; "
+              f"wall {np.median([r['wall_ms'] for r in timed]):.3f} ms, the "
+              f"decode's share {np.median(decode) / np.median([r['wall_ms'] for r in timed]):.4f}; {smi}")
+    imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
+    tdir = os.path.join(TRACE_DIR, "mv")
+
+    def one():
+        return pipeline.multiview_to_mesh(params, imgs, trans,
+                                          pipeline.UNIT_BOX, cfg)
+
+    prof, _ = profiled(one, tdir=tdir)
+    busy, window, n_ev, syncs = trace_busy(tdir)
+    print(f"[mv profile] one bf16 object under torch.profiler: {n_ev} device "
+          f"events (kernels, copies, memsets), busy {busy / 1e3:.3f} ms of a "
+          f"{window / 1e3:.3f} ms span, idle share {1 - busy / window:.4f}, "
+          f"{syncs} host synchronisations")
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in sorted(rows, key=lambda e: -_device_time(e, True))[:6]:
+        t = _device_time(e, True)
+        print(f"[mv profile] top kernel: {e.key[:100]} {t / 1e3:.3f} ms in "
+              f"{e.count} launches ({t / busy:.4f} of busy)")
+
+
+def mv_rel(got, want) -> float:
+    """max|got - want| / max|want| of two tensors (on any devices)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def mv_explained(vol_c, tau: float, ids_a, ids_b, mode: str,
+                 tol: float) -> bool:
+    """Whether two active-cell sets of (nearly) one coarse grid differ only
+    in cells that a value within `tol` of a threshold decides: a corner
+    with |v| or ||v| - tau| within tol ('band'), or such a corner in the
+    cell's 3^3 neighbourhood ('sign')."""
+    import torch
+    from disn_tpu_torch.infer import sparse
+    corners = sparse._corners(vol_c.double().cpu())
+    near = ((corners.abs() <= tol)
+            | ((corners.abs() - float(tau)).abs() <= tol)).any(0)
+    if mode == "sign":
+        c = near.shape[0]
+        p = torch.nn.functional.pad(near, (1, 1, 1, 1, 1, 1))
+        near = torch.zeros_like(near)
+        for dz in range(3):
+            for dy in range(3):
+                for dx in range(3):
+                    near |= p[dz:dz + c, dy:dy + c, dx:dx + c]
+    diff = set(ids_a.cpu().tolist()) ^ set(ids_b.cpu().tolist())
+    flat = near.reshape(-1)
+    return all(bool(flat[i]) for i in diff)
+
+
+def mv_hold_sparse(tag: str, params, imgs, trans, cfg) -> None:
+    """The sparse flow's two phases on the card against the CPU: phase_a's
+    coarse grid within MV_HOLD_REL, its active cells equal (or differing
+    only where a value within MV_HOLD_REL of the scale decides them); then
+    finish on the card from the CPU's coarse grid and cells against the
+    CPU's finish, within MV_HOLD_REL."""
+    import torch
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.infer import multiview, pipeline
+    from disn_tpu_torch.infer import sparse
+
+    out = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        p = device_mod.tree_to(params, dev)
+        im, tr, sp = multiview._inputs(imgs, trans, pipeline.UNIT_BOX, dev)
+        out[name] = (p, tr, sp, *multiview.phase_a(p, im, tr, sp, cfg, 4))
+    (pg, trg, spg, state_g, vol_g, ids_g, n_g) = out["cuda"]
+    (pc, trc, spc, state_c, vol_cc, ids_c, n_c) = out["cpu"]
+    rel_c = mv_rel(vol_g, vol_cc)
+    rc = vol_cc.shape[0]
+    tau = float(sparse._band_tau(vol_cc, spc, rc, multiview.BAND_FACTOR,
+                                 cfg))
+    mode = "sign" if cfg.binary else "band"
+    tol = MV_HOLD_REL * float(vol_cc.abs().max())
+    same = torch.equal(ids_g.cpu(), ids_c)
+    explained = same or mv_explained(vol_cc, tau, ids_g, ids_c, mode, tol)
+    fine_g = multiview.finish(pg, state_g, vol_cc.cuda(), ids_c.cuda(), trg,
+                              spg, cfg, 4)
+    fine_c = multiview.finish(pc, state_c, vol_cc, ids_c, trc, spc, cfg, 4)
+    rel_f = mv_rel(fine_g, fine_c)
+    print(f"[mv hold] {tag} ({mode} cull): phase_a coarse grid card vs CPU "
+          f"{rel_c:.3e} of max|v| (tolerance {MV_HOLD_REL:.0e}); active cells "
+          f"card {n_g} CPU {n_c}, equal {same}, differences explained "
+          f"{explained}; finish from the CPU's cells {rel_f:.3e}")
+    check(rel_c <= MV_HOLD_REL and explained and rel_f <= MV_HOLD_REL,
+          f"[mv hold] {tag}: the card's sparse flow is not the CPU's")
+
+
+def phase_mv_hold(smi: str) -> None:
+    """[mv hold]: the multi-view flow on the card against the same code on
+    the CPU, width 0.25, V = 3, sdf_res 64, f32, TF32 off, random seeded
+    params (the local stream live): the dense stream on the folded arm
+    (tf1) and the general arm (native); the sparse flow's phases (band cull)
+    on both arms and with a binary head (the dilated sign cull); the dense
+    fallback forced by a tiny cell cap (None on both devices); and on the
+    card, the analytic head's sparse mesh against its dense mesh."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import multiview, pipeline
+    from disn_tpu_torch.models import disn
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(17)
+    imgs = rng.randint(0, 256, (MV_HOLD_VIEWS, 137, 137, 3), dtype=np.uint8)
+    trans = mv_cameras(MV_HOLD_VIEWS)
+    box = pipeline.UNIT_BOX
+    for sampling in ("tf1", "native"):
+        cfg = Config(**MV_HOLD, sampling=sampling)
+        params = disn.init(cfg, seed=3, device="cpu")
+        vols = {d: multiview.multiview_sdf(params, imgs, trans, box, cfg,
+                                           device=d) for d in ("cuda", "cpu")}
+        rel = mv_rel(vols["cuda"], vols["cpu"])
+        print(f"[mv hold] {sampling} arm, dense stream at sdf_res "
+              f"{cfg.sdf_res}: card vs CPU {rel:.3e} of max|v| "
+              f"{float(vols['cpu'].abs().max()):.4f} (tolerance "
+              f"{MV_HOLD_REL:.0e})")
+        check(rel <= MV_HOLD_REL, f"[mv hold] {sampling}: the card's dense "
+                                  f"volume is not the CPU's")
+        mv_hold_sparse(f"{sampling} arm", params, imgs, trans, cfg)
+        for d in ("cuda", "cpu"):
+            st: dict = {}
+            tiny = multiview.multiview_sdf_sparse(
+                params, imgs, trans, box, cfg, block=64, cell_cap_frac=0.0,
+                device=d, stats=st)
+            print(f"[mv hold] {sampling} arm on {d}, cell cap "
+                  f"{st['cell_cap']} against {st['active_cells']} active "
+                  f"cells: the sparse flow gives None ({tiny is None}), so "
+                  f"the dense fallback (held above) is taken")
+            check(tiny is None, f"[mv hold] {sampling}: a tiny cap did not "
+                                f"force the dense fallback on {d}")
+    cfg = Config(**MV_HOLD, binary=True)
+    mv_hold_sparse("binary head", disn.init(cfg, seed=4, device="cpu"), imgs,
+                   trans, cfg)
+    # a random net's band holds every coarse cell; the analytic head with
+    # a live local stream (its output layer seeded random, small) is an
+    # octahedron moved by the images, whose band holds part of them
+    cfg = Config(**MV_HOLD)
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6,
+                                                  device="cpu")
+    last = params["sdfprediction_imgfeat"]["fold2"]["conv5"]
+    last["weights"] = torch.from_numpy(0.02 * np.random.RandomState(5).randn(
+        *last["weights"].shape).astype(np.float32))
+    mv_hold_sparse("analytic head, live local stream", params, imgs, trans,
+                   cfg)
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    dense = multiview.multiview_sdf(params, imgs, trans, box, cfg)
+    # at sdf_res 64 the band holds ~40% of the coarse cells: a roomy cap
+    sparse = multiview.multiview_sdf_sparse(params, imgs, trans, box, cfg,
+                                            cell_cap_frac=0.9)
+    check(sparse is not None, "[mv hold] the analytic head overflowed the "
+                              "cap")
+    dv, df = pipeline.volume_to_mesh(dense, box)
+    sv, sf = pipeline.volume_to_mesh(sparse, box)
+    same = np.array_equal(sf, df) and sv.shape == dv.shape
+    dvert = float(np.abs(sv - dv).max()) if same else float("inf")
+    print(f"[mv hold] analytic head on the card, sdf_res {cfg.sdf_res}: "
+          f"sparse vs dense mesh faces equal {same} ({len(sf)} faces), "
+          f"vertices max diff {dvert:.3e} (tolerance 1e-6); phase took "
+          f"{time.perf_counter() - t0:.1f} s; {smi}")
+    check(same and dvert <= 1e-6 and len(sf) > 1000,
+          "[mv hold] the sparse mesh is not the dense one")
+    torch.cuda.empty_cache()
+
+
+def phase_mv_cli(smi: str) -> None:
+    """[mv cli]: `create-sdf --multi-view` through the port's CLI on the
+    card, on a temporary split (2 objects x 3 views of seeded u8 images
+    under mv_cameras, filelists on disk) and a width-0.25 checkpoint of the
+    analytic head written with the port's checkpoint module; the card's
+    machine has no h5py, so the command reads the views and sdf_params
+    through core/codecs' readers, replaced for the call by in-memory ones.
+    Each object's {cat}_{obj}_fused.obj must be written under
+    test_objs/{R}_{iso}_mv/ with > 1000 faces."""
+    import shutil
+
+    from disn_tpu_torch import cli
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.data import listing, synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.train import checkpoint
+
+    shutil.rmtree(MV_CLI_DIR, ignore_errors=True)
+    cat, objs, views = "synthcat", ("obj_a", "obj_b"), 3
+    kw = dict(width_mult=0.25, sdf_res=64, view_num=views)
+    data = os.path.join(MV_CLI_DIR, "data")
+    os.makedirs(os.path.join(data, "filelists"))
+    with open(os.path.join(data, "filelists", f"{cat}_test.lst"), "w") as f:
+        f.write("\n".join(objs) + "\n")
+    ckpt = os.path.join(MV_CLI_DIR, "analytic.npz")
+    checkpoint.save(ckpt, synthetic.analytic_octahedron_params(
+        Config(**kw), seed=0, r=0.6, device="cpu"))
+    paths = listing.SplitPaths(os.path.join(data, "sdf"),
+                               os.path.join(data, "renders"))
+    rng = np.random.RandomState(19)
+    trans = mv_cameras(views)
+    records = {paths.img_path(cat, o, v): codecs.ViewRecord(
+        img_arr=rng.randint(0, 256, (137, 137, 4), dtype=np.uint8),
+        trans_mat=trans[v], K=np.eye(3, dtype=np.float32),
+        RT=np.zeros((3, 4), np.float32),
+        obj_rot_mat=np.eye(3, dtype=np.float32),
+        regress_mat=np.zeros((4, 3), np.float32))
+        for o in objs for v in range(views)}
+    readers = {"read_view_h5": records.__getitem__,
+               "read_sdf_params": lambda path: pipeline.UNIT_BOX}
+    saved = {k: getattr(codecs, k) for k in readers}
+    t0 = time.perf_counter()
+    try:
+        for k, fn in readers.items():
+            setattr(codecs, k, fn)
+        cli.main(["create-sdf", "--multi-view", "--data-root", data,
+                  "--restore", ckpt, "--log-dir", MV_CLI_DIR]
+                 + [x for k, v in kw.items() for x in ("--set", f"{k}={v}")])
+    finally:
+        for k, fn in saved.items():
+            setattr(codecs, k, fn)
+    secs = time.perf_counter() - t0
+    root = os.path.join(MV_CLI_DIR, "test_objs", "65_0.0_mv", cat)
+    faces = []
+    for o in objs:
+        path = os.path.join(root, f"{cat}_{o}_fused.obj")
+        check(os.path.exists(path), f"[mv cli] {path} was not written")
+        faces.append(len(codecs.read_obj(path)[1]))
+    print(f"[mv cli] create-sdf --multi-view on the card: {len(objs)} "
+          f"objects x {views} views fused in {secs:.3f} s into "
+          f"{os.path.relpath(root, MV_CLI_DIR)}/, faces {faces}; {smi}")
+    check(all(f > 1000 for f in faces), "[mv cli] a mesh has too few faces")
+    shutil.rmtree(MV_CLI_DIR, ignore_errors=True)
+
+
+def phase_mv(main_mesh) -> None:
+    import torch
+
+    t0 = time.perf_counter()
+    smi = card_name()
+    phase_mv_full(main_mesh, smi)
+    torch.cuda.empty_cache()
+    phase_mv_hold(smi)
+    phase_mv_cli(smi)
+    print(f"[mv] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def k1_entries(res: dict, launches: dict) -> list[dict]:
     """K1's two kernels, each per image: its coarse + fine launch on the
     main path's own inputs (the error: the worst of every timed hold of the
@@ -3118,6 +3539,7 @@ def main() -> int:
         compare_flows(held["cfg"], held["params"], held["trans"])
         profile_phase_a(*main_inputs)
         pred_mesh = held["bf16"][1]
+        mv_mesh = held["bf16 volume"][1]
         cam_inputs = (held["img"], pred_mesh,
                       float(np.median([r["encode_ms"] for r in runs[1:4]])))
         del held, main_inputs
@@ -3129,6 +3551,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         records = phase_train()
         phase_cam(records, *cam_inputs)
+        del records, cam_inputs, pred_mesh
+        torch.cuda.empty_cache()
+        phase_mv(mv_mesh)
         for flow, timed, keys in (
                 ("words", runs[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
                                       "phase_b_ms", "scan_ms",

@@ -297,19 +297,24 @@ def cmd_create_sdf(args) -> None:
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.utils.logging import MetricLogger
 
-    if args.multi_view:
-        raise NotImplementedError("--multi-view: the multiview fusion is "
-                                  "not ported yet (ROADMAP Queue 1 item 5)")
     dev = device_mod.resolve(args.device)
     cfg = apply_overrides(Config(), args.set)
     logger = MetricLogger(args.log_dir, name="test")
     listinfo, _, paths = data_handles(cfg, args.data_root, args.split,
                                       cam_est=args.cam_est)
     donor = convert.load_npz(args.restore)
-    written = pipeline.reconstruct_split(
-        donor.get("params", donor), cfg, paths, listinfo, args.log_dir,
-        cam_est=args.cam_est, sparse=not args.dense, logger=logger,
-        shard_index=args.shard, shard_count=args.shards, device=dev)
+    params = donor.get("params", donor)
+    if args.multi_view:
+        # the JAX command's stripe: a farm worker fuses its share of the
+        # listed views of each object
+        written = pipeline.reconstruct_multiview(
+            params, cfg, paths, listinfo[args.shard::args.shards],
+            args.log_dir, logger=logger, device=dev)
+    else:
+        written = pipeline.reconstruct_split(
+            params, cfg, paths, listinfo, args.log_dir, cam_est=args.cam_est,
+            sparse=not args.dense, logger=logger, shard_index=args.shard,
+            shard_count=args.shards, device=dev)
     logger.log(f"wrote {len(written)} meshes")
     logger.close()
 
@@ -495,7 +500,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shards", type=int, default=1,
                    help="total farm workers (one process per card)")
     p.add_argument("--multi-view", action="store_true",
-                   help="not ported yet: raises")
+                   help="fuse all views of each object (feature averaging) "
+                        "into test_objs/{R}_{iso}_mv/")
     p.set_defaults(fn=cmd_create_sdf)
 
     p = sub.add_parser("demo", help="single image -> mesh")

@@ -18,6 +18,12 @@ the reference's output tree: a reader thread prefetches the records, the
 calling thread owns all device work, and a bounded writer pool writes the
 OBJ files.
 
+Multi-view fusion: ``multiview_to_mesh`` fuses V views of one object into
+one volume (infer/multiview: the sparse flow, the dense stream on a cap
+overflow) and extracts its mesh with volume_to_mesh;
+``reconstruct_multiview`` does so for every object of a split
+(`create-sdf --multi-view`).
+
 The estimated-camera path: ``reconstruct_image`` is image_to_mesh with the
 camera net's camera when the image has none (the `demo` subcommand), and
 ``estimate_cameras`` replaces a stream of view records' cameras by the
@@ -41,6 +47,7 @@ from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.core import codecs
 from disn_tpu_torch.infer import dense as dense_mod
+from disn_tpu_torch.infer import multiview
 from disn_tpu_torch.infer import sparse as sparse_mod
 from disn_tpu_torch.models import posenet
 from disn_tpu_torch.ops import marching
@@ -331,4 +338,65 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
                 pass
         t.join()
         pool.shutdown(wait=True)  # no truncated files left behind
+    return written
+
+
+def multiview_to_mesh(params: Params, imgs, trans_mats, sdf_params,
+                      cfg: Config, device: str | torch.device | None = None,
+                      stats: dict | None = None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """V views of one object ([V,H,W,C] u8, or float in [0,1]) and their
+    [V,4,3] cameras -> one fused mesh (verts, faces) on `device` (the GPU
+    by default; it raises without one): multiview_sdf_sparse, or
+    multiview_sdf when its active cells overflow the cap, then
+    volume_to_mesh at cfg.iso (the owned-edge extractor on the device).
+    `stats` receives the volume's entries (see infer/multiview), with
+    ``dense_fallback`` True after the dense stream, and
+    ``extraction_ms``."""
+    dev = device_mod.resolve(device)
+    vol = multiview.multiview_sdf_sparse(params, imgs, trans_mats,
+                                         sdf_params, cfg, device=dev,
+                                         stats=stats)
+    if vol is None:
+        if stats is not None:
+            stats["dense_fallback"] = True
+        vol = multiview.multiview_sdf(params, imgs, trans_mats, sdf_params,
+                                      cfg, device=dev, stats=stats)
+    with device_mod.stage(stats, "extraction_ms", dev):
+        return volume_to_mesh(vol, sdf_params, iso=cfg.iso)
+
+
+def reconstruct_multiview(params: Params, cfg: Config, paths, listinfo,
+                          log_dir: str, logger: Any = None,
+                          device: str | torch.device | None = None
+                          ) -> list[str]:
+    """`create-sdf --multi-view`: per object of `listinfo`, ALL its listed
+    views fused (multiview_to_mesh on `device`, the GPU by default) into
+    one mesh, {result_dir}_mv/{cat}/{cat}_{obj}_fused.obj; returns the
+    paths, objects in sorted order. The views and the object's
+    sdf_params are read with core/codecs' h5 readers (looked up at each
+    call); the u8 images go to the device as they are."""
+    dev = device_mod.resolve(device)
+    params = device_mod.tree_to(params, dev)
+    by_obj: dict[tuple[str, str], list[int]] = {}
+    for cat_id, obj, view in listinfo:
+        by_obj.setdefault((cat_id, obj), []).append(view)
+    out_root = result_dir(log_dir, cfg) + "_mv"
+    written = []
+    for (cat_id, obj), views in sorted(by_obj.items()):
+        recs = [codecs.read_view_h5(paths.img_path(cat_id, obj, v))
+                for v in sorted(views)]
+        imgs = np.stack([r.img_arr[:, :, :cfg.img_channels] for r in recs])
+        mats = np.stack([r.trans_mat for r in recs])
+        sdf_params = codecs.read_sdf_params(paths.sdf_path(cat_id, obj))
+        stats: dict = {}
+        verts, faces = multiview_to_mesh(params, imgs, mats, sdf_params, cfg,
+                                         device=dev, stats=stats)
+        out = os.path.join(out_root, cat_id, f"{cat_id}_{obj}_fused.obj")
+        codecs.write_obj(out, verts, faces)
+        written.append(out)
+        if logger:
+            logger.log(f"fused {len(views)} views: {cat_id}/{obj}"
+                       + (" (dense: the active cells overflowed the cap)"
+                          if stats["dense_fallback"] else ""))
     return written

@@ -74,15 +74,32 @@ def _corners(vol: torch.Tensor) -> torch.Tensor:
                         for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)])
 
 
-def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor
-                  ) -> tuple[torch.Tensor, int]:
-    """Ids (int32, ascending) of coarse cells that may hold the surface:
-    some corner |v| < tau, or the corner signs disagree (mode 'band').
-    Returns (ids [count], count)."""
+def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor,
+                  mode: str = "band") -> tuple[torch.Tensor, int]:
+    """Ids (int32, ascending) of coarse cells that may hold the surface.
+    Returns (ids [count], count).
+
+    mode 'band' (regression heads): some corner |v| < tau, or the corner
+    signs disagree; sound for Lipschitz-1 distance-like fields.
+    mode 'sign' (binary heads, whose (softmax - 0.5)/10 saturates the band
+    test): the cells whose corner signs disagree, dilated by one cell. A
+    heuristic: a feature thinner than ~2 coarse cells that flips no corner
+    sign is missed (tau is not read)."""
     corners = _corners(vol_c)
     sign_change = (corners < 0).any(0) & (corners >= 0).any(0)
-    near = corners.abs().amin(0) < tau
-    ids = torch.nonzero((near | sign_change).reshape(-1))[:, 0]
+    if mode == "sign":
+        c = sign_change.shape[0]
+        p = torch.nn.functional.pad(sign_change, (1, 1, 1, 1, 1, 1))
+        active = torch.zeros_like(sign_change)
+        for dz in (0, 1, 2):
+            for dy in (0, 1, 2):
+                for dx in (0, 1, 2):
+                    active |= p[dz:dz + c, dy:dy + c, dx:dx + c]
+    elif mode == "band":
+        active = (corners.abs().amin(0) < tau) | sign_change
+    else:
+        raise ValueError(f"mode must be 'band' or 'sign', got {mode!r}")
+    ids = torch.nonzero(active.reshape(-1))[:, 0]
     return ids.int(), int(ids.shape[0])
 
 

@@ -1,6 +1,7 @@
 """The DISN model graph (port of disn_tpu/models/disn.py): init, the VGG-16
 encoder and its image preprocessing, the folded forward pass that training
-runs, and the loss.
+runs, the per-point local features and the two-stream decode from given
+features (the multi-view general arm), and the loss.
 
 Top-level param keys mirror the TF variable scopes (vgg_16, sdfprediction,
 sdfprediction_imgfeat), so a JAX or TF checkpoint converts by name.
@@ -96,7 +97,7 @@ def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
     endpoint maps and the per-point 1472->512 matmul collapse into one
     [B,137,137,512] map (infer/dense.fold_137), so a point samples 4 taps
     of it, and autograd scatters 4 rows per point back into it. The
-    unfolded heads are not ported."""
+    unfolded forward pass (fold=False) is not ported."""
     if not fold:
         raise NotImplementedError(
             "the port implements the folded forward pass (fold=True)")
@@ -117,6 +118,43 @@ def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
         pred = torch.tanh(pred)
     return {"img_embedding": embedding, "sample_img_points": img_points,
             "pred_sdf": pred}
+
+
+def sample_local_features(endpoints: dict[str, torch.Tensor],
+                          img_points: torch.Tensor, cfg: Config,
+                          fused: bool = True) -> torch.Tensor:
+    """Per-point multi-scale local features [B,N,1472]: each endpoint map
+    resized to 137^2 (TF1 bilinear) and resampled at the projected pixel
+    coordinates (model_normalization.py:171-190). cfg.sampling 'native'
+    samples the maps at their own scale instead; otherwise fused=True
+    takes the 16-tap composition (ops/image.resize_then_sample) and
+    fused=False makes the resized maps."""
+    feats = []
+    for name in endpoint_names(cfg):
+        fmap = endpoints[name]
+        if cfg.sampling == "native":
+            feats.append(image_ops.sample_native(fmap, img_points, cfg.img_h,
+                                                 cfg.img_w))
+        elif fused:
+            feats.append(image_ops.resize_then_sample(
+                fmap, img_points, cfg.img_h, cfg.img_w))
+        else:
+            resized = image_ops.resize_bilinear(fmap, cfg.img_h, cfg.img_w)
+            feats.append(image_ops.resampler(resized, img_points))
+    return torch.cat(feats, dim=-1)
+
+
+def decode_from_features(params: Params, pts: torch.Tensor,
+                         embedding: torch.Tensor, local_feat: torch.Tensor,
+                         cfg: Config) -> torch.Tensor:
+    """The two unfolded streams from given features (get_decoder,
+    model_normalization.py:223-238): pts [B,N,3], embedding [B,G],
+    local_feat [B,N,1472] -> [B,N,out] in the compute type."""
+    cd = compute_dtype(cfg)
+    g = sdfnet.apply_global_head(params["sdfprediction"], pts, embedding, cd)
+    loc = sdfnet.apply_local_head(params["sdfprediction_imgfeat"], pts,
+                                  local_feat, cd)
+    return g + loc
 
 
 def get_loss(end_points: dict[str, torch.Tensor], gt_sdf: torch.Tensor,

@@ -1,5 +1,6 @@
-"""SDF decoder heads (port of disn_tpu/models/sdfnet.py, the two-stream
-prefold form that the fold='137' decode uses).
+"""SDF decoder heads (port of disn_tpu/models/sdfnet.py: the two-stream
+prefold form that the fold='137' decode uses, and the unfolded global and
+local streams that the multi-view general arm decodes with).
 
 Head widths: each stream is 3->64->256->512, ++ extra features, ->512->256->1
 (2 logits for the binary variant). Scope names mirror the TF graph:
@@ -41,6 +42,40 @@ def init_local_head(gen: torch.Generator, device: torch.device,
 
 def last_layer(params: dict) -> str:
     return "conv5_bi" if "conv5_bi" in params["fold2"] else "conv5"
+
+
+def _apply_point_mlp(params: dict, pts: torch.Tensor, concat: torch.Tensor,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
+    """pts [B,N,3]; concat [B,N,D], the features appended after fold1.
+    fold1 (3->64->256->512), concat, fold2 (512+D->512->256->out)."""
+    cd = compute_dtype
+    h = layers.dense(params["fold1"]["conv1"], pts, compute_dtype=cd)
+    h = layers.dense(params["fold1"]["conv2"], h, compute_dtype=cd)
+    h = layers.dense(params["fold1"]["conv3"], h, compute_dtype=cd)
+    h = torch.cat([h, concat.to(h.dtype)], dim=-1)
+    h = layers.dense(params["fold2"]["conv1"], h, compute_dtype=cd)
+    h = layers.dense(params["fold2"]["conv2"], h, compute_dtype=cd)
+    return layers.dense(params["fold2"][last_layer(params)], h, relu=False,
+                        compute_dtype=cd)
+
+
+def apply_global_head(params: dict, pts: torch.Tensor,
+                      global_feat: torch.Tensor,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """get_sdf_basic2: the [B,G] embedding tiled over the points."""
+    g = global_feat[:, None, :].expand(pts.shape[0], pts.shape[1], -1)
+    return _apply_point_mlp(params, pts, g, compute_dtype)
+
+
+def apply_local_head(params: dict, pts: torch.Tensor,
+                     local_feat: torch.Tensor,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> torch.Tensor:
+    """get_sdf_basic2_imgfeat_twostream: [B,N,L] per-point local
+    features."""
+    return _apply_point_mlp(params, pts, local_feat, compute_dtype)
 
 
 def split_local_fold2(params: dict) -> tuple[torch.Tensor, torch.Tensor]:

@@ -61,20 +61,22 @@ GEMM_SHAPES = ((64, 256), (256, 512), (512, 512), (512, 256))  # w2..w4
 
 
 def cell_points(cell_ids: torch.Tensor, coarse_c: int, fine_r: int,
-                sdf_params: torch.Tensor
+                sdf_params: torch.Tensor, stride: int = STRIDE
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[n] cell ids -> ([n*64, 3] f32 points, [n*64] flat fine-grid
-    indices), in the kernel's order: x fastest within a cell."""
+    """[n] cell ids -> ([n*s^3, 3] f32 points, [n*s^3] flat fine-grid
+    indices) for cells of stride s (the kernel's 4 by default), in the
+    kernel's order: x fastest within a cell."""
     c = coarse_c
     dev = cell_ids.device
-    cell = cell_ids.long().repeat_interleave(K)
-    off = torch.arange(K, device=dev).repeat(cell_ids.shape[0])
+    k = stride ** 3
+    cell = cell_ids.long().repeat_interleave(k)
+    off = torch.arange(k, device=dev).repeat(cell_ids.shape[0])
     cz = cell // (c * c)
     cy = (cell // c) % c
     cx = cell % c
-    f = torch.stack([cx * STRIDE + off % STRIDE,
-                     cy * STRIDE + (off // STRIDE) % STRIDE,
-                     cz * STRIDE + off // (STRIDE * STRIDE)], dim=-1)
+    f = torch.stack([cx * stride + off % stride,
+                     cy * stride + (off // stride) % stride,
+                     cz * stride + off // (stride * stride)], dim=-1)
     sp = sdf_params.float()
     lo, span = sp[0:3], sp[3:6] - sp[0:3]
     # an IEEE divide, as the kernel and the JAX reference do: on CUDA,

@@ -205,13 +205,30 @@ def test_cli_evaluate_acc_matches_jax(data, monkeypatch):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
 
 
-@pytest.mark.parametrize("flag,item", [("--multi-view",
-                                        "Queue 1 item 5")])
-def test_create_sdf_unported_modes_raise(data, flag, item):
-    _, data_dir, _ = data
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["create-sdf", "--device", "cpu", "--data-root", data_dir,
-                  "--restore", CKPT, flag] + SET)
+def test_cli_create_sdf_multi_view_matches_jax(data):
+    """create-sdf --multi-view through both CLIs on the same tree and
+    checkpoint: one {cat}_{obj}_fused.obj per object (2 views fused) under
+    test_objs/33_0.0_mv/, each the reference's mesh as vertex and triangle
+    sets (both extract on their device from the fused volume; atol 2e-5 as
+    above, f32 summation order moves a vertex by ~1e-6)."""
+    root, data_dir, _ = data
+    runs = {}
+    for name, main, dev in (("port", cli.main, ["--device", "cpu"]),
+                            ("jax", jcli.main, ["--platform", "cpu"])):
+        runs[name] = os.path.join(root, f"mv_{name}")
+        main(["create-sdf", "--multi-view", "--data-root", data_dir,
+              "--log-dir", runs[name], "--restore", CKPT] + dev + SET)
+    trees = {k: os.path.join(v, "test_objs", "33_0.0_mv")
+             for k, v in runs.items()}
+    names = [os.path.join(CAT, f"{CAT}_{o}_fused.obj")
+             for o in sorted(synthetic.SHAPES)]
+    assert _objs(trees["port"]) == _objs(trees["jax"]) == sorted(names)
+    for name in names:
+        v, f = codecs.read_obj(os.path.join(trees["port"], name))
+        jv, jf = codecs.read_obj(os.path.join(trees["jax"], name))
+        assert len(f) > 1000 and v.shape == jv.shape and f.shape == jf.shape
+        for x, y in zip(_mesh_sets(v, f), _mesh_sets(jv, jf)):
+            np.testing.assert_allclose(x, y, rtol=0, atol=2e-5)
 
 
 def test_jax_stays_on_the_cpu():

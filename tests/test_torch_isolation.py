@@ -47,7 +47,8 @@ def test_every_module_is_listed():
             "disn_tpu_torch.eval.metrics", "disn_tpu_torch.eval.runner",
             "disn_tpu_torch.ops.voxelize", "disn_tpu_torch.core.meshes",
             "disn_tpu_torch.kernels", "disn_tpu_torch.models.posenet",
-            "disn_tpu_torch.core.camera"} <= names
+            "disn_tpu_torch.core.camera", "disn_tpu_torch.core.grids",
+            "disn_tpu_torch.infer.multiview"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
@@ -81,7 +82,10 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "cli_create_sdf", "cli_evaluate",
                                    "cli_evaluate_acc", "posenet_init",
                                    "make_cam_train_step", "cli_demo",
-                                   "cli_train_cam"])
+                                   "cli_train_cam", "reconstruct_multiview",
+                                   "multiview_to_mesh",
+                                   "multiview_sdf_sparse", "multiview_sdf",
+                                   "cli_create_sdf_multi_view"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -89,7 +93,7 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.eval import runner
-    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.infer import multiview, pipeline
     from disn_tpu_torch.models import disn, posenet
     from disn_tpu_torch.ops import marching, voxelize
     from disn_tpu_torch.train import trainer
@@ -145,5 +149,20 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
         elif entry == "cli_train_cam":
             cli.main(["train-cam", "--data-root", "unused", "--log-dir",
                       str(tmp_path)])
+        elif entry == "reconstruct_multiview":
+            pipeline.reconstruct_multiview({}, cfg, None, [], str(tmp_path))
+        elif entry == "multiview_to_mesh":
+            pipeline.multiview_to_mesh({}, np.zeros((2, 137, 137, 3),
+                                                    np.uint8),
+                                       np.zeros((2, 4, 3), np.float32), box,
+                                       cfg)
+        elif entry in ("multiview_sdf_sparse", "multiview_sdf"):
+            getattr(multiview, entry)({}, np.zeros((2, 137, 137, 3),
+                                                   np.uint8),
+                                      np.zeros((2, 4, 3), np.float32), box,
+                                      cfg)
+        elif entry == "cli_create_sdf_multi_view":
+            cli.main(["create-sdf", "--multi-view", "--data-root", "unused",
+                      "--restore", "unused", "--log-dir", str(tmp_path)])
         else:
             synthetic.analytic_octahedron_params(cfg)

@@ -131,22 +131,39 @@ def test_kernel_equals_plain_on_lattices(card, R, stride, pad):
          R)
 
 
+# windows of torch.profiler a test takes at most: the profiler drops a
+# device event now and then (K5's 1.25 us memset, once a whole window), so
+# a window that misses an event the step always launches is taken again
+PROFILE_TRIES = 3
+
+
 @pytest.mark.cuda
 def test_one_step_is_only_the_librarys_work(card):
     """torch.profiler over one CUDA step: the device runs the library's
-    memset of the own-slot table and its two kernels, and nothing else."""
+    memset of the own-slot table and its two kernels, and nothing else. A
+    window that misses one of the three is taken again (up to
+    PROFILE_TRIES, each printed); a window with any other device event
+    fails at once; the assertions read the window kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ours = ("Memset", "own_scatter", "sparse_words_grid")
     args = random_inputs(257, 500, 450, seed=3, dev=card)
     sw.sparse_cell_words(*args, R=257, iso=0.0)  # build and load first
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sw.sparse_cell_words(*args, R=257, iso=0.0)
+    for window in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    names = sorted(e.key for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sw.sparse_cell_words(*args, R=257, iso=0.0)
+            torch.cuda.synchronize()
+        names = sorted(e.key for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        assert all(any(o in k for o in ours) for k in names), names
+        missing = [o for o in ours if not any(o in k for k in names)]
+        print(f"profiler window {window} of {PROFILE_TRIES}: {names}"
+              + (f", missing {missing}" if missing else ""))
+        if not missing:
+            break
     assert len(names) == 3, names
     assert any("Memset" in k for k in names), names
     assert any("own_scatter" in k for k in names), names
