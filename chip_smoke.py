@@ -179,7 +179,39 @@ on failure:
    cli]: `create-sdf --multi-view` through the port's CLI on the card on
    a temporary split of 2 objects x 3 views (in-memory readers), one
    fused mesh an object;
-10. print per-stage times of both flows, each main-path K1 launch's share
+10. the other heads (binary and tanh, onestream, global, 3D-CNN, the
+   unfolded forward pass, the fold modes, the train-time dump; no kernel
+   of their own: K1 serves the binary twostream head). [var binary]: the
+   analytic octahedron's binary head (logits (0, 10(s - r))), full width,
+   257^3, a warm-up and 3 bf16 images and one f32 image through the exact
+   dense route (K1 with out_dim 2 over all 262,144 cells, the planes by
+   the plain decode) and the binary_sparse route (the sign cull), the K1
+   and K5 counts set to 0 just before each route and read just after (1
+   and 2 K1 launches an image): the routes' faces equal, vertices on the
+   surface within SURFACE_TOL + binary_edge_tol (the field's curvature
+   along a tet edge); stages, wall and K1 share; K1 on the dense launch's
+   own inputs against its plain version (every 16th cell) and the whole
+   launch timed beside its bound (k1_macs(2)). [var onestream] / [var
+   global]: image_to_mesh at full width, 257^3, with the analytic head
+   copied into the variant's MLP (var_analytic_params), a warm-up and 3
+   bf16 images and one f32 image, counts set to 0 before each: no K1 or
+   K5 launch, the sparse volume flow by the plain decode, the main path's
+   faces, vertices on the surface (f32 SURFACE_TOL, bf16
+   MV_BF16_SURFACE_TOL), the decode beside var_bound. [var 3dcnn]: the
+   full-width forward to 65^3 (f32 and bf16, median of 5, peak memory),
+   meshed at its median. [var train]: the onestream step at the default
+   Config's width (B = 20, N = 2048, f32), ms/step and peak memory, the
+   falling-loss gate from a fresh seed-0 state; `train --dump-every 1`
+   through the CLI on the card at width 0.125 (in-memory h5 readers):
+   every step's three dump files. [var hold]: card against CPU at width
+   0.25, sdf_res 64, f32: twostream by fold 'none', 'local' and '137'
+   under fused_kernel 'off' and 'auto' (K1 once only for '137' + 'auto'),
+   native sampling, onestream, global, a binary + tanh twostream head
+   (K1), a binary onestream head through the sign cull, the 3D-CNN
+   volume, each within VAR_HOLD_REL. Phase 3 also holds K1 with out_dim 2
+   (random binary heads) at the main path's shapes, ragged counts and
+   49^3, in both types;
+11. print per-stage times of both flows, each main-path K1 launch's share
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
    f32 kernels and K5's launches from the main path's run of phase 2, K6's
@@ -381,9 +413,11 @@ def hold_k1(label: str, args, kw, timed: bool = True) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def random_k1_args(dtype, cam, main_args, seed: int = 0):
-    """Seeded random full-width head weights (non-zero biases) and folded
-    map in `dtype`, with the cell ids and geometry of a main-path launch."""
+def random_k1_args(dtype, cam, main_args, seed: int = 0,
+                   out_dim: int = 1):
+    """Seeded random full-width head weights (non-zero biases; out_dim 2:
+    the binary head's two logits) and folded map in `dtype`, with the cell
+    ids and geometry of a main-path launch."""
     import torch
     from disn_tpu_torch.models import sdfnet
     from disn_tpu_torch.ops import fused_decode
@@ -391,9 +425,11 @@ def random_k1_args(dtype, cam, main_args, seed: int = 0):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params = {"sdfprediction": sdfnet.init_global_head(gen, dev, 1024),
+    binary = out_dim == 2
+    params = {"sdfprediction": sdfnet.init_global_head(gen, dev, 1024,
+                                                       binary),
               "sdfprediction_imgfeat": sdfnet.init_local_head(gen, dev,
-                                                              1472)}
+                                                              1472, binary)}
     for scope in params.values():
         for layer in scope.values():
             for p in layer.values():
@@ -410,8 +446,9 @@ def random_k1_args(dtype, cam, main_args, seed: int = 0):
 
 def phase_k1_check(kept: dict) -> dict:
     """Hold K1 against its plain version on the main path's own inputs, and
-    with random weights at its shapes, at ragged counts and on a 49^3 grid.
-    Returns the timed results by label."""
+    with random weights (a one-logit head, timed, and the binary head's
+    two logits) at its shapes, at ragged counts and on a 49^3 grid.
+    Returns the results by label."""
     import torch
     from disn_tpu_torch.data import synthetic
 
@@ -426,20 +463,28 @@ def phase_k1_check(kept: dict) -> dict:
     for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         for cam_name, cam in (("demo", synthetic.demo_trans_mat()),
                               ("w0_plane_in_box", TRANS_W0_IN_BOX)):
-            for pass_, (margs, kw) in args_by_pass.items():
-                args = random_k1_args(dtype, cam, margs)
-                res[(dt, cam_name, pass_)] = hold_k1(
-                    f"{dt} random camera={cam_name} {pass_}", args, kw)
-                if pass_ != "fine":
-                    continue
-                for n in (*RAGGED_CELLS, n_fine - 1):
-                    ragged = (*args[:4], args[4][:n].contiguous())
-                    hold_k1(f"{dt} random camera={cam_name} ragged n={n}",
-                            ragged, kw, timed=False)
-            args = random_k1_args(dtype, cam, (*fine_args[:3], *grid49()))
-            hold_k1(f"{dt} random camera={cam_name} grid 49^3", args,
-                    dict(fine_r=49, coarse_c=12, img_w=137, img_h=137),
-                    timed=False)
+            # out_dim 2 (the binary head's logits, its own epilogue) beside
+            # the one-logit head, on every run; timed for out_dim 1 only
+            for out_dim in (1, 2):
+                head = "" if out_dim == 1 else " out_dim=2"
+                for pass_, (margs, kw) in args_by_pass.items():
+                    args = random_k1_args(dtype, cam, margs,
+                                          out_dim=out_dim)
+                    label = f"{dt} random camera={cam_name}{head} {pass_}"
+                    held = hold_k1(label, args, kw, timed=out_dim == 1)
+                    res[(dt, cam_name + head, pass_)] = held
+                    if pass_ != "fine":
+                        continue
+                    for n in (*RAGGED_CELLS, n_fine - 1):
+                        ragged = (*args[:4], args[4][:n].contiguous())
+                        hold_k1(f"{dt} random camera={cam_name}{head} "
+                                f"ragged n={n}", ragged, kw, timed=False)
+                args = random_k1_args(dtype, cam,
+                                      (*fine_args[:3], *grid49()),
+                                      out_dim=out_dim)
+                hold_k1(f"{dt} random camera={cam_name}{head} grid 49^3",
+                        args, dict(fine_r=49, coarse_c=12, img_w=137,
+                                   img_h=137), timed=False)
     return res
 
 
@@ -1516,17 +1561,21 @@ def phase_train_hold(records) -> None:
 def train_step_bound(cfg, n_params: int) -> tuple[float, dict]:
     """(least ms the card could take for one step, MACs by part) from the
     step's shapes: the forward's multiply-adds (VGG-16's convolutions and
-    fc layers, the fold in the order fold_137 takes, the two point MLPs),
+    fc layers, the fold in the order fold_137 takes, the two point MLPs;
+    for the unfolded arm of the other variants their MLPs on the
+    concatenated features and the samples' taps, in f32),
     three times over for the forward and the backward, at the peak of the
     type each runs in (the fold's resizes in f32 whatever the compute type;
     the rest in bf16 for a bf16 step); against the bytes of the batch, and
     the parameters, gradients and Adam moments read and written once."""
+    from disn_tpu_torch.config import Variant
     from disn_tpu_torch.infer import dense
     from disn_tpu_torch.models import vgg
 
     b, n = cfg.batch_size, cfg.num_sample_points
     w = [vgg.scaled_width(c, cfg.width_mult) for c in (64, 128, 256, 512, 512)]
-    macs = {"encoder": 0, "fold matmuls": 0, "fold resizes": 0, "heads": 0}
+    macs = {"encoder": 0, "fold matmuls": 0, "fold resizes": 0, "heads": 0,
+            "samples": 0}
     cin, side = cfg.img_channels, cfg.vgg_size
     for (_, names, _), cout in zip(vgg._CFG, w):
         for _ in names:
@@ -1536,24 +1585,41 @@ def train_step_bound(cfg, n_params: int) -> tuple[float, dict]:
     fc = vgg.scaled_width(4096, cfg.width_mult)
     macs["encoder"] += 7 * 7 * cin * fc + fc * fc + fc * cfg.num_classes
     oh, ow = cfg.img_h, cfg.img_w
-    side = cfg.vgg_size
-    for c in w:
-        if dense._resize_first(side, side, c, 512, cfg):
-            macs["fold resizes"] += oh * side * side * c + oh * ow * side * c
-            macs["fold matmuls"] += oh * ow * c * 512
-        else:
-            macs["fold matmuls"] += side * side * c * 512
-            macs["fold resizes"] += (oh * side * side * 512
-                                     + oh * ow * side * 512)
-        side //= 2
-    macs["fold matmuls"] += cfg.num_classes * 512
     out = 2 if cfg.binary else 1
-    macs["heads"] = n * 2 * (3 * 64 + 64 * 256 + 256 * 512 + 512 * 512
-                             + 512 * 256 + 256 * out)
+
+    def mlp(extra):
+        return (3 * 64 + 64 * 256 + 256 * 512 + (512 + extra) * 512
+                + 512 * 256 + 256 * out)
+
+    if cfg.variant is Variant.TWOSTREAM and cfg.sampling == "tf1":
+        side = cfg.vgg_size
+        for c in w:
+            if dense._resize_first(side, side, c, 512, cfg):
+                macs["fold resizes"] += (oh * side * side * c
+                                         + oh * ow * side * c)
+                macs["fold matmuls"] += oh * ow * c * 512
+            else:
+                macs["fold matmuls"] += side * side * c * 512
+                macs["fold resizes"] += (oh * side * side * 512
+                                         + oh * ow * side * 512)
+            side //= 2
+        macs["fold matmuls"] += cfg.num_classes * 512
+        macs["heads"] = n * 2 * mlp(0)
+    else:
+        # the unfolded arm (the other variants): one MLP per stream on the
+        # concatenated features, and per point and channel of the sampled
+        # maps tf1's 16 taps (12 multiply-adds: 16 products, lerps' 8)
+        loc = cfg.local_feat_dim
+        if cfg.variant is Variant.TWOSTREAM:
+            macs["heads"] = n * (mlp(cfg.num_classes) + mlp(loc))
+        else:
+            macs["heads"] = n * mlp(cfg.num_classes + loc)
+        macs["samples"] = n * 12 * loc
     macs = {k: v * b for k, v in macs.items()}
     fast = H100_BF16_FLOPS if cfg.compute_dtype == "bfloat16" else \
         H100_F32_FLOPS
-    t_ops = sum(2 * 3 * v / (H100_F32_FLOPS if k == "fold resizes" else fast)
+    t_ops = sum(2 * 3 * v / (H100_F32_FLOPS if k in ("fold resizes",
+                                                     "samples") else fast)
                 for k, v in macs.items())
     nbytes = (b * (oh * ow * cfg.img_channels + n * 7 + 12) * 4
               + n_params * 4 * 7)
@@ -3453,6 +3519,558 @@ def phase_mv(main_mesh) -> None:
     print(f"[mv] phase took {time.perf_counter() - t0:.1f} s")
 
 
+# ---- the other heads: binary and tanh, onestream, global, 3D-CNN, the
+# unfolded forward pass and fold modes, the train-time dump ----
+VAR_DIR = os.path.join(ROOT, "build", "chip_smoke_var")  # removed after
+# [var ...] card against CPU (f32, TF32 off): summation order alone,
+# relative to the volume's largest value, as K1's f32 hold
+VAR_HOLD_REL = F32_REL_TOL
+VAR_HOLD = dict(width_mult=0.25, sdf_res=64, compute_dtype="float32")
+# [var binary]: the K1 launch of the exact dense route is held against the
+# plain version on every VAR_K1_SUBSET-th of its 262,144 cells (the plain
+# version of all of them would take ~2 s in bf16)
+VAR_K1_SUBSET = 16
+
+
+def binary_edge_tol(step: float) -> float:
+    """How far off the surface |x|+|y|+|z| = r a vertex of the binary
+    head's mesh may lie, from the field's shape alone. The field (sigmoid(
+    10(s - r)) - 0.5) / 10 = tanh(5(s - r)) / 20 is monotone in s =
+    |x|+|y|+|z| (its zero set is the surface) but not linear: the extractor
+    interpolates it linearly along a tet edge, on which s is linear (grid
+    points lie on the coordinate planes, so no edge crosses one) and spans
+    at most 3 grid steps (the space diagonal). With the crossing a in s
+    below one end and b above the other (a + b = D <= 3 step), the vertex
+    sits at s = r - a + D g(a) / (g(a) + g(b)), g = tanh(5 x); the bound is
+    the largest |D g(a) / (g(a) + g(b)) - a| over a in [0, D], for every D
+    up to 3 steps (the error grows with D)."""
+    d = 3.0 * step
+    a = np.linspace(0.0, d, 100_001)
+    g = np.tanh(5.0 * a), np.tanh(5.0 * (d - a))
+    return float(np.abs(d * g[0] / (g[0] + g[1]) - a).max())
+
+
+def var_image(cfg, params, img, trans, label: str, keep: bool = False
+              ) -> tuple[dict, np.ndarray, np.ndarray, list]:
+    """image_to_mesh on the card, K1's launches timed by its events; the
+    launch inputs when `keep`. Returns (stats, verts, faces, inputs)."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    stats: dict = {}
+    torch.cuda.synchronize()
+    before = (k1.launches, k5.launches)
+    k1.events, k1.inputs = [], ([] if keep else None)
+    t0 = time.perf_counter()
+    verts, faces = pipeline.image_to_mesh(params, img, trans, cfg,
+                                          stats=stats)
+    stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    stats["k1_ms"] = sum(a.elapsed_time(b) for a, b in k1.events)
+    inputs = k1.inputs or []
+    k1.events = k1.inputs = None
+    stats.update(k1_launches=k1.launches - before[0],
+                 k5_launches=k5.launches - before[1], faces=len(faces),
+                 verts=len(verts))
+    print(f"[var {label}] " + json.dumps(stats))
+    check(len(faces) > 1000 and np.isfinite(verts).all(),
+          f"[var {label}]: {len(faces)} faces or bad vertices")
+    return stats, verts, faces, inputs
+
+
+def print_stages(tag: str, runs: list[dict], keys: tuple) -> None:
+    """The median (and all values) of each stage over `runs`."""
+    for key in keys:
+        vals = [r.get(key, float("nan")) for r in runs]
+        print(f"{tag} {key} median={np.median(vals):.3f} "
+              f"all={[round(v, 3) for v in vals]}")
+
+
+def phase_var_binary(smi: str) -> dict:
+    """[var binary]: the analytic octahedron's binary head (logits (0,
+    10(s - r))), full width, 257^3: the default exact dense route (K1 with
+    out_dim 2 over all 262,144 cells, the planes by the plain decode, the
+    whole volume to the extractor) and the binary_sparse route (the sign
+    cull), each on a warm-up and 3 bf16 images and one f32 image, the K1
+    and K5 counts set to 0 just before each route and read just after.
+    Gates: the launches (1 an image dense, 2 sparse), the routes' faces
+    equal image by image, vertices on the surface within SURFACE_TOL +
+    binary_edge_tol (+ the records' u8 step on records_sparse); then K1
+    on the dense launch's own inputs against its plain version (a subset
+    of the cells) and the whole launch timed beside its bound. Returns
+    the K1 hold results by type."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16", binary=True)
+    R = cfg.grid_resolution
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    rng = np.random.RandomState(23)
+    imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
+            for _ in range(5)]
+    trans = synthetic.demo_trans_mat()
+    edge = binary_edge_tol(2.0 / (R - 1))
+    quant = 3 * 2.0 / (R - 1) / 510
+    print(f"[var binary] vertex tolerance: SURFACE_TOL {SURFACE_TOL:.1e} + "
+          f"the field's curvature along an edge {edge:.4e} (+ {quant:.4e} "
+          f"on records_sparse)")
+    meshes, kept, runs = {}, {}, {}
+    for route, rcfg in (("dense", cfg),
+                        ("sparse", cfg.replace(binary_sparse=True))):
+        torch.cuda.synchronize()
+        k1.launches = k5.launches = 0
+        runs[route] = []
+        for i, img in enumerate(imgs):
+            c = rcfg if i < 4 else rcfg.replace(compute_dtype="float32")
+            dt = "bf16" if i < 4 else "f32"
+            keep = route == "dense" and i in (1, 4)
+            stats, verts, faces, inputs = var_image(
+                c, params, img, trans, f"binary {route} {dt} image {i}",
+                keep)
+            if keep:
+                kept[dt] = inputs[0]
+            want_route = ("tets",) if route == "dense" else (
+                "records_sparse", "owned_ids")
+            want_k1 = 1 if route == "dense" else 2
+            check(stats["route"] in want_route
+                  and stats["k1_launches"] == want_k1
+                  and stats["k5_launches"] == int(
+                      stats["route"] == "records_sparse"),
+                  f"[var binary] {route} image {i}: route {stats['route']} "
+                  f"with {stats['k1_launches']} K1 and "
+                  f"{stats['k5_launches']} K5 launches")
+            if route == "sparse":
+                check(not stats["dense_fallback"], "[var binary] the sign "
+                      "cull's cells overflowed the cap")
+            tol = SURFACE_TOL + edge + (
+                quant if stats["route"] == "records_sparse" else 0.0)
+            dist = float(np.abs(np.abs(verts).sum(1) - 0.6).max())
+            stats["max_surface_dist"] = dist
+            check(dist <= tol, f"[var binary] {route} image {i}: a vertex is "
+                               f"{dist:.3e} off the surface ({tol:.3e})")
+            meshes[(route, i)] = (verts, faces, stats["route"])
+            runs[route].append(stats)
+        print(f"[var binary] {route} route: {k1.launches} K1 and "
+              f"{k5.launches} K5 launches (counts set to 0 before it); "
+              f"{smi}")
+        check(k1.launches == want_k1 * len(imgs),
+              f"[var binary] {route}: {k1.launches} K1 launches")
+    for i in range(len(imgs)):
+        dv, df, _ = meshes[("dense", i)]
+        sv, sf, sroute = meshes[("sparse", i)]
+        same = np.array_equal(sf, df) and sv.shape == dv.shape
+        bound = (2.0 / (R - 1) / 510 if sroute == "records_sparse"
+                 else 0.0) + 1e-6
+        diff = float(np.abs(sv - dv).max()) if same else float("inf")
+        print(f"[var binary] image {i}: dense vs binary_sparse ({sroute}) "
+              f"faces equal {same} ({len(df)} faces), vertices max diff "
+              f"{diff:.3e} (bound {bound:.3e})")
+        check(same and diff <= bound,
+              f"[var binary] image {i}: the routes' meshes differ")
+    print_stages("[var binary dense bf16]", runs["dense"][1:4],
+                 ("wall_ms", "k1_ms", "extraction_ms"))
+    print_stages("[var binary sparse bf16]", runs["sparse"][1:4],
+                 ("wall_ms", "encode_ms", "prep_ms", "phase_a_ms",
+                  "phase_b_ms", "scan_ms", "extraction_ms", "k1_ms",
+                  "active_cells", "fine_cells"))
+    for route in ("dense", "sparse"):
+        for dt, rs in (("bf16", runs[route][1:4]), ("f32", runs[route][4:])):
+            share = np.median([r["k1_ms"] / r["wall_ms"] for r in rs])
+            print(f"[var binary {route} {dt}] wall "
+                  f"{np.median([r['wall_ms'] for r in rs]):.3f} ms, K1 "
+                  f"{np.median([r['k1_ms'] for r in rs]):.3f} ms, K1 share "
+                  f"of the wall {share:.4f}")
+    res = {}
+    for dt in ("bf16", "f32"):
+        args, kw = kept[dt]
+        sub = (*args[:4], args[4][::VAR_K1_SUBSET].contiguous())
+        res[dt] = hold_k1(f"{dt} binary dense launch, every "
+                          f"{VAR_K1_SUBSET}th cell", sub, kw)
+        full_ms = cuda_ms(lambda: k1(*args, **kw), 3)
+        bound_ms, bound_by = k1_bound(args, kw)
+        res[dt].update(full_ms=full_ms, full_bound_ms=bound_ms)
+        print(f"[var binary k1] {dt} out_dim 2, the dense launch of "
+              f"{args[4].numel()} cells: {full_ms:.4f} ms against its bound "
+              f"{bound_ms:.4f} ms ({bound_by}, k1_macs(2) = {k1_macs(2)} a "
+              f"point) = {bound_ms / full_ms:.4f}; {smi}")
+    return res
+
+
+def var_analytic_params(cfg):
+    """The analytic octahedron head (10 (|x|+|y|+|z| - 0.6)) in cfg's
+    variant, so that the band cull engages as on the main path: the
+    twostream fixture's global stream, copied into `sdfprediction`
+    (global) or into `sdfimgfeat` (onestream: the rows of fold2/conv1 past
+    the point part are zero, so the embedding and the local features add
+    nothing). Smoke-run scaffolding, not a package feature."""
+    import torch
+    from disn_tpu_torch.config import Variant
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.models import disn
+
+    src = synthetic.analytic_octahedron_params(
+        cfg.replace(variant=Variant.TWOSTREAM), seed=0, r=0.6)
+    params = disn.init(cfg, seed=0)
+    if cfg.variant is Variant.GLOBAL:
+        params["sdfprediction"] = src["sdfprediction"]
+        return params
+    head = params["sdfimgfeat"]
+    for fold, layers in src["sdfprediction"].items():
+        for name, leaf in layers.items():
+            w = leaf["weights"]
+            if (fold, name) == ("fold2", "conv1"):
+                w = torch.zeros_like(head[fold][name]["weights"])
+                w[:512] = leaf["weights"][:512]
+            head[fold][name] = {"weights": w, "biases": leaf["biases"]}
+    return params
+
+
+def var_bound(n_pts: int, cfg, dtype: str) -> dict:
+    """The least time the card could take for the plain decode of n_pts
+    points by cfg's point MLP (global: 3 -> 64 -> 256 -> 512, ++ the 1024
+    embedding -> 512 -> 256 -> 1; onestream: ++ 1024 + 448), its tf1
+    samples (onestream: per point and channel of the three maps, 16 taps:
+    16 multiply-adds and the lerps' 8, in f32 on the FMA units, as
+    resize_then_sample gathers) and the bytes (the endpoint maps and the
+    weights read once, the values written once). bf16: the MLP on the
+    tensor cores, the taps on the FMA units; f32: both on the FMA units."""
+    from disn_tpu_torch.config import Variant
+
+    extra = cfg.num_classes + (cfg.local_feat_dim
+                               if cfg.variant is Variant.ONESTREAM else 0)
+    macs = (3 * 64 + 64 * 256 + 256 * 512 + (512 + extra) * 512
+            + 512 * 256 + 256)
+    mlp = 2.0 * n_pts * macs
+    taps = (24.0 * n_pts * cfg.local_feat_dim
+            if cfg.variant is Variant.ONESTREAM else 0.0)
+    fast = H100_BF16_FLOPS if dtype == "bf16" else H100_F32_FLOPS
+    parts = {"mlp": mlp / fast, "taps": taps / H100_F32_FLOPS}
+    ops = max(parts.values()) if dtype == "bf16" else sum(parts.values())
+    esize = 2 if dtype == "bf16" else 4
+    maps = sum(s * s * c for s, c in ((224, 64), (112, 128), (56, 256))) \
+        if cfg.variant is Variant.ONESTREAM else 0
+    nbytes = esize * (maps + macs) + 4 * n_pts
+    parts["bytes"] = nbytes / H100_BYTES_PER_S
+    bound = max(ops, parts["bytes"])
+    by = ("bytes" if parts["bytes"] >= ops else
+          "operations (" + max(("mlp", "taps"), key=parts.get) + ")")
+    return {"bound_ms": bound * 1e3, "bound_by": by, "macs": macs,
+            **{f"{k}_ms": t * 1e3 for k, t in parts.items()}}
+
+
+def phase_var_stream(variant: str, main_mesh, smi: str) -> None:
+    """[var onestream] / [var global]: image_to_mesh of the variant at full
+    width, 257^3, with var_analytic_params: the sparse volume flow by the
+    plain decode (coarse 65^3 and the active cells' fine points; K1 does
+    not serve these heads), a warm-up and 3 bf16 images and one f32 image
+    (TF32 off), the K1 and K5 counts set to 0 just before each image and
+    read just after (0 both). Gates: no cap overflow, the main path's
+    volume-flow faces (the field is the same), vertices on the surface
+    (f32 within SURFACE_TOL, bf16 within MV_BF16_SURFACE_TOL: the plain
+    decode rounds the output layer to bf16). Prints the stages, peak
+    memory and the decode (phase_a + phase_b) beside var_bound."""
+    import torch
+    from disn_tpu_torch.config import Config, Variant
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    tag = f"[var {variant}]"
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16",
+                 variant=Variant(variant))
+    params = var_analytic_params(cfg)
+    rng = np.random.RandomState(29)
+    trans = synthetic.demo_trans_mat()
+    runs = []
+    _, mf = main_mesh
+    for i in range(5):
+        c = cfg if i < 4 else cfg.replace(compute_dtype="float32")
+        img = rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k5.launches = 0
+        stats, verts, faces, _ = var_image(c, params, img, trans,
+                                           f"{variant} image {i}")
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(k1.launches == 0 and k5.launches == 0,
+              f"{tag} image {i}: K1 {k1.launches} and K5 {k5.launches} "
+              f"launches, expected none")
+        check(not stats["dense_fallback"] and stats["route"] == "owned_ids",
+              f"{tag} image {i}: route {stats['route']}, dense fallback "
+              f"{stats['dense_fallback']}")
+        tol = MV_BF16_SURFACE_TOL if i < 4 else SURFACE_TOL
+        dist = float(np.abs(np.abs(verts).sum(1) - 0.6).max())
+        same = np.array_equal(faces, mf)
+        stats.update(max_surface_dist=dist, main_faces_equal=same,
+                     decode_ms=stats["phase_a_ms"] + stats["phase_b_ms"])
+        n_pts = (c.sdf_res // 4 + 1) ** 3 + 64 * stats["active_cells"]
+        b = var_bound(n_pts, c, "bf16" if i < 4 else "f32")
+        print(f"{tag} image {i}: {len(faces)} faces (the main path's: "
+              f"{same}), vertices off the surface by {dist:.3e} "
+              f"(tolerance {tol:.3e}); decode {stats['decode_ms']:.3f} ms "
+              f"for {n_pts} points against its bound {b['bound_ms']:.4f} "
+              f"ms ({b['bound_by']}; mlp {b['mlp_ms']:.4f}, taps "
+              f"{b['taps_ms']:.4f}, bytes {b['bytes_ms']:.4f}; "
+              f"{b['macs']} MACs a point) = "
+              f"{b['bound_ms'] / stats['decode_ms']:.5f}; peak "
+              f"{stats['peak_gib']:.3f} GiB; {smi}")
+        check(dist <= tol and same, f"{tag} image {i}: the mesh is not the "
+                                    f"main path's octahedron")
+        runs.append(stats)
+    keys = ("wall_ms", "encode_ms", "prep_ms", "phase_a_ms", "phase_b_ms",
+            "scan_ms", "extraction_ms", "decode_ms", "active_cells",
+            "fine_cells", "peak_gib")
+    print_stages(f"{tag} bf16", runs[1:4], keys)
+    print_stages(f"{tag} f32", runs[4:], keys)
+
+
+def phase_var_3dcnn(smi: str) -> None:
+    """[var 3dcnn]: the 3D-CNN variant's full-width forward (VGG-16, the
+    transpose-conv stack to 65^3, the f32 1x1x1 head) through
+    pipeline.threedcnn_volume, f32 (TF32 off) and bf16: a warm-up, then
+    the median of 5 (host clock, synchronised) and peak memory; no K1
+    launch. The f32 volume is meshed at its median as the iso, so that the
+    extractor has work: > 0 faces, finite."""
+    import torch
+    from disn_tpu_torch.config import Config, Variant
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.ops import fused_decode
+
+    k1 = fused_decode.fused_cell_decode
+    cfg = Config(variant=Variant.THREEDCNN)
+    params = disn.init(cfg, seed=0)
+    img = np.random.RandomState(31).randint(0, 256, (137, 137, 3),
+                                            dtype=np.uint8)
+    vol = None
+    for dt in ("float32", "bfloat16"):
+        c = cfg.replace(compute_dtype=dt)
+        pipeline.threedcnn_volume(params, img, c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = 0
+        ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            v = pipeline.threedcnn_volume(params, img, c)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(k1.launches == 0 and tuple(v.shape) == (65, 65, 65)
+              and bool(torch.isfinite(v).all()),
+              f"[var 3dcnn] {dt}: shape {tuple(v.shape)}, K1 {k1.launches}")
+        print(f"[var 3dcnn] {dt} forward to the 65^3 volume: median "
+              f"{np.median(ms):.3f} ms all={[round(x, 3) for x in ms]}; "
+              f"peak {peak:.3f} GiB; {smi}")
+        vol = v if vol is None else vol
+    iso = float(vol.median())
+    t0 = time.perf_counter()
+    verts, faces = pipeline.volume_to_mesh(vol, pipeline.UNIT_BOX, iso=iso)
+    print(f"[var 3dcnn] f32 volume meshed at its median {iso:.6e}: "
+          f"{len(faces)} faces, {len(verts)} verts in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    check(len(faces) > 0 and np.isfinite(verts).all(),
+          "[var 3dcnn] the median iso gave no mesh")
+
+
+def phase_var_train(records, smi: str) -> None:
+    """[var train]: the onestream variant's step (the trainer's fold=True
+    falls through to the unfolded forward pass) at the default Config's
+    full width, B = 20, N = 2048, f32: 2 warm-ups and 10 timed steps from
+    the memory loader (time_steps), then 20 steps on one batch from a
+    fresh seed-0 state, whose sdf_loss must fall (the median of the last 5
+    below that of the first 5). Then `train --dump-every 1` through the
+    CLI on the card at width 0.125 on the memory records (the card's
+    machine has no h5py: core/codecs' h5 readers are replaced for the
+    call): every step's three dump files exist and are not empty."""
+    import shutil
+
+    import torch
+    from disn_tpu_torch import cli
+    from disn_tpu_torch.config import Config, Variant
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.data import listing, synthetic
+    from disn_tpu_torch.train import trainer
+
+    cfg = Config(variant=Variant.ONESTREAM)
+    state = trainer.create_state(cfg, seed=0)
+    loader = train_loader(cfg, records, 12).start()
+    try:
+        time_steps(cfg, state, loader, "var onestream f32")
+    finally:
+        loader.shutdown()
+    del state
+    torch.cuda.empty_cache()
+    state = trainer.create_state(cfg, seed=0)
+    step = trainer.make_train_step(cfg)
+    batch = on(host_batch(cfg, records, seed=2), CARD)
+    losses = [step(state, batch)[1]["sdf_loss"] for _ in range(20)]
+    losses = [x.item() for x in losses]
+    first, last = np.median(losses[:5]), np.median(losses[-5:])
+    print(f"[var train] onestream, 20 steps on one batch: sdf_loss "
+          f"{[round(x, 2) for x in losses]}; median of the first 5 "
+          f"{first:.2f}, of the last 5 {last:.2f}; {smi}")
+    check(all(np.isfinite(losses)) and last < first,
+          "[var train] onestream: sdf_loss did not fall over 20 steps")
+    del state
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(VAR_DIR, ignore_errors=True)
+    data = os.path.join(VAR_DIR, "data")
+    os.makedirs(os.path.join(data, "filelists"))
+    cat = synthetic.SYNTH_CAT
+    with open(os.path.join(data, "filelists", f"{cat}_train.lst"), "w") as f:
+        f.write("\n".join(synthetic.SHAPES) + "\n")
+    paths = listing.SplitPaths(os.path.join(data, "sdf"),
+                               os.path.join(data, "renders"))
+    sdf = {paths.sdf_path(cat, o): r for o, r in records[0].items()}
+    views = {paths.img_path(cat, o, v): r for (o, v), r in records[1].items()}
+    readers = {"read_sdf_h5": sdf.__getitem__,
+               "read_view_h5": views.__getitem__}
+    saved = {k: getattr(codecs, k) for k in readers}
+    log = os.path.join(VAR_DIR, "run")
+    sets = dict(width_mult=0.125, num_classes=32, batch_size=4,
+                num_sample_points=256, view_num=4, variant="onestream")
+    t0 = time.perf_counter()
+    try:
+        for k, fn in readers.items():
+            setattr(codecs, k, fn)
+        cli.main(["train", "--data-root", data, "--log-dir", log,
+                  "--epochs", "1", "--workers", "2", "--dump-every", "1"]
+                 + [x for k, v in sets.items() for x in ("--set", f"{k}={v}")])
+    finally:
+        for k, fn in saved.items():
+            setattr(codecs, k, fn)
+    secs = time.perf_counter() - t0
+    dumps = sorted(os.listdir(os.path.join(log, "dumps")))
+    steps = len(dumps) // 3
+    sizes = [os.path.getsize(os.path.join(log, "dumps", n)) for n in dumps]
+    print(f"[var train] train --dump-every 1 on the card ({sets}): "
+          f"{steps} steps in {secs:.2f} s, {len(dumps)} dump files "
+          f"{dumps[:3]}..., smallest {min(sizes)} B; {smi}")
+    want = [f"step{i:06d}_{k}" for i in range(steps)
+            for k in ("gt.obj", "pred.obj", "proj.ppm")]
+    check(steps >= 3 and dumps == want and min(sizes) > 0,
+          f"[var train] the dumps are not every step's three files: {dumps}")
+    shutil.rmtree(VAR_DIR, ignore_errors=True)
+
+
+def phase_var_hold(smi: str) -> None:
+    """[var hold]: the volume on the card against the same code on the CPU
+    (VAR_HOLD: width 0.25, sdf_res 64, f32, TF32 off; seeded random params
+    with the heads' biases drawn too) for every arm: twostream tf1 by
+    dense_sdf with fold 'none', 'local' and '137' under fused_kernel 'off'
+    and 'auto' ('137' + 'auto' launches K1, once; the rest none); native
+    sampling; onestream and global; a binary + tanh twostream head (K1,
+    out_dim 2) and a binary onestream head through the sign cull; the 3D-CNN
+    volume. Each within VAR_HOLD_REL of the CPU's largest |value|."""
+    import torch
+    from disn_tpu_torch.config import Config, Variant
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import dense, pipeline
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.ops import fused_decode
+
+    k1 = fused_decode.fused_cell_decode
+    t0 = time.perf_counter()
+    img = np.random.RandomState(37).randint(0, 256, (137, 137, 3),
+                                            dtype=np.uint8)
+    trans = synthetic.demo_trans_mat()
+    box = pipeline.UNIT_BOX
+
+    def net(cfg, seed):
+        params = disn.init(cfg, seed=seed, device="cpu")
+        gen = torch.Generator().manual_seed(seed)
+        for scope, tree in params.items():
+            stack = [tree] if scope != "vgg_16" else []
+            while stack:
+                node = stack.pop()
+                for k, v in node.items():
+                    if isinstance(v, dict):
+                        stack.append(v)
+                    elif k == "biases":
+                        node[k] = 0.1 * torch.randn(v.shape, generator=gen)
+        return params
+
+    arms = [(f"twostream tf1 fold={fold} fused_kernel={fk}",
+             dict(), fold, fk) for fold in ("none", "local", "137")
+            for fk in ("off", "auto")]
+    arms += [("twostream native", dict(sampling="native"), None, "auto"),
+             ("onestream tf1", dict(variant=Variant.ONESTREAM), None,
+              "auto"),
+             ("global", dict(variant=Variant.GLOBAL), None, "auto"),
+             ("twostream binary + tanh", dict(binary=True, tanh=True), None,
+              "auto"),
+             ("onestream native binary, sign cull",
+              dict(variant=Variant.ONESTREAM, sampling="native",
+                   binary=True, binary_sparse=True), "sparse", "auto"),
+             ("3dcnn", dict(variant=Variant.THREEDCNN), None, "auto")]
+    # fold 'none' and 'local' take the plain decode under either setting:
+    # the CPU's volume of the first serves the second
+    cpu_vols = {}
+    for i, (name, kw, fold, fk) in enumerate(arms):
+        cfg = Config(**VAR_HOLD, fused_kernel=fk, **kw)
+        params = net(cfg, 40 + (i if fold not in ("none", "local")
+                                else ("none", "local").index(fold)))
+        vols, launches = {}, {}
+        for d in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            before = k1.launches
+            if d == "cpu" and fold in cpu_vols:
+                vols[d] = cpu_vols[fold]
+            elif fold == "sparse" or cfg.variant is Variant.THREEDCNN:
+                vols[d] = pipeline.predict_volume(params, img, trans, box,
+                                                  cfg, device=d)
+            else:
+                vols[d] = dense.dense_sdf(params, img, trans, box, cfg,
+                                          device=d, fold_local=fold)
+            torch.cuda.synchronize()
+            launches[d] = k1.launches - before
+        if fold in ("none", "local"):
+            cpu_vols[fold] = vols["cpu"]
+        want_k1 = int(cfg.variant is Variant.TWOSTREAM and fold in
+                      (None, "137") and cfg.sampling == "tf1"
+                      and fk == "auto")
+        rel = mv_rel(vols["cuda"], vols["cpu"])
+        print(f"[var hold] {name}: card vs CPU {rel:.3e} of max|v| "
+              f"{float(vols['cpu'].abs().max()):.4e} (tolerance "
+              f"{VAR_HOLD_REL:.0e}); K1 launches on the card "
+              f"{launches['cuda']} (expected {want_k1})")
+        check(rel <= VAR_HOLD_REL and launches["cuda"] == want_k1
+              and launches["cpu"] == 0,
+              f"[var hold] {name}: the card's volume is not the CPU's, or "
+              f"K1 ran {launches['cuda']} times")
+    print(f"[var hold] {len(arms)} arms in {time.perf_counter() - t0:.1f} "
+          f"s; {smi}")
+
+
+def phase_var(records, main_mesh) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    smi = card_name()
+    res = phase_var_binary(smi)
+    torch.cuda.empty_cache()
+    for variant in ("onestream", "global"):
+        phase_var_stream(variant, main_mesh, smi)
+        torch.cuda.empty_cache()
+    phase_var_3dcnn(smi)
+    torch.cuda.empty_cache()
+    phase_var_train(records, smi)
+    torch.cuda.empty_cache()
+    phase_var_hold(smi)
+    print(f"[var] phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def k1_entries(res: dict, launches: dict) -> list[dict]:
     """K1's two kernels, each per image: its coarse + fine launch on the
     main path's own inputs (the error: the worst of every timed hold of the
@@ -3551,9 +4169,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         records = phase_train()
         phase_cam(records, *cam_inputs)
-        del records, cam_inputs, pred_mesh
+        del cam_inputs, pred_mesh
         torch.cuda.empty_cache()
         phase_mv(mv_mesh)
+        torch.cuda.empty_cache()
+        # the binary dense route's K1 holds count in K1's max_abs_err
+        for dt, held_k1 in phase_var(records, mv_mesh).items():
+            k1[(dt, "binary dense launch", "subset")] = held_k1
+        del records
         for flow, timed, keys in (
                 ("words", runs[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
                                       "phase_b_ms", "scan_ms",

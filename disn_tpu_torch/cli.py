@@ -9,7 +9,9 @@ renders/; the bundled ShapeNet split lists when DIR has no filelists/) and
 writes config.json, log_train.txt, metrics_train.jsonl and the checkpoints
 (latest.npz with the optimizer state, best.npz, epoch_NNN.npz) into
 --log-dir, in the JAX package's format: either package resumes the
-other's. `--set key=value` overrides a Config field.
+other's; every --dump-every steps it writes the visual dumps into dumps/.
+`--set key=value` overrides a Config field (e.g. variant=onestream,
+binary=true, sampling=native, fused_kernel=off).
 
     python -m disn_tpu_torch create-sdf --data-root DIR --restore CKPT
     python -m disn_tpu_torch evaluate --data-root DIR --pred-dir P --gt-dir G
@@ -143,6 +145,9 @@ def cmd_train(args) -> None:
             if i % args.log_every == 0:
                 logger.metrics(i, losses)
                 logger.log(timer.summary())
+            if args.dump_every and i % args.dump_every == 0:
+                train_visual_dump(args.log_dir, i, cfg, state.params, batch,
+                                  dev)
             if (i + 1) % bpe == 0:
                 epoch = (i + 1) // bpe
                 acc = float(acc_sum) / acc_n
@@ -155,6 +160,45 @@ def cmd_train(args) -> None:
     finally:
         loader.shutdown()
         logger.close()
+
+
+def train_visual_dump(log_dir: str, step: int, cfg: Config, params,
+                      batch: dict, dev) -> None:
+    """The train-time visuals of the JAX package's train (reference
+    train/train_sdf.py:403-428), into {log_dir}/dumps/: the batch's first
+    example's sample points projected onto its image (stepNNNNNN_proj.ppm),
+    and its points coloured by the predicted and the ground-truth SDF
+    (stepNNNNNN_pred.obj, stepNNNNNN_gt.obj). The prediction is the
+    unfolded forward pass (disn.apply(fold=False)) on `dev`, the params'
+    device, without gradients."""
+    import numpy as np
+    import torch
+
+    from disn_tpu_torch.core import camera
+    from disn_tpu_torch.infer.dense import scale_pred
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.train.trainer import to_model_batch
+    from disn_tpu_torch.utils import output
+
+    host = {k: (v.detach().cpu().numpy() if torch.is_tensor(v)
+                else np.asarray(v)) for k, v in batch.items()}
+    d = os.path.join(log_dir, "dumps")
+    px = camera.project_points(
+        torch.from_numpy(host["sdf_pt"][:1]),
+        torch.from_numpy(host["trans_mat"][:1]), img_w=cfg.img_w,
+        img_h=cfg.img_h)[0].numpy()
+    output.save_ppm(os.path.join(d, f"step{step:06d}_proj.ppm"),
+                    output.draw_points_on_image(host["img"][0], px))
+    with torch.no_grad():
+        eps = disn.apply(params, to_model_batch(
+            {k: torch.from_numpy(v[:1]).to(dev) for k, v in host.items()}),
+            cfg, fold=False)
+        pred = scale_pred(eps["pred_sdf"], cfg)[0].float().cpu().numpy()
+    output.save_scaled_point_cloud(
+        os.path.join(d, f"step{step:06d}_pred.obj"), host["sdf_pt"][0], pred)
+    output.save_scaled_point_cloud(
+        os.path.join(d, f"step{step:06d}_gt.obj"), host["sdf_pt"][0],
+        host["sdf_val"][0, :, 0])
 
 
 def cmd_train_cam(args) -> None:
@@ -447,16 +491,19 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "train", help="SDF training",
-        description="SDF training with the folded forward pass. The visual "
-                    "dumps of the JAX package's --dump-every need the "
-                    "unfolded forward pass, which the port does not have "
-                    "yet, so that option is not accepted.")
+        description="SDF training: the folded forward pass for twostream + "
+                    "tf1, the unfolded one for every other variant and "
+                    "sampling (--set variant=onestream|global, "
+                    "sampling=native, binary=true, tanh=true).")
     _common(p)
     p.add_argument("--data-root", required=True)
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--dump-every", type=int, default=4000,
+                   help="visual dump cadence in steps, step 0 included, "
+                        "into LOG_DIR/dumps/ (0 disables)")
     p.add_argument("--restore", default=None,
                    help="params from a checkpoint (shape mismatches skipped)")
     p.add_argument("--restore-cnn", default=None,

@@ -126,8 +126,9 @@ class Config:
     data_axis: str = "data"          # mesh axis for batch sharding
     point_axis: str = "points"       # mesh axis for query-point sharding
     fused_kernel: str = "auto"       # fused sample+MLP decode kernel
-    # ("auto" | "on" | "off"); read by the JAX package only — the port
-    # always decodes the fold='137' path through its CUDA kernel
+    # ("auto" | "on" | "off"); serves twostream+tf1 inference on grids
+    # whose R - 1 is a multiple of 4 (infer/fused.kernel_enabled): "off"
+    # takes the plain decode, "on" raises on an ineligible config
     sparse_stride: int = 4           # fine cells per coarse cell per axis
     binary_sparse: bool = False      # opt-in: sparse culling for BINARY
     # heads uses sign-change dilation — heuristic, can miss features

@@ -4,7 +4,9 @@ The CUDA kernel samples the whole folded map from device memory, so no tap
 can fall outside a tile: unlike the TPU version there is no per-cell escape
 count and no rescue pass. ``decode_cells`` is the kernel plus the head's
 output scaling; ``dense_grid_via_cells`` decodes a full [R,R,R] grid (all
-cells through the kernel, the three boundary planes per point).
+cells through the kernel, the three boundary planes per point);
+``kernel_enabled`` decides, as the JAX package's does, which configs and
+grids the kernel serves: every decode of the port asks it.
 """
 from __future__ import annotations
 
@@ -23,6 +25,36 @@ STRIDE = fused_decode.STRIDE
 PLANE_BLOCK = 65536  # boundary-plane points decoded per step
 
 _cell_points = fused_decode.cell_points
+
+
+def kernel_enabled(cfg: Config, fold: str, stride: int, fine_r: int,
+                   strict: bool = True) -> bool:
+    """Whether the kernel decodes a grid of fine_r points a side: fold
+    '137' (twostream + tf1), stride-4 cells, fine_r - 1 a multiple of 4,
+    137^2 images, and cfg.fused_kernel not 'off' (which takes the plain
+    decode). The JAX package's rule but for one term: it also asks
+    fine_r - 1 >= 48, so that a cell's footprint fits its TPU tile. The
+    CUDA kernel samples the whole map from device memory and has no tile
+    to outgrow, so here it serves the small grids too (17^3 to 45^3:
+    the coarse pass of sdf_res 64 and 128, and any fine grid below 49^3)
+    where the JAX package decodes plainly.
+
+    fused_kernel='on' raises on an ineligible grid instead of quietly
+    taking the plain decode; strict=False asks without raising (the
+    coarse pass of the sparse flow, which keeps the kernel where it is
+    eligible and decodes plainly otherwise)."""
+    if cfg.fused_kernel == "off":
+        return False
+    ok = (fold == "137" and stride == STRIDE and (fine_r - 1) % STRIDE == 0
+          and cfg.img_w == 137 and cfg.img_h == 137)
+    if strict and cfg.fused_kernel == "on" and not ok:
+        raise ValueError(
+            "fused_kernel='on' but the config is ineligible (needs "
+            f"twostream+tf1 fold='137' (got {fold!r}), stride {STRIDE} "
+            f"(got {stride}), grid - 1 a multiple of {STRIDE} (got {fine_r}), "
+            "137x137 images); "
+            "use 'auto' to fall back to the plain decode")
+    return ok
 
 
 def decode_cells(params: Params, endpoints: dict, trans_mat: torch.Tensor,
@@ -69,14 +101,16 @@ def plane_points(resolution: int, sdf_params: torch.Tensor
 
 def decode_planes(params: Params, endpoints: dict, trans_mat: torch.Tensor,
                   sdf_params: torch.Tensor, resolution: int, cfg: Config,
-                  vol: torch.Tensor) -> None:
+                  vol: torch.Tensor, embedding: torch.Tensor | None = None,
+                  folded=None) -> None:
     """Write the exact boundary-plane values into the flat volume `vol`
-    (in place), decoding PLANE_BLOCK points at a time."""
+    (in place) by the plain decode of `folded` (dense.normalize_fold's
+    modes; the embedding serves the arms that read it), PLANE_BLOCK points
+    at a time."""
     pts, flats = plane_points(resolution, sdf_params)
-    for i in range(0, pts.shape[0], PLANE_BLOCK):
-        v = dense_mod._decode_block(params, endpoints, None, trans_mat,
-                                    pts[i:i + PLANE_BLOCK], cfg)
-        vol[flats[i:i + PLANE_BLOCK]] = v.float()
+    vol[flats] = dense_mod.decode_points(
+        params, endpoints, embedding, trans_mat, pts, cfg, folded=folded,
+        block=PLANE_BLOCK).float()
 
 
 def dense_grid_via_cells(params: Params, endpoints: dict,

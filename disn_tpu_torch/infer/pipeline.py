@@ -44,12 +44,12 @@ import numpy as np
 import torch
 
 from disn_tpu_torch import device as device_mod
-from disn_tpu_torch.config import Config
+from disn_tpu_torch.config import Config, Variant
 from disn_tpu_torch.core import codecs
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import multiview
 from disn_tpu_torch.infer import sparse as sparse_mod
-from disn_tpu_torch.models import posenet
+from disn_tpu_torch.models import disn, posenet
 from disn_tpu_torch.ops import marching
 from disn_tpu_torch.postprocessing import clean_small_parts
 
@@ -64,22 +64,57 @@ _SWORDS_SKIP: set = set()
 
 
 def _sparse_eligible(cfg: Config) -> bool:
-    """Regress heads whose grid the stride-4 cells divide take the sparse
-    band cull; binary heads and other grids the exact dense path."""
-    return (cfg.sparse_stride == sparse_mod.STRIDE
-            and cfg.sdf_res % sparse_mod.STRIDE == 0 and not cfg.binary)
+    """Grids that the stride-4 cells divide take the sparse flow: regress
+    heads through the band cull, binary heads through the sign cull only
+    with cfg.binary_sparse (a heuristic; by default binary stays on the
+    exact dense path, as in the reference). THREEDCNN decodes its fixed
+    volume."""
+    return (cfg.variant is not Variant.THREEDCNN
+            and cfg.sparse_stride == sparse_mod.STRIDE
+            and cfg.sdf_res % sparse_mod.STRIDE == 0
+            and (not cfg.binary or cfg.binary_sparse))
 
 
 def predict_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
                    device: str | torch.device | None = None,
-                   stats: dict | None = None) -> torch.Tensor:
-    """Image -> [R,R,R] f32 SDF volume (z,y,x) on `device`."""
-    if _sparse_eligible(cfg):
+                   stats: dict | None = None,
+                   sparse: bool = True) -> torch.Tensor:
+    """Image -> [R,R,R] f32 SDF volume (z,y,x) on `device`: the sparse flow
+    when `sparse` and _sparse_eligible, else the exact dense path.
+    THREEDCNN: one forward to its fixed 65^3 volume, scaled as the point
+    heads are (R is 65 whatever cfg.sdf_res; sdf_params and trans_mat are
+    not read)."""
+    if cfg.variant is Variant.THREEDCNN:
+        return threedcnn_volume(params, img, cfg, device=device)
+    if sparse and _sparse_eligible(cfg):
         return sparse_mod.sparse_dense_sdf(params, img, trans_mat,
                                            sdf_params, cfg, device=device,
                                            stats=stats)
     return dense_mod.dense_sdf(params, img, trans_mat, sdf_params, cfg,
                                device=device)
+
+
+def threedcnn_volume(params: Params, img, cfg: Config,
+                     device: str | torch.device | None = None
+                     ) -> torch.Tensor:
+    """The THREEDCNN variant's [65,65,65] f32 volume (z,y,x) of one image
+    on `device`: disn.apply's forward, then dense.scale_pred."""
+    dev = device_mod.resolve(device)
+    params = device_mod.tree_to(params, dev)
+    img_t = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
+                            else img).to(dev)
+    if img_t.dim() == 3:
+        img_t = img_t[None]
+    with torch.no_grad():
+        pred = disn.apply(params, {"img": img_t,
+                                   "sample_pc": torch.zeros(1, 1, 3,
+                                                            device=dev),
+                                   "trans_mat": torch.zeros(1, 4, 3,
+                                                            device=dev)},
+                          cfg)["pred_sdf"]
+        vals = dense_mod.scale_pred(pred, cfg)[0].float()
+    r = round(vals.shape[0] ** (1 / 3))
+    return vals.reshape(r, r, r)
 
 
 def volume_to_mesh(vol: torch.Tensor, sdf_params, iso: float = 0.0,
@@ -119,8 +154,12 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     ``owned_ids``); if the scan's guard finds a sign change outside those
     cells, the whole volume is scanned instead (``owned_scan``). When the
     active cells overflow the cap, the config is not eligible for the
-    sparse path, or ``sparse`` is false, the dense volume goes through
-    volume_to_mesh (``tets``).
+    sparse path (_sparse_eligible: binary heads without
+    cfg.binary_sparse, THREEDCNN, other grids), or ``sparse`` is false,
+    the dense volume (predict_volume; THREEDCNN's fixed 65^3 one) goes
+    through volume_to_mesh (``tets``). Every variant and both sampling
+    modes decode through infer/fused.kernel_enabled's choice: the kernel
+    for twostream + tf1 on its grids, the plain decode otherwise.
 
     `stats`, when given, receives per-stage wall times in ms (each stage
     synchronised: encode, prep, phase_a, phase_b and scan or
@@ -145,8 +184,8 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
         if words and vol is not None and scan is not None:
             _SWORDS_SKIP.add(key)
     else:
-        vol = dense_mod.dense_sdf(params, img, trans_mat, sdf_params, cfg,
-                                  device=dev)
+        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
+                             device=dev, sparse=False)
     with device_mod.stage(stats, "extraction_ms", dev):
         if scan is None:
             route = "tets"

@@ -9,10 +9,13 @@ surface. Only the band is decoded at fine resolution; the far field is the
 coarse grid upsampled with corners aligned, which keeps the signs.
 
 * phase_a: encode + fold, decode the coarse (R-1)/4+1 grid
-  (fused.dense_grid_via_cells), threshold, compact the active cells.
-* finish: decode exactly the active cells through the kernel, upsample
-  the coarse grid, scatter the fine values, and decode the boundary planes
-  when an active cell touches them.
+  (fused.dense_grid_via_cells where fused.kernel_enabled allows it, else
+  the plain decode), threshold ('band' for regression heads, 'sign' for
+  binary ones), compact the active cells.
+* finish: decode exactly the active cells (through the kernel where
+  kernel_enabled allows it, else the plain decode), upsample the coarse
+  grid, scatter the fine values, and decode the boundary planes when an
+  active cell touches them.
 * phase_b_mesh: finish, then the mesh extractor's candidate scan of the
   fine cells inside the active coarse cells.
 * phase_b_mesh_sparse (the sparse-words flow, port of
@@ -23,7 +26,9 @@ coarse grid upsampled with corners aligned, which keeps the signs.
   (active cells on the + boundary, band violations); the caller then runs
   phase_b_mesh from the same phase_a outputs.
 * sparse_volume / sparse_dense_sdf: both phases, with the exact dense
-  fallback when more cells are active than the cap allows.
+  fallback when more cells are active than the cap allows. Every variant
+  but THREEDCNN, in both sampling modes; binary heads through the sign
+  cull, which the pipeline takes only with cfg.binary_sparse.
 
 PyTorch runs eagerly, so the fine pass decodes exactly `count` cells: no
 power-of-two buckets and no escape re-run (the kernel has no escapes).
@@ -35,7 +40,7 @@ from typing import Any
 import torch
 
 from disn_tpu_torch import device as device_mod
-from disn_tpu_torch.config import Config
+from disn_tpu_torch.config import Config, Variant
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import fused
 from disn_tpu_torch.models import disn
@@ -156,38 +161,68 @@ def cell_cap(cfg: Config) -> int:
     return -(-cap // blk) * blk
 
 
+def _folds(cfg: Config) -> tuple[str, bool, bool]:
+    """(fold, fine pass through the kernel, coarse pass through the
+    kernel). The fine check is strict (fused_kernel='on' raises on an
+    ineligible config), the coarse one is not: the coarse grid (65^3 on
+    the main path) keeps the kernel where it is eligible and decodes
+    plainly otherwise, as the JAX package's strict=False check has it."""
+    fold = dense_mod.normalize_fold(None, cfg)
+    rc = cfg.sdf_res // STRIDE + 1
+    return (fold, fused.kernel_enabled(cfg, fold, STRIDE, cfg.grid_resolution),
+            fused.kernel_enabled(cfg, fold, STRIDE, rc, strict=False))
+
+
 def phase_a(params: Params, img: torch.Tensor, trans_mat: torch.Tensor,
             sdf_params: torch.Tensor, cfg: Config,
             stats: dict | None = None):
-    """Encode + fold + coarse grid + band cull. Returns (embedding,
-    endpoints, vol_c, cell_ids [count] int32, count)."""
+    """Encode + fold + coarse grid + cull ('sign' for binary heads, else
+    'band'). Returns (embedding, endpoints, vol_c [rc,rc,rc] f32, cell_ids
+    [count] int32, count)."""
     dev = sdf_params.device
+    fold, _, coarse_kernel = _folds(cfg)
     rc = cfg.sdf_res // STRIDE + 1
     with device_mod.stage(stats, "encode_ms", dev):
         embedding, eps = disn.encode(params, img, cfg)
     with device_mod.stage(stats, "prep_ms", dev):
-        endpoints = dense_mod.fold_137(params, embedding, eps, cfg)
+        endpoints = dense_mod.fold_endpoints(params, embedding, eps, cfg,
+                                             fold)
     with device_mod.stage(stats, "phase_a_ms", dev):
-        vol_c = fused.dense_grid_via_cells(params, endpoints, trans_mat,
-                                           sdf_params, rc, cfg)
+        if coarse_kernel:
+            vol_c = fused.dense_grid_via_cells(params, endpoints, trans_mat,
+                                               sdf_params, rc, cfg)
+        else:
+            vol_c = dense_mod._stream_blocks(
+                params, endpoints, embedding, trans_mat, sdf_params,
+                cfg.replace(sdf_res=rc - 1), 0, rc ** 3, folded=fold
+            ).float().reshape(rc, rc, rc)
         tau = _band_tau(vol_c, sdf_params, rc, cfg.band_factor, cfg)
-        cell_ids, count = _active_cells(vol_c, tau)
+        cell_ids, count = _active_cells(
+            vol_c, tau, mode="sign" if cfg.binary else "band")
     return embedding, endpoints, vol_c, cell_ids, count
 
 
 def finish(params: Params, endpoints: dict, vol_c: torch.Tensor,
            cell_ids: torch.Tensor, trans_mat: torch.Tensor,
-           sdf_params: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Fine pass over exactly the active cells + far-field fill + boundary
-    planes -> the [R,R,R] f32 volume."""
+           sdf_params: torch.Tensor, cfg: Config,
+           embedding: torch.Tensor | None = None) -> torch.Tensor:
+    """Fine pass over exactly the active cells (the kernel, or the plain
+    decode of their points, which reads `embedding` on the arms that need
+    it) + far-field fill + boundary planes -> the [R,R,R] f32 volume."""
+    fold, fine_kernel, _ = _folds(cfg)
     fine_r = cfg.grid_resolution
     c = vol_c.shape[0] - 1
     vol = _upsample_aligned(vol_c, STRIDE).reshape(-1)
     if cell_ids.shape[0]:
-        vals = fused.decode_cells(params, endpoints, trans_mat, sdf_params,
-                                  cell_ids, cfg, fine_r=fine_r, coarse_c=c)
-        _, flats = fused._cell_points(cell_ids, c, fine_r, sdf_params)
-        vol[flats] = vals
+        pts, flats = fused._cell_points(cell_ids, c, fine_r, sdf_params)
+        if fine_kernel:
+            vals = fused.decode_cells(params, endpoints, trans_mat,
+                                      sdf_params, cell_ids, cfg,
+                                      fine_r=fine_r, coarse_c=c)
+        else:
+            vals = dense_mod.decode_points(params, endpoints, embedding,
+                                           trans_mat, pts, cfg, folded=fold)
+        vol[flats] = vals.float()
     # exact plane values only matter inside ACTIVE boundary-layer cells:
     # inactive cells have no crossings and sign-safe interpolation
     ids = cell_ids.long()
@@ -195,14 +230,15 @@ def finish(params: Params, endpoints: dict, vol_c: torch.Tensor,
                    | (ids // (c * c) == c - 1))
     if bool(on_boundary.any()):
         fused.decode_planes(params, endpoints, trans_mat, sdf_params, fine_r,
-                            cfg, vol)
+                            cfg, vol, embedding=embedding, folded=fold)
     return vol.reshape(fine_r, fine_r, fine_r)
 
 
 def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
                  cell_ids: torch.Tensor, trans_mat: torch.Tensor,
                  sdf_params: torch.Tensor, cfg: Config, iso: float,
-                 stats: dict | None = None):
+                 stats: dict | None = None,
+                 embedding: torch.Tensor | None = None):
     """`finish`, then the mesh extractor's candidate scan on the volume it
     built, limited to the blocks of the active coarse cells. Returns (vol,
     ids [n] int32 fine sign-change cells, n, guard, blk); see
@@ -211,7 +247,7 @@ def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
     dev = sdf_params.device
     with device_mod.stage(stats, "phase_b_ms", dev):
         vol = finish(params, endpoints, vol_c, cell_ids, trans_mat,
-                     sdf_params, cfg)
+                     sdf_params, cfg, embedding=embedding)
     with device_mod.stage(stats, "scan_ms", dev):
         scan = marching._active_cells_from_coarse(vol, cell_ids, iso,
                                                   stride=STRIDE)
@@ -219,13 +255,15 @@ def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
 
 
 def words_eligible(cfg: Config) -> bool:
-    """The sparse-words flow's grids: the JAX package's kernel_enabled
-    (disn_tpu/infer/fused.py) for the fold='137' path the port's sparse
-    pass takes: stride 4, R - 1 a multiple of it and at least 48, 137^2
-    images."""
-    r1 = cfg.grid_resolution - 1
-    return (cfg.sparse_stride == STRIDE and r1 % STRIDE == 0 and r1 >= 48
-            and cfg.img_w == 137 and cfg.img_h == 137)
+    """The sparse-words flow's configs: those whose fine pass runs the
+    fused kernel (fused.kernel_enabled on the fold='137' path: twostream +
+    tf1, stride 4, R - 1 a multiple of it, 137^2 images, fused_kernel not
+    'off'; K5 reads the kernel's rows) on a grid of R - 1 >= 48, the
+    grids the JAX package's words flow serves."""
+    return (cfg.grid_resolution - 1 >= 48
+            and fused.kernel_enabled(cfg, dense_mod.normalize_fold(None, cfg),
+                                     cfg.sparse_stride, cfg.grid_resolution,
+                                     strict=False))
 
 
 def phase_b_mesh_sparse(params: Params, endpoints: dict, vol_c: torch.Tensor,
@@ -277,19 +315,25 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
     otherwise the image goes on through phase_b_mesh from the same phase_a
     outputs. So a volume with a scan after `words` means its guard tripped.
 
+    Binary heads take the sign cull (_active_cells mode 'sign'), a
+    heuristic: a feature thinner than ~2 coarse cells that flips no
+    coarse corner's sign is missed. THREEDCNN raises (it decodes a fixed
+    volume).
+
     `stats`, when given, receives per-stage wall times (``*_ms``, each
     stage synchronised), ``active_cells`` and ``dense_fallback``, and after
     the sparse-words flow ``swords_guard``."""
     if cfg.sdf_res % STRIDE:
         raise ValueError(f"stride {STRIDE} must divide sdf_res "
                          f"{cfg.sdf_res}")
-    if cfg.binary:
-        raise NotImplementedError("the sign-change cull for binary heads "
-                                  "is not ported; use dense_sdf")
+    if cfg.variant is Variant.THREEDCNN:
+        raise ValueError("THREEDCNN decodes a fixed volume; use "
+                         "pipeline.predict_volume")
+    fold = _folds(cfg)[0]  # fused_kernel='on' on an ineligible grid raises
     dev = device_mod.resolve(device)
     params = device_mod.tree_to(params, dev)
     img_t, trans, sdfp = dense_mod.as_inputs(img, trans_mat, sdf_params, dev)
-    _, endpoints, vol_c, cell_ids, count = phase_a(
+    embedding, endpoints, vol_c, cell_ids, count = phase_a(
         params, img_t, trans, sdfp, cfg, stats)
     overflow = count > cell_cap(cfg)
     if stats is not None:
@@ -297,9 +341,8 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
         stats["dense_fallback"] = overflow
     if overflow:
         with device_mod.stage(stats, "dense_fallback_ms", dev):
-            return fused.dense_grid_via_cells(params, endpoints, trans,
-                                              sdfp, cfg.grid_resolution,
-                                              cfg), None
+            return dense_mod.dense_volume(params, endpoints, embedding,
+                                          trans, sdfp, cfg, fold), None
     if scan_iso is not None and words:
         out = phase_b_mesh_sparse(params, endpoints, vol_c, cell_ids, trans,
                                   sdfp, cfg, float(scan_iso), stats)
@@ -309,11 +352,12 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
             return None, out
     if scan_iso is not None:
         vol, *scan = phase_b_mesh(params, endpoints, vol_c, cell_ids, trans,
-                                  sdfp, cfg, float(scan_iso), stats)
+                                  sdfp, cfg, float(scan_iso), stats,
+                                  embedding=embedding)
         return vol, tuple(scan)
     with device_mod.stage(stats, "phase_b_ms", dev):
         return finish(params, endpoints, vol_c, cell_ids, trans, sdfp,
-                      cfg), None
+                      cfg, embedding=embedding), None
 
 
 def sparse_dense_sdf(params: Params, img, trans_mat, sdf_params,

@@ -1,10 +1,12 @@
-"""The DISN model graph (port of disn_tpu/models/disn.py): init, the VGG-16
-encoder and its image preprocessing, the folded forward pass that training
-runs, the per-point local features and the two-stream decode from given
-features (the multi-view general arm), and the loss.
+"""The DISN model graph (port of disn_tpu/models/disn.py): init of every
+variant, the VGG-16 encoder and its image preprocessing, the forward pass
+(the folded form that training runs for twostream + tf1, and the unfolded
+form of every variant), the per-point local features and the two-stream
+decode from given features (the multi-view general arm), and the loss.
 
 Top-level param keys mirror the TF variable scopes (vgg_16, sdfprediction,
-sdfprediction_imgfeat), so a JAX or TF checkpoint converts by name.
+sdfprediction_imgfeat, sdfimgfeat, sdf3dcnn), so a JAX or TF checkpoint
+converts by name.
 """
 from __future__ import annotations
 
@@ -25,14 +27,15 @@ def _check_supported(cfg: Config) -> None:
     if cfg.encoder is not EncoderKind.VGG16 or cfg.alpha:
         raise NotImplementedError(
             "the port covers the VGG-16 encoder on RGB images")
-    if cfg.variant is not Variant.TWOSTREAM:
-        raise NotImplementedError("the port covers the twostream variant")
 
 
 def endpoint_names(cfg: Config) -> tuple[str, ...]:
-    """Encoder endpoint maps used for local features, in concat order."""
+    """Encoder endpoint maps used for local features, in concat order: all
+    five for twostream, the first three (64+128+256 = 448 channels at full
+    width) otherwise."""
     _check_supported(cfg)
-    return vgg.ENDPOINTS
+    names = vgg.ENDPOINTS
+    return names if cfg.variant is Variant.TWOSTREAM else names[:3]
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -52,15 +55,22 @@ def init(cfg: Config, seed: int = 0,
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return {
-        "vgg_16": vgg.init(gen, dev, in_channels=cfg.img_channels,
-                           num_classes=cfg.num_classes,
-                           width_mult=cfg.width_mult),
-        "sdfprediction": sdfnet.init_global_head(gen, dev, cfg.num_classes,
-                                                 cfg.binary),
-        "sdfprediction_imgfeat": sdfnet.init_local_head(
-            gen, dev, cfg.local_feat_dim, cfg.binary),
-    }
+    params: Params = {"vgg_16": vgg.init(gen, dev,
+                                         in_channels=cfg.img_channels,
+                                         num_classes=cfg.num_classes,
+                                         width_mult=cfg.width_mult)}
+    g, b = cfg.num_classes, cfg.binary
+    if cfg.variant in (Variant.TWOSTREAM, Variant.GLOBAL):
+        params["sdfprediction"] = sdfnet.init_global_head(gen, dev, g, b)
+    if cfg.variant is Variant.TWOSTREAM:
+        params["sdfprediction_imgfeat"] = sdfnet.init_local_head(
+            gen, dev, cfg.local_feat_dim, b)
+    elif cfg.variant is Variant.ONESTREAM:
+        params["sdfimgfeat"] = sdfnet.init_onestream_head(
+            gen, dev, g, cfg.local_feat_dim, b)
+    elif cfg.variant is Variant.THREEDCNN:
+        params["sdf3dcnn"] = sdfnet.init_3dcnn_head(gen, dev, g, b)
+    return params
 
 
 def preprocess_image(img: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -82,7 +92,7 @@ def encode(params: Params, img: torch.Tensor, cfg: Config
                      compute_dtype=compute_dtype(cfg))
 
 
-def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
+def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config, *,
           fold: bool = True) -> dict[str, torch.Tensor]:
     """Forward pass of a batch, differentiable in `params`.
 
@@ -91,39 +101,67 @@ def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
       sample_pc     [B,N,3] query points (model frame), projected
       sample_pc_rot [B,N,3] optional view-rotated copy fed to the MLPs
       trans_mat     [B,4,3] world->pixel right-multiply matrix
-    Returns {"img_embedding", "sample_img_points", "pred_sdf" [B,N,1|2]}.
+    Returns {"img_embedding", "pred_sdf" [B,N,1|2] ([B,65^3,1|2] for
+    THREEDCNN)}, with "sample_img_points" for the variants that sample
+    the image, and on the unfolded twostream arm "point_img_feat",
+    "pred_sdf_value_global" and "pred_sdf_value_local", as the JAX dict.
 
-    fold=True (twostream + tf1 sampling) is the folded-137 form: the five
-    endpoint maps and the per-point 1472->512 matmul collapse into one
-    [B,137,137,512] map (infer/dense.fold_137), so a point samples 4 taps
-    of it, and autograd scatters 4 rows per point back into it. The
-    unfolded forward pass (fold=False) is not ported."""
-    if not fold:
-        raise NotImplementedError(
-            "the port implements the folded forward pass (fold=True)")
+    fold=True (the port's default; the JAX function's is False) takes the
+    folded-137 form for twostream + tf1 sampling: the five endpoint maps
+    and the per-point 1472->512 matmul collapse into one [B,137,137,512]
+    map (infer/dense.fold_137), so a point samples 4 taps of it, and
+    autograd scatters 4 rows per point back into it. Any other config
+    falls through to the unfolded form, as in the JAX package, which is
+    what lets the trainer (fold=True) train every variant."""
     # infer.dense imports this module, so it is imported here
     from disn_tpu_torch.infer import dense
 
-    dense.normalize_fold("137", cfg)
+    cd = compute_dtype(cfg)
     embedding, endpoints = encode(params, batch["img"], cfg)
-    folded = dense.fold_137(params, embedding, endpoints, cfg)
-    img_points = camera.project_points(batch["sample_pc"], batch["trans_mat"],
-                                       img_w=cfg.img_w, img_h=cfg.img_h)
-    local = image_ops.resampler(folded["fold137"], img_points)
+    out: dict[str, torch.Tensor] = {"img_embedding": embedding}
     pts_dec = batch.get("sample_pc_rot", batch["sample_pc"])
-    pred = sdfnet.apply_two_stream_prefold(
-        params["sdfprediction"], params["sdfprediction_imgfeat"], pts_dec,
-        folded["g_contrib"], local, compute_dtype(cfg))
+    if cfg.variant is Variant.THREEDCNN:
+        pred = sdfnet.apply_3dcnn_head(params["sdf3dcnn"], embedding, cd)
+    elif cfg.variant is Variant.GLOBAL:
+        # sample_pc, not the rotated copy, as the JAX function decodes it
+        pred = sdfnet.apply_global_head(params["sdfprediction"],
+                                        batch["sample_pc"], embedding, cd)
+    else:
+        img_points = camera.project_points(
+            batch["sample_pc"], batch["trans_mat"], img_w=cfg.img_w,
+            img_h=cfg.img_h)
+        out["sample_img_points"] = img_points
+        if (fold and cfg.variant is Variant.TWOSTREAM
+                and cfg.sampling == "tf1"):
+            folded = dense.fold_137(params, embedding, endpoints, cfg)
+            local = image_ops.resampler(folded["fold137"], img_points)
+            pred = sdfnet.apply_two_stream_prefold(
+                params["sdfprediction"], params["sdfprediction_imgfeat"],
+                pts_dec, folded["g_contrib"], local, cd)
+        else:
+            local = sample_local_features(endpoints, img_points, cfg)
+            out["point_img_feat"] = local
+            if cfg.variant is Variant.TWOSTREAM:
+                pred_g = sdfnet.apply_global_head(
+                    params["sdfprediction"], pts_dec, embedding, cd)
+                pred_l = sdfnet.apply_local_head(
+                    params["sdfprediction_imgfeat"], pts_dec, local, cd)
+                out["pred_sdf_value_global"] = pred_g
+                out["pred_sdf_value_local"] = pred_l
+                pred = pred_g + pred_l
+            else:
+                pred = sdfnet.apply_onestream_head(
+                    params["sdfimgfeat"], pts_dec, embedding, local, cd)
     if cfg.tanh:
         pred = torch.tanh(pred)
-    return {"img_embedding": embedding, "sample_img_points": img_points,
-            "pred_sdf": pred}
+    out["pred_sdf"] = pred
+    return out
 
 
 def sample_local_features(endpoints: dict[str, torch.Tensor],
                           img_points: torch.Tensor, cfg: Config,
                           fused: bool = True) -> torch.Tensor:
-    """Per-point multi-scale local features [B,N,1472]: each endpoint map
+    """Per-point multi-scale local features [B,N,1472|448]: each endpoint map
     resized to 137^2 (TF1 bilinear) and resampled at the projected pixel
     coordinates (model_normalization.py:171-190). cfg.sampling 'native'
     samples the maps at their own scale instead; otherwise fused=True
@@ -168,6 +206,16 @@ def get_loss(end_points: dict[str, torch.Tensor], gt_sdf: torch.Tensor,
     gt_sdf: [B,N,1], already iso-offset by the caller when training."""
     pred = image_ops.widen(end_points["pred_sdf"])
     gt_sdf = gt_sdf.to(pred.dtype)
+    try:
+        torch.broadcast_shapes(pred.shape[:-1], gt_sdf.shape[:-1])
+    except RuntimeError:
+        # THREEDCNN predicts its fixed 65^3 grid, not the sample points;
+        # the JAX loss fails on the same broadcast
+        raise ValueError(
+            f"pred_sdf {tuple(pred.shape)} does not pair with the ground "
+            f"truth {tuple(gt_sdf.shape)}: the loss compares values at the "
+            f"batch's sample points (cfg.variant {cfg.variant.value})"
+        ) from None
     losses: dict[str, torch.Tensor] = {}
     if cfg.binary:
         labels = (gt_sdf[..., 0] > 0).long()

@@ -21,14 +21,16 @@ CAMERAS = {
 }
 
 
-def _inputs(dtype, cam, n_cells=200, coarse_c=COARSE_C):
+def _inputs(dtype, cam, n_cells=200, coarse_c=COARSE_C, binary=False):
     from disn_tpu_torch.data import synthetic
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = {"sdfprediction": sdfnet.init_global_head(gen, dev, 1024),
-              "sdfprediction_imgfeat": sdfnet.init_local_head(gen, dev, 1472)}
+    params = {"sdfprediction": sdfnet.init_global_head(gen, dev, 1024,
+                                                       binary),
+              "sdfprediction_imgfeat": sdfnet.init_local_head(gen, dev, 1472,
+                                                              binary)}
     for scope in params.values():  # seeded non-zero biases
         for layer in scope.values():
             for p in layer.values():
@@ -86,6 +88,23 @@ def test_kernel_matches_plain_at_ragged_counts(dtype, cam, ragged):
     args = _inputs(dtype, CAMERAS[cam], n, coarse_c)
     out = _hold(args, dict(fine_r=fine_r, coarse_c=coarse_c), dtype)
     assert out.shape == (n * 64, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [(200, 49, 12), *RAGGED],
+                         ids=lambda r: f"n{r[0]}")
+@pytest.mark.parametrize("cam", list(CAMERAS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_binary_kernel_matches_plain(dtype, cam, ragged):
+    """The binary head's two logits (out_dim 2: the epilogue writes both)
+    against the plain version, at the ragged counts and a 49^3 grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    n, fine_r, coarse_c = ragged
+    args = _inputs(dtype, CAMERAS[cam], n, coarse_c, binary=True)
+    out = _hold(args, dict(fine_r=fine_r, coarse_c=coarse_c), dtype)
+    assert out.shape == (n * 64, 2)
+    assert not torch.equal(out[:, 0], out[:, 1])
 
 
 @pytest.mark.cuda

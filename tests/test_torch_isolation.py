@@ -48,7 +48,10 @@ def test_every_module_is_listed():
             "disn_tpu_torch.ops.voxelize", "disn_tpu_torch.core.meshes",
             "disn_tpu_torch.kernels", "disn_tpu_torch.models.posenet",
             "disn_tpu_torch.core.camera", "disn_tpu_torch.core.grids",
-            "disn_tpu_torch.infer.multiview"} <= names
+            "disn_tpu_torch.infer.multiview", "disn_tpu_torch.utils.output",
+            "disn_tpu_torch.infer.dense", "disn_tpu_torch.infer.fused",
+            "disn_tpu_torch.infer.sparse", "disn_tpu_torch.models.layers",
+            "disn_tpu_torch.models.sdfnet"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
@@ -85,15 +88,19 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "cli_train_cam", "reconstruct_multiview",
                                    "multiview_to_mesh",
                                    "multiview_sdf_sparse", "multiview_sdf",
-                                   "cli_create_sdf_multi_view"])
+                                   "cli_create_sdf_multi_view", "dense_sdf",
+                                   "sparse_volume", "threedcnn_volume",
+                                   "predict_volume_threedcnn",
+                                   "init_onestream", "cli_train_dump",
+                                   "cli_demo_global"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from disn_tpu_torch import cli
-    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.config import Config, Variant
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.eval import runner
-    from disn_tpu_torch.infer import multiview, pipeline
+    from disn_tpu_torch.infer import dense, multiview, pipeline, sparse
     from disn_tpu_torch.models import disn, posenet
     from disn_tpu_torch.ops import marching, voxelize
     from disn_tpu_torch.train import trainer
@@ -161,6 +168,32 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
                                                    np.uint8),
                                       np.zeros((2, 4, 3), np.float32), box,
                                       cfg)
+        elif entry == "dense_sdf":
+            dense.dense_sdf({}, np.zeros((137, 137, 3), np.uint8),
+                            synthetic.demo_trans_mat(), box,
+                            cfg.replace(variant=Variant.ONESTREAM))
+        elif entry == "sparse_volume":
+            sparse.sparse_volume({}, np.zeros((137, 137, 3), np.uint8),
+                                 synthetic.demo_trans_mat(), box,
+                                 cfg.replace(variant=Variant.GLOBAL,
+                                             binary=True))
+        elif entry == "threedcnn_volume":
+            pipeline.threedcnn_volume({}, np.zeros((137, 137, 3), np.uint8),
+                                      cfg.replace(variant=Variant.THREEDCNN))
+        elif entry == "predict_volume_threedcnn":
+            pipeline.predict_volume({}, np.zeros((137, 137, 3), np.uint8),
+                                    None, box,
+                                    cfg.replace(variant=Variant.THREEDCNN))
+        elif entry == "init_onestream":
+            disn.init(cfg.replace(variant=Variant.ONESTREAM))
+        elif entry == "cli_train_dump":
+            cli.main(["train", "--data-root", "unused", "--log-dir",
+                      str(tmp_path), "--dump-every", "1", "--set",
+                      "variant=global"])
+        elif entry == "cli_demo_global":
+            cli.main(["demo", "--image", "unused.h5", "--restore", "unused",
+                      "--out", str(tmp_path / "x.obj"), "--set",
+                      "variant=global", "--set", "binary=true"])
         elif entry == "cli_create_sdf_multi_view":
             cli.main(["create-sdf", "--multi-view", "--data-root", "unused",
                       "--restore", "unused", "--log-dir", str(tmp_path)])

@@ -103,10 +103,17 @@ def test_apply_and_loss_match_jax(kind):
 
 
 def test_unfolded_apply_is_not_ported():
-    _, cfg, jparams, _ = _ref("regress")
-    with pytest.raises(NotImplementedError):
-        disn.apply(_port_params(jparams),
-                   trainer.to_model_batch(_torch(_batch())), cfg, fold=False)
+    """apply(fold=False) is the unfolded forward pass of the JAX package's
+    apply(fold=False): pred_sdf and both streams' outputs, at RTOL."""
+    jcfg, cfg, jparams, _ = _ref("regress")
+    batch = _batch(2)
+    want = jax.jit(functools.partial(jdisn.apply, cfg=jcfg, fold=False))(
+        jparams, jtrainer.to_model_batch(batch))
+    got = disn.apply(_port_params(jparams),
+                     trainer.to_model_batch(_torch(batch)), cfg, fold=False)
+    for key in ("pred_sdf", "pred_sdf_value_global",
+                "pred_sdf_value_local"):
+        _close(got[key].detach(), want[key], what=key)
 
 
 def test_l2_regularizer_and_param_count_match_jax():
