@@ -211,7 +211,33 @@ on failure:
    volume, each within VAR_HOLD_REL. Phase 3 also holds K1 with out_dim 2
    (random binary heads) at the main path's shapes, ragged counts and
    49^3, in both types;
-11. print per-stage times of both flows, each main-path K1 launch's share
+11. the alternate encoders and RGBA input (models/encoders; no kernel of
+   their own: cuDNN convolutions, as VGG-16's, and K1 in both passes).
+   [enc full]: image_to_mesh at sdf_res 256 on the full-width twostream
+   net with AlexNet, ResNet-18 and VGG-16 on RGBA u8 images (alpha=True),
+   analytic octahedron head, bf16 and f32 (TF32 off): a warm-up and 3
+   fresh seeded images a run, K1's count set to 0 before each run and read
+   after (2 an image), run_main_path's gates (words flow, vertices on the
+   surface), the faces of phase 2's VGG-16 RGB mesh of the same type;
+   encode_ms, prep_ms, wall_ms and K1's ms (medians) beside K1's bound.
+   [enc k1]: K1 against its plain version on each encoder's fold-137 map
+   and g_contrib of an RGBA image (full width, random head), f32 and bf16,
+   at the main path's coarse and fine shapes. [enc hold]: card against CPU
+   at width 0.25, f32, for each encoder with and without alpha: the
+   embedding, every endpoint and the fold-137 map within ENC_HOLD_REL; one
+   train step's loss for AlexNet and ResNet on RGBA within HOLD_LOSS_REL;
+12. the offline tools (preprocessing, postprocessing, the CLI's
+   preprocess-sdf and synth; no kernel: the extraction is ops/marching's
+   PyTorch marching_tets). [prep sdf]: sdf_gen's two halves on an
+   icosphere at sdf_res 256 with in-memory writers: the host distance
+   field's seconds, marching_tets on the card and the weld's ms; every
+   sample within the bandwidth, every ground-truth vertex on the iso
+   surface within PREP_SURFACE_CELLS of a cell, the CPU's mesh of the same
+   volume equal; preprocess-sdf through the CLI on the card with --jobs 2
+   equal to --jobs 1. [prep tools]: generate_object_views, clean_mesh_file
+   on a mesh with a stray part, synth through the CLI (h5 in memory) and
+   read_dist of the .dist files it wrote;
+13. print per-stage times of both flows, each main-path K1 launch's share
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
    f32 kernels and K5's launches from the main path's run of phase 2, K6's
@@ -4071,6 +4097,427 @@ def phase_var(records, main_mesh) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# 11. the alternate encoders and RGBA input; 12. the offline tools
+# ---------------------------------------------------------------------------
+
+ENC_SEED = 60
+ENC_HOLD = dict(width_mult=0.25, num_classes=64, compute_dtype="float32",
+                batch_size=2, num_sample_points=256)
+# card against CPU at width 0.25, f32 with TF32 off: cuDNN's convolutions
+# sum in other orders than the CPU's, as K1's f32 hold allows
+ENC_HOLD_REL = F32_REL_TOL
+PREP_DIR = os.path.join(ROOT, "build", "chip_smoke_prep")  # removed after
+PREP_RES = 256   # preprocess-sdf's default resolution
+# A ground-truth vertex lies at the iso value 0.003 outside the mesh. The
+# offset surface rounds the input polyhedron's edges with radius 0.003, a
+# third of a cell at 256^3 (cell 2.4/256 = 0.0094), and marching tets
+# interpolates the field linearly along tet edges across that curvature;
+# the icosphere's faces lie up to 1.3e-4 inside its sphere. On an NVIDIA
+# H100 80GB HBM3 the worst vertex was 0.116 of a cell off; a quarter of a
+# cell is the bound.
+PREP_SURFACE_CELLS = 0.25
+
+
+def enc_configs():
+    """(label, encoder) for the three encoders, VGG-16 last."""
+    from disn_tpu_torch.config import EncoderKind
+    return [(e.value, e) for e in (EncoderKind.ALEXNET, EncoderKind.RESNET,
+                                   EncoderKind.VGG16)]
+
+
+def phase_enc_full(main_faces: dict, smi: str) -> None:
+    """[enc full]: image_to_mesh at sdf_res 256 on the full-width twostream
+    net with each encoder on RGBA (4-channel u8) images, analytic
+    octahedron head, bf16 and f32 (TF32 off): a warm-up and 3 fresh seeded
+    images a run, K1's count set to 0 before each run and read after (2 an
+    image), every image through run_main_path's gates (the words flow,
+    vertices on the surface) and with the faces of the VGG-16 RGB main
+    path's mesh of the same type. Medians of the 3 timed images."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.ops import fused_decode
+
+    k1 = fused_decode.fused_cell_decode
+    trans = synthetic.demo_trans_mat()
+    for name, enc in enc_configs():
+        for dt, cd in (("bf16", "bfloat16"), ("f32", "float32")):
+            cfg = Config(sdf_res=256, compute_dtype=cd, encoder=enc,
+                         alpha=True)
+            params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+            rng = np.random.RandomState(ENC_SEED)
+            imgs = [rng.randint(0, 256, (137, 137, 4), dtype=np.uint8)
+                    for _ in range(4)]
+            label = f"enc {name} rgba {dt}"
+            kept, meshes = {}, {}
+            torch.cuda.synchronize()
+            k1.launches = 0
+            runs = run_main_path(cfg, params, imgs, trans, label, 1, kept,
+                                 meshes)
+            torch.cuda.synchronize()
+            launches = k1.launches
+            check(launches == 2 * len(imgs),
+                  f"[enc full] {label}: {launches} K1 launches for "
+                  f"{len(imgs)} images, expected {2 * len(imgs)}")
+            same = [np.array_equal(f, main_faces[dt])
+                    for _, f in meshes[label]]
+            check(all(same), f"[enc full] {label}: faces differ from the "
+                             f"VGG-16 RGB main path's ({same})")
+            bound = sum(k1_bound(a, kw)[0] for a, kw in kept[label])
+
+            def med(key):
+                return float(np.median([r[key] for r in runs[1:]]))
+
+            print(f"[enc full] {label}: K1 launches {launches} (2 an image),"
+                  f" faces equal to the main path's ({len(main_faces[dt])}),"
+                  f" encode_ms median={med('encode_ms'):.3f} prep_ms median="
+                  f"{med('prep_ms'):.3f} wall_ms median={med('wall_ms'):.3f}"
+                  f" k1_ms median={med('k1_ms'):.4f} beside its bound "
+                  f"{bound:.4f} ms; {smi}")
+            del params, kept, meshes
+            torch.cuda.empty_cache()
+
+
+def enc_net(cfg, seed: int, device: str):
+    """disn.init(cfg) with the heads' biases drawn N(0, 0.1^2), so that a
+    head is random, not analytic."""
+    import torch
+    from disn_tpu_torch.models import disn
+
+    params = disn.init(cfg, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for scope in ("sdfprediction", "sdfprediction_imgfeat"):
+        for layer in params[scope].values():
+            for p in layer.values():
+                p["biases"] = 0.1 * torch.randn(
+                    p["biases"].shape, generator=gen, device=device)
+    return params
+
+
+def phase_enc_k1(main_kept: dict) -> None:
+    """[enc k1]: K1 against its plain version on each encoder's fold-137
+    map and g_contrib of a seeded RGBA image (full width, random head), in
+    f32 and bf16, with the cell ids and geometry of the main path's coarse
+    and fine launches and the existing tolerances."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import dense
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.ops import fused_decode
+
+    trans = torch.from_numpy(synthetic.demo_trans_mat()).to(CARD)
+    img = torch.from_numpy(np.random.RandomState(ENC_SEED + 1).randint(
+        0, 256, (1, 137, 137, 4), dtype=np.uint8)).to(CARD)
+    for name, enc in enc_configs():
+        for dtype, dt, cd in ((torch.float32, "f32", "float32"),
+                              (torch.bfloat16, "bf16", "bfloat16")):
+            cfg = Config(encoder=enc, alpha=True, compute_dtype=cd)
+            params = enc_net(cfg, ENC_SEED + 2, CARD)
+            with torch.no_grad():
+                emb, eps = disn.encode(params, img, cfg)
+                folded = dense.fold_137(params, emb, eps, cfg)
+            check(tuple(folded["fold137"].shape) == (1, 137, 137, 512),
+                  f"[enc k1] {name}: fold-137 map "
+                  f"{tuple(folded['fold137'].shape)}")
+            fmap = folded["fold137"][0].contiguous()
+            weights = fused_decode.pack_weights(params, folded["g_contrib"],
+                                                dtype)
+            for pass_, (margs, kw) in zip(("coarse", "fine"),
+                                          main_kept["bf16"]):
+                hold_k1(f"[enc k1] {name} rgba {dt} {pass_}",
+                        (fmap, weights, trans, margs[3], margs[4]), kw,
+                        timed=False)
+            del params, folded, fmap, weights
+            torch.cuda.empty_cache()
+
+
+def enc_rel(got, want) -> float:
+    """max |card - CPU| over the CPU's max |value|."""
+    want = want.detach().float()
+    return float((got.detach().float().cpu() - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def phase_enc_hold(records, smi: str) -> None:
+    """[enc hold]: the card against the CPU (ENC_HOLD: width 0.25, f32, TF32
+    off) for each encoder with and without alpha: the embedding, every
+    endpoint map and the fold-137 map of two seeded u8 images, each within
+    ENC_HOLD_REL of the CPU's largest |value|; for AlexNet and ResNet on
+    RGBA one train step's loss on a batch of the in-memory records, within
+    HOLD_LOSS_REL."""
+    import torch
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.config import Config, EncoderKind
+    from disn_tpu_torch.infer import dense
+    from disn_tpu_torch.models import disn
+    from disn_tpu_torch.train import trainer
+
+    t0 = time.perf_counter()
+    for name, enc in enc_configs():
+        for alpha in (False, True):
+            cfg = Config(encoder=enc, alpha=alpha, **ENC_HOLD)
+            params = enc_net(cfg, ENC_SEED + 3, "cpu")
+            img = np.random.RandomState(ENC_SEED + 4).randint(
+                0, 256, (2, 137, 137, cfg.img_channels), dtype=np.uint8)
+            out = {}
+            for d in (CARD, "cpu"):
+                p = device_mod.tree_to(params, torch.device(d))
+                with torch.no_grad():
+                    emb, eps = disn.encode(p, torch.from_numpy(img).to(d),
+                                           cfg)
+                    folded = dense.fold_137(p, emb, eps, cfg)
+                out[d] = {"embedding": emb, **eps,
+                          "fold137": folded["fold137"],
+                          "g_contrib": folded["g_contrib"]}
+            rels = {k: enc_rel(out[CARD][k], out["cpu"][k])
+                    for k in out["cpu"]}
+            worst = max(rels, key=rels.get)
+            line = (f"[enc hold] {name} alpha={alpha}: {len(rels)} outputs,"
+                    f" worst {worst} {rels[worst]:.3e} of max|v| (tolerance "
+                    f"{ENC_HOLD_REL:.0e})")
+            check(rels[worst] <= ENC_HOLD_REL,
+                  f"{line}: the card's encoder is not the CPU's")
+            if alpha and enc is not EncoderKind.VGG16:
+                batch = host_batch(cfg, records, seed=1)
+                loss = {d: trainer.compute_gradients(
+                    trainer.create_state(cfg, params=params, device=d),
+                    on(batch, d))["overall_loss"].item()
+                    for d in (CARD, "cpu")}
+                lrel = abs(loss[CARD] - loss["cpu"]) / abs(loss["cpu"])
+                line += (f"; train step loss card {loss[CARD]!r} cpu "
+                         f"{loss['cpu']!r} rel {lrel:.3e} (limit "
+                         f"{HOLD_LOSS_REL})")
+                check(lrel <= HOLD_LOSS_REL,
+                      f"{line}: the train step's loss differs")
+            print(line)
+    print(f"[enc hold] took {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def phase_enc(records, main_faces: dict, main_kept: dict) -> None:
+    import torch
+
+    t0 = time.perf_counter()
+    smi = card_name()
+    phase_enc_full(main_faces, smi)
+    phase_enc_k1(main_kept)
+    torch.cuda.empty_cache()
+    phase_enc_hold(records, smi)
+    print(f"[enc] phase took {time.perf_counter() - t0:.1f} s")
+
+
+def icosphere(level: int, r: float) -> tuple[np.ndarray, np.ndarray]:
+    """A sphere of radius r: the icosahedron split `level` times, every
+    vertex on the sphere (20 x 4^level faces)."""
+    t = (1 + 5 ** 0.5) / 2
+    pts = [(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0), (0, -1, t),
+           (0, 1, t), (0, -1, -t), (0, 1, -t), (t, 0, -1), (t, 0, 1),
+           (-t, 0, -1), (-t, 0, 1)]
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [np.array(p, np.float64) / np.linalg.norm(p) for p in pts]
+    for _ in range(level):
+        mid: dict = {}
+
+        def middle(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in mid:
+                p = verts[a] + verts[b]
+                verts.append(p / np.linalg.norm(p))
+                mid[key] = len(verts) - 1
+            return mid[key]
+
+        split = []
+        for a, b, c in faces:
+            ab, bc, ca = middle(a, b), middle(b, c), middle(c, a)
+            split += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = split
+    return ((np.array(verts) * r).astype(np.float32),
+            np.array(faces, np.int32))
+
+
+class MemoryWriters:
+    """codecs' h5 writers (and write_obj) replaced by in-memory stand-ins
+    for a block: the card's machine has no h5py. `written[path]` holds
+    each call's arrays."""
+
+    NAMES = ("write_sdf_h5", "write_view_h5", "write_obj")
+
+    def __init__(self, names=NAMES):
+        self.names, self.written, self.saved = names, {}, {}
+
+    def __enter__(self):
+        from disn_tpu_torch.core import codecs
+
+        def stub(name):
+            def write(path, *args, **kw):
+                self.written[path] = (name, args, kw)
+            return write
+
+        for n in self.names:
+            self.saved[n] = getattr(codecs, n)
+            setattr(codecs, n, stub(n))
+        return self
+
+    def __exit__(self, *exc):
+        from disn_tpu_torch.core import codecs
+        for n, fn in self.saved.items():
+            setattr(codecs, n, fn)
+
+
+def phase_prep_sdf(smi: str) -> None:
+    """[prep sdf]: sdf_gen.generate_object's two halves on an icosphere
+    (r 0.5, 20480 faces) at sdf_res 256, the h5 and OBJ writers in memory:
+    the host distance field's seconds, marching_tets on the card and the
+    weld on the host; every sample within the bandwidth of the iso value,
+    every ground-truth vertex at the iso value off the (normalised)
+    sphere within PREP_SURFACE_CELLS of a cell, and marching_tets + weld
+    on the CPU from the same volume: the same faces, vertices within 1e-6.
+    Then `preprocess-sdf` through the CLI on the card, --jobs 2 and --jobs
+    1 over the icosphere and a smaller one off the centre at res 64
+    (in-memory writers): the same samples and meshes."""
+    import torch
+    from disn_tpu_torch import cli
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.ops import marching
+    from disn_tpu_torch.preprocessing import sdf_gen
+
+    verts, faces = icosphere(5, 0.5)
+    stats: dict = {}
+    field = sdf_gen.object_field(verts, faces, sdf_res=PREP_RES)
+    with MemoryWriters() as mem:
+        out = sdf_gen.write_object(field, os.path.join(PREP_DIR, "obj"),
+                                   device=CARD, stats=stats)
+    samples = mem.written[out["h5"]][1][0]
+    _, (gv, gf), _ = mem.written[os.path.join(PREP_DIR, "obj",
+                                              "isosurf.obj")]
+    band = float(np.abs(samples[:, 3] - 0.003).max())
+    check(len(samples) == 32768 and band < 0.1,
+          f"[prep sdf] {len(samples)} samples, the farthest {band} from "
+          f"the iso value (bandwidth 0.1)")
+    cell = float(field.bbox[3] - field.bbox[0]) / PREP_RES
+    center = -field.centroid.astype(np.float64) / field.m
+    dist = np.linalg.norm(gv - center, axis=1) - 0.5 / field.m
+    off = float(np.abs(dist - 0.003).max())
+    check(len(gf) > 100000 and off <= PREP_SURFACE_CELLS * cell,
+          f"[prep sdf] {len(gf)} faces; a vertex is {off:.3e} off the "
+          f"iso surface (bound {PREP_SURFACE_CELLS * cell:.3e})")
+    t0 = time.perf_counter()
+    cv, cf = marching.extract_mesh(torch.from_numpy(field.vol),
+                                   field.bbox.astype(np.float32), iso=0.003)
+    cpu_s = time.perf_counter() - t0
+    dv = float(np.abs(cv - gv).max()) if cv.shape == gv.shape else np.inf
+    check(np.array_equal(cf, gf) and dv <= 1e-6,
+          f"[prep sdf] the CPU's mesh of the same volume differs (faces "
+          f"equal: {np.array_equal(cf, gf)}, vertices {dv:.3e})")
+    print(f"[prep sdf] icosphere {len(faces)} faces at {PREP_RES}^3: "
+          f"distfield_s={stats['distfield_s']:.3f} (host, "
+          f"{os.cpu_count()} cores) marching_tets_ms="
+          f"{stats['marching_tets_ms']:.3f} (card) weld_ms="
+          f"{stats['weld_ms']:.3f} (host); {len(samples)} samples within "
+          f"{band:.4f} of the iso value; {len(gv)} vertices, {len(gf)} "
+          f"faces, worst vertex {off:.3e} off the iso surface ({off / cell:.3f}"
+          f" cell); the CPU's mesh of the volume equal (vertices {dv:.1e}, "
+          f"{cpu_s:.1f} s); {smi}")
+    obj_dir = os.path.join(PREP_DIR, "meshes")
+    os.makedirs(obj_dir, exist_ok=True)
+    codecs.write_obj(os.path.join(obj_dir, "ico.obj"), verts, faces)
+    small, small_f = icosphere(3, 0.3)
+    codecs.write_obj(os.path.join(obj_dir, "off.obj"),
+                     small + np.float32([0.2, 0, 0]), small_f)
+    trees = {}
+    for jobs in ("2", "1"):
+        with MemoryWriters() as mem:
+            cli.main(["preprocess-sdf", "--pattern",
+                      os.path.join(obj_dir, "*.obj"), "--out-dir",
+                      os.path.join(PREP_DIR, "jobs"), "--res", "64",
+                      "--num-sample", "4096", "--jobs", jobs])
+        trees[jobs] = mem.written
+    same = trees["1"].keys() == trees["2"].keys() and all(
+        all(np.array_equal(a, b) for a, b in zip(
+            (*one[1], *one[2].values()), (*two[1], *two[2].values())))
+        for one, two in ((trees["1"][k], trees["2"][k]) for k in trees["1"]))
+    check(same and len(trees["1"]) == 4,
+          f"[prep sdf] preprocess-sdf --jobs 2 wrote other files or arrays "
+          f"than --jobs 1 ({sorted(trees['1'])}, {sorted(trees['2'])})")
+    print(f"[prep sdf] preprocess-sdf on the card, 2 meshes at 64^3: "
+          f"--jobs 2 = --jobs 1 ({len(trees['1'])} files)")
+
+
+def phase_prep_tools(smi: str) -> None:
+    """[prep tools]: img_gen.generate_object_views on a rendered view (the
+    view h5 writer in memory: the record's camera is view_params_to_trans_mat
+    of the metadata); clean_mesh_file on a mesh with a stray part; `synth`
+    through the CLI (h5 writers in memory; the .dist files on disk) and
+    read_dist of each .dist it wrote against the analytic field."""
+    from disn_tpu_torch import cli, postprocessing
+    from disn_tpu_torch.core import camera, codecs
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.preprocessing import img_gen
+
+    img8, _ = synthetic.render_view(synthetic.sdf_sphere, 30.0, 20.0, 0.85)
+    norm = np.array([0.1, -0.2, 0.05, 1.3], np.float32)
+    with MemoryWriters() as mem:
+        paths = img_gen.generate_object_views(
+            [img8], [(30.0, 20.0, 0.0, 0.85)], norm,
+            os.path.join(PREP_DIR, "views"), skip_existing=False)
+    rec = mem.written[paths[0]][1][0]
+    want = camera.view_params_to_trans_mat(30.0, 20.0, 0.85, norm[:3],
+                                           float(norm[3]))[0]
+    check(rec.img_arr.shape == (137, 137, 4)
+          and np.allclose(rec.trans_mat, want, rtol=0, atol=1e-6),
+          "[prep tools] generate_object_views wrote another record")
+    big = icosphere(3, 0.5)
+    small = icosphere(1, 0.1)
+    verts = np.concatenate([big[0], small[0] + np.float32([1.5, 0, 0])])
+    faces = np.concatenate([big[1], small[1] + len(big[0])])
+    src, dst = (os.path.join(PREP_DIR, n) for n in ("two.obj", "clean.obj"))
+    codecs.write_obj(src, verts, faces)
+    postprocessing.clean_mesh_file(src, dst)
+    cv, cf = codecs.read_obj(dst)
+    check(len(cv) == len(big[0]) and len(cf) == len(big[1]),
+          f"[prep tools] clean_mesh_file kept {len(cv)} vertices, expected "
+          f"{len(big[0])}")
+    root = os.path.join(PREP_DIR, "synth")
+    with MemoryWriters(("write_sdf_h5", "write_view_h5")) as mem:
+        cli.main(["synth", "--out-dir", root, "--views", "2",
+                  "--num-samples", "1024", "--grid-res", "16"])
+    n_h5 = len(mem.written)
+    lin = np.linspace(-1, 1, 17, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(lin, lin, lin, indexing="ij")
+    pts = np.stack([xx, yy, zz], -1).reshape(-1, 3)
+    worst = 0.0
+    for obj, fn in synthetic.SHAPES.items():
+        dist = codecs.read_dist(os.path.join(root, "sdf_grids",
+                                             synthetic.SYNTH_CAT, obj,
+                                             "grid.dist"), expect_res=16)
+        worst = max(worst, float(np.abs(
+            dist.values.reshape(-1) - fn(pts)).max()))
+    check(n_h5 == 3 * len(synthetic.SHAPES) and worst == 0.0,
+          f"[prep tools] synth wrote {n_h5} h5 files; read_dist differs "
+          f"from the field by {worst}")
+    print(f"[prep tools] generate_object_views: one record, camera within "
+          f"1e-6; clean_mesh_file: {len(verts)} -> {len(cv)} vertices; "
+          f"synth: {n_h5} h5 records in memory and {len(synthetic.SHAPES)} "
+          f".dist files read back by read_dist exactly; {smi}")
+
+
+def phase_prep() -> None:
+    import shutil
+
+    t0 = time.perf_counter()
+    smi = card_name()
+    try:
+        phase_prep_sdf(smi)
+        phase_prep_tools(smi)
+    finally:
+        shutil.rmtree(PREP_DIR, ignore_errors=True)
+    print(f"[prep] phase took {time.perf_counter() - t0:.1f} s")
+
+
 def k1_entries(res: dict, launches: dict) -> list[dict]:
     """K1's two kernels, each per image: its coarse + fine launch on the
     main path's own inputs (the error: the worst of every timed hold of the
@@ -4158,6 +4605,7 @@ def main() -> int:
         profile_phase_a(*main_inputs)
         pred_mesh = held["bf16"][1]
         mv_mesh = held["bf16 volume"][1]
+        main_faces = {"bf16": pred_mesh[1], "f32": held["f32"][0][1]}
         cam_inputs = (held["img"], pred_mesh,
                       float(np.median([r["encode_ms"] for r in runs[1:4]])))
         del held, main_inputs
@@ -4176,7 +4624,11 @@ def main() -> int:
         # the binary dense route's K1 holds count in K1's max_abs_err
         for dt, held_k1 in phase_var(records, mv_mesh).items():
             k1[(dt, "binary dense launch", "subset")] = held_k1
+        torch.cuda.empty_cache()
+        phase_enc(records, main_faces, kept)
         del records
+        torch.cuda.empty_cache()
+        phase_prep()
         for flow, timed, keys in (
                 ("words", runs[1:4], ("encode_ms", "prep_ms", "phase_a_ms",
                                       "phase_b_ms", "scan_ms",

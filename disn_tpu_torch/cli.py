@@ -1,6 +1,4 @@
-"""Command-line interface of the port (the `train`, `train-cam`,
-`create-sdf`, `demo`, `evaluate` and `evaluate-acc` subcommands of
-disn_tpu/cli.py):
+"""Command-line interface of the port (the subcommands of disn_tpu/cli.py):
 
     python -m disn_tpu_torch train --data-root DIR [--device cpu]
 
@@ -32,7 +30,22 @@ point distances over a split, or write DIR/renders_camest/, the view tree
 with every trans_mat replaced by the net's prediction, which create-sdf
 --cam-est reconstructs into test_objs/camest_{R}_{iso}/. demo turns one
 image (a view h5, or a PNG with --trans-mat or an estimated camera) into
-an OBJ. Every subcommand runs on the GPU unless --device cpu.
+an OBJ.
+
+    python -m disn_tpu_torch preprocess-sdf --pattern 'MESHES/*.obj' --out-dir D
+    python -m disn_tpu_torch preprocess-img --pattern 'VIEWS/*.png' \
+        --metadata rendering_metadata.txt --sdf-h5 D/obj/ori_sample.h5 --out-dir V
+    python -m disn_tpu_torch clean --pattern 'RESULTS/*.obj'
+    python -m disn_tpu_torch convert-ckpt --tf-prefix model.ckpt --out params.npz
+    python -m disn_tpu_torch synth --out-dir DIR
+
+are the offline tools: the SDF ground truth of each mesh (D/<name>/
+ori_sample.h5 and isosurf.obj; --jobs N computes N distance fields at a
+time on the host), the view h5s of an object's renders, the removal of
+small or far-off mesh parts, a TF1 bundle checkpoint as npz, and the
+synthetic dataset tree. Every subcommand that uses the device runs on the
+GPU unless --device cpu; preprocess-img, clean, convert-ckpt and synth use
+none.
 """
 from __future__ import annotations
 
@@ -476,6 +489,95 @@ def cmd_evaluate_acc(args) -> None:
     logger.close()
 
 
+def cmd_preprocess_sdf(args) -> None:
+    """The SDF ground truth of every mesh matching --pattern, in sorted
+    order. The distance fields (host C++, which drops the GIL) run --jobs
+    at a time in a thread pool, at most 2 x --jobs ahead; the sampling,
+    the extraction on the device and the writes follow on this thread in
+    input order, so the output is the same for any --jobs."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    from disn_tpu_torch import device as device_mod
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.preprocessing import sdf_gen
+
+    dev = device_mod.resolve(args.device)
+    jobs = max(1, args.jobs)
+    threads = max(1, (os.cpu_count() or 1) // jobs)
+    todo = []
+    for obj_path in sorted(glob.glob(args.pattern)):
+        rel = os.path.splitext(os.path.basename(obj_path))[0]
+        out_dir = os.path.join(args.out_dir, rel)
+        os.makedirs(out_dir, exist_ok=True)
+        todo.append((obj_path, out_dir))
+
+    def field(job):
+        if sdf_gen.is_done(job[1]):
+            return None
+        verts, faces = codecs.read_obj(job[0])
+        return sdf_gen.object_field(verts, faces, sdf_res=args.res,
+                                    threads=threads)
+
+    with ThreadPoolExecutor(jobs) as pool:
+        rest = iter(todo)
+        pending = deque((job, pool.submit(field, job))
+                        for _, job in zip(range(2 * jobs), rest))
+        while pending:
+            (_, out_dir), fut = pending.popleft()
+            job = next(rest, None)
+            if job is not None:
+                pending.append((job, pool.submit(field, job)))
+            f = fut.result()
+            if f is None:
+                print({"h5": os.path.join(out_dir, "ori_sample.h5"),
+                       "skipped": True})
+                continue
+            print(sdf_gen.write_object(f, out_dir, cat_id=args.cat_id,
+                                       num_sample=args.num_sample,
+                                       device=dev))
+
+
+def cmd_preprocess_img(args) -> None:
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.preprocessing import img_gen
+
+    meta = img_gen.parse_render_metadata(args.metadata)
+    images = [codecs.read_png_u8(p, "RGBA")
+              for p in sorted(glob.glob(args.pattern))]
+    sdf = codecs.read_sdf_h5(args.sdf_h5)
+    paths = img_gen.generate_object_views(images, meta, sdf.norm_params,
+                                          args.out_dir)
+    print(f"wrote {len(paths)} view h5s")
+
+
+def cmd_clean(args) -> None:
+    from disn_tpu_torch.postprocessing import clean_mesh_file
+    for src in sorted(glob.glob(args.pattern)):
+        dst = src if args.in_place else src.replace(".obj", "_clean.obj")
+        clean_mesh_file(src, dst, vert_ratio=args.vert_ratio,
+                        center_dist=args.center_dist)
+        print(f"cleaned {src} -> {dst}")
+
+
+def cmd_convert_ckpt(args) -> None:
+    """TF1 bundle checkpoint -> npz (convert/tf_ckpt.py)."""
+    from disn_tpu_torch.convert import convert_checkpoint
+    from disn_tpu_torch.train import checkpoint
+    params = convert_checkpoint(args.tf_prefix, args.out)
+    n = sum(1 for _ in checkpoint.leaves(params))
+    print(f"converted {n} tensors from {args.tf_prefix} -> {args.out}")
+
+
+def cmd_synth(args) -> None:
+    from disn_tpu_torch.data import synthetic
+    info = synthetic.build_dataset(args.out_dir, views=args.views,
+                                   num_samples=args.num_samples,
+                                   grid_res=args.grid_res)
+    print(json.dumps({k: v for k, v in info.items()
+                      if isinstance(v, (str, int))}, indent=2))
+
+
 def _common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--set", action="append", default=[], metavar="K=V",
                    help="override a Config field")
@@ -598,6 +700,48 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--restore", required=True)
     p.add_argument("--split", default="test")
     p.set_defaults(fn=cmd_evaluate_acc)
+
+    p = sub.add_parser("preprocess-sdf",
+                       help="SDF samples and ground-truth mesh per mesh")
+    p.add_argument("--pattern", required=True, help="glob of input .obj files")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--cat-id", default="")
+    p.add_argument("--res", type=int, default=256)
+    p.add_argument("--num-sample", type=int, default=32768)
+    p.add_argument("--jobs", type=int, default=1,
+                   help="distance fields computed at a time (threads)")
+    p.add_argument("--device", default=None,
+                   help="where the ground-truth mesh is extracted: 'cuda' "
+                        "(the default: it fails without a card) or 'cpu'")
+    p.set_defaults(fn=cmd_preprocess_sdf)
+
+    p = sub.add_parser("preprocess-img", help="view h5s of rendered views")
+    p.add_argument("--pattern", required=True, help="glob of view pngs")
+    p.add_argument("--metadata", required=True)
+    p.add_argument("--sdf-h5", required=True)
+    p.add_argument("--out-dir", required=True)
+    p.set_defaults(fn=cmd_preprocess_img)
+
+    p = sub.add_parser("clean", help="drop small or far-off mesh parts")
+    p.add_argument("--pattern", required=True)
+    p.add_argument("--in-place", action="store_true")
+    p.add_argument("--vert-ratio", type=float, default=0.3)
+    p.add_argument("--center-dist", type=float, default=0.5)
+    p.set_defaults(fn=cmd_clean)
+
+    p = sub.add_parser("convert-ckpt",
+                       help="convert a TF1 bundle checkpoint to npz")
+    p.add_argument("--tf-prefix", required=True,
+                   help="TF checkpoint prefix (model.ckpt of .index/.data)")
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_convert_ckpt)
+
+    p = sub.add_parser("synth", help="write the synthetic dataset tree")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--views", type=int, default=4)
+    p.add_argument("--num-samples", type=int, default=8192)
+    p.add_argument("--grid-res", type=int, default=32)
+    p.set_defaults(fn=cmd_synth)
     return ap
 
 

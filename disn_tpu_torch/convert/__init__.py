@@ -1,4 +1,6 @@
-"""Carry weights across from the JAX package, without JAX.
+"""Carry weights across from the JAX package, without JAX, and from TF1
+checkpoints (``tf_ckpt``: ``read_tf_checkpoint``, ``tf_vars_to_params``,
+``convert_checkpoint``, the ``convert-ckpt`` subcommand).
 
 * ``params_from_jax``: a nested dict of numpy arrays (``jax.device_get`` of
   a disn_tpu param tree) -> the same tree of torch tensors. Layouts are
@@ -109,3 +111,8 @@ def opt_state_from_reference(opt: torch.optim.Optimizer, params: dict,
     opt.load_state_dict({"state": state,
                          "param_groups": opt.state_dict()["param_groups"]})
     return int(flat["1$count"])
+
+
+from disn_tpu_torch.convert.tf_ckpt import (  # noqa: E402,F401
+    convert_checkpoint, read_tf_checkpoint, tf_vars_to_params,
+)

@@ -1,6 +1,6 @@
 """On-disk formats (a copy of disn_tpu/core/codecs.py without the grid
 readers): the SDF-sample h5 and the image+camera h5 of each object and
-view, the `.dist` distance-field writer, and OBJ meshes.
+view, the `.dist` distance-field reader and writer, and OBJ meshes.
 
 `h5py` (and Pillow, for a PNG) is imported when a file is read or
 written, not with the module, and a clear error says so when it is
@@ -44,11 +44,46 @@ def _pil_image():
     return Image
 
 
+def read_png_u8(path: str, mode: str = "RGBA") -> np.ndarray:
+    """An image file -> [H,W,C] uint8, converted to `mode` (RGB or
+    RGBA)."""
+    with _pil_image().open(path) as im:
+        return np.asarray(im.convert(mode), np.uint8)
+
+
 def read_png(path: str, mode: str = "RGB") -> np.ndarray:
     """An image file -> [H,W,C] float32 in [0,1], converted to `mode`
     (RGB or RGBA)."""
-    with _pil_image().open(path) as im:
-        return np.asarray(im.convert(mode), np.float32) / 255.0
+    return np.asarray(read_png_u8(path, mode), np.float32) / 255.0
+
+
+@dataclass
+class DistField:
+    params: np.ndarray  # [6] float32 bbox (x0 y0 z0 x1 y1 z1)
+    values: np.ndarray  # [(res+1), (res+1), (res+1)] float32, [z,y,x]
+
+    @property
+    def res(self) -> int:
+        return self.values.shape[0] - 1
+
+
+def read_dist(path: str, expect_res: int | None = None) -> DistField:
+    """A `.dist` file -> DistField; raises on an inconsistent header, a
+    resolution other than `expect_res`, or a wrong value count."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    ress = np.frombuffer(raw[:12], dtype=np.int32)
+    res = int(ress[1])
+    if -ress[0] != res or ress[2] != res:
+        raise ValueError(f"{path}: inconsistent header {ress}")
+    if expect_res is not None and res != expect_res:
+        raise ValueError(f"{path}: res {res} != expected {expect_res}")
+    params = np.frombuffer(raw[12:60], dtype=np.float64).astype(np.float32)
+    values = np.frombuffer(raw[60:], dtype=np.float32)
+    n = res + 1
+    if values.size != n ** 3:
+        raise ValueError(f"{path}: {values.size} values, expected {n ** 3}")
+    return DistField(params=params, values=values.reshape(n, n, n).copy())
 
 
 def write_dist(path: str, res: int, params: np.ndarray,

@@ -1,12 +1,13 @@
 """The DISN model graph (port of disn_tpu/models/disn.py): init of every
-variant, the VGG-16 encoder and its image preprocessing, the forward pass
+variant, the encoders (VGG-16, AlexNet, ResNet-18 by cfg.encoder) and the
+image preprocessing (RGB, or RGBA with cfg.alpha), the forward pass
 (the folded form that training runs for twostream + tf1, and the unfolded
 form of every variant), the per-point local features and the two-stream
 decode from given features (the multi-view general arm), and the loss.
 
-Top-level param keys mirror the TF variable scopes (vgg_16, sdfprediction,
-sdfprediction_imgfeat, sdfimgfeat, sdf3dcnn), so a JAX or TF checkpoint
-converts by name.
+Top-level param keys mirror the TF variable scopes (the encoder's
+ENCODER_SCOPE, sdfprediction, sdfprediction_imgfeat, sdfimgfeat,
+sdf3dcnn), so a JAX or TF checkpoint converts by name.
 """
 from __future__ import annotations
 
@@ -17,24 +18,30 @@ import torch
 from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config, EncoderKind, Variant
 from disn_tpu_torch.core import camera
-from disn_tpu_torch.models import layers, sdfnet, vgg
+from disn_tpu_torch.models import encoders, layers, sdfnet, vgg
 from disn_tpu_torch.ops import image as image_ops
 
 Params = dict[str, Any]
 
+ENCODER_SCOPE = {EncoderKind.VGG16: "vgg_16",
+                 EncoderKind.ALEXNET: "alexnet",
+                 EncoderKind.RESNET: "resnet_v1"}  # the TF scopes' names
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.encoder is not EncoderKind.VGG16 or cfg.alpha:
-        raise NotImplementedError(
-            "the port covers the VGG-16 encoder on RGB images")
+# (init, apply, endpoint names) of each encoder
+_ENCODERS = {
+    EncoderKind.VGG16: (vgg.init, vgg.apply, vgg.ENDPOINTS),
+    EncoderKind.ALEXNET: (encoders.init_alexnet, encoders.apply_alexnet,
+                          encoders.ALEX_ENDPOINTS),
+    EncoderKind.RESNET: (encoders.init_resnet, encoders.apply_resnet,
+                         encoders.RESNET_ENDPOINTS)}
 
 
 def endpoint_names(cfg: Config) -> tuple[str, ...]:
-    """Encoder endpoint maps used for local features, in concat order: all
-    five for twostream, the first three (64+128+256 = 448 channels at full
-    width) otherwise."""
-    _check_supported(cfg)
-    names = vgg.ENDPOINTS
+    """The encoder's endpoint maps used for local features, in concat
+    order: all of them for twostream (VGG-16's five: 1472 channels at full
+    width; AlexNet's five: 1376; ResNet's four stages: 960), the first
+    three otherwise (448, 736, 448)."""
+    names = _ENCODERS[cfg.encoder][2]
     return names if cfg.variant is Variant.TWOSTREAM else names[:3]
 
 
@@ -46,19 +53,25 @@ def compute_dtype(cfg: Config) -> torch.dtype:
             "float64": torch.float64}.get(cfg.compute_dtype, torch.float32)
 
 
+def init_encoder(cfg: Config, gen: torch.Generator,
+                 device: torch.device) -> Params:
+    """cfg.encoder's params for cfg.img_channels input channels."""
+    return _ENCODERS[cfg.encoder][0](
+        gen, device, in_channels=cfg.img_channels,
+        num_classes=cfg.num_classes, width_mult=cfg.width_mult)
+
+
 def init(cfg: Config, seed: int = 0,
          device: str | torch.device | None = None) -> Params:
     """Random params from a seeded torch.Generator on `device` (the GPU by
-    default). The numbers differ from disn_tpu.models.disn.init's; tests
-    share params through convert.params_from_jax."""
-    _check_supported(cfg)
+    default), the encoder under ENCODER_SCOPE[cfg.encoder]. The numbers
+    differ from disn_tpu.models.disn.init's; tests share params through
+    convert.params_from_jax."""
     dev = device_mod.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params: Params = {"vgg_16": vgg.init(gen, dev,
-                                         in_channels=cfg.img_channels,
-                                         num_classes=cfg.num_classes,
-                                         width_mult=cfg.width_mult)}
+    params: Params = {ENCODER_SCOPE[cfg.encoder]:
+                      init_encoder(cfg, gen, dev)}
     g, b = cfg.num_classes, cfg.binary
     if cfg.variant in (Variant.TWOSTREAM, Variant.GLOBAL):
         params["sdfprediction"] = sdfnet.init_global_head(gen, dev, g, b)
@@ -74,22 +87,31 @@ def init(cfg: Config, seed: int = 0,
 
 
 def preprocess_image(img: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Resize [B,137,137,C] -> [B,224,224,C] (TF1 bilinear)."""
+    """Resize [B,137,137,C] -> [B,224,224,C]: RGB by TF1 bilinear, and with
+    cfg.alpha the alpha channel by TF1 nearest neighbour
+    (model_normalization.py:65-73)."""
     if img.shape[1] == cfg.vgg_size and img.shape[2] == cfg.vgg_size:
         return img
+    if cfg.alpha:
+        rgb = image_ops.resize_bilinear(img[..., :3], cfg.vgg_size,
+                                        cfg.vgg_size)
+        a = image_ops.resize_nearest(img[..., 3:4], cfg.vgg_size,
+                                     cfg.vgg_size)
+        return torch.cat([rgb, a.to(rgb.dtype)], dim=-1)
     return image_ops.resize_bilinear(img, cfg.vgg_size, cfg.vgg_size)
 
 
 def encode(params: Params, img: torch.Tensor, cfg: Config
            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Image [B,137,137,3] (float in [0,1], or uint8, divided by 255 on the
-    image's device) -> (embedding [B,num_classes], endpoints NHWC)."""
-    _check_supported(cfg)
+    """Image [B,137,137,cfg.img_channels] (float in [0,1], or uint8,
+    divided by 255 on the image's device) -> cfg.encoder's (embedding
+    [B,num_classes], endpoints NHWC)."""
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
     resized = preprocess_image(img, cfg)
-    return vgg.apply(params["vgg_16"], resized,
-                     compute_dtype=compute_dtype(cfg))
+    return _ENCODERS[cfg.encoder][1](params[ENCODER_SCOPE[cfg.encoder]],
+                                     resized,
+                                     compute_dtype=compute_dtype(cfg))
 
 
 def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config, *,
@@ -108,7 +130,7 @@ def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config, *,
 
     fold=True (the port's default; the JAX function's is False) takes the
     folded-137 form for twostream + tf1 sampling: the five endpoint maps
-    and the per-point 1472->512 matmul collapse into one [B,137,137,512]
+    and the per-point local_feat_dim->512 matmul collapse into one [B,137,137,512]
     map (infer/dense.fold_137), so a point samples 4 taps of it, and
     autograd scatters 4 rows per point back into it. Any other config
     falls through to the unfolded form, as in the JAX package, which is
@@ -161,7 +183,8 @@ def apply(params: Params, batch: dict[str, torch.Tensor], cfg: Config, *,
 def sample_local_features(endpoints: dict[str, torch.Tensor],
                           img_points: torch.Tensor, cfg: Config,
                           fused: bool = True) -> torch.Tensor:
-    """Per-point multi-scale local features [B,N,1472|448]: each endpoint map
+    """Per-point multi-scale local features [B,N,cfg.local_feat_dim]: each
+    endpoint map
     resized to 137^2 (TF1 bilinear) and resampled at the projected pixel
     coordinates (model_normalization.py:171-190). cfg.sampling 'native'
     samples the maps at their own scale instead; otherwise fused=True
@@ -187,7 +210,8 @@ def decode_from_features(params: Params, pts: torch.Tensor,
                          cfg: Config) -> torch.Tensor:
     """The two unfolded streams from given features (get_decoder,
     model_normalization.py:223-238): pts [B,N,3], embedding [B,G],
-    local_feat [B,N,1472] -> [B,N,out] in the compute type."""
+    local_feat [B,N,cfg.local_feat_dim] -> [B,N,out] in the compute
+    type."""
     cd = compute_dtype(cfg)
     g = sdfnet.apply_global_head(params["sdfprediction"], pts, embedding, cd)
     loc = sdfnet.apply_local_head(params["sdfprediction_imgfeat"], pts,

@@ -63,15 +63,51 @@ def init_conv3d_transpose(gen: torch.Generator, k: tuple[int, int, int],
             "biases": torch.zeros(cout, device=device)}
 
 
-def conv2d(p: Params, x: torch.Tensor, relu: bool = True,
+def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
+    """TF's SAME split of one spatial axis: (before, after) with the output
+    ceil(size / stride) long and the smaller half before. Symmetric at
+    stride 1 and odd k; at stride 2 or more it is often not (an 11x11
+    stride-4 conv on 224 pads 3 and 4, a 3x3 stride-2 one on 56 pads 0
+    and 1)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str
+          ) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((top, bottom), (left, right)) of NCHW x for padding 'SAME' (TF's
+    split) or 'VALID' (none)."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding != "SAME":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got "
+                         f"{padding!r}")
+    return (same_padding(x.shape[2], kh, stride),
+            same_padding(x.shape[3], kw, stride))
+
+
+def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
+           padding: str = "SAME", relu: bool = True,
            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """SAME 3x3 (or any odd-size) stride-1 conv. x: [B,H,W,Cin] NHWC (kept
-    in channels_last memory, so the NHWC view is free); HWIO weights go to
-    OIHW for torch."""
+    """NHWC conv with an HWIO kernel, TF's SAME (or VALID) padding. x:
+    [B,H,W,Cin] (kept in channels_last memory, so the NHWC view is free);
+    the weights go to OIHW for torch. At stride 1 a symmetric pad is the
+    conv's own (odd k: VGG-16, the camera net); otherwise the input is
+    padded explicitly and the conv is VALID."""
     w = p["weights"].to(compute_dtype).permute(3, 2, 0, 1)
     xc = x.to(compute_dtype).permute(0, 3, 1, 2)
     kh, kw = w.shape[2:]
-    y = F.conv2d(xc, w, padding=(kh // 2, kw // 2))
+    (top, bottom), (left, right) = _pads(xc, kh, kw, stride, padding)
+    if stride == 1 and top == bottom and left == right:
+        y = F.conv2d(xc, w, padding=(top, left))
+    else:
+        # only the rows and columns some window reads: a strided conv whose
+        # input runs past its last window takes a oneDNN path on the CPU
+        # that aborts now and then in the backward pass
+        xp = F.pad(xc, (left, right, top, bottom))
+        used_h = (xp.shape[2] - kh) // stride * stride + kh
+        used_w = (xp.shape[3] - kw) // stride * stride + kw
+        y = F.conv2d(xp[:, :, :used_h, :used_w], w, stride=stride)
     y = y + p["biases"].to(y.dtype)[:, None, None]
     if relu:
         y = torch.relu(y)
@@ -88,10 +124,15 @@ def dense(p: Params, x: torch.Tensor, relu: bool = True,
     return y.to(compute_dtype)
 
 
-def max_pool2d(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
-    """VALID max pool on NHWC."""
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=k, stride=stride)
-    return y.permute(0, 2, 3, 1)
+def max_pool2d(x: torch.Tensor, k: int = 2, stride: int = 2,
+               padding: str = "VALID") -> torch.Tensor:
+    """Max pool on NHWC; 'SAME' pads TF's split with -inf (lax's
+    reduce_window starts at -inf), so a padded tap never wins."""
+    xc = x.permute(0, 3, 1, 2)
+    (top, bottom), (left, right) = _pads(xc, k, k, stride, padding)
+    if top or bottom or left or right:
+        xc = F.pad(xc, (left, right, top, bottom), value=float("-inf"))
+    return F.max_pool2d(xc, kernel_size=k, stride=stride).permute(0, 2, 3, 1)
 
 
 def _conv_transpose_padding(k: int, s: int, padding: str

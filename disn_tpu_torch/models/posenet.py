@@ -96,13 +96,15 @@ def apply_heads(params: Params, embedding: torch.Tensor,
 def encode(params: Params, img: torch.Tensor, cfg: Config
            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """The VGG-16 encoder on the image's RGB channels (any alpha channel
-    dropped), in cfg's compute type, whatever cfg's variant or encoder:
-    (embedding [B,num_classes], endpoints)."""
+    dropped, and the image preprocessed as RGB: cfg.replace(alpha=False),
+    as the JAX package encodes), in cfg's compute type, whatever cfg's
+    variant or encoder: (embedding [B,num_classes], endpoints)."""
     img = img[..., :3]
     if img.dtype == torch.uint8:
         img = img.float() / 255.0
-    return vgg.apply(params["vgg_16"], disn.preprocess_image(img, cfg),
-                     compute_dtype=disn.compute_dtype(cfg))
+    rgb = cfg.replace(alpha=False)
+    return vgg.apply(params["vgg_16"], disn.preprocess_image(img, rgb),
+                     compute_dtype=disn.compute_dtype(rgb))
 
 
 def apply(params: Params, img: torch.Tensor, cfg: Config,

@@ -1,7 +1,8 @@
 """ctypes bindings for the host C++ passes of native/: the mesh assembler
-(meshassemble.cpp) and, for evaluation, the OBJ formatter and parser
+(meshassemble.cpp), for evaluation the OBJ formatter and parser
 (objwriter.cpp, objreader.cpp) and the exact surface voxelizer
-(voxelsat.cpp).
+(voxelsat.cpp), and for preprocess-sdf the signed distance field
+(distfield.cpp, multithreaded, built with -pthread).
 
 The record route of ``ops/marching.py`` ships per-cell records to the host;
 these C++ passes rebuild the welded mesh from them, in the device
@@ -20,8 +21,9 @@ Bound here: ``mesh_expand_ids``, ``derive_recs``, ``mesh_faces_blocks``,
 incremental entry points of that source (``*_incr``, ``*_range``) serve
 chunked record streams, which the port does not have. ``format_obj``,
 ``parse_obj`` and ``voxelize_sat`` (libevalio, the three evaluation
-sources in one library). Every call releases the GIL (ctypes), so the
-evaluator's and the writer's pool threads overlap.
+sources in one library). ``compute_distance_field`` (libdistfield).
+Every call releases the GIL (ctypes), so the evaluator's, the writer's and
+preprocess-sdf's pool threads overlap.
 """
 from __future__ import annotations
 
@@ -70,12 +72,13 @@ def _cpu_tag() -> str:
     return tag
 
 
-def _build(name: str, srcs: tuple[Path, ...]) -> Path:
-    """Compile `srcs` into lib<name>-<hash>.so (once per hash of the
-    sources, the flags and the CPU's features) and return its path. One
-    thread at a time builds a library."""
+def _build(name: str, srcs: tuple[Path, ...], extra: tuple = ()) -> Path:
+    """Compile `srcs` with CXX_FLAGS and `extra` into lib<name>-<hash>.so
+    (once per hash of the sources, the flags and the CPU's features) and
+    return its path. One thread at a time builds a library."""
+    flags = (*CXX_FLAGS, *extra)
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in srcs)
-                            + " ".join(CXX_FLAGS).encode()
+                            + " ".join(flags).encode()
                             + _cpu_tag().encode()).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     with build_lock(lib.name):
@@ -86,7 +89,7 @@ def _build(name: str, srcs: tuple[Path, ...]) -> Path:
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         try:
             proc = subprocess.run(
-                [cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                [cxx, *flags, "-o", str(tmp), *map(str, srcs)],
                 capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(
@@ -108,6 +111,22 @@ def build_eval() -> Path:
     """Compile the OBJ formatter, the OBJ parser and the voxelizer into one
     library and return its path."""
     return _build("evalio", _EVAL_SRCS)
+
+
+def build_distfield() -> Path:
+    """Compile native/distfield.cpp (std::thread: -pthread) and return the
+    library's path."""
+    return _build("distfield", (_NATIVE / "distfield.cpp",), ("-pthread",))
+
+
+@functools.lru_cache(maxsize=None)
+def _distfield_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_distfield()))
+    lib.compute_distance_field.restype = ctypes.c_int
+    lib.compute_distance_field.argtypes = [
+        _F32P, _I32, _I32P, _I32, _I32, ctypes.POINTER(ctypes.c_double),
+        _F32P, _I32, _I32, ctypes.c_double]
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -352,3 +371,29 @@ def voxelize_sat(verts: np.ndarray, faces: np.ndarray, dim: int = 110,
                              _ptr(faces, _I32P), len(faces), dim,
                              offset, span, _ptr(occ, _U8P))
     return occ.reshape(dim, dim, dim).astype(bool)
+
+
+def compute_distance_field(verts: np.ndarray, faces: np.ndarray, res: int,
+                           bbox: np.ndarray, sign_votes: int = 3,
+                           threads: int = 0, band: float = 0.0
+                           ) -> np.ndarray:
+    """Signed distance field on a (res+1)^3 grid, [z,y,x] indexed (x
+    fastest). verts [V,3] float32, faces [F,3] int32, bbox [6] (x0 y0 z0
+    x1 y1 z1); sign by parity rays along `sign_votes` axes (majority);
+    `threads` 0 = one per core. band > 0: exact within `band` of the
+    surface, a coarse interpolation beyond (needs res % 4 == 0, else the
+    field is exact everywhere). Raises when the library reports a
+    failure (no triangles, res <= 0)."""
+    verts = np.ascontiguousarray(verts, dtype=np.float32)
+    faces = np.ascontiguousarray(faces, dtype=np.int32)
+    bbox = np.ascontiguousarray(bbox, dtype=np.float64)
+    out = np.empty(((res + 1) ** 3,), dtype=np.float32)
+    rc = _distfield_lib().compute_distance_field(
+        _ptr(verts, _F32P), np.int32(len(verts)), _ptr(faces, _I32P),
+        np.int32(len(faces)), np.int32(res),
+        bbox.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _ptr(out, _F32P), np.int32(sign_votes), np.int32(threads),
+        ctypes.c_double(band))
+    if rc:
+        raise RuntimeError(f"compute_distance_field failed (rc={rc})")
+    return out.reshape(res + 1, res + 1, res + 1)

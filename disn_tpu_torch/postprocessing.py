@@ -3,7 +3,8 @@
 Splits a mesh into connected components (union-find over shared vertices),
 keeps components with at least `vert_ratio` x the largest component's
 vertex count AND centroid within `center_dist` of the origin, and re-merges.
-Host-side numpy.
+Host-side numpy; clean_mesh_file does it to an OBJ file (the `clean`
+subcommand).
 """
 from __future__ import annotations
 
@@ -49,3 +50,12 @@ def clean_small_parts(verts: np.ndarray, faces: np.ndarray,
     remap[keep_mask] = np.arange(keep_mask.sum())
     face_keep = keep_mask[faces].all(axis=1)
     return verts[keep_mask], remap[faces[face_keep]].astype(np.int32)
+
+
+def clean_mesh_file(src: str, dst: str, vert_ratio: float = 0.3,
+                    center_dist: float = 0.5) -> None:
+    """clean_small_parts on the OBJ at `src`, written to `dst`."""
+    from disn_tpu_torch.core import codecs
+    verts, faces = codecs.read_obj(src)
+    v, f = clean_small_parts(verts, faces, vert_ratio, center_dist)
+    codecs.write_obj(dst, v, f)

@@ -51,7 +51,11 @@ def test_every_module_is_listed():
             "disn_tpu_torch.infer.multiview", "disn_tpu_torch.utils.output",
             "disn_tpu_torch.infer.dense", "disn_tpu_torch.infer.fused",
             "disn_tpu_torch.infer.sparse", "disn_tpu_torch.models.layers",
-            "disn_tpu_torch.models.sdfnet"} <= names
+            "disn_tpu_torch.models.sdfnet", "disn_tpu_torch.models.encoders",
+            "disn_tpu_torch.preprocessing.sdf_gen",
+            "disn_tpu_torch.preprocessing.img_gen",
+            "disn_tpu_torch.convert", "disn_tpu_torch.convert.tf_ckpt"
+            } <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
@@ -66,6 +70,9 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
         "assert native.voxelize_sat(v, f, dim=4).any()\n"
         "assert native.parse_obj(bytes(native.format_obj(v, f)))[1].tolist()"
         " == [[0, 1, 2]]\n"
+        "box = np.array([-1, -1, -1, 1, 1, 1], np.float64)\n"
+        "assert native.compute_distance_field(v, f, 4, box).shape == "
+        "(5, 5, 5)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'disn_tpu'))\n"
         "print(bad)\n"
@@ -92,17 +99,20 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "sparse_volume", "threedcnn_volume",
                                    "predict_volume_threedcnn",
                                    "init_onestream", "cli_train_dump",
-                                   "cli_demo_global"])
+                                   "cli_demo_global", "init_alexnet",
+                                   "init_resnet_alpha", "generate_object",
+                                   "write_object", "cli_preprocess_sdf"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from disn_tpu_torch import cli
-    from disn_tpu_torch.config import Config, Variant
+    from disn_tpu_torch.config import Config, EncoderKind, Variant
     from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.eval import runner
     from disn_tpu_torch.infer import dense, multiview, pipeline, sparse
     from disn_tpu_torch.models import disn, posenet
     from disn_tpu_torch.ops import marching, voxelize
+    from disn_tpu_torch.preprocessing import sdf_gen
     from disn_tpu_torch.train import trainer
 
     vol = np.ones((9, 9, 9), np.float32)
@@ -194,6 +204,19 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
             cli.main(["demo", "--image", "unused.h5", "--restore", "unused",
                       "--out", str(tmp_path / "x.obj"), "--set",
                       "variant=global", "--set", "binary=true"])
+        elif entry == "init_alexnet":
+            disn.init(cfg.replace(encoder=EncoderKind.ALEXNET))
+        elif entry == "init_resnet_alpha":
+            disn.init(cfg.replace(encoder=EncoderKind.RESNET, alpha=True))
+        elif entry == "generate_object":
+            sdf_gen.generate_object(np.eye(3, dtype=np.float32),
+                                    np.array([[0, 1, 2]], np.int32),
+                                    str(tmp_path / "obj"))
+        elif entry == "write_object":
+            sdf_gen.write_object(None, str(tmp_path / "obj"))
+        elif entry == "cli_preprocess_sdf":
+            cli.main(["preprocess-sdf", "--pattern", "unused/*.obj",
+                      "--out-dir", str(tmp_path)])
         elif entry == "cli_create_sdf_multi_view":
             cli.main(["create-sdf", "--multi-view", "--data-root", "unused",
                       "--restore", "unused", "--log-dir", str(tmp_path)])

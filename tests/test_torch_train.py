@@ -102,7 +102,7 @@ def test_apply_and_loss_match_jax(kind):
             _close(float(losses[k]), float(v), what=k)
 
 
-def test_unfolded_apply_is_not_ported():
+def test_unfolded_apply_matches_jax():
     """apply(fold=False) is the unfolded forward pass of the JAX package's
     apply(fold=False): pred_sdf and both streams' outputs, at RTOL."""
     jcfg, cfg, jparams, _ = _ref("regress")
