@@ -69,7 +69,18 @@ on failure:
    [flows ab]: the two flows' wall time on 10 more images, in turns (not
    gated); [phase_a profile]: torch.profiler over one phase_a of that image
    (idle share, top ops and kernels), and [k4]: the band cull on the 65^3
-   grid beside its byte bound;
+   grid beside its byte bound; then [dist] (disn_tpu_torch/parallel):
+   pipeline.image_to_mesh_sharded on the kept bf16 image at 257^3 over a
+   1-rank NCCL group in this process (a warm-up, then one timed call: K1
+   twice, no dense fallback, the main path's faces, every vertex on the
+   surface within SURFACE_TOL + the records' u8 step), then over 2 gloo
+   ranks that share card 0 (spawned processes: the same gates on each
+   rank, each rank's K1 stripe by CUDA events, its share of the active
+   cells and the gather's time) with one data-parallel step of the default
+   Config (2 x B/2 rows) whose loss must be within DIST_LOSS_RTOL of the
+   single step's on the same batch; 2 NCCL ranks on card 0 (NCCL refuses
+   them; the first line of its error is printed); and, with 2 cards, the
+   image over NCCL with a card a rank (else a line says it did not run);
 6. evaluate. [eval hold]: K6a-K6d (metrics.cu: nn_distance, approx_match,
    match_cost and its gradient) against their plain PyTorch versions on
    the card in the protocol's argument order, at B = 24, N = M = 2048 on
@@ -233,7 +244,9 @@ on failure:
    field's seconds, marching_tets on the card and the weld's ms; every
    sample within the bandwidth, every ground-truth vertex on the iso
    surface within PREP_SURFACE_CELLS of a cell, the CPU's mesh of the same
-   volume equal; preprocess-sdf through the CLI on the card with --jobs 2
+   volume equal; [prep weld]: the same soup welded on the card
+   (marching.weld_device) equal bit for bit to the host weld, both timed;
+   preprocess-sdf through the CLI on the card with --jobs 2
    equal to --jobs 1. [prep tools]: generate_object_views, clean_mesh_file
    on a mesh with a stray part, synth through the CLI (h5 in memory) and
    read_dist of the .dist files it wrote;
@@ -4422,6 +4435,7 @@ def phase_prep_sdf(smi: str) -> None:
           f"faces, worst vertex {off:.3e} off the iso surface ({off / cell:.3f}"
           f" cell); the CPU's mesh of the volume equal (vertices {dv:.1e}, "
           f"{cpu_s:.1f} s); {smi}")
+    prep_weld(field, gv, gf, smi)
     obj_dir = os.path.join(PREP_DIR, "meshes")
     os.makedirs(obj_dir, exist_ok=True)
     codecs.write_obj(os.path.join(obj_dir, "ico.obj"), verts, faces)
@@ -4445,6 +4459,44 @@ def phase_prep_sdf(smi: str) -> None:
           f"than --jobs 1 ({sorted(trees['1'])}, {sorted(trees['2'])})")
     print(f"[prep sdf] preprocess-sdf on the card, 2 meshes at 64^3: "
           f"--jobs 2 = --jobs 1 ({len(trees['1'])} files)")
+
+
+def prep_weld(field, gv, gf, smi: str) -> None:
+    """[prep weld]: marching_tets' soup of the ground-truth volume welded
+    on the card (marching.weld_device: a stable sort of the edge keys, a
+    cumsum, a scatter) against the host weld of the same soup: equal bit
+    for bit (and whether it equals write_object's mesh); both timed (CUDA
+    events, median of 3 after a warm-up; the host clock) beside a byte
+    bound (the soup read once, the mesh written once)."""
+    import torch
+    from disn_tpu_torch.ops import marching
+
+    vol = torch.from_numpy(field.vol).to(CARD)
+    box = torch.from_numpy(field.bbox.astype(np.float32)).to(CARD)
+    tri_pos, tri_keys, count = marching.marching_tets(vol, box, iso=0.003)
+    times = []
+    for _ in range(4):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        dv, df = marching.weld_device(tri_pos, tri_keys, count)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    pos, keys = tri_pos.cpu().numpy(), tri_keys.cpu().numpy()
+    t0 = time.perf_counter()
+    hv, hf = marching.weld(pos, keys, count)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dv, df = dv.cpu().numpy(), df.cpu().numpy()
+    same = np.array_equal(dv, hv) and np.array_equal(df, hf)
+    same_obj = np.array_equal(df, gf) and np.array_equal(dv, gv)
+    moved = pos.nbytes + keys.nbytes + dv.nbytes + df.nbytes
+    print(f"[prep weld] {count} triangles -> {len(dv)} vertices, {len(df)} "
+          f"faces: weld_device {np.median(times[1:]):.3f} ms (all "
+          f"{[round(t, 3) for t in times[1:]]}; bound "
+          f"{moved / H100_BYTES_PER_S * 1e3:.4f} ms, {moved} bytes), host "
+          f"weld {host_ms:.1f} ms; equal to the host weld: {same}, to "
+          f"write_object's mesh: {same_obj}; {smi}")
+    check(same, "[prep weld] weld_device differs from the host weld")
 
 
 def phase_prep_tools(smi: str) -> None:
@@ -4516,6 +4568,262 @@ def phase_prep() -> None:
     finally:
         shutil.rmtree(PREP_DIR, ignore_errors=True)
     print(f"[prep] phase took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# [dist]: the parallel path (disn_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "build", "chip_smoke_dist")  # removed after
+DIST_TIMEOUT_S = 300   # a spawned group: start, build loads, its work
+NCCL_DUP_TIMEOUT_S = 60
+DIST_LOSS_RTOL = 2e-5  # tests/test_train.py:68's sharded-vs-single bound
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_batch(cfg) -> dict:
+    """A seeded full-size batch of the default Config (B rows, N points)."""
+    from disn_tpu_torch.data import synthetic
+
+    rng = np.random.RandomState(7)
+    b, n = cfg.batch_size, cfg.num_sample_points
+    pts = rng.uniform(-0.8, 0.8, (b, n, 3)).astype(np.float32)
+    return {"img": rng.rand(b, 137, 137, 3).astype(np.float32),
+            "sdf_pt": pts, "sdf_pt_rot": pts[..., ::-1].copy(),
+            "sdf_val": (np.linalg.norm(pts, axis=-1, keepdims=True) - 0.5
+                        + 0.05 * rng.randn(b, n, 1)).astype(np.float32),
+            "trans_mat": np.stack([synthetic.demo_trans_mat()] * b)}
+
+
+def sharded_image(mesh, cfg, params, img, trans) -> dict:
+    """image_to_mesh_sharded once as a warm-up, then timed once (host
+    clock, synchronised; K1's launches counted and timed with CUDA events
+    around each) -> its mesh and numbers."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import fused_decode
+
+    k1 = fused_decode.fused_cell_decode
+    pipeline.image_to_mesh_sharded(params, img, trans, cfg, mesh)
+    torch.cuda.synchronize()
+    stats: dict = {}
+    k1.events, before = [], k1.launches
+    t0 = time.perf_counter()
+    verts, faces = pipeline.image_to_mesh_sharded(params, img, trans, cfg,
+                                                  mesh, stats=stats)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    k1_ms = [s.elapsed_time(e) for s, e in k1.events]
+    k1.events = None
+    return dict(verts=verts, faces=faces, wall_ms=wall,
+                k1_launches=k1.launches - before, k1_ms=k1_ms, **stats)
+
+
+def dist_rank(rank: int, world: int, port: int, backend: str,
+              inputs: dict) -> None:
+    """One rank of a [dist] group, spawned by phase_dist: card `rank` under
+    NCCL, card 0 under gloo. Writes its results to DIST_DIR."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from disn_tpu_torch import parallel
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+        params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+        out = sharded_image(parallel.make_mesh(data=1, points=world), cfg,
+                            params, inputs["img"], inputs["trans"])
+        if inputs.get("batch") is not None:
+            tcfg = Config()
+            mesh = parallel.make_mesh(data=world, points=1)
+            state = trainer.create_state(tcfg, seed=0, mesh=mesh)
+            step = trainer.make_train_step(tcfg, mesh=mesh)
+            t0 = time.perf_counter()
+            _, losses = step(state, parallel.shard_batch(inputs["batch"],
+                                                         mesh))
+            out["loss"] = float(losses["overall_loss"])
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(DIST_DIR, f"{backend}{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_dup_rank(rank: int, port: int, q) -> None:
+    """Two NCCL ranks on card 0: one all_reduce; the first line of what
+    NCCL says goes to q."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2)
+        t = torch.ones(4, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        q.put((rank, f"accepted: all_reduce gave {t.tolist()}"))
+    except Exception as e:  # the refusal is what this run records
+        q.put((rank, f"refused: {type(e).__name__}: "
+                     f"{str(e).strip().splitlines()[0]}"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_group(target, args_of, world: int, timeout_s: float) -> list:
+    """Start `world` spawned processes of target(*args_of(rank)); wait up to
+    timeout_s for all, kill whatever is left; returns their exit codes."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args_of(r)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    return [p.exitcode for p in procs]
+
+
+def hold_sharded_mesh(tag: str, res: dict, main_faces, R: int) -> None:
+    """Faces equal to the main path's, in order; vertices on the surface
+    within SURFACE_TOL + the records' u8 edge step."""
+    tol = SURFACE_TOL + 3 * 2.0 / (R - 1) / 510
+    dist = np.abs(np.abs(res["verts"]).sum(1) - 0.6)
+    same = np.array_equal(res["faces"], main_faces)
+    print(f"{tag} faces equal to the main path's={same} "
+          f"({len(res['faces'])} faces), max surface distance "
+          f"{dist.max():.3e} (tolerance {tol:.3e})")
+    check(same, f"{tag}: the faces differ from the main path's")
+    check(float(dist.max()) <= tol, f"{tag}: a vertex is {dist.max():.3e} "
+                                    "off the surface")
+
+
+def phase_dist(img, trans, main_faces, main_wall_ms: float) -> None:
+    """[dist]: image_to_mesh_sharded at 257^3 bf16 over a 1-rank NCCL group
+    in this process, then over 2 gloo ranks sharing card 0 (spawned), with
+    a data-parallel train step; NCCL with 2 ranks on one card; NCCL with a
+    card a rank when there are 2 cards."""
+    import pickle
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from disn_tpu_torch import parallel
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.train import trainer
+
+    smi = card_name()
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    R = cfg.grid_resolution
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        res = sharded_image(parallel.make_mesh(1, 1), cfg, params, img, trans)
+    finally:
+        dist.destroy_process_group()
+    print(f"[dist nccl 1 rank] {smi}: image_to_mesh_sharded wall "
+          f"{res['wall_ms']:.3f} ms (main path median {main_wall_ms:.3f}), "
+          f"K1 launches {res['k1_launches']}, K1 ms {res['k1_ms']}, active "
+          f"cells {res['active_cells']}, stripe {res['stripe_cells']}, "
+          f"gather {res['gather_ms']:.3f} ms")
+    check(res["k1_launches"] == 2 and not res["dense_fallback"],
+          f"[dist nccl 1 rank]: {res['k1_launches']} K1 launches, "
+          f"fallback {res['dense_fallback']}: expected 2 and none")
+    hold_sharded_mesh("[dist nccl 1 rank]", res, main_faces, R)
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    try:
+        tcfg = Config()
+        batch = dist_batch(tcfg)
+        port = free_port()
+        codes = spawn_group(dist_rank, lambda r: (r, 2, port, "gloo", {
+            "img": img, "trans": trans, "batch": batch}), 2, DIST_TIMEOUT_S)
+        check(codes == [0, 0], f"[dist gloo] the ranks exited {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(DIST_DIR, f"gloo{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        for r, res in enumerate(ranks):
+            print(f"[dist gloo 2 ranks on one card] rank {r} {smi}: wall "
+                  f"{res['wall_ms']:.3f} ms, K1 stripe "
+                  f"{res['k1_ms'][-1]:.4f} ms (CUDA events; coarse pass "
+                  f"{res['k1_ms'][0]:.4f}), share {res['stripe_cells']} of "
+                  f"{res['active_cells']} cells, gather "
+                  f"{res['gather_ms']:.3f} ms, step {res['step_ms']:.1f} ms "
+                  "(both ranks share card 0 and gloo copies through the "
+                  "host: the cost of the collective path, not a speed-up)")
+            hold_sharded_mesh(f"[dist gloo rank {r}]", res, main_faces, R)
+        check(sum(r["stripe_cells"] for r in ranks)
+              == ranks[0]["active_cells"], "[dist gloo] stripes do not add up")
+        state = trainer.create_state(tcfg, seed=0)
+        _, losses = trainer.make_train_step(tcfg)(state, batch)
+        single = float(losses["overall_loss"])
+        rel = abs(ranks[0]["loss"] - single) / abs(single)
+        print(f"[dist gloo train] Config() f32, 2 x {tcfg.batch_size // 2} "
+              f"rows: loss {ranks[0]['loss']:.7f} (rank 1 "
+              f"{ranks[1]['loss']:.7f}) against one rank's "
+              f"{single:.7f}: rel {rel:.2e} (bound {DIST_LOSS_RTOL})")
+        check(rel <= DIST_LOSS_RTOL and ranks[0]["loss"] == ranks[1]["loss"],
+              "[dist gloo train] the data-parallel loss is not the "
+              "single step's")
+        del state
+        torch.cuda.empty_cache()
+
+        import multiprocessing as mp
+        q = mp.get_context("spawn").Queue()
+        port = free_port()
+        codes = spawn_group(nccl_dup_rank, lambda r: (r, port, q), 2,
+                            NCCL_DUP_TIMEOUT_S)
+        said = []
+        while not q.empty():
+            said.append(q.get())
+        print(f"[dist nccl 2 ranks on one card] exit codes {codes}: "
+              f"{sorted(said) or 'no answer before the time limit'}")
+        if torch.cuda.device_count() >= 2:
+            port = free_port()
+            codes = spawn_group(dist_rank, lambda r: (r, 2, port, "nccl", {
+                "img": img, "trans": trans}), 2, DIST_TIMEOUT_S)
+            check(codes == [0, 0], f"[dist nccl] the ranks exited {codes}")
+            for r in range(2):
+                with open(os.path.join(DIST_DIR, f"nccl{r}.pkl"), "rb") as f:
+                    res = pickle.load(f)
+                print(f"[dist nccl multi-card] rank {r}: wall "
+                      f"{res['wall_ms']:.3f} ms, K1 stripe "
+                      f"{res['k1_ms'][-1]:.4f} ms, share "
+                      f"{res['stripe_cells']} of {res['active_cells']}")
+                hold_sharded_mesh(f"[dist nccl rank {r}]", res, main_faces,
+                                  R)
+        else:
+            print("[dist] nccl multi-card: not run (1 card)")
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
 
 
 def k1_entries(res: dict, launches: dict) -> list[dict]:
@@ -4603,6 +4911,8 @@ def main() -> int:
         time_extraction(held["257"])
         compare_flows(held["cfg"], held["params"], held["trans"])
         profile_phase_a(*main_inputs)
+        phase_dist(held["img"], held["trans"], held["bf16"][1][1],
+                   float(np.median([r["wall_ms"] for r in runs[1:4]])))
         pred_mesh = held["bf16"][1]
         mv_mesh = held["bf16 volume"][1]
         main_faces = {"bf16": pred_mesh[1], "f32": held["f32"][0][1]}

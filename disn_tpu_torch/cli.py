@@ -104,25 +104,66 @@ def data_handles(cfg: Config, data_root: str, split: str,
     return listinfo, cats_limit, paths
 
 
+def _data_parallel(args, cfg: Config):
+    """(device, mesh, lead) of this process. Under torchrun (WORLD_SIZE >
+    1) it joins the process group (parallel.init_from_env: NCCL with one
+    card a rank, gloo with --device cpu) and takes its place in the
+    fitting mesh of cfg.batch_size; a rank outside that mesh gets mesh
+    None and lead False and takes no step. Alone: (device, None, True)."""
+    import torch.distributed as dist
+
+    from disn_tpu_torch import parallel
+
+    dev = parallel.init_from_env(args.device)
+    if not dist.is_initialized():
+        return dev, None, True
+    mesh = parallel.fitting_mesh(cfg.batch_size)
+    return dev, mesh, mesh is not None and mesh.lead
+
+
+def _stripe_loader(args, cfg: Config, mesh, dev):
+    """The loader of this rank's stripe: data rank i of n loads stripe i
+    in batches of cfg.batch_size // n (the global batch stays
+    cfg.batch_size)."""
+    from disn_tpu_torch.data import pipeline
+
+    n, i = (1, 0) if mesh is None else (mesh.shape["data"], mesh.coords[0])
+    listinfo, cats_limit, paths = data_handles(cfg, args.data_root, "train")
+    return pipeline.make_loader(cfg, paths, listinfo, cats_limit,
+                                epochs=args.epochs, workers=args.workers,
+                                seed=args.seed, device=dev, host_id=i,
+                                host_count=n,
+                                batch_size=cfg.batch_size // n)
+
+
 def cmd_train(args) -> None:
+    from disn_tpu_torch import parallel
+
+    cfg = apply_overrides(Config(), args.set)
+    dev, mesh, lead = _data_parallel(args, cfg)
+    try:
+        if mesh is not None or lead:
+            _train(args, cfg, dev, mesh, lead)
+    finally:
+        parallel.shutdown()
+
+
+def _train(args, cfg: Config, dev, mesh, lead: bool = True) -> None:
+    """The train loop of one rank: the lead rank alone logs and writes
+    config.json, the checkpoints and the dumps; every rank reads --resume
+    and --restore."""
     import torch
 
-    from disn_tpu_torch import device as device_mod
-    from disn_tpu_torch.data import pipeline
     from disn_tpu_torch.train import checkpoint, trainer
     from disn_tpu_torch.utils.logging import MetricLogger, Timer
 
-    dev = device_mod.resolve(args.device)
-    cfg = apply_overrides(Config(), args.set)
-    logger = MetricLogger(args.log_dir)
+    logger = MetricLogger(args.log_dir if lead else None, stdout=lead)
     logger.log(f"config: {cfg.to_json()}")
-    cfg.save(os.path.join(args.log_dir, "config.json"))
+    if lead:
+        cfg.save(os.path.join(args.log_dir, "config.json"))
 
-    listinfo, cats_limit, paths = data_handles(cfg, args.data_root, "train")
-    loader = pipeline.make_loader(cfg, paths, listinfo, cats_limit,
-                                  epochs=args.epochs, workers=args.workers,
-                                  seed=args.seed, device=dev)
-    state = trainer.create_state(cfg, seed=args.seed, device=dev)
+    loader = _stripe_loader(args, cfg, mesh, dev)
+    state = trainer.create_state(cfg, seed=args.seed, device=dev, mesh=mesh)
     if args.resume:
         # full state: params, optimizer moments and step
         path = args.resume if os.path.isfile(args.resume) else \
@@ -142,8 +183,9 @@ def cmd_train(args) -> None:
         logger.log(f"restored {donor_path} (scopes {scopes or 'all'}); "
                    f"skipped {len(skipped)} leaves")
 
-    step_fn = trainer.make_train_step(cfg, device=dev)
-    mgr = checkpoint.CheckpointManager(args.log_dir, period=10)
+    step_fn = trainer.make_train_step(cfg, device=dev, mesh=mesh)
+    mgr = checkpoint.CheckpointManager(args.log_dir, period=10) if lead \
+        else None
     timer = Timer()
     loader.start()
     bpe = loader.batches_per_epoch
@@ -158,15 +200,17 @@ def cmd_train(args) -> None:
             if i % args.log_every == 0:
                 logger.metrics(i, losses)
                 logger.log(timer.summary())
-            if args.dump_every and i % args.dump_every == 0:
+            if lead and args.dump_every and i % args.dump_every == 0:
                 train_visual_dump(args.log_dir, i, cfg, state.params, batch,
                                   dev)
             if (i + 1) % bpe == 0:
                 epoch = (i + 1) // bpe
                 acc = float(acc_sum) / acc_n
-                tree = state.state_tree()
-                mgr.save_epoch({"params": tree["params"]}, epoch, metric=acc)
-                mgr.save_latest(tree, state.step)
+                if lead:
+                    tree = state.state_tree()
+                    mgr.save_epoch({"params": tree["params"]}, epoch,
+                                   metric=acc)
+                    mgr.save_latest(tree, state.step)
                 logger.log(f"epoch {epoch} done; acc {acc:.4f}")
                 acc_sum.zero_()
                 acc_n = 0
@@ -215,17 +259,35 @@ def train_visual_dump(log_dir: str, step: int, cfg: Config, params,
 
 
 def cmd_train_cam(args) -> None:
+    """--mode train runs data parallel under torchrun, as `train` does;
+    --mode create and test run in one process."""
     from disn_tpu_torch import device as device_mod
-    from disn_tpu_torch.data import pipeline
+    from disn_tpu_torch import parallel
+
+    cfg = apply_overrides(Config(), args.set)
+    if args.mode != "train":
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise SystemExit(f"train-cam --mode {args.mode} runs in one "
+                             "process, not under torchrun")
+        _train_cam(args, cfg, device_mod.resolve(args.device), None)
+        return
+    dev, mesh, lead = _data_parallel(args, cfg)
+    try:
+        if mesh is not None or lead:
+            _train_cam(args, cfg, dev, mesh, lead)
+    finally:
+        parallel.shutdown()
+
+
+def _train_cam(args, cfg: Config, dev, mesh, lead: bool = True) -> None:
     from disn_tpu_torch.models import posenet
     from disn_tpu_torch.train import checkpoint, trainer
     from disn_tpu_torch.utils.logging import MetricLogger
 
-    dev = device_mod.resolve(args.device)
-    cfg = apply_overrides(Config(), args.set)
-    logger = MetricLogger(args.log_dir, name="cam")
+    logger = MetricLogger(args.log_dir if lead else None, name="cam",
+                          stdout=lead)
     state = trainer.create_state(cfg, seed=args.seed, device=dev,
-                                 init_fn=posenet.init)
+                                 init_fn=posenet.init, mesh=mesh)
     if args.restore:
         # where the paths and shapes agree
         donor = checkpoint.restore_params(args.restore)
@@ -238,19 +300,17 @@ def cmd_train_cam(args) -> None:
     if args.mode == "test":
         _cam_eval(args, cfg, state.params, logger, dev)
         return
-    listinfo, cats_limit, paths = data_handles(cfg, args.data_root, "train")
-    loader = pipeline.make_loader(cfg, paths, listinfo, cats_limit,
-                                  epochs=args.epochs, workers=args.workers,
-                                  seed=args.seed, device=dev)
-    step_fn = trainer.make_cam_train_step(cfg, device=dev)
-    mgr = checkpoint.CheckpointManager(args.log_dir, period=10)
+    loader = _stripe_loader(args, cfg, mesh, dev)
+    step_fn = trainer.make_cam_train_step(cfg, device=dev, mesh=mesh)
+    mgr = checkpoint.CheckpointManager(args.log_dir, period=10) if lead \
+        else None
     loader.start()
     try:
         for i, batch in enumerate(loader):
             state, losses = step_fn(state, trainer.to_cam_batch(batch))
             if i % args.log_every == 0:
                 logger.metrics(i, losses)
-            if i % 1000 == 999:
+            if lead and i % 1000 == 999:
                 mgr.save_latest({"params": state.params_tree()},
                                 state.step)
     finally:

@@ -27,15 +27,21 @@ class EpochSampler:
     """Category-balanced epoch ordering: per-category quota = min(cat_limit,
     available); each epoch shuffles the full index list and takes entries
     first-come until every category reaches its quota. Deterministic given
-    its seed."""
+    its seed. With host_count > 1 each host (a data rank) keeps its own
+    contiguous stripe, host_id, of len // host_count entries: the hosts
+    draw the same order from the same seed, so their stripes are disjoint
+    and cover the epoch truncated to a multiple of host_count."""
 
     def __init__(self, listinfo: ListInfo, cats_limit: dict[str, int],
-                 cat_limit: int, shuffle: bool = True, seed: int = 0):
+                 cat_limit: int, shuffle: bool = True, seed: int = 0,
+                 host_id: int = 0, host_count: int = 1):
         self.listinfo = listinfo
         self.cats_limit = {c: min(cat_limit, n) for c, n in cats_limit.items()}
         self.epoch_amount = sum(self.cats_limit.values())
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
+        self.host_id = host_id
+        self.host_count = host_count
 
     def epoch_order(self) -> np.ndarray:
         order = np.arange(len(self.listinfo))
@@ -52,6 +58,9 @@ class EpochSampler:
                 if len(picked) == self.epoch_amount:
                     break
             order = np.asarray(picked)
+        if self.host_count > 1:
+            per = len(order) // self.host_count
+            order = order[self.host_id * per:(self.host_id + 1) * per]
         return order
 
 
@@ -240,7 +249,8 @@ class PrefetchLoader:
         self._work_q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []
-        stripe = min(sampler.epoch_amount, len(sampler.listinfo))
+        stripe = (min(sampler.epoch_amount, len(sampler.listinfo))
+                  // sampler.host_count)
         self.batches_per_epoch = max(1, stripe // batch_size)
         self.total_batches = self.batches_per_epoch * epochs
 
@@ -336,10 +346,17 @@ class PrefetchLoader:
 def make_loader(cfg: Config, paths: SplitPaths, listinfo: ListInfo,
                 cats_limit: dict[str, int], epochs: int = 1,
                 shuffle: bool | None = None, workers: int = 4, seed: int = 0,
-                device: str | torch.device | None = None) -> PrefetchLoader:
+                device: str | torch.device | None = None, host_id: int = 0,
+                host_count: int = 1, batch_size: int | None = None
+                ) -> PrefetchLoader:
+    """The loader of one host (data rank) `host_id` of `host_count`: its
+    stripe of every epoch, in batches of `batch_size` (cfg.batch_size by
+    default; a data-parallel run gives each rank cfg.batch_size //
+    host_count, so the global batch stays cfg.batch_size)."""
     dataset = SdfImageDataset(cfg, paths, listinfo, seed=seed)
     sampler = EpochSampler(
         listinfo, cats_limit, cfg.cat_limit,
-        shuffle=cfg.shuffle if shuffle is None else shuffle, seed=seed)
-    return PrefetchLoader(dataset, sampler, cfg.batch_size, epochs,
-                          workers=workers, seed=seed, device=device)
+        shuffle=cfg.shuffle if shuffle is None else shuffle, seed=seed,
+        host_id=host_id, host_count=host_count)
+    return PrefetchLoader(dataset, sampler, batch_size or cfg.batch_size,
+                          epochs, workers=workers, seed=seed, device=device)

@@ -262,16 +262,69 @@ def as_inputs(img, trans_mat, sdf_params, dev: torch.device):
     return img, trans.contiguous(), sdfp.contiguous()
 
 
+def dense_volume_sharded(params: Params, endpoints: dict, embedding,
+                         trans_mat, sdf_params: torch.Tensor, cfg: Config,
+                         fold: str, mesh) -> torch.Tensor:
+    """dense_volume with every rank of `mesh` (both axes, row-major)
+    decoding a contiguous share, gathered into the whole [R,R,R] f32 volume
+    on every rank (port of make_sharded_dense_sdf_fn): through the fused
+    kernel, each rank's share of the stride-4 cells and of the boundary
+    planes; otherwise, as the JAX package does, each rank's slab of the flat
+    grid in _stream_blocks' steps (per_dev points, a multiple of the
+    step)."""
+    from disn_tpu_torch import parallel
+    from disn_tpu_torch.infer import fused
+
+    r = cfg.grid_resolution
+    n, k = mesh.size, mesh.index
+    if fused.kernel_enabled(cfg, fold, fused.STRIDE, r):
+        c = (r - 1) // fused.STRIDE
+        lo, hi = parallel.share(c ** 3, n, k)
+        cells = torch.arange(lo, hi, dtype=torch.int32,
+                             device=sdf_params.device)
+        _, flats = fused._cell_points(cells, c, r, sdf_params)
+        vals = (fused.decode_cells(params, endpoints, trans_mat, sdf_params,
+                                   cells, cfg, fine_r=r, coarse_c=c)
+                if hi > lo else torch.zeros(0, device=sdf_params.device))
+        pts, pflats = fused.plane_points(r, sdf_params)
+        plo, phi = parallel.share(pts.shape[0], n, k)
+        pvals = decode_points(params, endpoints, embedding, trans_mat,
+                              pts[plo:phi], cfg, folded=fold,
+                              block=fused.PLANE_BLOCK)
+        vals = parallel.gather(torch.cat([vals.float(), pvals.float()]),
+                               mesh)
+        flats = parallel.gather(torch.cat([flats.long(),
+                                           pflats[plo:phi].long()]), mesh)
+        vol = torch.empty(r ** 3, device=sdf_params.device)
+        vol[flats] = vals
+        return vol.reshape(r, r, r)
+    total = r ** 3
+    per = -(-total // n)
+    step = min(BLOCK, -(-per // 8) * 8)
+    per_dev = -(-per // step) * step
+    start = min(total, k * per_dev)
+    vals = _stream_blocks(params, endpoints, embedding, trans_mat,
+                          sdf_params, cfg, start,
+                          min(total, start + per_dev) - start, step,
+                          folded=fold)
+    return parallel.gather(vals.float(), mesh).reshape(r, r, r)
+
+
 def dense_sdf(params: Params, img, trans_mat, sdf_params, cfg: Config,
               device: str | torch.device | None = None,
-              fold_local=None) -> torch.Tensor:
+              fold_local=None, mesh=None) -> torch.Tensor:
     """Image -> the exact [R,R,R] f32 volume (z,y,x indexed) on `device`
     (dense_volume: every stride-4 cell through the fused kernel when
     infer/fused.kernel_enabled allows it, else the plain decode of every
-    point). fold_local: normalize_fold's modes."""
+    point). fold_local: normalize_fold's modes. With a parallel.Mesh over a
+    process group, every rank of it decodes a share and every rank returns
+    the whole volume (dense_volume_sharded)."""
     dev = device_mod.resolve(device)
     params = device_mod.tree_to(params, dev)
     img, trans, sdfp = as_inputs(img, trans_mat, sdf_params, dev)
     fold = normalize_fold(fold_local, cfg)
     embedding, endpoints = _prep(params, img, cfg, fold_local=fold)
+    if mesh is not None and mesh.group is not None:
+        return dense_volume_sharded(params, endpoints, embedding, trans, sdfp,
+                                    cfg, fold, mesh)
     return dense_volume(params, endpoints, embedding, trans, sdfp, cfg, fold)

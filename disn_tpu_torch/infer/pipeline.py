@@ -215,6 +215,78 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     return verts, faces
 
 
+def image_to_mesh_sharded(params: Params, img, trans_mat, cfg: Config, mesh,
+                          sdf_params=None, iso: float | None = None,
+                          device: str | torch.device | None = None,
+                          stats: dict | None = None
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """image_to_mesh over the ranks of a points-only parallel.Mesh (port of
+    the JAX package's image_to_mesh_sharded), the same (verts, faces) on
+    every rank: the sparse pass striped over the ranks
+    (sparse.sparse_volume_sharded: each rank's stripe of the active cells
+    through the fused kernel), the striped dense pass on a cap overflow,
+    the scan of the whole volume, the record pass striped over the ranks
+    (marching.sharded_records) and the record route's host assembly
+    (native.mesh_assemble) on the mesh's first rank, whose arrays the
+    others receive. Faces equal image_to_mesh's; vertices are the record
+    route's (quantised to the cell over 510 on grids of 129 and up, over
+    131070 below).
+
+    The striped record pass takes the JAX package's n_iter, per-rank and
+    batch rules for its id buffer (the scan's group cap x 64 ids), and its
+    two single-rank fallbacks: grids whose buffer holds fewer batches than
+    ranks, and cell counts the rounded stripes would not cover (the JAX
+    rule drops those slots otherwise). The JAX function also falls back to
+    the owned extractor when its scan's group cap overflows; the port's
+    scan (marching._active_cells_ext) has no group cap, so that case does
+    not arise. `stats`, when given, receives sparse_volume_sharded's, and
+    ``dense_fallback``."""
+    from disn_tpu_torch import native, parallel
+
+    dev = device_mod.resolve(device)
+    if sdf_params is None:
+        sdf_params = UNIT_BOX
+    iso = cfg.iso if iso is None else iso
+    vol, count, esc, cap = sparse_mod.sparse_volume_sharded(
+        params, img, trans_mat, sdf_params, cfg, mesh, device=dev,
+        stats=stats)
+    if stats is not None:
+        stats["dense_fallback"] = count > cap or esc > 0
+    if count > cap or esc > 0:
+        vol = dense_mod.dense_sdf(params, img, trans_mat, sdf_params, cfg,
+                                  device=dev, mesh=mesh)
+    R = cfg.grid_resolution
+    ids, nc = marching._active_cells_ext(vol, float(iso))
+    n_dev = mesh.shape[parallel.POINT_AXIS]
+    ids_len = marching._norm_gcap(R) * marching.BLOCK ** 3
+    batch = marching._fit_batch(ids_len, 8192)
+    per_dev = min(marching._qbucket(max(1, -(-nc // (batch * n_dev)))),
+                  ids_len // batch // n_dev)
+    n_iter = n_dev * per_dev
+    verts = faces = None
+    if nc and (ids_len // batch < n_dev or n_iter * batch < nc):
+        if mesh.lead:
+            verts, faces = marching.extract_mesh_records(
+                vol, sdf_params, ids, nc, iso=iso, device=dev)
+    elif nc:
+        rec, tq, _ = marching.sharded_records(vol, ids, nc, mesh, iso=iso,
+                                              n_iter=n_iter, batch=batch)
+        if mesh.lead:
+            rec, tq = marching._records_to_host(rec, tq)
+            bbox = torch.as_tensor(sdf_params, dtype=torch.float32)
+            verts, faces = native.mesh_assemble(
+                ids.cpu().numpy(), rec, tq, nc, R, bbox.cpu().numpy())
+    else:
+        verts = np.zeros((0, 3), np.float32)
+        faces = np.zeros((0, 3), np.int32)
+    out = []
+    for a, dtype in ((verts, torch.float32), (faces, torch.int32)):
+        t = (torch.from_numpy(a).to(dev) if mesh.lead
+             else torch.empty((0, 3), dtype=dtype, device=dev))
+        out.append(parallel.broadcast(t, mesh).cpu().numpy())
+    return out[0], out[1]
+
+
 def reconstruct_image(params: Params, img, cfg: Config, trans_mat=None,
                       cam_params: Params | None = None, sparse: bool = True,
                       clean: bool = False,

@@ -152,12 +152,18 @@ def _band_tau(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
     return tau
 
 
+def _cap_block(cfg: Config) -> tuple[int, int]:
+    """(cfg.cell_cap_frac of the coarse cells, at least 256; the JAX
+    package's cells per decode block)."""
+    cap = max(256, int((cfg.sdf_res // STRIDE) ** 3 * cfg.cell_cap_frac))
+    return cap, min(cap, CAP_BLOCK_CELLS)
+
+
 def cell_cap(cfg: Config) -> int:
     """Most active coarse cells the sparse pass takes before it falls back
     to the dense path: the JAX package's rule, cfg.cell_cap_frac of the
     coarse cells (at least 256), rounded up to its blocks."""
-    cap = max(256, int((cfg.sdf_res // STRIDE) ** 3 * cfg.cell_cap_frac))
-    blk = min(cap, CAP_BLOCK_CELLS)
+    cap, blk = _cap_block(cfg)
     return -(-cap // blk) * blk
 
 
@@ -358,6 +364,94 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
     with device_mod.stage(stats, "phase_b_ms", dev):
         return finish(params, endpoints, vol_c, cell_ids, trans, sdfp,
                       cfg, embedding=embedding), None
+
+
+def sparse_volume_sharded(params: Params, img, trans_mat, sdf_params,
+                          cfg: Config, mesh,
+                          device: str | torch.device | None = None,
+                          stats: dict | None = None):
+    """The sparse pass striped over a points-only parallel.Mesh (port of
+    make_sharded_sparse_fn) -> (vol [R,R,R] f32 on every rank, count, esc,
+    cap). vol is None when count > cap: the caller takes the dense path.
+    esc is always 0 (the kernel has no escapes); it stands where the JAX
+    function returns the kernel's.
+
+    Every rank runs phase_a, then takes the mesh's first rank's coarse
+    grid, active cells and count (a broadcast): the stripes must not depend
+    on every card rounding alike. The cap is the JAX function's: cell_cap
+    rounded up so that its blocks divide over the ranks. Rank j decodes its
+    contiguous share of the `count` active cells (fused.decode_cells
+    through the kernel where kernel_enabled allows it, the plain decode
+    otherwise) and its share of the boundary planes when an active cell
+    touches them (as `finish` does; the JAX function decodes the planes
+    whatever the cells). The JAX function's stripes are fixed runs of
+    blocks of its padded cap buffer, since its shapes are static and every
+    device decodes its whole stripe, valid or not; with exact counts those
+    runs would leave every rank but the first idle below half the cap
+    (17,888 active cells of 65,536 on the main path), so the active cells
+    split evenly instead, which changes no value. Every rank gathers the
+    stripes and scatters them into the upsampled coarse grid. `stats`
+    receives ``active_cells``, ``stripe_cells`` (this rank's),
+    ``stripe_ms`` (its fine decode) and ``gather_ms`` besides phase_a's
+    stages."""
+    from disn_tpu_torch import parallel
+
+    if mesh.shape[parallel.DATA_AXIS] > 1:
+        raise ValueError("use a points-only mesh for sparse inference")
+    if cfg.sdf_res % STRIDE:
+        raise ValueError(f"stride {STRIDE} must divide sdf_res "
+                         f"{cfg.sdf_res}")
+    if cfg.variant is Variant.THREEDCNN:
+        raise ValueError("THREEDCNN decodes a fixed volume; use "
+                         "pipeline.predict_volume")
+    fold, fine_kernel, _ = _folds(cfg)
+    dev = device_mod.resolve(device)
+    params = device_mod.tree_to(params, dev)
+    img_t, trans, sdfp = dense_mod.as_inputs(img, trans_mat, sdf_params, dev)
+    embedding, endpoints, vol_c, cell_ids, _ = phase_a(
+        params, img_t, trans, sdfp, cfg, stats)
+    vol_c = parallel.broadcast(vol_c, mesh)
+    cell_ids = parallel.broadcast(cell_ids, mesh)
+    count = int(cell_ids.shape[0])
+    n = mesh.shape[parallel.POINT_AXIS]
+    j = mesh.coords[1]
+    cpb = _cap_block(cfg)[1]
+    cap = -(-(cell_cap(cfg) // cpb) // n) * cpb * n
+    if stats is not None:
+        stats["active_cells"] = count
+    if count > cap:
+        return None, count, 0, cap
+    fine_r = cfg.grid_resolution
+    c = vol_c.shape[0] - 1
+    mine = cell_ids[slice(*parallel.share(count, n, j))]
+    with device_mod.stage(stats, "stripe_ms", dev):
+        pts, flats = fused._cell_points(mine, c, fine_r, sdfp)
+        if not mine.shape[0]:
+            vals = torch.zeros(0, device=dev)
+        elif fine_kernel:
+            vals = fused.decode_cells(params, endpoints, trans, sdfp, mine,
+                                      cfg, fine_r=fine_r, coarse_c=c)
+        else:
+            vals = dense_mod.decode_points(params, endpoints, embedding,
+                                           trans, pts, cfg, folded=fold)
+    vals, flats = [vals.float()], [flats.long()]
+    ids = cell_ids.long()
+    if bool(((ids % c == c - 1) | ((ids // c) % c == c - 1)
+             | (ids // (c * c) == c - 1)).any()):
+        ppts, pflats = fused.plane_points(fine_r, sdfp)
+        lo, hi = parallel.share(ppts.shape[0], n, j)
+        vals.append(dense_mod.decode_points(
+            params, endpoints, embedding, trans, ppts[lo:hi], cfg,
+            folded=fold, block=fused.PLANE_BLOCK).float())
+        flats.append(pflats[lo:hi].long())
+    with device_mod.stage(stats, "gather_ms", dev):
+        vals = parallel.gather(torch.cat(vals), mesh, mesh.points_group)
+        flats = parallel.gather(torch.cat(flats), mesh, mesh.points_group)
+    vol = _upsample_aligned(vol_c, STRIDE).reshape(-1)
+    vol[flats] = vals
+    if stats is not None:
+        stats["stripe_cells"] = int(mine.shape[0])
+    return vol.reshape(fine_r, fine_r, fine_r), count, 0, cap
 
 
 def sparse_dense_sdf(params: Params, img, trans_mat, sdf_params,

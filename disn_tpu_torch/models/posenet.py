@@ -137,7 +137,8 @@ def predict_trans_mat(params: Params, img, cfg: Config,
 
 
 def get_loss(end_points: dict[str, torch.Tensor],
-             batch: dict[str, torch.Tensor], params: Params, cfg: Config
+             batch: dict[str, torch.Tensor], params: Params, cfg: Config,
+             sum_scale: float = 1.0
              ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Camera losses: (loss, {name: 0-d tensor}).
 
@@ -154,7 +155,12 @@ def get_loss(end_points: dict[str, torch.Tensor],
     cam_loss_mode: 3D = rotpc; 2D = rot2d; 3DM = rotpc + 0.3 rotmatrix;
     all = the three summed. With cfg.cam_shift the GT projection carries
     the batch's shifts and the shift head's l2 (x shift_weight) is added;
-    with cfg.regularization the encoder's L2 term."""
+    with cfg.regularization the encoder's L2 term.
+
+    The terms that sum over the batch (rotpc, rot2d, shiftxy) are
+    multiplied by sum_scale: a data-parallel rank that holds 1/n of the
+    batch passes n, so that the mean of every term over the ranks is the
+    whole batch's, as is the mean of the gradients."""
     pred_RT = end_points["pred_RT"]
     pred_trans_mat = end_points["pred_trans_mat"]
     dt = pred_RT.dtype
@@ -179,11 +185,11 @@ def get_loss(end_points: dict[str, torch.Tensor],
     pred_xy_cl = camera.project_points(sample_pc, pred_trans_mat,
                                        xyshift=xyshift, **kw)
 
-    rotpc_loss = torch.sum(torch.square(sub_3d)) / 2.0
+    rotpc_loss = torch.sum(torch.square(sub_3d)) / 2.0 * sum_scale
     losses: dict[str, torch.Tensor] = {
         "rotpc_loss": rotpc_loss,
         "rot2d_loss": torch.sum(torch.square(pred_xy_raw - gt_xy_raw))
-        / 2.0 / 1e4,
+        / 2.0 / 1e4 * sum_scale,
         "rotmatrix_loss": torch.mean(torch.square(pred_trans_mat
                                                   - trans_mat)),
         "rot3d_dist": torch.mean(torch.sqrt(torch.sum(
@@ -203,7 +209,7 @@ def get_loss(end_points: dict[str, torch.Tensor],
                 + losses["rotmatrix_loss"])
     if cfg.cam_shift and xyshift is not None and "shifts" in batch:
         shift_loss = torch.sum(torch.square(batch["shifts"].to(dt)
-                                            - xyshift)) / 2.0
+                                            - xyshift)) / 2.0 * sum_scale
         losses["shiftxy_loss"] = shift_loss
         loss = loss + shift_loss * cfg.shift_weight
     if cfg.regularization:

@@ -243,6 +243,49 @@ def extract_mesh(volume: torch.Tensor, sdf_params, iso: float = 0.0
     return weld(tri_pos.cpu().numpy(), tri_keys.cpu().numpy(), count)
 
 
+def weld_device(tri_pos: torch.Tensor, tri_keys: torch.Tensor, count: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``weld`` on the triangles' device (port of weld_device): (vertices
+    [V,3] f32, faces [F,3] int32) there, equal to the host weld's bit for
+    bit. The (min, max) edge keys become one int64 key, a stable sort
+    orders them, a cumsum over the key changes names the vertices, and a
+    scatter sends every corner its name. Where several corners share a key
+    the vertex takes the last one's position in triangle order, as the
+    host weld's assignment does (the JAX package sorts the two int32 halves
+    in two stable passes: TPUs have no int64 by default)."""
+    dev = tri_pos.device
+    pos = tri_pos[:count].reshape(-1, 3)
+    keys = tri_keys[:count].reshape(-1, 2).long()
+    flat = keys[:, 0] << 32 | keys[:, 1]
+    s, order = torch.sort(flat, stable=True)
+    change = s[1:] != s[:-1]
+    first = torch.cat([torch.ones(min(1, len(s)), dtype=torch.bool,
+                                  device=dev), change])
+    last = torch.cat([change, torch.ones(min(1, len(s)), dtype=torch.bool,
+                                         device=dev)])
+    uid = torch.cumsum(first.long(), 0) - 1
+    inv = torch.empty_like(uid)
+    inv[order] = uid
+    verts = pos[order[last]]
+    faces = inv.reshape(-1, 3).int()
+    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+          & (faces[:, 0] != faces[:, 2]))
+    return verts, faces[ok]
+
+
+def extract_mesh_device_sorted(volume, sdf_params, iso: float = 0.0,
+                               device: str | torch.device | None = None
+                               ) -> tuple[np.ndarray, np.ndarray]:
+    """marching_tets + weld_device on the volume's device (the card unless
+    `device` says otherwise), then one copy -> welded numpy (verts,
+    faces): the JAX package's independent implementation for equivalence
+    tests. Its triangle cap has no counterpart: marching_tets has none."""
+    vol, sdfp = _on_device(volume, sdf_params, device)
+    tri_pos, tri_keys, count = marching_tets(vol, sdfp, iso=iso)
+    verts, faces = weld_device(tri_pos, tri_keys, count)
+    return verts.cpu().numpy(), faces.cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # Owned-edge tables
 # ---------------------------------------------------------------------------
@@ -632,6 +675,58 @@ def _extract_records(volume: torch.Tensor, cell_ids: torch.Tensor, iso: float
     if _tq_bits(volume.shape[0]) == 8:
         return rec, torch.round(t * 255.0).to(torch.uint8)
     return rec, torch.round(t * 65535.0).to(torch.int32)
+
+
+def _fit_batch(ids_len: int, batch: int) -> int:
+    """The largest batch <= `batch` that divides the JAX package's id
+    buffer length (its record pass slices the buffer batch by batch)."""
+    batch = max(1, min(batch, ids_len))
+    while ids_len % batch:
+        batch //= 2
+    return batch
+
+
+def _norm_gcap(E: int) -> int:
+    """The JAX package's default group cap of its scan over E^3 cells: its
+    id buffer holds 64 ids a group."""
+    gcap = max(512, (E * E) // 4)
+    return min(-(-gcap // 128) * 128, -(-((E + 3) // 4) ** 3 // 128) * 128)
+
+
+def _qbucket(n: int) -> int:
+    """The JAX package's quarter-power-of-two bucket of a batch count."""
+    p = 1
+    while p < max(n, 4):
+        p *= 2
+    p //= 2
+    for m in (5, 6, 7, 8):
+        if n <= p * m // 4:
+            return p * m // 4
+    return 2 * p
+
+
+def sharded_records(volume: torch.Tensor, cell_ids: torch.Tensor,
+                    n_cells: int, mesh, *, iso: float, n_iter: int,
+                    batch: int = 8192
+                    ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The record pass striped over the points axis of a parallel.Mesh
+    (port of make_sharded_records_fn): with S = ceil(n_iter / ranks) x
+    batch slots a rank, rank j emits the records of slots [j S, (j+1) S);
+    every rank gets them all, gathered in slot order -> (rec [n_cells]
+    int16, tq [n_cells, D], the slot count S x ranks). The volume and the
+    ids are every rank's. A slot's record depends on the volume alone, so the result is
+    _extract_records' on all the ids, bit for bit; slots past n_cells,
+    which the JAX pass computes and leaves unread, are not computed."""
+    from disn_tpu_torch import parallel
+
+    n = mesh.shape[parallel.POINT_AXIS]
+    per_rank = -(-n_iter // n) * batch
+    j = mesh.coords[1]
+    mine = cell_ids[min(n_cells, j * per_rank):
+                    min(n_cells, (j + 1) * per_rank)]
+    rec, tq = _extract_records(volume, mine.to(volume.device), float(iso))
+    return (parallel.gather(rec, mesh, mesh.points_group),
+            parallel.gather(tq, mesh, mesh.points_group), per_rank * n)
 
 
 def _cross_bits(rec: torch.Tensor) -> torch.Tensor:

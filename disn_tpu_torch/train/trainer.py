@@ -15,17 +15,33 @@ optimizer's update, which is one fused kernel on the card. Parameters are
 leaf tensors with ``requires_grad``; a step updates them in place. The
 camera net's step (make_cam_train_step) is the same step on
 models/posenet's forward pass and loss.
+
+Data parallel (the JAX package's step on a mesh, where XLA all-reduces the
+gradients over the data axis): with a ``parallel.Mesh``, each rank runs the
+step on its shard of the batch, and after backward the gradients are
+averaged over every rank of the mesh, as one flat buffer per dtype (one
+collective a dtype, not one a tensor). create_state broadcasts the mesh's
+first rank's parameters, so every rank starts from them and, the averaged
+gradients being equal, stays with them. The average is the whole batch's
+gradient when every term of the loss is a mean over equal shards, which
+holds for the SDF loss on a data split, a points split (the JAX package's
+2D dry run) or both; the camera loss's batch sums are scaled by the shard
+count first (posenet.get_loss's sum_scale). The losses returned are their
+means over the ranks: the whole batch's. The explicit all-reduce stands
+where DistributedDataParallel would: DDP wraps an nn.Module, and the
+parameters here are a tree of leaf tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from disn_tpu_torch import convert
+from disn_tpu_torch import convert, parallel
 from disn_tpu_torch import device as device_mod
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.models import disn, posenet
@@ -115,11 +131,13 @@ class TrainState:
 
 def create_state(cfg: Config, seed: int = 0, params: Params | None = None,
                  device: str | torch.device | None = None,
-                 init_fn: Callable[..., Params] = disn.init) -> TrainState:
+                 init_fn: Callable[..., Params] = disn.init,
+                 mesh: parallel.Mesh | None = None) -> TrainState:
     """A fresh TrainState on `device` (the GPU by default; it raises
     without one): `params` (copied, e.g. convert.params_from_jax of a JAX
     tree) or init_fn(cfg, seed=seed, device=device), the SDF net's
-    disn.init by default (posenet.init for the camera net)."""
+    disn.init by default (posenet.init for the camera net). With a `mesh`
+    every rank takes the mesh's first rank's parameters (a broadcast)."""
     dev = device_mod.resolve(device)
     if params is None:
         params = init_fn(cfg, seed=seed, device=dev)
@@ -130,6 +148,7 @@ def create_state(cfg: Config, seed: int = 0, params: Params | None = None,
 
     params = _map(params, leaf)
     leaves = [p for _, p in checkpoint.leaves(params)]
+    parallel.broadcast_(leaves, mesh)
     return TrainState(step=0, params=params,
                       opt=make_optimizer(cfg, leaves), cfg=cfg)
 
@@ -169,11 +188,14 @@ def to_cam_batch(batch: dict) -> dict:
     return out
 
 
-def cam_loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: Config
+def cam_loss_fn(params: Params, batch: dict[str, torch.Tensor], cfg: Config,
+                shards: int = 1
                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The camera net's loss on a to_cam_batch batch."""
+    """The camera net's loss on a to_cam_batch batch that is one of
+    `shards` equal shards of the whole batch."""
     end_points = posenet.apply(params, batch["img"], cfg)
-    return posenet.get_loss(end_points, batch, params, cfg)
+    return posenet.get_loss(end_points, batch, params, cfg,
+                            sum_scale=shards)
 
 
 def compute_gradients(state: TrainState, batch: dict[str, torch.Tensor],
@@ -197,19 +219,30 @@ def _on(batch: dict, dev: torch.device) -> dict[str, torch.Tensor]:
 
 
 def make_train_step(cfg: Config, device: str | torch.device | None = None,
-                    objective: Callable = loss_fn):
+                    objective: Callable = loss_fn,
+                    mesh: parallel.Mesh | None = None):
     """SDF train step on `device` (the GPU by default; it raises without
     one): (state, batch) -> (state, losses). The batch is moved to the
     device unless it is there (PrefetchLoader puts it there). The state is
     updated in place; losses holds 0-d tensors on the device and the
     learning rate used (a float), so a caller that does not read them does
-    not wait for the device."""
+    not wait for the device.
+
+    With a `mesh` the batch is this rank's shard: the gradients and the
+    losses are averaged over the mesh's ranks before the update (see the
+    module's docstring)."""
     dev = device_mod.resolve(device)
 
     def step(state: TrainState, batch: dict):
         if state.cfg != cfg:
             raise ValueError("the state was made for another Config")
         losses = compute_gradients(state, _on(batch, dev), objective)
+        if mesh is not None and mesh.group is not None:
+            parallel.all_reduce_mean_(
+                [p.grad for _, p in checkpoint.leaves(state.params)
+                 if p.grad is not None], mesh)
+            losses = {k: v.clone() for k, v in losses.items()}
+            parallel.all_reduce_mean_(list(losses.values()), mesh)
         losses["lr"] = state.apply_gradients()
         return state, losses
 
@@ -217,12 +250,18 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
 
 
 def make_cam_train_step(cfg: Config,
-                        device: str | torch.device | None = None):
+                        device: str | torch.device | None = None,
+                        mesh: parallel.Mesh | None = None):
     """The camera net's train step, make_train_step's on cam_loss_fn: the
     batch has to_cam_batch's keys (img, sample_pc, RT, trans_mat, optional
     shifts); the state holds posenet params (create_state(init_fn=
-    posenet.init))."""
-    return make_train_step(cfg, device=device, objective=cam_loss_fn)
+    posenet.init)). With a `mesh` the loss's batch sums are scaled by the
+    mesh's size, so that their mean over the ranks is the whole batch's."""
+    objective = cam_loss_fn
+    if mesh is not None and mesh.group is not None:
+        objective = functools.partial(cam_loss_fn, shards=mesh.size)
+    return make_train_step(cfg, device=device, objective=objective,
+                           mesh=mesh)
 
 
 def make_eval_step(cfg: Config, device: str | torch.device | None = None,

@@ -54,7 +54,8 @@ def test_every_module_is_listed():
             "disn_tpu_torch.models.sdfnet", "disn_tpu_torch.models.encoders",
             "disn_tpu_torch.preprocessing.sdf_gen",
             "disn_tpu_torch.preprocessing.img_gen",
-            "disn_tpu_torch.convert", "disn_tpu_torch.convert.tf_ckpt"
+            "disn_tpu_torch.convert", "disn_tpu_torch.convert.tf_ckpt",
+            "disn_tpu_torch.parallel", "disn_tpu_torch.parallel.mesh"
             } <= names
 
 
@@ -101,7 +102,9 @@ def test_native_bindings_load_neither_jax_nor_disn_tpu():
                                    "init_onestream", "cli_train_dump",
                                    "cli_demo_global", "init_alexnet",
                                    "init_resnet_alpha", "generate_object",
-                                   "write_object", "cli_preprocess_sdf"])
+                                   "write_object", "cli_preprocess_sdf",
+                                   "image_to_mesh_sharded",
+                                   "init_from_env"])
 def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -217,8 +220,49 @@ def test_entry_points_need_a_device_without_cuda(entry, tmp_path):
         elif entry == "cli_preprocess_sdf":
             cli.main(["preprocess-sdf", "--pattern", "unused/*.obj",
                       "--out-dir", str(tmp_path)])
+        elif entry == "image_to_mesh_sharded":
+            from disn_tpu_torch import parallel
+            pipeline.image_to_mesh_sharded(
+                {}, np.zeros((137, 137, 3), np.uint8),
+                synthetic.demo_trans_mat(), cfg, parallel.make_mesh())
+        elif entry == "init_from_env":
+            from disn_tpu_torch import parallel
+            parallel.init_from_env()
         elif entry == "cli_create_sdf_multi_view":
             cli.main(["create-sdf", "--multi-view", "--data-root", "unused",
                       "--restore", "unused", "--log-dir", str(tmp_path)])
         else:
             synthetic.analytic_octahedron_params(cfg)
+
+
+def test_single_process_paths_make_no_process_group():
+    """Without WORLD_SIZE nothing joins a process group: a plain
+    image_to_mesh, a single-process train step, init_from_env and the
+    one-process mesh leave torch.distributed uninitialised."""
+    import torch.distributed as dist
+
+    from disn_tpu_torch import parallel
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.train import trainer
+
+    assert "WORLD_SIZE" not in __import__("os").environ
+    cfg = Config(num_classes=32, width_mult=0.125, sdf_res=16,
+                 compute_dtype="float32", cell_cap_frac=0.9, batch_size=2,
+                 num_sample_points=16)
+    params = synthetic.analytic_octahedron_params(cfg, device="cpu")
+    _, faces = pipeline.image_to_mesh(params, np.zeros((137, 137, 3),
+                                                       np.uint8),
+                                      synthetic.demo_trans_mat(), cfg,
+                                      device="cpu")
+    assert len(faces) and not dist.is_initialized()
+    state = trainer.create_state(cfg, device="cpu", mesh=parallel.make_mesh())
+    rng = np.random.RandomState(0)
+    batch = {"img": rng.rand(2, 137, 137, 3).astype(np.float32),
+             "sdf_pt": rng.uniform(-1, 1, (2, 16, 3)).astype(np.float32),
+             "sdf_val": rng.uniform(-.1, .1, (2, 16, 1)).astype(np.float32),
+             "trans_mat": np.stack([synthetic.demo_trans_mat()] * 2)}
+    trainer.make_train_step(cfg, device="cpu")(state, batch)
+    assert parallel.init_from_env("cpu") == torch.device("cpu")
+    assert not dist.is_initialized()
