@@ -123,7 +123,24 @@ on failure:
    on the CPU (CD and EMD within 1e-3 relative, precision and recall
    within 1/2048, IoU equal) and with the device IoU on both, which
    samples the surface: its occupancy is held to that design's bounds and
-   its IoU on the card to the CPU's over 8 seeds (hold_device_iou);
+   its IoU on the card to the CPU's over 8 seeds (hold_device_iou).
+   [farm pipe]: reconstruct_split's depth-deep pipeline on the same 2
+   objects x 24 views: the tree of image_to_mesh + write_obj on the
+   calling thread, then the parent's loop (image_to_mesh on the calling
+   thread, writes on a pool) and the farm at depth 1, 2 and 3 in turns,
+   twice, each tree byte for byte that one, K1 x2 and K5 x1 an image (counts set to 0
+   just before each run and read just after), the C++ assembly passes
+   called 0 times on the calling thread (PassSpy); images/s, the pool's
+   time in the passes, and, from one depth-2 run under torch.profiler,
+   the calling thread's time in the runtime's waits an image.
+   [closed loop]: tools.closed_loop's gt-cam row (sdf_res 256, bf16, full
+   width: the ground truth's face count, IoU >= CL_IOU, F1 = 1 at 20%,
+   CD and EMD within CL_FLOOR_RATIO of their noise floor) and cam-est row
+   (the bundled camera net: its camera within CL_CAM_REL of the CPU's,
+   > 1000 faces, finite metrics). [rehearsal]: tools.eval_rehearsal at 4
+   objects x 24 views: finite metrics, 4 objects, the cached re-run equal
+   to the run that filled the cache; objects/min, the 1,311-object
+   extrapolation, and the host half split into parse, sample and voxelize;
 7. train (the port's SDF training path; no kernel of its own): in-memory
    records of the synthetic dataset (3 shapes x 8192 stratified samples, 4
    views at 137^2) served through the port's SdfImageDataset, sampler and
@@ -141,7 +158,11 @@ on failure:
    [train profile]: torch.profiler over 3 steps of each: idle share, top
    ops and kernels, the sampler's gather and scatter-add. [train ckpt]:
    latest.npz after step 3 holds exactly the JAX package's names, and
-   restored into a fresh state it gives the same state and step-4 loss;
+   restored into a fresh state it gives the same state and step-4 loss. [conv]:
+   tools.train_convergence at its defaults (full width, bf16, B = 20,
+   1500 steps, one training view reconstructed at sdf_res 256 and scored
+   by K6a on 30,000 samples): sign accuracy >= 0.9, > 500 faces, a finite
+   CD x 1000, printed beside the JAX package's TRAIN_CONV_r05.json;
 8. the estimated-camera path (models/posenet, pipeline.reconstruct_image,
    pipeline.estimate_cameras, the camera train step; no kernel of its own:
    it runs K1 and K5 through image_to_mesh). [cam full]: a full-width
@@ -1475,51 +1496,13 @@ HOLD_GRAD_REL = 1e-4
 HOLD_ADAM_ABS = 1e-6
 
 
-def train_records() -> tuple[dict, dict]:
-    """The records build_dataset would write, in memory: 8192 stratified
-    samples and 4 views at 137^2 of each analytic shape."""
-    from disn_tpu_torch.core import codecs
-    from disn_tpu_torch.data import synthetic
-
-    rng = np.random.RandomState(0)
-    sdf, views = {}, {}
-    box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
-    for obj, fn in synthetic.SHAPES.items():
-        samples = synthetic.stratified_sample(fn, num=8192, rng=rng)
-        surf = synthetic.surface_points(fn, rng=rng)
-        sdf[obj] = codecs.SdfSamples(
-            ori_pt=surf, sample_pt=samples[:, :3], sample_sdf=samples[:, 3],
-            norm_params=np.array([0, 0, 0, 1], np.float32), sdf_params=box)
-        for v in range(4):
-            _, views[(obj, v)] = synthetic.render_view(
-                fn, *synthetic.view_angles(v, 4))
-    return sdf, views
-
-
-def memory_dataset(cfg, records):
-    """The port's SdfImageDataset serving `records` instead of h5 files
-    (the card's machine has no h5py), over the 12 (object, view) pairs."""
-    from disn_tpu_torch.data import pipeline, synthetic
-
-    class MemoryDataset(pipeline.SdfImageDataset):
-        def _load_sdf(self, cat_id, obj):
-            return records[0][obj]
-
-        def _read_view(self, cat_id, obj, view):
-            return records[1][(obj, view)]
-
-    listinfo = [(synthetic.SYNTH_CAT, obj, v) for obj in synthetic.SHAPES
-                for v in range(4)]
-    return MemoryDataset(cfg, None, listinfo, seed=0)
-
-
 def train_loader(cfg, records, batches: int):
     """At least `batches` batches of the memory dataset through the port's
     sampler and PrefetchLoader onto the card (at B = 20 the 12 pairs make
     one batch an epoch)."""
     from disn_tpu_torch.data import pipeline, synthetic
 
-    ds = memory_dataset(cfg, records)
+    ds = synthetic.memory_dataset(cfg, records)
     sampler = pipeline.EpochSampler(ds.listinfo, {synthetic.SYNTH_CAT: 12},
                                     cfg.cat_limit, seed=0)
     loader = pipeline.PrefetchLoader(ds, sampler, cfg.batch_size,
@@ -1530,7 +1513,9 @@ def train_loader(cfg, records, batches: int):
 
 
 def host_batch(cfg, records, seed: int) -> dict:
-    ds = memory_dataset(cfg, records)
+    from disn_tpu_torch.data import synthetic
+
+    ds = synthetic.memory_dataset(cfg, records)
     idx = np.random.RandomState(seed).randint(len(ds.listinfo),
                                               size=cfg.batch_size)
     return ds.get_batch(idx, np.random.RandomState(seed))[0]
@@ -1871,9 +1856,10 @@ def phase_train_ckpt(records) -> None:
 def phase_train() -> tuple[dict, dict]:
     """The [train ...] phases; returns their in-memory records."""
     import torch
+    from disn_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
-    records = train_records()
+    records = synthetic.memory_records()
     print(f"[train] records: 3 objects x 8192 samples, 12 views at 137^2, "
           f"made in {time.perf_counter() - t0:.2f} s")
     phase_train_hold(records)
@@ -4826,6 +4812,356 @@ def phase_dist(img, trans, main_faces, main_wall_ms: float) -> None:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
 
 
+# -- the farm's pipeline and the closed-loop tools ---------------------------
+
+PIPE_DIR = os.path.join(ROOT, "build", "chip_smoke_pipe")  # removed after
+PIPE_DEPTHS = (1, 2, 3)
+PIPE_TURNS = 2
+# the C++ passes of the record route's host assembly
+PIPE_PASSES = ("derive_recs", "mesh_faces_blocks", "mesh_verts_blocks",
+               "mesh_assemble")
+# CUDA runtime calls in which the calling host thread waits for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+CONV_JAX = os.path.join(ROOT, "TRAIN_CONV_r05.json")  # the JAX package's
+REHEARSAL_DIR = os.path.join(ROOT, "build", "chip_smoke_rehearsal")
+REHEARSAL_OBJS, REHEARSAL_VIEWS = 4, 24
+CL_FLOOR_RATIO = 1.25   # gt-cam: CD and EMD within this of the noise floor
+CL_IOU = 0.999
+CL_CAM_REL = 1e-3       # cam-est: the card's camera against the CPU's
+
+
+def tree_digests(root: str) -> dict:
+    """{relative path: sha256} of every file under root."""
+    import hashlib
+
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+class PassSpy:
+    """native's assembly passes wrapped: the calls made on the thread that
+    made the spy (the farm's calling thread) are counted; the seconds of
+    the calls on any other thread are summed. close() unwraps them."""
+
+    def __init__(self):
+        import threading
+
+        from disn_tpu_torch import native
+        self.native, self.threading = native, threading
+        self.main = threading.get_ident()
+        self.lock = threading.Lock()
+        self.saved = {n: getattr(native, n) for n in PIPE_PASSES}
+        self.reset()
+        for n, fn in self.saved.items():
+            setattr(native, n, self._wrap(fn))
+
+    def reset(self) -> None:
+        self.main_calls, self.pool_calls, self.pool_s = 0, 0, 0.0
+
+    def _wrap(self, fn):
+        def spy(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    if self.threading.get_ident() == self.main:
+                        self.main_calls += 1
+                    else:
+                        self.pool_calls += 1
+                        self.pool_s += dt
+        return spy
+
+    def close(self) -> None:
+        for n, fn in self.saved.items():
+            setattr(self.native, n, fn)
+
+
+def sync_waits(prof) -> tuple[float, float, int]:
+    """From a torch.profiler run: (ms the calling thread spent in the CUDA
+    runtime calls that wait for the card, SYNC_CALLS, ms of those calls on
+    every other thread, the calling thread's kernel launches). The calling
+    thread is the one that launched the kernels (the farm's pool launches
+    none)."""
+    launches: dict = {}
+    waits: dict = {}
+    for evt in prof.events():
+        if evt.name == "cudaLaunchKernel":
+            launches[evt.thread] = launches.get(evt.thread, 0) + 1
+        elif evt.name in SYNC_CALLS:
+            waits[evt.thread] = (waits.get(evt.thread, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    if not launches:
+        return float("nan"), float("nan"), 0
+    main = max(launches, key=launches.get)
+    return (waits.get(main, 0.0),
+            sum(v for t, v in waits.items() if t != main), launches[main])
+
+
+def phase_farm_pipe(smi: str) -> None:
+    """[farm pipe]: reconstruct_split's depth-deep pipeline on [eval
+    farm]'s 2 objects x 24 views (full-width net, analytic head, sdf_res
+    256, bf16, in-memory records): first image_to_mesh + write_obj on this
+    thread, image by image (the reference tree); then, in turns,
+    PIPE_TURNS times, the parent's loop (image_to_mesh on this thread,
+    writes on a pool) and the farm at depth 1, 2 and 3 (its K1/K5 counts
+    set to 0 just before each run and read just after: 2 and 1 an image),
+    each tree byte for byte the reference, the farm's C++ passes called 0
+    times on this thread (PassSpy); images/s, the pool's seconds in the
+    passes; then one
+    depth-2 run under torch.profiler for the calling thread's time blocked
+    in the runtime's waits (sync_waits), per image."""
+    import shutil
+
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.core import codecs
+    from disn_tpu_torch.data import listing, synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import fused_decode, sparse_words
+
+    k1 = fused_decode.fused_cell_decode
+    k5 = sparse_words.sparse_cell_words
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    paths = listing.SplitPaths(os.path.join(PIPE_DIR, "sdf"),
+                               os.path.join(PIPE_DIR, "renders"))
+    views, sdf = farm_records(paths)
+    listinfo = [(FARM_CAT, o, v) for o in FARM_OBJS
+                for v in range(FARM_VIEWS)]
+    n = len(listinfo)
+    readers = dict(read_view=views.__getitem__,
+                   read_sdf_params=sdf.__getitem__)
+    ref_root = os.path.join(PIPE_DIR, "ref")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c, o, v in listinfo:
+        rec = views[paths.img_path(c, o, v)]
+        mesh = pipeline.image_to_mesh(
+            params, rec.img_arr[:, :, :cfg.img_channels], rec.trans_mat, cfg,
+            sdf_params=sdf[paths.sdf_path(c, o)], iso=cfg.iso)
+        codecs.write_obj(os.path.join(pipeline.result_dir(ref_root, cfg), c,
+                                      f"{c}_{o}_{v:02d}.obj"), *mesh)
+    seq_s = time.perf_counter() - t0
+    ref = tree_digests(pipeline.result_dir(ref_root, cfg))
+    shutil.rmtree(ref_root)
+    check(len(ref) == n, f"farm pipe: {len(ref)} reference meshes")
+    print(f"[farm pipe] reference: image_to_mesh + write_obj on the calling "
+          f"thread, {n} images in {seq_s:.3f} s = {n / seq_s:.2f} images/s; "
+          f"{smi}")
+    def parent_loop(root: str) -> None:
+        """The parent's farm loop: image_to_mesh (its host assembly too)
+        on the calling thread, the OBJ writes on a pool of 4 threads."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(4) as pool:
+            futures = []
+            for c, o, v in listinfo:
+                rec = views[paths.img_path(c, o, v)]
+                mesh = pipeline.image_to_mesh(
+                    params, rec.img_arr[:, :, :cfg.img_channels],
+                    rec.trans_mat, cfg, sdf_params=sdf[paths.sdf_path(c, o)],
+                    iso=cfg.iso)
+                futures.append(pool.submit(codecs.write_obj, os.path.join(
+                    pipeline.result_dir(root, cfg), c,
+                    f"{c}_{o}_{v:02d}.obj"), *mesh))
+            for f in futures:
+                f.result()
+
+    spy = PassSpy()
+    rates: dict = {d: [] for d in ("parent loop", *PIPE_DEPTHS)}
+    try:
+        for turn in range(PIPE_TURNS):
+            root = os.path.join(PIPE_DIR, "parent")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parent_loop(root)
+            dt = time.perf_counter() - t0
+            got = tree_digests(pipeline.result_dir(root, cfg))
+            shutil.rmtree(root)
+            rates["parent loop"].append(n / dt)
+            print(f"[farm pipe] the parent's loop (turn {turn + 1}): {n} "
+                  f"images in {dt:.3f} s = {n / dt:.2f} images/s; {smi}")
+            check(got == ref, "farm pipe: the parent loop's tree is not the "
+                              "reference's byte for byte")
+            for depth in PIPE_DEPTHS:
+                root = os.path.join(PIPE_DIR, f"d{depth}")
+                spy.reset()
+                torch.cuda.synchronize()
+                k1.launches = k5.launches = 0
+                t0 = time.perf_counter()
+                written = pipeline.reconstruct_split(
+                    params, cfg, paths, listinfo, root, depth=depth,
+                    **readers)
+                dt = time.perf_counter() - t0
+                counts = (k1.launches, k5.launches)
+                got = tree_digests(pipeline.result_dir(root, cfg))
+                shutil.rmtree(root)
+                rates[depth].append(n / dt)
+                print(f"[farm pipe] depth {depth} (turn {turn + 1}): {n} "
+                      f"images in {dt:.3f} s = {n / dt:.2f} images/s; K1 "
+                      f"{counts[0]}, K5 {counts[1]} launches; C++ passes: "
+                      f"{spy.main_calls} calls on the calling thread, "
+                      f"{spy.pool_calls} on the pool, "
+                      f"{spy.pool_s * 1e3:.1f} ms there "
+                      f"({spy.pool_s * 1e3 / n:.2f} ms an image); {smi}")
+                check(len(written) == n and got == ref,
+                      f"farm pipe: depth {depth}'s tree is not the "
+                      f"reference's byte for byte")
+                check(counts == (2 * n, n),
+                      f"farm pipe: depth {depth}: K1 {counts[0]} and K5 "
+                      f"{counts[1]} launches, expected {2 * n} and {n}")
+                check(spy.main_calls == 0 and spy.pool_calls == 3 * n,
+                      f"farm pipe: depth {depth}: {spy.main_calls} C++ "
+                      f"pass calls on the calling thread and "
+                      f"{spy.pool_calls} on the pool (0 and {3 * n} "
+                      f"expected)")
+        root = os.path.join(PIPE_DIR, "profiled")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            pipeline.reconstruct_split(params, cfg, paths, listinfo, root,
+                                       depth=2, **readers)
+        shutil.rmtree(root)
+        main_ms, other_ms, n_launch = sync_waits(prof)
+        print(f"[farm pipe] under torch.profiler, depth 2: the calling "
+              f"thread waited {main_ms:.1f} ms in {'/'.join(SYNC_CALLS)} = "
+              f"{main_ms / n:.2f} ms an image ({n_launch} kernel launches "
+              f"from it); the other threads {other_ms:.1f} ms "
+              f"(the closures' event waits); {smi}")
+    finally:
+        spy.close()
+        shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    print(f"[farm pipe] images/s by depth: "
+          f"{ {d: [round(r, 2) for r in v] for d, v in rates.items()} } "
+          f"against {n / seq_s:.2f} with every write on the calling thread "
+          f"too; {smi}")
+
+
+def phase_conv(smi: str) -> None:
+    """[conv]: tools.train_convergence at its defaults (full width, bf16,
+    B = 20, 1500 steps through PrefetchLoader, image_to_mesh at sdf_res
+    256, CD x 1000 on 30,000 samples by K6a): sign accuracy >= 0.9, more
+    than 500 faces, a finite CD; beside the JAX package's reading."""
+    import torch
+    from disn_tpu_torch.tools import train_convergence
+
+    t0 = time.perf_counter()
+    out = train_convergence.run(
+        log=lambda m: print(f"[conv] {m}", flush=True))
+    wall = time.perf_counter() - t0
+    with open(CONV_JAX) as f:
+        ref = json.load(f)
+    losses = out["losses"]
+    print(f"[conv] overall_loss every 200 steps "
+          f"{[round(x, 1) for x in losses[::200]]}, last {losses[-1]:.1f}; "
+          f"{out['steps']} steps at {out['steps_per_s']:.3f} steps/s "
+          f"(loader wait {out['loader_wait_s']:.2f} s); sign acc "
+          f"{out['sign_acc']:.4f}; {out['tris']} faces (route "
+          f"{out['route']}); CD*1000 {out['cd_x1000']:.4f}; phase "
+          f"{wall:.1f} s; {smi}")
+    print(f"[conv] the JAX package's reading (TRAIN_CONV_r05.json, its own "
+          f"run, not on this card): sign acc {ref['sign_acc']:.4f}, "
+          f"CD*1000 {ref['cd_x1000']:.4f}, {ref['tris']} faces at sdf_res "
+          f"{ref['sdf_res']}, {ref['steps']} steps")
+    check(out["sign_acc"] >= 0.9, f"conv: sign accuracy "
+                                  f"{out['sign_acc']:.4f} < 0.9")
+    check(out["tris"] > 500 and np.isfinite(out["cd_x1000"]),
+          f"conv: {out['tris']} faces, CD {out['cd_x1000']}")
+    torch.cuda.empty_cache()
+
+
+def phase_closed_loop(smi: str) -> None:
+    """[closed loop]: both rows of tools.closed_loop on the card (sdf_res
+    256, bf16). gt-cam: the mesh has the ground truth's face count, IoU
+    >= CL_IOU, F1 = 1 at 20% x 2.5, CD and EMD within CL_FLOOR_RATIO of
+    their noise floor. cam-est: the card's camera within CL_CAM_REL of
+    the port's CPU run on the same image, > 1000 faces, every metric
+    finite."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.tools import closed_loop
+
+    t0 = time.perf_counter()
+    gt = closed_loop.gt_cam_row()
+    print(closed_loop.report(gt))
+    print(f"[gt-cam] {smi}")
+    check(gt["faces"] == gt["gt_faces"],
+          f"closed loop: {gt['faces']} faces, the ground truth has "
+          f"{gt['gt_faces']}")
+    check(gt["iou"] >= CL_IOU and gt["f1"][-1] == 1.0,
+          f"closed loop: IoU {gt['iou']}, F1 at 20% {gt['f1'][-1]}")
+    check(gt["cd"] <= CL_FLOOR_RATIO * gt["cd_floor"]
+          and gt["emd"] <= CL_FLOOR_RATIO * gt["emd_floor"],
+          f"closed loop: CD {gt['cd']} / EMD {gt['emd']} against floors "
+          f"{gt['cd_floor']} / {gt['emd_floor']}")
+    torch.cuda.empty_cache()
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16", width_mult=0.25,
+                 num_classes=128)
+    est = closed_loop.cam_est_row(cfg)
+    cpu = closed_loop.cam_est_camera(cfg, device="cpu")
+    card = np.asarray(est["pred_trans_mat"], np.float32)
+    rel = float(np.abs(card - cpu["pred_trans_mat"]).max()
+                / np.abs(cpu["pred_trans_mat"]).max())
+    print(closed_loop.report(est))
+    print(f"[cam-est] pred_trans_mat card vs CPU max|diff|/max|cpu| "
+          f"{rel:.3e} (limit {CL_CAM_REL}); rot3d {est['rot3d']:.4f} / CPU "
+          f"{cpu['rot3d']:.4f}, rot2d {est['rot2d']:.2f} / "
+          f"{cpu['rot2d']:.2f} px; phase {time.perf_counter() - t0:.1f} s; "
+          f"{smi}")
+    vals = [est[k] for k in ("cd", "emd", "cd_floor", "emd_floor", "iou",
+                             "rot3d", "rot2d")] + est["f1"]
+    check(rel <= CL_CAM_REL, "closed loop: the card's estimated camera is "
+                             "not the CPU's")
+    check(est["faces"] > 1000 and all(np.isfinite(vals)),
+          f"closed loop: cam-est mesh {est['faces']} faces, metrics {vals}")
+    torch.cuda.empty_cache()
+
+
+def phase_rehearsal(smi: str) -> None:
+    """[rehearsal]: tools.eval_rehearsal at REHEARSAL_OBJS x
+    REHEARSAL_VIEWS on the card: finite overall metrics, every object
+    scored, the cached re-run's overall equal to the run that filled the
+    cache; objects/min, the 1,311-object extrapolation, the host split."""
+    import shutil
+
+    from disn_tpu_torch.tools import eval_rehearsal
+
+    try:
+        out = eval_rehearsal.run(
+            REHEARSAL_OBJS, REHEARSAL_VIEWS, root=REHEARSAL_DIR,
+            log=lambda m: print(f"[rehearsal] {m}", flush=True))
+    finally:
+        shutil.rmtree(REHEARSAL_DIR, ignore_errors=True)
+    ov = out["overall"]
+    flat = [v for v in ov.values() if isinstance(v, float)]
+    flat += [x for v in ov.values() if isinstance(v, list) for x in v]
+    split = out["host_split"]
+    per = max(split["objects"], 1)
+    print(f"[rehearsal] overall {json.dumps(ov)}; faces an object "
+          f"{out['faces']}; the cached overall equals the full protocol's: "
+          f"{out['cached_overall'] == ov}; {smi}")
+    print(f"[rehearsal] host half per object, one thread: parse "
+          f"{split['parse_s'] / per * 1e3:.1f} ms, sample "
+          f"{split['sample_s'] / per * 1e3:.1f} ms, voxelize "
+          f"{split['voxelize_s'] / per * 1e3:.1f} ms "
+          f"({REHEARSAL_VIEWS + 1} meshes); {smi}")
+    check(out["total_objects"] == REHEARSAL_OBJS and all(np.isfinite(flat)),
+          f"rehearsal: {out['total_objects']} objects, overall {ov}")
+    check(out["cached_overall"] == out["cache_fill_overall"]
+          and out["cached_objects"] == REHEARSAL_OBJS,
+          "rehearsal: the cached re-run's overall differs")
+
+
 def k1_entries(res: dict, launches: dict) -> list[dict]:
     """K1's two kernels, each per image: its coarse + fine launch on the
     main path's own inputs (the error: the worst of every timed hold of the
@@ -4925,7 +5261,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         k6_counts = phase_eval_farm(gt_mesh)
         torch.cuda.empty_cache()
+        smi = card_name()
+        phase_farm_pipe(smi)
+        phase_closed_loop(smi)
+        phase_rehearsal(smi)
+        torch.cuda.empty_cache()
         records = phase_train()
+        phase_conv(smi)
         phase_cam(records, *cam_inputs)
         del cam_inputs, pred_mesh
         torch.cuda.empty_cache()

@@ -221,6 +221,56 @@ def build_dataset(root: str, shapes: dict | None = None, views: int = 4,
     }
 
 
+def memory_records(shapes: dict | None = None, views: int = 4,
+                   num_samples: int = 8192, seed: int = 0
+                   ) -> tuple[dict, dict]:
+    """The records build_dataset(shapes, views, num_samples, seed=seed)
+    writes, in memory, as the h5 readers return them: ({obj: SdfSamples},
+    {(obj, view): ViewRecord}), float32 arrays (the files store float32).
+    For machines without h5py."""
+    shapes = shapes or SHAPES
+    rng = np.random.RandomState(seed)
+    box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    sdf, recs = {}, {}
+    for obj, fn in shapes.items():
+        samples = stratified_sample(fn, num=num_samples,
+                                    rng=rng).astype(np.float32)
+        surf = surface_points(fn, rng=rng).astype(np.float32)
+        sdf[obj] = codecs.SdfSamples(
+            ori_pt=surf, sample_pt=samples[:, :3], sample_sdf=samples[:, 3],
+            norm_params=np.array([0, 0, 0, 1], np.float32), sdf_params=box)
+        for view in range(views):
+            _, rec = render_view(fn, *view_angles(view, views))
+            recs[(obj, view)] = codecs.ViewRecord(
+                img_arr=rec.img_arr, trans_mat=rec.trans_mat.astype(
+                    np.float32), K=rec.K.astype(np.float32),
+                RT=rec.RT.astype(np.float32),
+                obj_rot_mat=rec.obj_rot_mat.astype(np.float32),
+                regress_mat=rec.regress_mat.astype(np.float32))
+    return sdf, recs
+
+
+def memory_dataset(cfg: Config, records: tuple[dict, dict], seed: int = 0,
+                   listinfo: list | None = None):
+    """The port's SdfImageDataset serving memory_records' `records`
+    instead of h5 files, over `listinfo` ((SYNTH_CAT, object, view)
+    entries; by default every pair the records hold, once)."""
+    from disn_tpu_torch.data import pipeline
+
+    sdf, recs = records
+
+    class MemoryDataset(pipeline.SdfImageDataset):
+        def _load_sdf(self, cat_id, obj):
+            return sdf[obj]
+
+        def _read_view(self, cat_id, obj, view):
+            return recs[(obj, view)]
+
+    if listinfo is None:
+        listinfo = [(SYNTH_CAT, obj, view) for obj, view in recs]
+    return MemoryDataset(cfg, None, listinfo, seed=seed)
+
+
 def tiny_config(**kw) -> Config:
     """Config scaled for the synthetic fixture / CI-sized runs."""
     base = dict(batch_size=2, num_sample_points=256, cat_limit=64,

@@ -9,14 +9,16 @@ cfg.sparse_words (the default) the fine pass's rows become record words
 the volume flow the fine pass ends in the extractor's candidate scan and
 the owned-edge extractor builds the welded mesh on the device, so one copy
 brings it to the host; the dense paths scan the whole volume for that
-extractor. The JAX package's remote-link machinery (speculative buckets,
-parallel fetch streams, background assembly, the farm's dispatch/collect
-software pipeline) is not ported.
+extractor. image_to_mesh is _fused_dispatch (all device work and copies)
+followed by _fused_collect (the host half, a closure that touches no
+device). The JAX package's remote-link machinery (speculative buckets,
+optimistic background assembly, chunked fetch streams) is not ported.
 
 ``reconstruct_split`` runs every (category, object, view) of a split into
-the reference's output tree: a reader thread prefetches the records, the
-calling thread owns all device work, and a bounded writer pool writes the
-OBJ files.
+the reference's output tree as the JAX package's farm does: a reader
+thread prefetches the records, the calling thread owns all device work
+and dispatches image k before it hands image k - depth's host half and
+OBJ write to a bounded writer pool.
 
 Multi-view fusion: ``multiview_to_mesh`` fuses V views of one object into
 one volume (infer/multiview: the sparse flow, the dense stream on a cap
@@ -34,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
@@ -132,6 +135,91 @@ def volume_to_mesh(vol: torch.Tensor, sdf_params, iso: float = 0.0,
     return verts, faces
 
 
+def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
+                    cfg: Config, iso: float, sparse: bool = True,
+                    device: str | torch.device | None = None,
+                    stats: dict | None = None, join: bool = True) -> dict:
+    """The device half of image_to_mesh (named after the JAX package's
+    _fused_dispatch): encode, prep, phase_a, phase_b, the scan and the
+    extraction's device work and copies, all on the calling thread, with
+    image_to_mesh's route choice, counts, guards and _SWORDS_SKIP rule.
+    Returns the context _fused_collect finishes: the extraction's closure
+    (host work only: it holds no CUDA tensor and issues no device
+    operation) and what `stats` needs. join=False makes the record route's
+    final copy non-blocking (see marching.extract_mesh_records_deferred),
+    so the calling thread moves on before it lands; the volume flow's
+    routes copy the mesh here in either case.
+
+    The port's device work syncs where the JAX package's speculative
+    dispatch does not (active-cell counts, the guards), so this returns
+    once the device work up to the final copy is done; what the split
+    moves off the calling thread is the host assembly."""
+    dev = device_mod.resolve(device)
+    scan = vol = None
+    if sparse and _sparse_eligible(cfg):
+        key = (cfg, float(iso))
+        words = (cfg.sparse_words and key not in _SWORDS_SKIP
+                 and sparse_mod.words_eligible(cfg))
+        vol, scan = sparse_mod.sparse_volume(
+            params, img, trans_mat, sdf_params, cfg, device=dev,
+            stats=stats, scan_iso=iso, words=words)
+        if words and vol is not None and scan is not None:
+            _SWORDS_SKIP.add(key)
+    else:
+        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
+                             device=dev, sparse=False)
+    t0 = None
+    if stats is not None:  # extraction_ms: from here to the closure's end
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+    if scan is None:
+        route = "tets"
+        fin = marching.extract_mesh_owned_deferred(vol, sdf_params, iso=iso,
+                                                   device=vol.device)
+    elif vol is None:
+        route = "records_sparse"
+        words_d, ids, n_cells, guard, blk = scan
+        fin = marching.extract_mesh_records_deferred_sparse(
+            words_d, cfg.grid_resolution, sdf_params, ids, n_cells, blk,
+            join=join, stats=stats)
+    else:
+        ids, n_cells, guard, _ = scan
+        if guard == 0:
+            route = "owned_ids"
+            fin = marching.extract_mesh_from_ids_deferred(
+                vol, sdf_params, ids, iso=iso, device=dev, stats=stats)
+        else:
+            route = "owned_scan"
+            fin = marching.extract_mesh_owned_deferred(
+                vol, sdf_params, iso=iso, device=dev, stats=stats)
+    if stats is not None:
+        stats["route"] = route
+        if scan is not None:
+            stats.update(fine_cells=n_cells, guard=guard)
+    return {"fin": fin, "stats": stats, "t0": t0}
+
+
+def _fused_collect(ctx: dict, defer: bool = False, clean: bool = False):
+    """The host half of image_to_mesh (named after the JAX package's
+    _fused_collect): the extraction's closure, then clean_small_parts
+    when `clean`. defer=True returns it as a zero-argument closure for a
+    writer pool (it touches no device); otherwise runs it and returns
+    (verts, faces)."""
+    fin, stats, t0 = ctx["fin"], ctx["stats"], ctx["t0"]
+
+    def assemble() -> tuple[np.ndarray, np.ndarray]:
+        verts, faces = fin()
+        if stats is not None:
+            stats["extraction_ms"] = stats.get("extraction_ms", 0.0) + (
+                time.perf_counter() - t0) * 1e3
+        if clean and len(faces):
+            verts, faces = clean_small_parts(verts, faces)
+        return verts, faces
+
+    return assemble if defer else assemble()
+
+
 def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
                   sdf_params=None, iso: float | None = None,
                   sparse: bool = True, clean: bool = False,
@@ -168,51 +256,16 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     the host on the owned and records_sparse routes, and assemble on the
     host on records_sparse), ``active_cells``, ``route`` with, on the
     sparse path, ``fine_cells`` and ``guard``, and ``swords_guard`` when
-    the sparse-words flow ran."""
-    dev = device_mod.resolve(device)
+    the sparse-words flow ran.
+
+    The call is _fused_dispatch (the device half, with every copy) and
+    _fused_collect (the host half); reconstruct_split runs the two apart."""
     if sdf_params is None:
         sdf_params = UNIT_BOX
     iso = cfg.iso if iso is None else iso
-    scan = vol = None
-    if sparse and _sparse_eligible(cfg):
-        key = (cfg, float(iso))
-        words = (cfg.sparse_words and key not in _SWORDS_SKIP
-                 and sparse_mod.words_eligible(cfg))
-        vol, scan = sparse_mod.sparse_volume(
-            params, img, trans_mat, sdf_params, cfg, device=dev,
-            stats=stats, scan_iso=iso, words=words)
-        if words and vol is not None and scan is not None:
-            _SWORDS_SKIP.add(key)
-    else:
-        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
-                             device=dev, sparse=False)
-    with device_mod.stage(stats, "extraction_ms", dev):
-        if scan is None:
-            route = "tets"
-            verts, faces = volume_to_mesh(vol, sdf_params, iso=iso)
-        elif vol is None:
-            route = "records_sparse"
-            words_d, ids, n_cells, guard, blk = scan
-            verts, faces = marching.extract_mesh_records_sparse(
-                words_d, cfg.grid_resolution, sdf_params, ids, n_cells, blk,
-                stats=stats)
-        else:
-            ids, n_cells, guard, _ = scan
-            if guard == 0:
-                route = "owned_ids"
-                verts, faces = marching.extract_mesh_from_ids(
-                    vol, sdf_params, ids, iso=iso, device=dev, stats=stats)
-            else:
-                route = "owned_scan"
-                verts, faces = marching.extract_mesh_owned(
-                    vol, sdf_params, iso=iso, device=dev, stats=stats)
-    if stats is not None:
-        stats["route"] = route
-        if scan is not None:
-            stats.update(fine_cells=n_cells, guard=guard)
-    if clean and len(faces):
-        verts, faces = clean_small_parts(verts, faces)
-    return verts, faces
+    ctx = _fused_dispatch(params, img, trans_mat, sdf_params, cfg, iso,
+                          sparse=sparse, device=device, stats=stats)
+    return _fused_collect(ctx, clean=clean)
 
 
 def image_to_mesh_sharded(params: Params, img, trans_mat, cfg: Config, mesh,
@@ -367,32 +420,41 @@ def result_dir(log_dir: str, cfg: Config, cam_est: bool = False) -> str:
 def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
                       log_dir: str, cam_est: bool = False,
                       sparse: bool = True, logger: Any = None,
+                      writers: int = WRITERS, prefetch: int = PREFETCH,
                       shard_index: int = 0, shard_count: int = 1,
+                      depth: int = 2,
                       device: str | torch.device | None = None,
                       read_view: Callable = codecs.read_view_h5,
                       read_sdf_params: Callable = codecs.read_sdf_params
                       ) -> list[str]:
     """Reconstruct every (cat, obj, view) of `listinfo` whose position i
     has i % shard_count == shard_index into
-    {result_dir}/{cat}/{cat}_{obj}_{view:02d}.obj; returns the paths.
-    cam_est=True writes under the camest_ tag; the records then come from
-    the estimated-camera tree that `paths` names (the camera net's
-    `train-cam --mode create` writes it).
+    {result_dir}/{cat}/{cat}_{obj}_{view:02d}.obj; returns the paths, in
+    list order. cam_est=True writes under the camest_ tag; the records then
+    come from the estimated-camera tree that `paths` names (the camera
+    net's `train-cam --mode create` writes it).
 
     The reader thread reads each view with ``read_view(paths.img_path(..))``
     and each object's sdf_params once with
     ``read_sdf_params(paths.sdf_path(..))`` (h5 files by default), at most
-    PREFETCH records ahead. The calling thread runs image_to_mesh on
-    `device` (the GPU by default; it raises without one); WRITERS
-    threads, at most the spare cores, write the files, and the calling
-    thread waits when more than 4 x WRITERS + 4 writes are pending."""
+    `prefetch` records ahead. The calling thread owns all device work
+    (_fused_dispatch on `device`, the GPU by default; it raises without
+    one): a software pipeline `depth` images deep dispatches image k, then
+    flushes image k - depth, handing its host half (_fused_collect's
+    closure: the record route's C++ passes) and its OBJ write to a pool of
+    `writers` threads, at most the spare cores. The calling thread waits
+    when more than 4 x writers + 4 writes are pending. The record route's
+    last copy is non-blocking (join=False), so it lands while the calling
+    thread goes on; the closure waits for it. An exception in a closure or
+    a write re-raises here; the reader is then stopped and joined, and
+    the pool finishes the writes it started (no truncated file)."""
     dev = device_mod.resolve(device)
     params = device_mod.tree_to(params, dev)
     my_list = [t for i, t in enumerate(listinfo)
                if i % shard_count == shard_index]
     out_root = result_dir(log_dir, cfg, cam_est)
-    writers = max(1, min(WRITERS, (os.cpu_count() or 2) - 1))
-    q: Queue = Queue(maxsize=PREFETCH)
+    writers = max(1, min(writers, (os.cpu_count() or 2) - 1))
+    q: Queue = Queue(maxsize=max(1, prefetch))
     stop = Event()
 
     def reader():
@@ -411,11 +473,25 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
                 return
         q.put(None)
 
-    t = Thread(target=reader, daemon=True)
+    t = Thread(target=reader, name="reconstruct_split-reader", daemon=True)
     t.start()
-    pool = ThreadPoolExecutor(writers)
-    futures: list = []
+    pool = ThreadPoolExecutor(writers, thread_name_prefix="reconstruct_split")
+    futures: deque = deque()
+    pending: deque = deque()
     written = []
+
+    def flush(ctx, out: str, tag: str) -> None:
+        assemble = _fused_collect(ctx, defer=True)
+
+        def write():
+            codecs.write_obj(out, *assemble())
+
+        futures.append(pool.submit(write))
+        while len(futures) > 4 * writers + 4:
+            futures.popleft().result()
+        if logger:
+            logger.log(f"reconstructed {tag}")
+
     try:
         while True:
             item = q.get()
@@ -428,17 +504,17 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
             img = rec.img_arr[:, :, :cfg.img_channels]
             out = os.path.join(out_root, cat_id,
                                f"{cat_id}_{obj}_{view:02d}.obj")
-            verts, faces = image_to_mesh(params, img, rec.trans_mat, cfg,
-                                         sdf_params=sdf_params, iso=cfg.iso,
-                                         sparse=sparse, device=dev)
-            futures.append(pool.submit(codecs.write_obj, out, verts, faces))
             written.append(out)
-            while len(futures) > 4 * writers + 4:
-                futures.pop(0).result()
-            if logger:
-                logger.log(f"reconstructed {cat_id}/{obj}/{view}")
-        for f in futures:
-            f.result()
+            pending.append((_fused_dispatch(
+                params, img, rec.trans_mat, sdf_params, cfg, cfg.iso,
+                sparse=sparse, device=dev, join=False), out,
+                f"{cat_id}/{obj}/{view}"))
+            while len(pending) > max(1, depth):
+                flush(*pending.popleft())
+        while pending:
+            flush(*pending.popleft())
+        while futures:
+            futures.popleft().result()
     finally:
         stop.set()
         # unblock a reader waiting on the full queue, then join it

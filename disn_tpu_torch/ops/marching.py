@@ -36,6 +36,7 @@ block ascending, then the cell's bit l = (z*4 + y)*4 + x inside its block.
 from __future__ import annotations
 
 import functools
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -612,6 +613,30 @@ def _fetch_mesh(verts: torch.Tensor, faces: torch.Tensor
     return verts.cpu().numpy(), faces.cpu().numpy()
 
 
+def _to_host(tensors, join: bool) -> tuple[list[np.ndarray], Any]:
+    """Tensors -> (numpy arrays, event). join=True, or tensors off a card:
+    plain copies (a CPU tensor's array shares its memory), event None.
+    join=False on a card: non-blocking copies into page-locked buffers
+    and one CUDA event recorded after them on the current stream; the
+    arrays hold the data once the event has completed. The sources may be
+    freed at once: the allocator reuses their memory in stream order."""
+    out, event = [], None
+    for t in tensors:
+        if join or not t.is_cuda:
+            out.append(t.cpu().numpy())
+            continue
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        out.append(buf.numpy())
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(t.device))
+    return out, event
+
+
+def _empty_mesh() -> tuple[np.ndarray, np.ndarray]:
+    return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+
+
 def _on_device(volume, sdf_params, device) -> tuple[torch.Tensor,
                                                     torch.Tensor]:
     """The f32 volume and sdf_params on the resolved device: the card,
@@ -624,6 +649,24 @@ def _on_device(volume, sdf_params, device) -> tuple[torch.Tensor,
     return vol, torch.as_tensor(sdf_params, dtype=torch.float32).to(dev)
 
 
+def extract_mesh_from_ids_deferred(volume, sdf_params, ids: torch.Tensor,
+                                   iso: float = 0.0,
+                                   device: str | torch.device | None = None,
+                                   stats: dict | None = None
+                                   ) -> Callable[[], tuple[np.ndarray,
+                                                           np.ndarray]]:
+    """extract_mesh_from_ids split for the farm: both passes and the copy
+    run here, on the calling thread; the returned zero-argument closure
+    returns the fetched mesh."""
+    vol, sdfp = _on_device(volume, sdf_params, device)
+    with device_mod.stage(stats, "extract_ms", vol.device):
+        verts, faces = _extract_owned(vol, sdfp, ids.to(vol.device),
+                                      float(iso))
+    with device_mod.stage(stats, "fetch_ms", vol.device):
+        mesh = _fetch_mesh(verts, faces)
+    return lambda: mesh
+
+
 def extract_mesh_from_ids(volume, sdf_params, ids: torch.Tensor,
                           iso: float = 0.0,
                           device: str | torch.device | None = None,
@@ -634,12 +677,22 @@ def extract_mesh_from_ids(volume, sdf_params, ids: torch.Tensor,
     (verts [nv,3] f32, faces [ntri,3] i32). `stats`, when given, receives
     ``extract_ms`` (the two passes on the device) and ``fetch_ms`` (the
     copy to the host)."""
+    return extract_mesh_from_ids_deferred(volume, sdf_params, ids, iso=iso,
+                                          device=device, stats=stats)()
+
+
+def extract_mesh_owned_deferred(volume, sdf_params, iso: float = 0.0,
+                                device: str | torch.device | None = None,
+                                stats: dict | None = None
+                                ) -> Callable[[], tuple[np.ndarray,
+                                                        np.ndarray]]:
+    """extract_mesh_owned split for the farm: the scan, both passes and the
+    copy run here; the closure returns the fetched mesh."""
     vol, sdfp = _on_device(volume, sdf_params, device)
-    with device_mod.stage(stats, "extract_ms", vol.device):
-        verts, faces = _extract_owned(vol, sdfp, ids.to(vol.device),
-                                      float(iso))
-    with device_mod.stage(stats, "fetch_ms", vol.device):
-        return _fetch_mesh(verts, faces)
+    with device_mod.stage(stats, "scan_ms", vol.device):
+        ids, _ = _active_cells_ext(vol, float(iso))
+    return extract_mesh_from_ids_deferred(vol, sdfp, ids, iso=iso,
+                                          device=vol.device, stats=stats)
 
 
 def extract_mesh_owned(volume, sdf_params, iso: float = 0.0,
@@ -649,11 +702,8 @@ def extract_mesh_owned(volume, sdf_params, iso: float = 0.0,
     """Owned-edge extraction of a [R,R,R] (z,y,x) volume through the
     full-volume scan -> exact welded numpy (verts, faces). `stats` also
     receives ``scan_ms``."""
-    vol, sdfp = _on_device(volume, sdf_params, device)
-    with device_mod.stage(stats, "scan_ms", vol.device):
-        ids, _ = _active_cells_ext(vol, float(iso))
-    return extract_mesh_from_ids(vol, sdfp, ids, iso=iso, device=vol.device,
-                                 stats=stats)
+    return extract_mesh_owned_deferred(volume, sdf_params, iso=iso,
+                                       device=device, stats=stats)()
 
 
 # ---------------------------------------------------------------------------
@@ -746,16 +796,63 @@ def _compact_tq(rec: torch.Tensor, tq: torch.Tensor) -> torch.Tensor:
     return tq[_cross_bits(rec)]
 
 
+def _host_records(rec: np.ndarray, tq: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Fetched records -> the C++ passes' types (rec uint16, or uint8 when
+    only the inside masks are shipped; tq uint8 | uint16)."""
+    if rec.dtype == np.int16:
+        rec = rec.view(np.uint16)
+    if tq.dtype != np.uint8:
+        tq = tq.astype(np.uint16)
+    return rec, tq
+
+
 def _records_to_host(rec: torch.Tensor, tq: torch.Tensor
                      ) -> tuple[np.ndarray, np.ndarray]:
-    """Device records -> numpy (rec uint16, or uint8 when only the inside
-    masks are shipped; tq uint8 | uint16)."""
-    rec_np, tq_np = rec.cpu().numpy(), tq.cpu().numpy()
-    if rec_np.dtype == np.int16:
-        rec_np = rec_np.view(np.uint16)
-    if tq_np.dtype != np.uint8:
-        tq_np = tq_np.astype(np.uint16)
-    return rec_np, tq_np
+    """Device records -> numpy in _host_records' types."""
+    return _host_records(rec.cpu().numpy(), tq.cpu().numpy())
+
+
+def extract_mesh_records_deferred(volume, sdf_params, ids: torch.Tensor,
+                                  n_cells: int,
+                                  blk: torch.Tensor | None = None,
+                                  iso: float = 0.0,
+                                  device: str | torch.device | None = None,
+                                  join: bool = True
+                                  ) -> Callable[[], tuple[np.ndarray,
+                                                          np.ndarray]]:
+    """extract_mesh_records split for the farm (port of the JAX package's
+    extract_mesh_records_deferred): this call does all device work, the
+    record pass and the copies, on the calling thread; the returned
+    zero-argument closure runs the host assembly and nothing else, so a
+    writer pool can overlap it with the next image's device work. It holds
+    numpy arrays and at most a CUDA event, never a CUDA tensor, and issues
+    no device operation.
+
+    join=True: plain copies, the closure holds the arrays. join=False: the
+    copies are non-blocking into page-locked buffers (_to_host), and the
+    closure waits on their event before it reads them."""
+    vol, sdfp = _on_device(volume, sdf_params, device)
+    R = int(vol.shape[0])
+    if n_cells != ids.shape[0]:
+        raise ValueError(f"{ids.shape[0]} ids for {n_cells} cells")
+    if n_cells == 0:
+        return _empty_mesh
+    rec_d, tq_d = _extract_records(vol, ids.to(vol.device), float(iso))
+    bbox = sdfp.cpu().numpy()
+    if blk is not None:
+        return _blocks_deferred(rec_d, tq_d, blk, n_cells, R, bbox, join)
+    (rec, tq, ids_np), done = _to_host((rec_d, tq_d, ids), join)
+
+    def assemble() -> tuple[np.ndarray, np.ndarray]:
+        from disn_tpu_torch import native
+
+        if done is not None:
+            done.synchronize()
+        return native.mesh_assemble(ids_np, *_host_records(rec, tq),
+                                    n_cells, R, bbox)
+
+    return assemble
 
 
 def extract_mesh_records(volume, sdf_params, ids: torch.Tensor, n_cells: int,
@@ -773,44 +870,44 @@ def extract_mesh_records(volume, sdf_params, ids: torch.Tensor, n_cells: int,
     them); without, the u16 records and the id list. Raises when the
     library does not build, or a pass finds the streams inconsistent:
     there is no fallback to numpy."""
-    from disn_tpu_torch import native
-
-    vol, sdfp = _on_device(volume, sdf_params, device)
-    R = int(vol.shape[0])
-    if n_cells != ids.shape[0]:
-        raise ValueError(f"{ids.shape[0]} ids for {n_cells} cells")
-    if n_cells == 0:
-        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
-    rec_d, tq_d = _extract_records(vol, ids.to(vol.device), float(iso))
-    bbox = sdfp.cpu().numpy()
-    if blk is not None:
-        return _assemble_blocks(rec_d, tq_d, blk, n_cells, R, bbox)
-    rec, tq = _records_to_host(rec_d, tq_d)
-    return native.mesh_assemble(ids.cpu().numpy(), rec, tq, n_cells, R, bbox)
+    return extract_mesh_records_deferred(volume, sdf_params, ids, n_cells,
+                                         blk=blk, iso=iso, device=device)()
 
 
-def _assemble_blocks(rec_d: torch.Tensor, tq_d: torch.Tensor,
+def _blocks_deferred(rec_d: torch.Tensor, tq_d: torch.Tensor,
                      blk: torch.Tensor, n_cells: int, R: int,
-                     bbox: np.ndarray, stats: dict | None = None
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """The record route's host half from the block rows: one copy of the u8
-    inside masks, the edge parameters and the rows, then the C++ passes
-    derive the crossing bits and the cell coordinates and build the mesh.
-    `stats` receives ``fetch_ms`` (the copy) and ``assemble_ms``."""
-    from disn_tpu_torch import native
-
+                     bbox: np.ndarray, join: bool,
+                     stats: dict | None = None
+                     ) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+    """The record route's host half from the block rows: here one copy of
+    the u8 inside masks, the edge parameters and the rows (_to_host);
+    the closure checks the rows against the cell count and runs the C++
+    passes, which derive the crossing bits and the cell coordinates and
+    build the mesh. `stats` receives ``fetch_ms`` (the copy) and, from the
+    closure, ``assemble_ms`` (host clock: it touches no device)."""
     with device_mod.stage(stats, "fetch_ms", rec_d.device):
-        rec, tq = _records_to_host((rec_d & 0xFF).to(torch.uint8), tq_d)
-        rows = blk.cpu().numpy()
-    with device_mod.stage(stats, "assemble_ms", rec_d.device):
-        if _mask_cell_count(rows) != n_cells:
-            raise RuntimeError(
-                f"block masks encode {_mask_cell_count(rows)} cells, the "
-                f"scan counted {n_cells} (inconsistent record streams)")
-        recs = native.derive_recs(rows, rec, R)
-        faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
-        verts = native.mesh_verts_blocks(rows, recs, tq, n_cells, R, bbox)
-    return verts, faces
+        (imask, tq, rows), done = _to_host(
+            ((rec_d & 0xFF).to(torch.uint8), tq_d, blk), join)
+
+    def assemble() -> tuple[np.ndarray, np.ndarray]:
+        from disn_tpu_torch import native
+
+        if done is not None:
+            done.synchronize()
+        with device_mod.stage(stats, "assemble_ms", torch.device("cpu")):
+            rec, tq16 = _host_records(imask, tq)
+            if _mask_cell_count(rows) != n_cells:
+                raise RuntimeError(
+                    f"block masks encode {_mask_cell_count(rows)} cells, "
+                    f"the scan counted {n_cells} (inconsistent record "
+                    f"streams)")
+            recs = native.derive_recs(rows, rec, R)
+            faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
+            verts = native.mesh_verts_blocks(rows, recs, tq16, n_cells, R,
+                                             bbox)
+        return verts, faces
+
+    return assemble
 
 
 # ---------------------------------------------------------------------------
@@ -994,27 +1091,42 @@ def _records_from_words_sparse(words: torch.Tensor, sids: torch.Tensor,
     return rec, tq
 
 
+def extract_mesh_records_deferred_sparse(
+        words: torch.Tensor, R: int, sdf_params, sids: torch.Tensor,
+        n_cells: int, blk: torch.Tensor, join: bool = True,
+        stats: dict | None = None
+        ) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+    """The record route over the sparse words arrays, split for the farm
+    (port of extract_mesh_records_deferred_sparse without its fetch
+    streams): the slots' (rec, tq) gathered on the words' device and the
+    copies happen here; the closure is _blocks_deferred's (host work
+    only; `join` as in extract_mesh_records_deferred). `stats` receives
+    ``extract_ms`` (the gather), ``fetch_ms`` and, when the closure runs,
+    ``assemble_ms``."""
+    if n_cells != sids.shape[0]:
+        raise ValueError(f"{sids.shape[0]} ids for {n_cells} cells")
+    if n_cells == 0:
+        return _empty_mesh
+    bbox = torch.as_tensor(sdf_params, dtype=torch.float32).cpu().numpy()
+    with device_mod.stage(stats, "extract_ms", words.device):
+        rec_d, tq_d = _records_from_words_sparse(words, sids, R)
+    return _blocks_deferred(rec_d, tq_d, blk, n_cells, R, bbox, join, stats)
+
+
 def extract_mesh_records_sparse(words: torch.Tensor, R: int, sdf_params,
                                 sids: torch.Tensor, n_cells: int,
                                 blk: torch.Tensor,
                                 stats: dict | None = None
                                 ) -> tuple[np.ndarray, np.ndarray]:
-    """The record route over the sparse words arrays (port of
-    extract_mesh_records_deferred_sparse without its fetch streams): the
-    slots' (rec, tq) gathered on the words' device, one copy to the host,
-    and the C++ passes of extract_mesh_records(blk=...). Faces equal the
-    owned extractor's on the volume flow's volume; a vertex is off by at
-    most its cell edge over 510 per coordinate (u8 t) or over 131070 (u16
-    t). `stats` receives ``extract_ms`` (the gather), ``fetch_ms`` and
+    """The record route over the sparse words arrays: the slots' (rec, tq)
+    gathered on the words' device, one copy to the host, and the C++
+    passes of extract_mesh_records(blk=...). Faces equal the owned
+    extractor's on the volume flow's volume; a vertex is off by at most
+    its cell edge over 510 per coordinate (u8 t) or over 131070 (u16 t).
+    `stats` receives ``extract_ms`` (the gather), ``fetch_ms`` and
     ``assemble_ms``."""
-    if n_cells != sids.shape[0]:
-        raise ValueError(f"{sids.shape[0]} ids for {n_cells} cells")
-    if n_cells == 0:
-        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
-    bbox = torch.as_tensor(sdf_params, dtype=torch.float32).cpu().numpy()
-    with device_mod.stage(stats, "extract_ms", words.device):
-        rec_d, tq_d = _records_from_words_sparse(words, sids, R)
-    return _assemble_blocks(rec_d, tq_d, blk, n_cells, R, bbox, stats)
+    return extract_mesh_records_deferred_sparse(
+        words, R, sdf_params, sids, n_cells, blk, stats=stats)()
 
 
 # ---------------------------------------------------------------------------
