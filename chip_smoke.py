@@ -35,8 +35,16 @@ on failure:
    and the wrapper back to back) and on seeded random inputs at 257^3 (u8)
    and 65^3 (u16) with absent neighbours, rows at the iso, ragged counts,
    no cells, and lattices with every or no neighbour active and padded
-   ids; [k5 profile]: torch.profiler over one step sees the library's
-   memset and two kernels and no other device work;
+   ids, and with the count as a 0-d int32 on the card (the speculative
+   dispatch's: padded, none, past the cells); [k5 profile]: torch.profiler
+   over one step sees the library's memset and two kernels and no other
+   device work; [spec]: the speculative dispatch (phase_spec) on 48 seeded
+   images whose analytic head's radius varies, each against the seed path
+   (_SPEC_CACHE cleared) bit for bit, the single-image walls of the hits
+   and of the seed path in turns, each re-run kind forced once (short
+   block and record buckets, compaction overflow, guard trip, cap
+   overflow) and held the same way, and a warm _fused_dispatch under
+   torch.cuda.set_sync_debug_mode("error");
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -129,10 +137,14 @@ on failure:
    calling thread, then the parent's loop (image_to_mesh on the calling
    thread, writes on a pool) and the farm at depth 1, 2 and 3 in turns,
    twice, each tree byte for byte that one, K1 x2 and K5 x1 an image (counts set to 0
-   just before each run and read just after), the C++ assembly passes
+   just before each run and read just after) and every image a hit of the
+   speculative dispatch, the C++ assembly passes
    called 0 times on the calling thread (PassSpy); images/s, the pool's
    time in the passes, and, from one depth-2 run under torch.profiler,
-   the calling thread's time in the runtime's waits an image.
+   the calling thread's time in the runtime's waits an image; with
+   --parent DIR, DIR's farm and this tree's at depth 1-3, each in a fresh
+   worker process, in turns (parent, change, change, parent), their trees
+   the same reference's byte for byte, and their waits.
    [closed loop]: tools.closed_loop's gt-cam row (sdf_res 256, bf16, full
    width: the ground truth's face count, IoU >= CL_IOU, F1 = 1 at 20%,
    CD and EMD within CL_FLOOR_RATIO of their noise floor) and cam-est row
@@ -891,7 +903,8 @@ def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
         res["plain_ms"] = cuda_ms(
             lambda: m._sparse_cell_words(*args, kw["R"], kw["iso"]), 3)
     res["bound_ms"], res["bound_by"] = k5_bound(args, kw)
-    print(f"[k5] {label} cells={args[1].numel()} count={args[2]} "
+    print(f"[k5] {label} cells={args[1].numel()} count={int(args[2])}"
+          f"{' (on the card)' if hasattr(args[2], 'is_cuda') else ''} "
           f"R={kw['R']} differing words={diff} outputs off={bad} guard="
           f"{int(got[4])} ms={res['ms']:.5f} step_ms="
           f"{res['step_ms']:.5f} plain_ms={res['plain_ms']:.4f} bound_ms="
@@ -1051,7 +1064,220 @@ def hold_swords(cfg, params, img, trans, kept: dict) -> dict:
     for stride in (1, 2):  # every neighbour active, then none
         a, kw_ = lattice_k5_args(65, stride, pad=37, seed=stride)
         hold_k5(f"lattice stride {stride} + 37 padded ids R=65", a, kw_)
+    # the count on the card, as the speculative dispatch passes it: padded,
+    # none, and past the cells (clamped)
+    for R_, n_, count in ((257, nk, nk - 777), (257, nk, 0), (65, 2001, 1500),
+                          (65, 2001, 2001)):
+        a, kw_ = random_k5_args(R_, n_, count, seed=count)
+        over = count + 5 if count == n_ else count
+        a = (a[0], a[1], torch.tensor(over, dtype=torch.int32,
+                                      device=a[0].device), a[3])
+        hold_k5(f"count {over} on the card R={R_}", a, kw_)
     return main
+
+
+SPEC_IMAGES = 48
+SPEC_R = (0.5, 0.7)   # the analytic head's radius, drawn an image
+SPEC_GUARD_R = 0.95   # the band reaches the box's + faces: the guard trips
+SPEC_CAP_FRAC = 0.05  # a cell cap under the main path's 17,888 active cells
+
+
+def spec_run(fn, *args, **kw):
+    """(verts, faces, the speculation's kind, host ms) of one
+    image_to_mesh-like call, the card synchronised before and after;
+    kind is the one kind pipeline.spec_counts gained, or "none"."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+
+    before = dict(pipeline.spec_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    verts, faces = fn(*args, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    gained = [k for k, v in pipeline.spec_counts.items()
+              if v != before.get(k, 0)]
+    check(len(gained) <= 1, f"[spec] one call ended as {gained}")
+    return verts, faces, gained[0] if gained else "none", ms
+
+
+def seed_path(params, img, trans, cfg, **kw):
+    """image_to_mesh with _SPEC_CACHE cleared (the synchronous flow, which
+    seeds it), the cache restored after, and (cfg, iso) unpinned from the
+    volume flow as it was."""
+    from disn_tpu_torch.infer import pipeline
+
+    saved = dict(pipeline._SPEC_CACHE)
+    pinned = set(pipeline._SWORDS_SKIP)
+    pipeline._SPEC_CACHE.clear()
+    try:
+        return spec_run(pipeline.image_to_mesh, params, img, trans, cfg,
+                        **kw)
+    finally:
+        pipeline._SPEC_CACHE.clear()
+        pipeline._SPEC_CACHE.update(saved)
+        pipeline._SWORDS_SKIP.clear()
+        pipeline._SWORDS_SKIP.update(pinned)
+
+
+def same_mesh(a, b) -> bool:
+    return (a[0].shape == b[0].shape and np.array_equal(a[0], b[0])
+            and np.array_equal(a[1], b[1]))
+
+
+def sync_free_dispatch(params, img, trans, cfg):
+    """_fused_dispatch under torch.cuda.set_sync_debug_mode("error") (any
+    synchronising call raises), then _fused_collect: (verts, faces,
+    kind)."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+
+    torch.cuda.synchronize()
+    before = dict(pipeline.spec_counts)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ctx = pipeline._fused_dispatch(params, img, trans, pipeline.UNIT_BOX,
+                                       cfg, cfg.iso)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    verts, faces = pipeline._collect_or_dense(ctx)
+    kind = [k for k, v in pipeline.spec_counts.items()
+            if v != before.get(k, 0)]
+    return verts, faces, kind
+
+
+def phase_spec(smi: str) -> None:
+    """[spec]: the speculative dispatch on the main path's configuration
+    (full width, analytic head, 257^3 bf16, demo camera). SPEC_IMAGES
+    seeded u8 images, each with the head's radius drawn in SPEC_R (so the
+    active cells and the buckets change from image to image): each image
+    through image_to_mesh with the prediction the earlier images left
+    (hit, or the re-run its bucket called for) and through the seed path
+    (_SPEC_CACHE cleared), in turns (even images speculative first), the
+    meshes equal bit for bit; then each re-run kind forced once and held
+    to the seed path: a block bucket of 1, a record bucket of 1 batch, a
+    compaction cap of 256 blocks (overflow; its guard is 0), the surface
+    cut by the box (r = SPEC_GUARD_R: the guard trips, the volume flow),
+    a cell cap under the active cells (cell_cap_frac SPEC_CAP_FRAC: the
+    dense route); then, on a warm prediction, _fused_dispatch under
+    torch.cuda.set_sync_debug_mode("error"). Prints the walls of the hits
+    and of the seed path (host clock, the card synchronised before and
+    after; medians) and the kinds, and leaves _SPEC_CACHE as it found
+    it."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    bias = params["sdfprediction"]["fold2"]["conv5"]["biases"]
+    trans = synthetic.demo_trans_mat()
+    rng = np.random.RandomState(18)
+    imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
+            for _ in range(SPEC_IMAGES)]
+    radii = rng.uniform(*SPEC_R, SPEC_IMAGES)
+    key = (cfg, float(cfg.iso))
+    saved = dict(pipeline._SPEC_CACHE)  # the later phases' prediction
+
+    def radius(r: float) -> None:  # the head's field 10 (|x|+|y|+|z| - r)
+        with torch.no_grad():
+            bias.fill_(-10.0 * r)
+
+    kinds: dict = {}
+    walls: dict = {"spec": [], "seed": [], "kind": []}
+    for i, (img, r) in enumerate(zip(imgs, radii)):
+        radius(r)
+        runs = {}
+        for which in (("spec", "seed") if i % 2 == 0 else ("seed", "spec")):
+            if which == "seed":
+                runs["seed"] = seed_path(params, img, trans, cfg)
+            else:
+                runs["spec"] = spec_run(pipeline.image_to_mesh, params, img,
+                                        trans, cfg)
+        kind = runs["spec"][2]
+        kinds[kind] = kinds.get(kind, 0) + 1
+        walls["spec"].append(runs["spec"][3])
+        walls["kind"].append(kind)
+        walls["seed"].append(runs["seed"][3])
+        check(runs["seed"][2] == "seed" and len(runs["seed"][1]) > 1000,
+              f"[spec] image {i}: the seed path ended as {runs['seed'][2]}")
+        check(same_mesh(runs["spec"], runs["seed"]),
+              f"[spec] image {i} (r {r:.4f}, {kind}): the speculative mesh "
+              f"is not the seed path's")
+    print(f"[spec] {SPEC_IMAGES} images, r in {SPEC_R}: the speculative "
+          f"route ended as {kinds}, every mesh the seed path's bit for bit; "
+          f"prediction now {pipeline._SPEC_CACHE.get(key)}")
+    check(kinds.get("hit", 0) >= SPEC_IMAGES // 2,
+          f"[spec] only {kinds.get('hit', 0)} hits in {SPEC_IMAGES} images")
+    hits = np.array([k == "hit" for k in walls["kind"]])
+    s, d = np.array(walls["spec"])[hits], np.array(walls["seed"])[hits]
+    missed = [round(w, 3) for w, k in zip(walls["spec"], walls["kind"])
+              if k != "hit"]
+    print(f"[spec] single-image wall on the {hits.sum()} hits, in turns with "
+          f"the seed path on the same image (host clock, card synchronised "
+          f"before and after): hit median {np.median(s):.3f} ms (quartiles "
+          f"{np.percentile(s, 25):.3f}-{np.percentile(s, 75):.3f}), seed path "
+          f"median {np.median(d):.3f} ms ({np.percentile(d, 25):.3f}-"
+          f"{np.percentile(d, 75):.3f}); the hit won {int((s < d).sum())} of "
+          f"{hits.sum()}; the misses {missed} ms; {smi}")
+
+    # each re-run kind once, against the seed path on the same image
+    radius(0.6)
+    img = imgs[0]
+    spec_run(pipeline.image_to_mesh, params, img, trans, cfg)  # warm, exact
+    nb, ni = pipeline._SPEC_CACHE[key][:2]
+    sizes = pipeline._spec_sizes(cfg)
+
+    def forced(kind: str, c=cfg, r: float = 0.6, pred=None, bcap=None):
+        radius(r)
+        saved = dict(pipeline._SPEC_CACHE)
+        real_bcap = pipeline._fused_bcap
+        if pred is not None:
+            pipeline._SPEC_CACHE[(c, float(c.iso))] = pred
+        if bcap is not None:
+            pipeline._fused_bcap = lambda n, s: bcap
+        try:
+            got = spec_run(pipeline.image_to_mesh, params, img, trans, c)
+        finally:
+            pipeline._fused_bcap = real_bcap
+            pipeline._SPEC_CACHE.clear()
+            pipeline._SPEC_CACHE.update(saved)
+            pipeline._SWORDS_SKIP.discard((c, float(c.iso)))
+        want = seed_path(params, img, trans, c)
+        pipeline._SWORDS_SKIP.discard((c, float(c.iso)))
+        print(f"[spec] forced {kind}: ended as {got[2]}, {len(got[1])} "
+              f"faces, equal to the seed path's ({want[2]}) bit for bit: "
+              f"{same_mesh(got, want)}; {got[3]:.3f} ms against "
+              f"{want[3]:.3f}")
+        check(got[2] == kind and same_mesh(got, want),
+              f"[spec] forced {kind}: ended as {got[2]}, or its mesh is not "
+              f"the seed path's")
+
+    forced("blocks", pred=(1, ni, None, 0, None))
+    forced("records", pred=(nb, 1, None, 0, None))
+    forced("overflow", bcap=256)
+    forced("guard", r=SPEC_GUARD_R)
+    ccap = cfg.replace(cell_cap_frac=SPEC_CAP_FRAC)
+    forced("cap", c=ccap,
+           pred=(pipeline._spec_sizes(ccap)["max_blocks"], ni, None, 0,
+                 None))
+    radius(0.6)
+
+    # no synchronisation on a warm prediction
+    spec_run(pipeline.image_to_mesh, params, img, trans, cfg)
+    want = seed_path(params, img, trans, cfg)
+    verts, faces, kind = sync_free_dispatch(params, img, trans, cfg)
+    print(f"[spec] _fused_dispatch under set_sync_debug_mode('error'): no "
+          f"synchronising call; collect ended as {kind}, the seed path's "
+          f"mesh: {same_mesh((verts, faces), want)}")
+    check(kind == ["hit"] and same_mesh((verts, faces), want),
+          "[spec] the sync-free dispatch did not hit, or its mesh is not the "
+          "seed path's")
+    check(sizes["cells_per_block"] == 512,
+          f"[spec] {sizes['cells_per_block']} cells a block, expected 512")
+    pipeline._SPEC_CACHE.clear()
+    pipeline._SPEC_CACHE.update(saved)
 
 
 def trace_busy(tdir: str) -> tuple[float, float, int, int]:
@@ -4885,62 +5111,194 @@ class PassSpy:
             setattr(self.native, n, fn)
 
 
-def sync_waits(prof) -> tuple[float, float, int]:
+def sync_waits(prof) -> tuple[float, float, int, dict]:
     """From a torch.profiler run: (ms the calling thread spent in the CUDA
     runtime calls that wait for the card, SYNC_CALLS, ms of those calls on
-    every other thread, the calling thread's kernel launches). The calling
-    thread is the one that launched the kernels (the farm's pool launches
-    none)."""
+    every other thread, the calling thread's kernel launches, the calling
+    thread's ms and calls by name). The calling thread is the one that
+    launched the kernels (the farm's pool launches none). A non-blocking
+    cudaMemcpyAsync counts too: it returns at once, so it adds its few
+    microseconds."""
     launches: dict = {}
     waits: dict = {}
+    named: dict = {}
     for evt in prof.events():
         if evt.name == "cudaLaunchKernel":
             launches[evt.thread] = launches.get(evt.thread, 0) + 1
         elif evt.name in SYNC_CALLS:
-            waits[evt.thread] = (waits.get(evt.thread, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
+            ms = evt.time_range.elapsed_us() / 1e3
+            waits[evt.thread] = waits.get(evt.thread, 0.0) + ms
+            named.setdefault(evt.thread, {}).setdefault(evt.name, [0.0, 0])
+            named[evt.thread][evt.name][0] += ms
+            named[evt.thread][evt.name][1] += 1
     if not launches:
-        return float("nan"), float("nan"), 0
+        return float("nan"), float("nan"), 0, {}
     main = max(launches, key=launches.get)
     return (waits.get(main, 0.0),
-            sum(v for t, v in waits.items() if t != main), launches[main])
+            sum(v for t, v in waits.items() if t != main), launches[main],
+            named.get(main, {}))
 
 
-def phase_farm_pipe(smi: str) -> None:
-    """[farm pipe]: reconstruct_split's depth-deep pipeline on [eval
-    farm]'s 2 objects x 24 views (full-width net, analytic head, sdf_res
-    256, bf16, in-memory records): first image_to_mesh + write_obj on this
-    thread, image by image (the reference tree); then, in turns,
-    PIPE_TURNS times, the parent's loop (image_to_mesh on this thread,
-    writes on a pool) and the farm at depth 1, 2 and 3 (its K1/K5 counts
-    set to 0 just before each run and read just after: 2 and 1 an image),
-    each tree byte for byte the reference, the farm's C++ passes called 0
-    times on this thread (PassSpy); images/s, the pool's seconds in the
-    passes; then one
-    depth-2 run under torch.profiler for the calling thread's time blocked
-    in the runtime's waits (sync_waits), per image."""
+def farm_setup() -> dict:
+    """[farm pipe]'s split: [eval farm]'s 2 objects x 24 views (full-width
+    net, analytic head, sdf_res 256, bf16, in-memory records) under
+    PIPE_DIR, with whichever disn_tpu_torch is imported."""
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import listing, synthetic
+
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    paths = listing.SplitPaths(os.path.join(PIPE_DIR, "sdf"),
+                               os.path.join(PIPE_DIR, "renders"))
+    views, sdf = farm_records(paths)
+    return dict(cfg=cfg, paths=paths, views=views, sdf=sdf,
+                params=synthetic.analytic_octahedron_params(cfg, seed=0,
+                                                            r=0.6),
+                listinfo=[(FARM_CAT, o, v) for o in FARM_OBJS
+                          for v in range(FARM_VIEWS)],
+                readers=dict(read_view=views.__getitem__,
+                             read_sdf_params=sdf.__getitem__))
+
+
+def farm_run(farm: dict, depth: int, tag: str) -> tuple[float, dict]:
+    """One reconstruct_split of the split at `depth` into PIPE_DIR/tag:
+    (images/s, {relative path: sha256} of the tree), the tree removed."""
     import shutil
 
     import torch
-    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.infer import pipeline
+
+    root = os.path.join(PIPE_DIR, tag)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = pipeline.reconstruct_split(
+        farm["params"], farm["cfg"], farm["paths"], farm["listinfo"], root,
+        depth=depth, **farm["readers"])
+    dt = time.perf_counter() - t0
+    got = tree_digests(pipeline.result_dir(root, farm["cfg"]))
+    shutil.rmtree(root)
+    check(len(written) == len(farm["listinfo"]),
+          f"farm pipe: {tag} wrote {len(written)} meshes")
+    return len(farm["listinfo"]) / dt, got
+
+
+def farm_worker(checkout: str) -> int:
+    """`chip_smoke.py --farm-worker DIR`: [farm pipe]'s runs with DIR's
+    disn_tpu_torch (this checkout's, or another's unpacked with git
+    archive). After one untimed run (the builds, the warm-up) it answers
+    "FARM {"ready": true}", then each line of stdin: "depth N" runs the
+    split at depth N, "profile" one depth-2 run under torch.profiler,
+    "quit" ends; each answers one line "FARM <json>" on stdout (images/s
+    and the tree's digests, or the calling thread's waits). Its trees go
+    under PIPE_DIR/worker<pid>."""
+    sys.path.insert(0, os.path.abspath(checkout))
+    import torch
+    from disn_tpu_torch.infer import pipeline
+
+    tag = f"worker{os.getpid()}"
+    farm = farm_setup()
+    farm_run(farm, 2, tag)
+    print("FARM " + json.dumps({"ready": True}), flush=True)
+    for line in sys.stdin:
+        cmd = line.split()
+        if cmd[0] == "quit":
+            break
+        if cmd[0] == "depth":
+            rate, got = farm_run(farm, int(cmd[1]), tag)
+            out = {"rate": rate, "digests": got}
+        else:
+            root = os.path.join(PIPE_DIR, tag)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                pipeline.reconstruct_split(
+                    farm["params"], farm["cfg"], farm["paths"],
+                    farm["listinfo"], root, depth=2, **farm["readers"])
+            import shutil
+            shutil.rmtree(root)
+            main_ms, other_ms, n_launch, named = sync_waits(prof)
+            out = {"main_ms": main_ms, "other_ms": other_ms,
+                   "launches": n_launch, "named": named}
+        print("FARM " + json.dumps(out), flush=True)
+    return 0
+
+
+class FarmWorker:
+    """A farm_worker process on a checkout (this one, or another), made
+    ready (built and warm) before this returns, then asked for one run at
+    a time; close() ends it."""
+
+    def __init__(self, checkout: str):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--farm-worker",
+             checkout], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True, cwd=ROOT)
+        try:
+            self.answer()
+        except BaseException:
+            self.close()
+            raise
+
+    def ask(self, cmd: str) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return self.answer()
+
+    def answer(self) -> dict:
+        for line in self.proc.stdout:
+            if line.startswith("FARM "):
+                return json.loads(line[5:])
+            sys.stdout.write(line)
+        raise SmokeFailure(f"farm pipe: a farm worker ended "
+                           f"(exit {self.proc.wait()})")
+
+    def close(self) -> None:
+        try:
+            if self.proc.poll() is None:
+                self.proc.stdin.write("quit\n")
+                self.proc.stdin.close()
+                self.proc.wait(timeout=60)
+        except Exception:  # a worker that does not end is killed
+            pass
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
+    """[farm pipe]: reconstruct_split's depth-deep pipeline on [eval
+    farm]'s 2 objects x 24 views (farm_setup): first image_to_mesh +
+    write_obj on this thread, image by image (the reference tree; it
+    leaves the speculative dispatch's prediction warm); then, in turns,
+    PIPE_TURNS times, the parent's loop (image_to_mesh on this thread,
+    writes on a pool) and the farm at depth 1, 2 and 3 (its K1/K5 counts
+    set to 0 just before each run and read just after: 2 and 1 an image;
+    every image a hit of the speculative dispatch), each tree byte for byte
+    the reference, the farm's C++ passes called 0 times on this thread
+    (PassSpy); images/s, the pool's seconds in the passes; then one
+    depth-2 run under torch.profiler for the calling thread's time blocked
+    in the runtime's waits (sync_waits), per image. With `parent` (another
+    checkout, e.g. the parent commit's, unpacked with git archive), two
+    farm_worker processes, one on that checkout and one on this, run the
+    farm at depth 1, 2 and 3 in turns (parent, change, change, parent):
+    fresh processes alike, where this process carries every earlier
+    phase's state. Their trees are held to the same reference byte for
+    byte, and each gives its calling thread's waits from one profiled
+    depth-2 run."""
+    import shutil
+
+    import torch
     from disn_tpu_torch.core import codecs
-    from disn_tpu_torch.data import listing, synthetic
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.ops import fused_decode, sparse_words
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
     shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
-    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
-    paths = listing.SplitPaths(os.path.join(PIPE_DIR, "sdf"),
-                               os.path.join(PIPE_DIR, "renders"))
-    views, sdf = farm_records(paths)
-    listinfo = [(FARM_CAT, o, v) for o in FARM_OBJS
-                for v in range(FARM_VIEWS)]
+    farm = farm_setup()
+    cfg, params, paths = farm["cfg"], farm["params"], farm["paths"]
+    views, sdf, listinfo = farm["views"], farm["sdf"], farm["listinfo"]
     n = len(listinfo)
-    readers = dict(read_view=views.__getitem__,
-                   read_sdf_params=sdf.__getitem__)
     ref_root = os.path.join(PIPE_DIR, "ref")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4958,6 +5316,7 @@ def phase_farm_pipe(smi: str) -> None:
     print(f"[farm pipe] reference: image_to_mesh + write_obj on the calling "
           f"thread, {n} images in {seq_s:.3f} s = {n / seq_s:.2f} images/s; "
           f"{smi}")
+
     def parent_loop(root: str) -> None:
         """The parent's farm loop: image_to_mesh (its host assembly too)
         on the calling thread, the OBJ writes on a pool of 4 threads."""
@@ -4977,11 +5336,37 @@ def phase_farm_pipe(smi: str) -> None:
             for f in futures:
                 f.result()
 
+    def hits() -> int:
+        return pipeline.spec_counts["hit"]
+
+    # the order of a worker turn: parent, change; then change, parent
+    who_dirs = ({os.path.basename(os.path.normpath(parent)): parent,
+                 "this tree (worker)": ROOT} if parent else {})
+    workers: dict = {}
     spy = PassSpy()
     rates: dict = {d: [] for d in ("parent loop", *PIPE_DEPTHS)}
+    rates.update({f"{w} {d}": [] for w in who_dirs for d in PIPE_DEPTHS})
+
+    def worker_turn(turn: int) -> None:
+        for who in (list(workers) if turn % 2 == 0 else list(workers)[::-1]):
+            for depth in PIPE_DEPTHS:
+                out = workers[who].ask(f"depth {depth}")
+                rates[f"{who} {depth}"].append(out["rate"])
+                print(f"[farm pipe] {who}: the farm at depth {depth} (turn "
+                      f"{turn + 1}): {n} images, {out['rate']:.2f} "
+                      f"images/s; {smi}")
+                check(out["digests"] == ref, f"farm pipe: {who}'s tree at "
+                                             f"depth {depth} is not the "
+                                             f"reference's byte for byte")
+
     try:
+        for who, checkout in who_dirs.items():  # one at a time, warm
+            workers[who] = FarmWorker(checkout)
         for turn in range(PIPE_TURNS):
+            if workers and turn % 2 == 0:
+                worker_turn(turn)
             root = os.path.join(PIPE_DIR, "parent")
+            before = hits()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             parent_loop(root)
@@ -4990,56 +5375,63 @@ def phase_farm_pipe(smi: str) -> None:
             shutil.rmtree(root)
             rates["parent loop"].append(n / dt)
             print(f"[farm pipe] the parent's loop (turn {turn + 1}): {n} "
-                  f"images in {dt:.3f} s = {n / dt:.2f} images/s; {smi}")
+                  f"images in {dt:.3f} s = {n / dt:.2f} images/s, "
+                  f"{hits() - before} hits; {smi}")
             check(got == ref, "farm pipe: the parent loop's tree is not the "
                               "reference's byte for byte")
             for depth in PIPE_DEPTHS:
-                root = os.path.join(PIPE_DIR, f"d{depth}")
                 spy.reset()
+                before = hits()
                 torch.cuda.synchronize()
                 k1.launches = k5.launches = 0
-                t0 = time.perf_counter()
-                written = pipeline.reconstruct_split(
-                    params, cfg, paths, listinfo, root, depth=depth,
-                    **readers)
-                dt = time.perf_counter() - t0
+                rate, got = farm_run(farm, depth, f"d{depth}")
                 counts = (k1.launches, k5.launches)
-                got = tree_digests(pipeline.result_dir(root, cfg))
-                shutil.rmtree(root)
-                rates[depth].append(n / dt)
+                rates[depth].append(rate)
                 print(f"[farm pipe] depth {depth} (turn {turn + 1}): {n} "
-                      f"images in {dt:.3f} s = {n / dt:.2f} images/s; K1 "
-                      f"{counts[0]}, K5 {counts[1]} launches; C++ passes: "
-                      f"{spy.main_calls} calls on the calling thread, "
-                      f"{spy.pool_calls} on the pool, "
+                      f"images, {rate:.2f} images/s, {hits() - before} "
+                      f"hits; K1 {counts[0]}, K5 {counts[1]} launches; C++ "
+                      f"passes: {spy.main_calls} calls on the calling "
+                      f"thread, {spy.pool_calls} on the pool, "
                       f"{spy.pool_s * 1e3:.1f} ms there "
                       f"({spy.pool_s * 1e3 / n:.2f} ms an image); {smi}")
-                check(len(written) == n and got == ref,
-                      f"farm pipe: depth {depth}'s tree is not the "
-                      f"reference's byte for byte")
-                check(counts == (2 * n, n),
+                check(got == ref, f"farm pipe: depth {depth}'s tree is not "
+                                  f"the reference's byte for byte")
+                check(counts == (2 * n, n) and hits() - before == n,
                       f"farm pipe: depth {depth}: K1 {counts[0]} and K5 "
-                      f"{counts[1]} launches, expected {2 * n} and {n}")
+                      f"{counts[1]} launches, {hits() - before} hits; "
+                      f"expected {2 * n}, {n} and {n}")
                 check(spy.main_calls == 0 and spy.pool_calls == 3 * n,
                       f"farm pipe: depth {depth}: {spy.main_calls} C++ "
                       f"pass calls on the calling thread and "
                       f"{spy.pool_calls} on the pool (0 and {3 * n} "
                       f"expected)")
+            if workers and turn % 2 == 1:
+                worker_turn(turn)
         root = os.path.join(PIPE_DIR, "profiled")
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             pipeline.reconstruct_split(params, cfg, paths, listinfo, root,
-                                       depth=2, **readers)
+                                       depth=2, **farm["readers"])
         shutil.rmtree(root)
-        main_ms, other_ms, n_launch = sync_waits(prof)
-        print(f"[farm pipe] under torch.profiler, depth 2: the calling "
-              f"thread waited {main_ms:.1f} ms in {'/'.join(SYNC_CALLS)} = "
-              f"{main_ms / n:.2f} ms an image ({n_launch} kernel launches "
-              f"from it); the other threads {other_ms:.1f} ms "
-              f"(the closures' event waits); {smi}")
+        waits = {"this tree": sync_waits(prof)}
+        for who, worker in workers.items():
+            out = worker.ask("profile")
+            waits[who] = (out["main_ms"], out["other_ms"],
+                          out["launches"], out["named"])
+        for who, (main_ms, other_ms, n_launch, named) in waits.items():
+            print(f"[farm pipe] {who} under torch.profiler, depth 2: the "
+                  f"calling thread waited {main_ms:.1f} ms in "
+                  f"{'/'.join(SYNC_CALLS)} = {main_ms / n:.2f} ms an image "
+                  f"({n_launch} kernel launches from it, "
+                  f"{n_launch / n:.1f} an image; by call, ms and calls: "
+                  f"{ {k: [round(v[0], 2), v[1]] for k, v in named.items()} }"
+                  f"); the other threads {other_ms:.1f} ms (the closures' "
+                  f"event waits); {smi}")
     finally:
         spy.close()
+        for worker in workers.values():
+            worker.close()
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
     print(f"[farm pipe] images/s by depth: "
           f"{ {d: [round(r, 2) for r in v] for d, v in rates.items()} } "
@@ -5205,8 +5597,13 @@ def main() -> int:
                          "K6b on [eval hold]'s and [eval farm]'s clouds, "
                          "measured against the float64 referee, its K6d "
                          "likewise, its K6a, K6c and K6d timed in turns "
-                         "with this checkout's at the protocol's shape")
+                         "with this checkout's at the protocol's shape; its "
+                         "farm in turns with this checkout's in [farm "
+                         "pipe]")
+    ap.add_argument("--farm-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.farm_worker:  # [farm pipe]'s runs of a checkout
+        return farm_worker(args.farm_worker)
     try:
         import torch
     except ImportError:
@@ -5238,6 +5635,7 @@ def main() -> int:
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])
         k5 = hold_swords(*main_inputs, kept)
+        phase_spec(card_name())
         k1 = phase_k1_check(kept)
         time_k1_turns(kept, k1)
         hold_routes("257^3 bf16", held["257"],
@@ -5262,7 +5660,7 @@ def main() -> int:
         k6_counts = phase_eval_farm(gt_mesh)
         torch.cuda.empty_cache()
         smi = card_name()
-        phase_farm_pipe(smi)
+        phase_farm_pipe(smi, args.parent)
         phase_closed_loop(smi)
         phase_rehearsal(smi)
         torch.cuda.empty_cache()

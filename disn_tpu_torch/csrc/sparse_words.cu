@@ -22,6 +22,12 @@
 //     own value and coarse lerp differ in sign while a "-1" neighbour that
 //     reads them is not active.
 //
+// The count of valid cells comes by value, or from a 0-d int32 on the card
+// (count_dev), which every block reads and clamps to [0, nk]: then no
+// launch depends on it, so a caller can queue the step behind the work
+// that computes the count without waiting for it (the speculative
+// dispatch decodes a padded bucket of cells and passes the true count).
+//
 // The whole step is one host call, sparse_words_step, on the caller's
 // stream: a memset of own_tbl to -1; the own-slot scatter, which also zeroes
 // the guard; then one grid of two kinds of blocks. Words blocks take a cell
@@ -91,20 +97,27 @@ __device__ __forceinline__ float coarse_lerp(const float* cv, int tx, int ty,
   return lerp1(ay[0], ay[1], wx);
 }
 
+// the valid cells: *count_dev clamped to [0, nk], or `count` without it
+__device__ __forceinline__ int live_count(const int* count_dev, int count,
+                                          int nk) {
+  return count_dev ? min(max(*count_dev, 0), nk) : count;
+}
+
 // adds the warp's count of `flag` to *guard; every lane of the warp calls it
 __device__ __forceinline__ void warp_count(bool flag, int* guard) {
   const int n = __popc(__ballot_sync(0xffffffffu, flag));
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(guard, n);
 }
 
-// own_tbl[cell_ids[i]] = i for the first `count` cells (own_tbl is -1
-// before); zeroes the guard for the grid that follows
-__global__ void own_scatter(const int* __restrict__ cell_ids, int count,
-                            int* __restrict__ own_tbl,
+// own_tbl[cell_ids[i]] = i for the valid cells (own_tbl is -1 before);
+// zeroes the guard for the grid that follows
+__global__ void own_scatter(const int* __restrict__ cell_ids,
+                            const int* __restrict__ count_dev, int count,
+                            int nk, int* __restrict__ own_tbl,
                             int* __restrict__ guard) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i == 0) *guard = 0;
-  if (i < count) own_tbl[cell_ids[i]] = i;
+  if (i < live_count(count_dev, count, nk)) own_tbl[cell_ids[i]] = i;
 }
 
 // A zero block: block ids [base, base + ZERO_IDS) of the (c+1)^3 grid.
@@ -197,7 +210,8 @@ __device__ __forceinline__ bool lane_bad(const float* cv, unsigned cov,
 
 __global__ void __launch_bounds__(THREADS)
 sparse_words_grid(const float* __restrict__ rows,
-                  const int* __restrict__ cell_ids, int nk, int count,
+                  const int* __restrict__ cell_ids, int nk,
+                  const int* __restrict__ count_dev, int count_arg,
                   const float* __restrict__ vol_c,
                   const int* __restrict__ own_tbl, int c, float iso, int u8,
                   int word_blocks, int* __restrict__ words,
@@ -214,6 +228,7 @@ sparse_words_grid(const float* __restrict__ rows,
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cell = blockIdx.x * CELLS + w;
   if (cell >= nk) return;  // the whole warp
+  const int count = live_count(count_dev, count_arg, nk);
   const bool valid = cell < count;
   const int gid = valid ? cell_ids[cell] : 0;
   const int cz = gid / (c * c), cy = (gid / c) % c, cx = gid % c;
@@ -281,12 +296,15 @@ sparse_words_grid(const float* __restrict__ rows,
 }  // namespace
 
 // One K5 step on `stream`. rows [nk*64] f32, cell_ids [nk] i32 (the first
-// `count` valid: distinct cells of [0, c^3)), vol_c [c+1]^3 f32; outputs
+// `count` valid: distinct cells of [0, c^3); with count_dev not null, the
+// first *count_dev clamped to [0, nk], read on the card), vol_c [c+1]^3
+// f32; outputs
 // words [2|4, nk*64] i32, bits [(c+1)^3, 2] i32, cand [(c+1)^3] u8,
 // own_tbl [c^3] i32 and guard [1] i32, allocated by the caller and all
 // written here. Returns the first CUDA error code (0 on success).
 extern "C" int sparse_words_step(const float* rows, const int* cell_ids,
-                                 int nk, int count, const float* vol_c,
+                                 int nk, int count, const int* count_dev,
+                                 const float* vol_c,
                                  int c, float iso, int u8, int* words,
                                  int* bits, uint8_t* cand, int* own_tbl,
                                  int* guard, cudaStream_t stream) {
@@ -295,15 +313,16 @@ extern "C" int sparse_words_step(const float* rows, const int* cell_ids,
   cudaError_t err =
       cudaMemsetAsync(own_tbl, 0xFF, c3 * sizeof(int), stream);
   if (err) return (int)err;
-  const int scatter_blocks = count > 0 ? (count + THREADS - 1) / THREADS : 1;
-  own_scatter<<<scatter_blocks, THREADS, 0, stream>>>(cell_ids, count,
-                                                      own_tbl, guard);
+  const int span = count_dev ? nk : count;  // the most cells that count
+  const int scatter_blocks = span > 0 ? (span + THREADS - 1) / THREADS : 1;
+  own_scatter<<<scatter_blocks, THREADS, 0, stream>>>(
+      cell_ids, count_dev, count, nk, own_tbl, guard);
   err = cudaGetLastError();
   if (err) return (int)err;
   const int word_blocks = (nk + CELLS - 1) / CELLS;
   const int zero_blocks = (int)((b3 + ZERO_IDS - 1) / ZERO_IDS);
   sparse_words_grid<<<word_blocks + zero_blocks, THREADS, 0, stream>>>(
-      rows, cell_ids, nk, count, vol_c, own_tbl, c, iso, u8, word_blocks,
-      words, bits, cand, guard);
+      rows, cell_ids, nk, count_dev, count, vol_c, own_tbl, c, iso, u8,
+      word_blocks, words, bits, cand, guard);
   return (int)cudaGetLastError();
 }

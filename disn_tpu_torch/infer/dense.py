@@ -250,15 +250,32 @@ def dense_volume(params: Params, endpoints: dict, embedding, trans_mat,
     return vals.float().reshape(r, r, r)
 
 
+def _upload(a, dev: torch.device, dtype=None) -> torch.Tensor:
+    """A host array or a tensor -> a tensor on `dev` (cast to `dtype`). A
+    host array bound for a card is copied into a fresh page-locked buffer
+    and from there without blocking (the port of the JAX package's
+    _put_small): the calling thread does not wait for the work queued on
+    the card, the caller's array may change as soon as this returns, and
+    the pinned allocator keeps the buffer until its copy has run."""
+    t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if dev.type != "cuda" or t.device.type != "cpu":
+        return t.to(dev)
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    buf.copy_(t)
+    return buf.to(dev, non_blocking=True)
+
+
 def as_inputs(img, trans_mat, sdf_params, dev: torch.device):
     """Host or device inputs -> (img [1,H,W,C], trans [4,3] f32, sdf_params
-    [6] f32) on `dev`. u8 images stay u8 (normalised by disn.encode)."""
-    img = torch.as_tensor(np.asarray(img) if not torch.is_tensor(img)
-                          else img).to(dev)
+    [6] f32) on `dev`, with nothing waiting for the card (_upload). u8
+    images stay u8 (normalised by disn.encode)."""
+    img = _upload(img, dev)
     if img.dim() == 3:
         img = img[None]
-    trans = torch.as_tensor(trans_mat, dtype=torch.float32).to(dev)
-    sdfp = torch.as_tensor(sdf_params, dtype=torch.float32).to(dev)
+    trans = _upload(trans_mat, dev, torch.float32)
+    sdfp = _upload(sdf_params, dev, torch.float32)
     return img, trans.contiguous(), sdfp.contiguous()
 
 

@@ -11,8 +11,14 @@ the owned-edge extractor builds the welded mesh on the device, so one copy
 brings it to the host; the dense paths scan the whole volume for that
 extractor. image_to_mesh is _fused_dispatch (all device work and copies)
 followed by _fused_collect (the host half, a closure that touches no
-device). The JAX package's remote-link machinery (speculative buckets,
-optimistic background assembly, chunked fetch streams) is not ported.
+device). On the sparse-words flow the dispatch is speculative, as the
+JAX package's: once a first image of a (cfg, iso) has seeded _SPEC_CACHE
+with the block and record buckets it needed, later images queue their
+whole chain at the predicted buckets without waiting for the card, and
+_fused_collect reads one flags vector and re-runs only a stage whose
+bucket fell short. The rest of the JAX package's remote-link machinery
+(optimistic background assembly, chunked fetch streams, its block
+assembler) is not ported.
 
 ``reconstruct_split`` runs every (category, object, view) of a split into
 the reference's output tree as the JAX package's farm does: a reader
@@ -35,9 +41,10 @@ net's, a batch of views a forward (`train-cam --mode create`, whose tree
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Queue
 from threading import Event, Thread
@@ -135,39 +142,105 @@ def volume_to_mesh(vol: torch.Tensor, sdf_params, iso: float = 0.0,
     return verts, faces
 
 
-def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
-                    cfg: Config, iso: float, sparse: bool = True,
-                    device: str | torch.device | None = None,
-                    stats: dict | None = None, join: bool = True) -> dict:
-    """The device half of image_to_mesh (named after the JAX package's
-    _fused_dispatch): encode, prep, phase_a, phase_b, the scan and the
-    extraction's device work and copies, all on the calling thread, with
-    image_to_mesh's route choice, counts, guards and _SWORDS_SKIP rule.
-    Returns the context _fused_collect finishes: the extraction's closure
-    (host work only: it holds no CUDA tensor and issues no device
-    operation) and what `stats` needs. join=False makes the record route's
-    final copy non-blocking (see marching.extract_mesh_records_deferred),
-    so the calling thread moves on before it lands; the volume flow's
-    routes copy the mesh here in either case.
+# The speculative bucket dispatch (port of disn_tpu/infer/pipeline.py
+# :87-170 for the sparse-words flow). Per (cfg, iso) the buckets the last
+# images needed: (n_blocks, n_iter, nv, low_streak, nvc). The fine pass's
+# block bucket and the record pass's batch count depend on the image, but
+# a bucket that is too large is always sound (the padding is masked
+# against the counts on the card), so with a prediction the whole chain
+# is queued without waiting for a count, and _fused_collect reads the
+# counts once and re-runs only a stage whose bucket fell short.
+# Predictions ratchet up at once (a short bucket costs a re-run) and
+# decay only after _SHRINK_STREAK smaller images in a row (a long one
+# costs padded work). nvc, the JAX package's per-chunk vertex counts for
+# its chunked record streams, stays None: the port has one record stream.
+_SPEC_CACHE: dict = {}
+_SHRINK_STREAK = 12
+SPEC_BLOCK = 32768  # points of a fine-pass block on the JAX fast path
+SPEC_BATCH = 4096   # record slots a batch on the JAX fast path
+# how each speculative image ended, by kind (see _fused_collect)
+spec_counts: Counter = Counter()
 
-    The port's device work syncs where the JAX package's speculative
-    dispatch does not (active-cell counts, the guards), so this returns
-    once the device work up to the final copy is done; what the split
-    moves off the calling thread is the host assembly."""
-    dev = device_mod.resolve(device)
-    scan = vol = None
-    if sparse and _sparse_eligible(cfg):
-        key = (cfg, float(iso))
-        words = (cfg.sparse_words and key not in _SWORDS_SKIP
-                 and sparse_mod.words_eligible(cfg))
-        vol, scan = sparse_mod.sparse_volume(
-            params, img, trans_mat, sdf_params, cfg, device=dev,
-            stats=stats, scan_iso=iso, words=words)
-        if words and vol is not None and scan is not None:
-            _SWORDS_SKIP.add(key)
-    else:
-        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
-                             device=dev, sparse=False)
+
+def _merge_nvc(nvc_p, nvc):
+    """Elementwise-ratcheted per-chunk vertex counts; the chunking (n_iter,
+    batch, bounds) must match, else the newest stands."""
+    if nvc_p is None or nvc is None or nvc_p[:3] != nvc[:3]:
+        return nvc
+    return (*nvc[:3], tuple(max(a, b) for a, b in zip(nvc_p[3], nvc[3])))
+
+
+def _update_pred(key, nb: int, ni: int, nv: int | None, nvc=None) -> None:
+    """Fold this image's exact-needed buckets into the prediction for
+    `key`: upward at once, downward after _SHRINK_STREAK smaller images."""
+    prev = _SPEC_CACHE.get(key)
+    if prev is None:
+        _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+        return
+    nb_p, ni_p, nv_p, streak, nvc_p = prev
+    nb_n, ni_n = max(nb, nb_p), max(ni, ni_p)
+    nv_n = nv if (nv_p is None or nv is None) else max(nv, nv_p)
+    nvc_n = _merge_nvc(nvc_p, nvc)
+    if (nb_n, ni_n, nv_n, nvc_n) != (nb, ni, nv, nvc):
+        if streak + 1 >= _SHRINK_STREAK:
+            _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+            return
+        _SPEC_CACHE[key] = (nb_n, ni_n, nv_n, streak + 1, nvc_n)
+        return
+    _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+
+
+def _spec_sizes(cfg: Config) -> dict:
+    """The fine pass's cells a block, at most max_blocks of them, and the
+    cell cap: disn_tpu/infer/sparse.py _sparse_parts at SPEC_BLOCK points
+    a block, with the port's cap (sparse.cell_cap, the dense fallback's
+    threshold on every route; the same at the default Config and wherever
+    cfg.cell_cap_frac of the coarse cells is at most 1,024 or a multiple
+    of 1,024) and as many blocks as cover it."""
+    cap0 = max(256, int((cfg.sdf_res // sparse_mod.STRIDE) ** 3
+                        * cfg.cell_cap_frac))
+    k = sparse_mod.STRIDE ** 3
+    cpb = max(k, min(SPEC_BLOCK, cap0 * k) // k * k) // k
+    cap = sparse_mod.cell_cap(cfg)
+    return dict(cells_per_block=cpb, max_blocks=-(-cap // cpb),
+                cell_cap=cap)
+
+
+def _fused_bcap(n_blocks: int, sizes: dict) -> int:
+    """The compaction's candidate-block cap at a block bucket: the bucket's
+    cells plus a margin for the blocks beside them."""
+    n_kcells = n_blocks * sizes["cells_per_block"]
+    return -(-(n_kcells + max(1024, n_kcells // 16)) // 256) * 256
+
+
+def _exact_blocks(c: int, sizes: dict) -> int:
+    return min(sizes["max_blocks"], max(1, -(-c // sizes["cells_per_block"])))
+
+
+def _needed_blocks(c: int, sizes: dict) -> int:
+    """The block bucket for c active cells (eighth-power-of-two steps)."""
+    return min(sizes["max_blocks"], marching._ebucket(_exact_blocks(c,
+                                                                    sizes)))
+
+
+def _ids_len(n_blocks: int, sizes: dict) -> int:
+    """Slots of the capped compaction's id buffer at a block bucket."""
+    return marching._b2cap(_fused_bcap(n_blocks, sizes)) * marching.LANES
+
+
+def _host_box(sdf_params) -> np.ndarray:
+    """A copy of sdf_params as the host's f32 box (from a card tensor, a
+    copy that waits for the card)."""
+    if torch.is_tensor(sdf_params):
+        sdf_params = sdf_params.detach().cpu()
+    return np.array(sdf_params, np.float32).reshape(-1)
+
+
+def _extraction(vol, scan, sdf_params, iso: float, dev: torch.device,
+                stats: dict | None) -> dict:
+    """The volume flow's and the dense paths' extraction on `vol`: route
+    tets without a scan, else owned_ids, or owned_scan when the scan's
+    guard fired. Returns _fused_collect's context."""
     t0 = None
     if stats is not None:  # extraction_ms: from here to the closure's end
         if dev.type == "cuda":
@@ -177,12 +250,6 @@ def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
         route = "tets"
         fin = marching.extract_mesh_owned_deferred(vol, sdf_params, iso=iso,
                                                    device=vol.device)
-    elif vol is None:
-        route = "records_sparse"
-        words_d, ids, n_cells, guard, blk = scan
-        fin = marching.extract_mesh_records_deferred_sparse(
-            words_d, cfg.grid_resolution, sdf_params, ids, n_cells, blk,
-            join=join, stats=stats)
     else:
         ids, n_cells, guard, _ = scan
         if guard == 0:
@@ -200,12 +267,266 @@ def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
     return {"fin": fin, "stats": stats, "t0": t0}
 
 
+def _records_ctx(ctx: dict, words, sids, n: int, blk) -> dict:
+    """The record route over the sparse words (route records_sparse) on
+    the first n slots of `sids`."""
+    stats, dev = ctx["stats"], ctx["dev"]
+    t0 = None
+    if stats is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        stats.update(route="records_sparse", fine_cells=n, guard=0)
+    fin = marching.extract_mesh_records_deferred_sparse(
+        words, ctx["cfg"].grid_resolution, ctx["box"], sids[:n], n, blk,
+        join=ctx["join"], stats=stats)
+    return {"fin": fin, "stats": stats, "t0": t0}
+
+
+def _volume_ctx(ctx: dict, count: int) -> dict:
+    """The words flow's guard tripped: pin (cfg, iso) to the volume flow
+    (_SWORDS_SKIP) and run this image through it from the same phase_a
+    outputs (phase_b_mesh on the `count` active cells, then the owned-edge
+    extraction)."""
+    _SWORDS_SKIP.add(ctx["key"])
+    embedding, endpoints, vol_c, cell_ids, _ = ctx["pa"]
+    vol, *scan = sparse_mod.phase_b_mesh(
+        ctx["params"], endpoints, vol_c, cell_ids[:count], ctx["trans"],
+        ctx["sdfp"], ctx["cfg"], ctx["iso"], ctx["stats"],
+        embedding=embedding)
+    return _extraction(vol, tuple(scan), ctx["sdf_params"], ctx["iso"],
+                       ctx["dev"], ctx["stats"])
+
+
+def _dense_fallback(ctx: dict) -> dict:
+    """More active cells than the cap: the exact dense volume from the same
+    phase_a outputs, through the owned-edge extractor (route tets)."""
+    stats, dev = ctx["stats"], ctx["dev"]
+    embedding, endpoints = ctx["pa"][:2]
+    with device_mod.stage(stats, "dense_fallback_ms", dev):
+        vol = dense_mod.dense_volume(
+            ctx["params"], endpoints, embedding, ctx["trans"], ctx["sdfp"],
+            ctx["cfg"], sparse_mod._folds(ctx["cfg"])[0])
+    return _extraction(vol, None, ctx["sdf_params"], ctx["iso"], dev, stats)
+
+
+def _words_exact(ctx: dict, count: int, seed: bool) -> dict:
+    """The words flow synchronously on exactly the `count` active cells
+    (the flow before the speculation): K1, K5, the uncapped compaction,
+    then the record route, or the volume flow when the guard trips. With
+    `seed`, the prediction for (cfg, iso) is seeded from the counts."""
+    stats, cfg, sizes = ctx["stats"], ctx["cfg"], ctx["sizes"]
+    _, endpoints, vol_c, cell_ids, _ = ctx["pa"]
+    words, sids, n, guard, blk = sparse_mod.phase_b_mesh_sparse(
+        ctx["params"], endpoints, vol_c, cell_ids[:count], ctx["trans"],
+        ctx["sdfp"], cfg, ctx["iso"], stats)
+    if stats is not None:
+        stats["swords_guard"] = guard
+    if seed:
+        nb = _needed_blocks(count, sizes)
+        _update_pred(ctx["key"], nb, marching.records_n_iter(
+            _ids_len(nb, sizes), n, SPEC_BATCH)[0], None)
+    if guard:
+        return _volume_ctx(ctx, count)
+    return _records_ctx(ctx, words, sids, n, blk)
+
+
+def _words_dispatch(params: Params, img, trans_mat, sdf_params, cfg: Config,
+                    iso: float, dev: torch.device, stats: dict | None,
+                    join: bool) -> dict:
+    """The sparse-words flow's device half: phase_a with the fixed-size
+    cull; then, with a prediction for (cfg, iso), the whole chain at its
+    buckets with no host synchronisation (K1 over the predicted block
+    bucket, K5 with the count on the card, the capped compaction, the
+    record pass at the predicted batch count, and non-blocking copies of
+    the records, the block rows and the flags into page-locked buffers,
+    then one event); without one, the synchronous flow (_words_exact),
+    which seeds the prediction."""
+    key = (cfg, float(iso))
+    sizes = _spec_sizes(cfg)
+    params = device_mod.tree_to(params, dev)
+    img_t, trans, sdfp = dense_mod.as_inputs(img, trans_mat, sdf_params, dev)
+    pa = sparse_mod.phase_a(
+        params, img_t, trans, sdfp, cfg, stats,
+        max_cells=sizes["max_blocks"] * sizes["cells_per_block"])
+    ctx = dict(params=params, trans=trans, sdfp=sdfp, sdf_params=sdf_params,
+               box=_host_box(sdf_params), cfg=cfg, iso=float(iso), key=key,
+               sizes=sizes, pa=pa, stats=stats, join=join, dev=dev)
+    pred = _SPEC_CACHE.get(key)
+    if pred is None:
+        count = int(pa[4])
+        if stats is not None:
+            stats.update(active_cells=count, spec="seed",
+                         dense_fallback=count > sizes["cell_cap"])
+        spec_counts["seed"] += 1
+        if count > sizes["cell_cap"]:
+            return _dense_fallback(ctx)
+        return _words_exact(ctx, count, seed=True)
+    nb_p, ni_p = min(pred[0], sizes["max_blocks"]), pred[1]
+    _, endpoints, vol_c, cell_ids, count = pa
+    # the chain's stage times go to stats only if its result is used
+    spec_stats = None if stats is None else {}
+    words, sids, n, gov, blk, guard = sparse_mod.phase_b_mesh_sparse(
+        params, endpoints, vol_c, cell_ids, trans, sdfp, cfg, float(iso),
+        spec_stats, count=count, n_kcells=nb_p * sizes["cells_per_block"],
+        bcap=_fused_bcap(nb_p, sizes))
+    ni, batch = marching.records_n_iter(sids.shape[0], ni_p * SPEC_BATCH,
+                                        SPEC_BATCH)
+    t0 = None
+    if stats is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+    with device_mod.stage(spec_stats, "extract_ms", dev):
+        imask, tq, flags = marching.records_masked_sparse(
+            words, sids, n, cfg.grid_resolution, ni, batch,
+            scalars=(count, 0, 0, n, gov))
+    with device_mod.stage(spec_stats, "fetch_ms", dev):
+        host, done = marching._to_host((imask, tq, blk, flags), join=False)
+    ctx.update(pred=(nb_p, ni, batch), chain=(words, sids, n, blk, guard),
+               host=host, done=done, t0=t0, spec_stats=spec_stats)
+    return ctx
+
+
+def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
+                    cfg: Config, iso: float, sparse: bool = True,
+                    device: str | torch.device | None = None,
+                    stats: dict | None = None, join: bool = True) -> dict:
+    """The device half of image_to_mesh (port of the JAX package's
+    _fused_dispatch): encode, prep, phase_a, phase_b, the scan and the
+    extraction's device work and copies, all on the calling thread, with
+    image_to_mesh's route choice and _SWORDS_SKIP rule. Returns the
+    context _fused_collect finishes.
+
+    On the sparse-words flow with a prediction in _SPEC_CACHE for (cfg,
+    iso), nothing here waits for the card (uploads through page-locked
+    buffers, the fixed-shape chain, copies into page-locked buffers and
+    one event; _words_dispatch), so a farm can dispatch image k+1 while
+    image k's work is still queued. With `stats` the stages are
+    synchronised as they are timed. Every other route (no prediction yet,
+    the volume flow, the dense paths) runs synchronously here, and the
+    context holds the extraction's closure (host work only: it holds no
+    CUDA tensor and issues no device operation). join=False makes the
+    record route's final copy non-blocking there too (see
+    marching.extract_mesh_records_deferred)."""
+    dev = device_mod.resolve(device)
+    if (sparse and _sparse_eligible(cfg) and cfg.sparse_words
+            and (cfg, float(iso)) not in _SWORDS_SKIP
+            and sparse_mod.words_eligible(cfg)):
+        return _words_dispatch(params, img, trans_mat, sdf_params, cfg, iso,
+                               dev, stats, join)
+    scan = None
+    if sparse and _sparse_eligible(cfg):
+        vol, scan = sparse_mod.sparse_volume(
+            params, img, trans_mat, sdf_params, cfg, device=dev,
+            stats=stats, scan_iso=iso)
+    else:
+        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
+                             device=dev, sparse=False)
+    return _extraction(vol, scan, sdf_params, iso, dev, stats)
+
+
+def _spec_resolve(ctx: dict) -> dict | None:
+    """Validate a speculative chain (port of the JAX _fused_collect's
+    checks): wait once for its copies, read the flags [count, esc_a, esc_b,
+    nc, gov, nv] (the escapes always 0: the port's K1 has none), update the
+    prediction, and end in one of these kinds:
+
+    - ``hit``: the block bucket covered the active cells, the records
+      covered nc and gov is 0: the closure assembles from the copied
+      buffers;
+    - ``records``: the record bucket fell short: the record pass again at
+      the exact count from the chain's words;
+    - ``blocks``: the block bucket fell short: phase_b, K5 and the
+      compaction again at the needed bucket from phase_a's outputs (still
+      on the card), the prediction re-seeded from that run, then the
+      record pass at the exact count;
+    - ``guard``: the words flow's guard tripped: _volume_ctx;
+    - ``overflow``: gov came from the capped compaction alone (guard 0):
+      the words flow again on exactly the active cells (_words_exact);
+    - ``cap``: more active cells than the cap: returns None (the caller
+      takes _dense_fallback).
+
+    Each kind gives the synchronous flow's mesh bit for bit; it is counted
+    in spec_counts and given as stats["spec"]. Runs on the calling thread;
+    every re-run is on the card."""
+    stats, sizes, key = ctx["stats"], ctx["sizes"], ctx["key"]
+    if ctx["done"] is not None:
+        ctx["done"].synchronize()
+    imask, tq, rows, flags = ctx["host"]
+    c, _, _, nc, gov, nv = (int(x) for x in flags)
+    nb_p, ni, batch = ctx["pred"]
+    words, sids, _, blk, guard = ctx["chain"]
+
+    def ends(kind: str, drop: tuple = ()) -> None:
+        spec_counts[kind] += 1
+        if stats is not None:
+            stats["spec"] = kind
+            for k in drop:  # the chain's times of stages run again
+                stats.pop(k, None)
+
+    if stats is not None:
+        stats.update(active_cells=c, dense_fallback=c > sizes["cell_cap"])
+    if c > sizes["cell_cap"]:
+        ends("cap")
+        return None
+    covered = ni * batch >= nc
+    _update_pred(key, _needed_blocks(c, sizes), marching.records_n_iter(
+        sids.shape[0], nc, SPEC_BATCH)[0], nv if covered else None)
+    if nb_p >= _exact_blocks(c, sizes):
+        if stats is not None:
+            stats.update(ctx["spec_stats"], swords_guard=int(guard))
+        if gov <= 0 and covered:
+            ends("hit", () if nc else ("extract_ms", "fetch_ms"))
+            if stats is not None:
+                stats.update(route="records_sparse", fine_cells=nc, guard=0)
+            fin = marching._empty_mesh if nc == 0 else functools.partial(
+                marching.assemble_blocks, imask, tq, rows, nc,
+                ctx["cfg"].grid_resolution, ctx["box"], stats)
+            return {"fin": fin, "stats": stats, "t0": ctx["t0"]}
+        if gov <= 0:
+            ends("records", ("extract_ms", "fetch_ms"))
+            return _records_ctx(ctx, words, sids, nc, blk)
+    else:
+        nb = _needed_blocks(c, sizes)
+        _, endpoints, vol_c, cell_ids, count = ctx["pa"]
+        words, sids, n_d, gov_d, blk, guard = sparse_mod.phase_b_mesh_sparse(
+            ctx["params"], endpoints, vol_c, cell_ids, ctx["trans"],
+            ctx["sdfp"], ctx["cfg"], ctx["iso"], stats, count=count,
+            n_kcells=nb * sizes["cells_per_block"],
+            bcap=_fused_bcap(nb, sizes))
+        nc, gov = int(n_d), int(gov_d)
+        _update_pred(key, nb, marching.records_n_iter(
+            sids.shape[0], nc, SPEC_BATCH)[0], None)
+        if stats is not None:
+            stats["swords_guard"] = int(guard)
+        if gov <= 0:
+            ends("blocks")
+            return _records_ctx(ctx, words, sids, nc, blk)
+    if int(guard) == 0:
+        ends("overflow", ("phase_b_ms", "scan_ms", "extract_ms", "fetch_ms"))
+        return _words_exact(ctx, c, seed=False)
+    ends("guard", ("extract_ms", "fetch_ms"))
+    return _volume_ctx(ctx, c)
+
+
 def _fused_collect(ctx: dict, defer: bool = False, clean: bool = False):
-    """The host half of image_to_mesh (named after the JAX package's
-    _fused_collect): the extraction's closure, then clean_small_parts
+    """The host half of image_to_mesh (port of the JAX package's
+    _fused_collect): after _spec_resolve on a speculative chain (the one
+    wait, any re-run), the extraction's closure, then clean_small_parts
     when `clean`. defer=True returns it as a zero-argument closure for a
     writer pool (it touches no device); otherwise runs it and returns
-    (verts, faces)."""
+    (verts, faces). A speculative context is left holding that host half
+    alone (no CUDA tensor). Returns None when the active cells overflowed
+    the cap on a speculative chain: the caller then takes
+    _dense_fallback(ctx)."""
+    if "fin" not in ctx:
+        host = _spec_resolve(ctx)
+        if host is None:
+            return None
+        # the context keeps the host half only: its device tensors go
+        ctx.clear()
+        ctx.update(host)
     fin, stats, t0 = ctx["fin"], ctx["stats"], ctx["t0"]
 
     def assemble() -> tuple[np.ndarray, np.ndarray]:
@@ -218,6 +539,15 @@ def _fused_collect(ctx: dict, defer: bool = False, clean: bool = False):
         return verts, faces
 
     return assemble if defer else assemble()
+
+
+def _collect_or_dense(ctx: dict, defer: bool = False, clean: bool = False):
+    """_fused_collect, and on a cap overflow the dense route from the same
+    phase_a outputs."""
+    out = _fused_collect(ctx, defer=defer, clean=clean)
+    if out is None:
+        out = _fused_collect(_dense_fallback(ctx), defer=defer, clean=clean)
+    return out
 
 
 def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
@@ -233,21 +563,26 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     a grid that words_eligible allows, the sparse path takes the
     sparse-words flow: the fine rows go to K5 and the record route
     assembles the mesh on the host (route ``records_sparse``; vertices
-    quantised to the cell over 510, or 131070 on grids under 129). When
-    its guard trips (active cells on the + boundary, a band violation) the
-    image goes through the volume flow from the same coarse pass, and
-    (cfg, iso) keeps to the volume flow from then on, as the JAX package's
-    _SWORDS_SKIP does. The volume flow scans the fine cells inside the
-    active coarse cells and extracts the welded mesh on the device (route
-    ``owned_ids``); if the scan's guard finds a sign change outside those
-    cells, the whole volume is scanned instead (``owned_scan``). When the
-    active cells overflow the cap, the config is not eligible for the
-    sparse path (_sparse_eligible: binary heads without
-    cfg.binary_sparse, THREEDCNN, other grids), or ``sparse`` is false,
-    the dense volume (predict_volume; THREEDCNN's fixed 65^3 one) goes
-    through volume_to_mesh (``tets``). Every variant and both sampling
-    modes decode through infer/fused.kernel_enabled's choice: the kernel
-    for twostream + tf1 on its grids, the plain decode otherwise.
+    quantised to the cell over 510, or 131070 on grids under 129). The
+    first image of a (cfg, iso) runs it synchronously and seeds
+    _SPEC_CACHE; later ones run it speculatively at the predicted buckets
+    (_fused_dispatch), re-running a stage whose bucket fell short; every
+    way gives the same mesh, bit for bit, and clearing _SPEC_CACHE gives
+    the synchronous flow. When its guard trips (active cells on the +
+    boundary, a band violation) the image goes through the volume flow
+    from the same coarse pass, and (cfg, iso) keeps to the volume flow
+    from then on, as the JAX package's _SWORDS_SKIP does. The volume flow
+    scans the fine cells inside the active coarse cells and extracts the
+    welded mesh on the device (route ``owned_ids``); if the scan's guard
+    finds a sign change outside those cells, the whole volume is scanned
+    instead (``owned_scan``). When the active cells overflow the cap, the
+    config is not eligible for the sparse path (_sparse_eligible: binary
+    heads without cfg.binary_sparse, THREEDCNN, other grids), or
+    ``sparse`` is false, the dense volume (predict_volume; THREEDCNN's
+    fixed 65^3 one) goes through volume_to_mesh (``tets``). Every variant
+    and both sampling modes decode through infer/fused.kernel_enabled's
+    choice: the kernel for twostream + tf1 on its grids, the plain decode
+    otherwise.
 
     `stats`, when given, receives per-stage wall times in ms (each stage
     synchronised: encode, prep, phase_a, phase_b and scan or
@@ -255,8 +590,11 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     volume and the scan, with its parts extract on the device and fetch to
     the host on the owned and records_sparse routes, and assemble on the
     host on records_sparse), ``active_cells``, ``route`` with, on the
-    sparse path, ``fine_cells`` and ``guard``, and ``swords_guard`` when
-    the sparse-words flow ran.
+    sparse path, ``fine_cells`` and ``guard``, and on the sparse-words
+    flow ``swords_guard`` and ``spec`` (``seed``, ``hit``, or the re-run
+    that _spec_resolve took: ``records``, ``blocks``, ``guard``,
+    ``overflow``, ``cap``). The stage times are those of the run whose
+    result is returned.
 
     The call is _fused_dispatch (the device half, with every copy) and
     _fused_collect (the host half); reconstruct_split runs the two apart."""
@@ -265,7 +603,7 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     iso = cfg.iso if iso is None else iso
     ctx = _fused_dispatch(params, img, trans_mat, sdf_params, cfg, iso,
                           sparse=sparse, device=device, stats=stats)
-    return _fused_collect(ctx, clean=clean)
+    return _collect_or_dense(ctx, clean=clean)
 
 
 def image_to_mesh_sharded(params: Params, img, trans_mat, cfg: Config, mesh,
@@ -481,7 +819,7 @@ def reconstruct_split(params: Params, cfg: Config, paths, listinfo,
     written = []
 
     def flush(ctx, out: str, tag: str) -> None:
-        assemble = _fused_collect(ctx, defer=True)
+        assemble = _collect_or_dense(ctx, defer=True)
 
         def write():
             codecs.write_obj(out, *assemble())

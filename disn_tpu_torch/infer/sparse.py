@@ -30,8 +30,14 @@ coarse grid upsampled with corners aligned, which keeps the signs.
   but THREEDCNN, in both sampling modes; binary heads through the sign
   cull, which the pipeline takes only with cfg.binary_sparse.
 
-PyTorch runs eagerly, so the fine pass decodes exactly `count` cells: no
-power-of-two buckets and no escape re-run (the kernel has no escapes).
+Run synchronously, the fine pass decodes exactly `count` cells (the
+count read once from the card). The speculative dispatch of
+infer/pipeline takes the fixed-shape forms instead (port of the JAX
+package's static shapes): phase_a(max_cells=) keeps the count on the card
+and the ids padded, and phase_b_mesh_sparse(count=, n_kcells=, bcap=)
+decodes a predicted bucket of blocks and compacts at a fixed cap, so that
+nothing waits for a count. There is no escape re-run in either: the
+kernel has no escapes.
 """
 from __future__ import annotations
 
@@ -80,9 +86,13 @@ def _corners(vol: torch.Tensor) -> torch.Tensor:
 
 
 def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor,
-                  mode: str = "band") -> tuple[torch.Tensor, int]:
+                  mode: str = "band", max_cells: int | None = None):
     """Ids (int32, ascending) of coarse cells that may hold the surface.
-    Returns (ids [count], count).
+    Returns (ids [count], count), or with `max_cells` (port of
+    disn_tpu/infer/sparse.py _active_cells, whose shapes are fixed) (ids
+    [max_cells] int32 padded with 0, count as an int32 0-d tensor on the
+    grid's device): then nothing waits for the card, and ids past
+    max_cells are dropped while count still counts them.
 
     mode 'band' (regression heads): some corner |v| < tau, or the corner
     signs disagree; sound for Lipschitz-1 distance-like fields.
@@ -104,8 +114,20 @@ def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor,
         active = (corners.abs().amin(0) < tau) | sign_change
     else:
         raise ValueError(f"mode must be 'band' or 'sign', got {mode!r}")
-    ids = torch.nonzero(active.reshape(-1))[:, 0]
-    return ids.int(), int(ids.shape[0])
+    active = active.reshape(-1)
+    cap = active.shape[0] if max_cells is None else max_cells
+    csum = torch.cumsum(active.int(), 0, dtype=torch.int32)
+    # each active cell to its rank, the others (and ranks past the cap) to
+    # the extra last slot, dropped
+    slot = torch.where(active & (csum <= cap), csum - 1, cap).long()
+    ids = torch.zeros(cap + 1, dtype=torch.int32, device=active.device)
+    ids = ids.scatter_(0, slot, torch.arange(active.shape[0],
+                                             dtype=torch.int32,
+                                             device=active.device))[:cap]
+    if max_cells is not None:
+        return ids, csum[-1]
+    count = int(csum[-1])
+    return ids[:count], count
 
 
 def _band_tau(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
@@ -181,10 +203,12 @@ def _folds(cfg: Config) -> tuple[str, bool, bool]:
 
 def phase_a(params: Params, img: torch.Tensor, trans_mat: torch.Tensor,
             sdf_params: torch.Tensor, cfg: Config,
-            stats: dict | None = None):
+            stats: dict | None = None, max_cells: int | None = None):
     """Encode + fold + coarse grid + cull ('sign' for binary heads, else
     'band'). Returns (embedding, endpoints, vol_c [rc,rc,rc] f32, cell_ids
-    [count] int32, count)."""
+    [count] int32, count); with `max_cells`, cell_ids [max_cells] padded
+    with 0 and count a 0-d int32 tensor on the card (_active_cells), so
+    that nothing here waits for the card."""
     dev = sdf_params.device
     fold, _, coarse_kernel = _folds(cfg)
     rc = cfg.sdf_res // STRIDE + 1
@@ -204,7 +228,8 @@ def phase_a(params: Params, img: torch.Tensor, trans_mat: torch.Tensor,
             ).float().reshape(rc, rc, rc)
         tau = _band_tau(vol_c, sdf_params, rc, cfg.band_factor, cfg)
         cell_ids, count = _active_cells(
-            vol_c, tau, mode="sign" if cfg.binary else "band")
+            vol_c, tau, mode="sign" if cfg.binary else "band",
+            max_cells=max_cells)
     return embedding, endpoints, vol_c, cell_ids, count
 
 
@@ -275,7 +300,10 @@ def words_eligible(cfg: Config) -> bool:
 def phase_b_mesh_sparse(params: Params, endpoints: dict, vol_c: torch.Tensor,
                         cell_ids: torch.Tensor, trans_mat: torch.Tensor,
                         sdf_params: torch.Tensor, cfg: Config, iso: float,
-                        stats: dict | None = None):
+                        stats: dict | None = None,
+                        count: torch.Tensor | None = None,
+                        n_kcells: int | None = None,
+                        bcap: int | None = None):
     """The sparse-words flow: K1 over the active cells, K5 on its rows, and
     the compaction, with no volume. Returns (words [2|4, n_cells*64] int32,
     sids [n] int32 sparse row ids, n, guard, blk [b,3] int32); blk and n
@@ -283,43 +311,58 @@ def phase_b_mesh_sparse(params: Params, endpoints: dict, vol_c: torch.Tensor,
     active cells on the + boundary layer, which the words' patch model
     leaves out; when it is not 0 the caller must take phase_b_mesh.
     `stats` receives ``phase_b_ms`` (K1 + K5) and ``scan_ms`` (the
-    compaction)."""
+    compaction).
+
+    With `count`, `n_kcells` and `bcap` the shapes are fixed and nothing
+    waits for the card (port of _phase_b_mesh_sparse_jit): cell_ids is
+    phase_a's padded list (max_cells) and count its 0-d count; K1 decodes
+    the first n_kcells cells (the predicted bucket, padding included), K5
+    takes min(count, n_kcells) on the card, the boundary cells are counted
+    over the whole list (slot < count), so that a bucket too small to cover
+    the active cells cannot hide one, and the compaction runs at bcap
+    (marching._compact_block_bits). Returns (words, sids [b2*64], n 0-d,
+    gov 0-d, blk [b2,3], guard 0-d), all on the card: gov is guard plus the
+    compaction's overflow."""
     dev = sdf_params.device
     fine_r = cfg.grid_resolution
     c = vol_c.shape[0] - 1
+    fixed = count is not None
     cells = cell_ids.int().contiguous()
+    kcells = cells[:n_kcells] if fixed else cells
     with device_mod.stage(stats, "phase_b_ms", dev):
         vals = fused.decode_cells(params, endpoints, trans_mat, sdf_params,
-                                  cells, cfg, fine_r=fine_r, coarse_c=c)
+                                  kcells, cfg, fine_r=fine_r, coarse_c=c)
         words, bits, cand, own_tbl, guard = sparse_words.sparse_cell_words(
-            vals.contiguous(), cells, cells.shape[0], vol_c.contiguous(),
-            R=fine_r, iso=iso)
+            vals.contiguous(), kcells,
+            count.clamp(max=n_kcells) if fixed else kcells.shape[0],
+            vol_c.contiguous(), R=fine_r, iso=iso)
     with device_mod.stage(stats, "scan_ms", dev):
         ids = cells.long()
-        n_boundary = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
-                      | (ids // (c * c) == c - 1)).sum()
+        edge = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
+                | (ids // (c * c) == c - 1))
+        if fixed:
+            edge = edge & (torch.arange(ids.shape[0], device=dev) < count)
+        guard = (guard + edge.sum()).int()
+        if fixed:
+            sids, n, gov, blk = marching._compact_block_bits(
+                bits, cand, fine_r, srow_tbl=own_tbl, bcap=bcap, guard=guard)
+            return words, sids, n, gov, blk, guard
         sids, n, blk = marching._compact_block_bits(bits, cand, fine_r,
                                                     srow_tbl=own_tbl)
-        guard = int(guard + n_boundary)
+        guard = int(guard)
     return words, sids, n, guard, blk
 
 
 def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
                   device: str | torch.device | None = None,
-                  stats: dict | None = None, scan_iso: float | None = None,
-                  words: bool = False):
+                  stats: dict | None = None, scan_iso: float | None = None):
     """Image -> ([R,R,R] f32 volume on `device`, scan) through the two-level
     sparse pass, or the exact dense path when the active cells overflow the
     cap (cell_cap). The band width and the cap come from cfg.band_factor
     and cfg.cell_cap_frac. With `scan_iso` the sparse pass ends in
     phase_b_mesh and scan is its (ids, n, guard, blk); otherwise, and after
-    the dense fallback, scan is None.
-
-    With `scan_iso` and `words` the sparse-words flow runs first
-    (phase_b_mesh_sparse; words_eligible must hold): when its guard is 0
-    the result is (None, (words, sids, n, 0, blk)) and no volume is made;
-    otherwise the image goes on through phase_b_mesh from the same phase_a
-    outputs. So a volume with a scan after `words` means its guard tripped.
+    the dense fallback, scan is None. (The sparse-words flow, which makes
+    no volume, runs from phase_a in infer/pipeline.)
 
     Binary heads take the sign cull (_active_cells mode 'sign'), a
     heuristic: a feature thinner than ~2 coarse cells that flips no
@@ -327,8 +370,7 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
     volume).
 
     `stats`, when given, receives per-stage wall times (``*_ms``, each
-    stage synchronised), ``active_cells`` and ``dense_fallback``, and after
-    the sparse-words flow ``swords_guard``."""
+    stage synchronised), ``active_cells`` and ``dense_fallback``."""
     if cfg.sdf_res % STRIDE:
         raise ValueError(f"stride {STRIDE} must divide sdf_res "
                          f"{cfg.sdf_res}")
@@ -349,13 +391,6 @@ def sparse_volume(params: Params, img, trans_mat, sdf_params, cfg: Config,
         with device_mod.stage(stats, "dense_fallback_ms", dev):
             return dense_mod.dense_volume(params, endpoints, embedding,
                                           trans, sdfp, cfg, fold), None
-    if scan_iso is not None and words:
-        out = phase_b_mesh_sparse(params, endpoints, vol_c, cell_ids, trans,
-                                  sdfp, cfg, float(scan_iso), stats)
-        if stats is not None:
-            stats["swords_guard"] = out[3]
-        if out[3] == 0:
-            return None, out
     if scan_iso is not None:
         vol, *scan = phase_b_mesh(params, endpoints, vol_c, cell_ids, trans,
                                   sdfp, cfg, float(scan_iso), stats,

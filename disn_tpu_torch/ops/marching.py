@@ -444,9 +444,16 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
     return ids, n_cells, guard, blk
 
 
+def _b2cap(bcap: int) -> int:
+    """Rows of the capped compaction's block buffer for a candidate-block
+    cap (the JAX package's rule: half the cap, whole 256s, at least 512)."""
+    return max(512, -(-(bcap // 2) // 256) * 256)
+
+
 def _compact_block_bits(bits: torch.Tensor, cand: torch.Tensor, E: int,
-                        srow_tbl: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, int, torch.Tensor]:
+                        srow_tbl: torch.Tensor | None = None,
+                        bcap: int | None = None,
+                        guard: torch.Tensor | None = None):
     """The tail both flows share (port of disn_tpu/ops/marching.py
     _compact_block_bits): the candidate blocks that hold a change bit, in
     block order, and their cells in bit order -> (ids [n] int32, n, blk
@@ -457,15 +464,35 @@ def _compact_block_bits(bits: torch.Tensor, cand: torch.Tensor, E: int,
     With it (the sparse-words flow: [c^3] coarse cell -> its row slot in
     the words arrays) they are sparse row ids slot*64 + bit, which address
     the words arrays; the blk rows are the same in both flows, and the host
-    rebuilds the cell ids from them."""
+    rebuilds the cell ids from them.
+
+    With `bcap` the shapes are fixed and nothing waits for the card: the
+    first b2 = _b2cap(bcap) blocks are kept, and the result is (ids
+    [b2*64] int32 padded with 0, n int32 0-d, g_over int32 0-d, blk [b2,3]
+    with zero rows (block 0, masks 0) past the block count); g_over is the
+    blocks past b2 plus `guard` (a 0-d tensor, or 0). Where g_over holds
+    no overflow, ids[:n], n and the rows with a mask equal the uncapped
+    call's."""
     bits = bits.contiguous()
     words = bits.view(torch.int64).reshape(-1)
-    bids = torch.nonzero(cand & (words != 0))[:, 0]
-    blk = torch.cat([bids.int()[:, None], bits[bids]], dim=1)
     B3 = -(-E // BLOCK)
-    bit = torch.arange(BLOCK ** 3, device=bits.device)
-    bi, li = torch.nonzero((words[bids][:, None] >> bit[None, :]) & 1,
-                           as_tuple=True)              # row-major: the order
+    dev = bits.device
+    bit = torch.arange(BLOCK ** 3, device=dev)
+    sel = cand & (words != 0)
+    if bcap is None:
+        bids = torch.nonzero(sel)[:, 0]
+        rbits = bits[bids]
+    else:
+        b2 = _b2cap(bcap)
+        bcs = torch.cumsum(sel.int(), 0, dtype=torch.int32)
+        b_count = bcs[-1]
+        slot = torch.where(sel & (bcs <= b2), bcs - 1, b2).long()
+        bids = torch.zeros(b2 + 1, dtype=torch.int64, device=dev).scatter_(
+            0, slot, torch.arange(B3 ** 3, device=dev))[:b2]
+        live = torch.arange(b2, device=dev) < b_count
+        rbits = bits[bids] * live[:, None]
+    blk = torch.cat([bids.int()[:, None], rbits], dim=1)
+    rwords = rbits.contiguous().view(torch.int64).reshape(-1)
     bz, by, bx = bids // (B3 * B3), (bids // B3) % B3, bids % B3
     if srow_tbl is None:
         base = ((bz * BLOCK) * E + by * BLOCK) * E + bx * BLOCK
@@ -479,8 +506,21 @@ def _compact_block_bits(bits: torch.Tensor, cand: torch.Tensor, E: int,
             + bx.clamp(max=c - 1)
         base = srow_tbl.long()[cid].clamp(min=0) * BLOCK ** 3
         loff = bit
-    ids = (base[bi] + loff[li]).int()
-    return ids, int(ids.shape[0]), blk
+    flags = (rwords[:, None] >> bit[None, :]) & 1
+    if bcap is None:
+        bi, li = torch.nonzero(flags, as_tuple=True)  # row-major: the order
+        ids = (base[bi] + loff[li]).int()
+        return ids, int(ids.shape[0]), blk
+    flat = flags.reshape(-1)                           # row-major: the order
+    cs = torch.cumsum(flat, 0)
+    cap = flat.shape[0]
+    eid = (base[:, None] + loff[None, :]).reshape(-1)
+    ids = torch.zeros(cap + 1, dtype=torch.int64, device=dev).scatter_(
+        0, torch.where(flat > 0, cs - 1, cap), eid)[:cap].int()
+    g_over = (b_count - b2).clamp(min=0)
+    if guard is not None:
+        g_over = g_over + guard
+    return ids, cs[-1].int(), g_over.int(), blk
 
 
 # ---------------------------------------------------------------------------
@@ -755,6 +795,29 @@ def _qbucket(n: int) -> int:
     return 2 * p
 
 
+def _ebucket(n: int) -> int:
+    """The JAX package's eighth-power-of-two bucket of a block count (the
+    fine pass's: every padded block is decoded)."""
+    p = 1
+    while p < max(n, 4):
+        p *= 2
+    p //= 2
+    for m in range(9, 17):
+        if n <= p * m // 8:
+            return p * m // 8
+    return 2 * p
+
+
+def records_n_iter(ids_len: int, n_cells: int, batch: int
+                   ) -> tuple[int, int]:
+    """(n_iter, fitted batch) of a record pass over the first n_cells slots
+    of an id buffer of ids_len (the JAX package's rule: n_iter batches,
+    quarter-power-of-two bucketed, at most the buffer)."""
+    batch = _fit_batch(ids_len, batch)
+    n_iter = min(_qbucket(max(1, -(-n_cells // batch))), ids_len // batch)
+    return n_iter, batch
+
+
 def sharded_records(volume: torch.Tensor, cell_ids: torch.Tensor,
                     n_cells: int, mesh, *, iso: float, n_iter: int,
                     batch: int = 8192
@@ -788,6 +851,32 @@ def _cross_bits(rec: torch.Tensor) -> torch.Tensor:
 def _count_cross(rec: torch.Tensor) -> int:
     """Total crossing edges (== vertex count) across all record slots."""
     return int(_cross_bits(rec).sum())
+
+
+def records_masked_sparse(words: torch.Tensor, sids: torch.Tensor,
+                          n_cells: torch.Tensor, R: int, n_iter: int,
+                          batch: int, scalars: tuple = ()
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The record pass over the sparse words at a predicted bucket (port
+    of _records_masked_split_sparse), with nothing waiting for the card:
+    the first n_iter x batch slots of `sids` gathered, those at or past
+    n_cells (a 0-d device tensor) zeroed. Returns (imask [S] uint8, tq [S,
+    D] in _extract_records' type, flags int32 [len(scalars) + 1]): the
+    scalars (0-d tensors or ints), then nv, the crossing edges (vertices)
+    of the live slots. On the live slots imask and tq equal
+    _records_from_words_sparse's."""
+    S = n_iter * batch
+    rec, tq = _records_from_words_sparse(words, sids[:S], R)
+    live = torch.arange(S, device=words.device) < n_cells
+    rec = rec * live
+    tq = tq * live[:, None].to(tq.dtype)
+    nv = _cross_bits(rec).sum()
+    flags = torch.stack([
+        s.reshape(()).int() if torch.is_tensor(s)
+        else torch.full((), int(s), dtype=torch.int32, device=words.device)
+        for s in (*scalars, nv)])
+    return (rec & 0xFF).to(torch.uint8), tq, flags
 
 
 def _compact_tq(rec: torch.Tensor, tq: torch.Tensor) -> torch.Tensor:
@@ -890,24 +979,38 @@ def _blocks_deferred(rec_d: torch.Tensor, tq_d: torch.Tensor,
             ((rec_d & 0xFF).to(torch.uint8), tq_d, blk), join)
 
     def assemble() -> tuple[np.ndarray, np.ndarray]:
-        from disn_tpu_torch import native
-
         if done is not None:
             done.synchronize()
-        with device_mod.stage(stats, "assemble_ms", torch.device("cpu")):
-            rec, tq16 = _host_records(imask, tq)
-            if _mask_cell_count(rows) != n_cells:
-                raise RuntimeError(
-                    f"block masks encode {_mask_cell_count(rows)} cells, "
-                    f"the scan counted {n_cells} (inconsistent record "
-                    f"streams)")
-            recs = native.derive_recs(rows, rec, R)
-            faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
-            verts = native.mesh_verts_blocks(rows, recs, tq16, n_cells, R,
-                                             bbox)
-        return verts, faces
+        return assemble_blocks(imask, tq, rows, n_cells, R, bbox, stats)
 
     return assemble
+
+
+def assemble_blocks(imask: np.ndarray, tq: np.ndarray, rows: np.ndarray,
+                    n_cells: int, R: int, bbox: np.ndarray,
+                    stats: dict | None = None
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The record route's host assembly from fetched streams: the u8
+    inside masks and edge parameters of the first n_cells slots, and the
+    block rows, whose rows with an empty mask (a capped compaction's
+    padding) are dropped. Checks the rows against the cell count and runs
+    the C++ passes, which derive the crossing bits and the cell coordinates
+    and build the mesh. Host work only; `stats` receives ``assemble_ms``."""
+    from disn_tpu_torch import native
+
+    with device_mod.stage(stats, "assemble_ms", torch.device("cpu")):
+        rows = rows[(rows[:, 1] != 0) | (rows[:, 2] != 0)]
+        rec, tq16 = _host_records(imask[:n_cells], tq[:n_cells])
+        if _mask_cell_count(rows) != n_cells:
+            raise RuntimeError(
+                f"block masks encode {_mask_cell_count(rows)} cells, "
+                f"the scan counted {n_cells} (inconsistent record "
+                f"streams)")
+        recs = native.derive_recs(rows, rec, R)
+        faces = native.mesh_faces_blocks(rows, recs, n_cells, R)
+        verts = native.mesh_verts_blocks(rows, recs, tq16, n_cells, R,
+                                         bbox)
+    return verts, faces
 
 
 # ---------------------------------------------------------------------------
@@ -922,14 +1025,16 @@ _LOW_DIRS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
              (0, 1, 1), (1, 1, 1))
 
 
-def _own_table(cell_ids: torch.Tensor, count: int, c: int) -> torch.Tensor:
-    """[c^3] int32: the row slot of each of the first `count` coarse cells
-    of `cell_ids`, -1 for every other cell."""
-    own = torch.full((c ** 3,), -1, dtype=torch.int32,
-                     device=cell_ids.device)
-    own[cell_ids[:count].long()] = torch.arange(count, dtype=torch.int32,
-                                                device=cell_ids.device)
-    return own
+def _own_table(cell_ids: torch.Tensor, count, c: int) -> torch.Tensor:
+    """[c^3] int32: the row slot of each of the first `count` (an int or a
+    0-d tensor) coarse cells of `cell_ids`, -1 for every other cell."""
+    dev = cell_ids.device
+    nk = cell_ids.shape[0]
+    slot = torch.arange(nk, dtype=torch.int32, device=dev)
+    own = torch.full((c ** 3 + 1,), -1, dtype=torch.int32, device=dev)
+    # the slots past the count all go to the extra last entry, dropped
+    own[torch.where(slot < count, cell_ids.long(), c ** 3)] = slot
+    return own[:c ** 3]
 
 
 def _coarse_guard(vol_c: torch.Tensor, own_tbl: torch.Tensor, iso: float
@@ -956,7 +1061,7 @@ def _pack_words(tq: list, imask: torch.Tensor, R: int) -> torch.Tensor:
 
 
 def _sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor,
-                       count: int, vol_c: torch.Tensor, R: int, iso: float):
+                       count, vol_c: torch.Tensor, R: int, iso: float):
     """K5 in plain PyTorch (port of disn_tpu/ops/marching.py
     _sparse_cell_words, lane form): the record words and change bits of
     every active 4^3 block, from the fine pass's rows, with no [R^3]
@@ -964,7 +1069,8 @@ def _sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor,
 
     rows [NK*64] f32: the fine pass's values, cell after cell, lane l =
     (z*4 + y)*4 + x; cell_ids [NK] int32 coarse cells, the first `count`
-    valid. A lane's corner value at offset o is the value the dense volume
+    valid (an int, or a 0-d int32 tensor on their device, as the kernel
+    takes it; at most NK of them count). A lane's corner value at offset o is the value the dense volume
     holds there: the cell's own row, else the row of its active "+1"
     neighbour, else the coarse trilinear, lo*(1-w) + hi*w along z, y, x,
     each product and sum rounded, as sparse._upsample_aligned computes it.
@@ -1073,7 +1179,6 @@ def _records_from_words_sparse(words: torch.Tensor, sids: torch.Tensor,
     """(rec, tq) of the slots whose ids address the sparse words arrays
     (slot*64 + bit, see _compact_block_bits), in _extract_records' types.
     No ghost aliasing: the sparse flow never gives a ghost cell a slot."""
-    _, pair_j, _, _ = _owned_tables()
     rows = words[:, sids.long()]
     if _tq_bits(R) == 8:
         imask = (rows[1] >> 24) & 0xFF
@@ -1084,7 +1189,7 @@ def _records_from_words_sparse(words: torch.Tensor, sids: torch.Tensor,
         imask = (rows[3] >> 16) & 0xFF
         tq = torch.stack([(rows[w] >> s) & 0xFFFF for w in range(4)
                           for s in (0, 16)][:7], -1)
-    pj = torch.as_tensor(pair_j, dtype=torch.int64, device=words.device)
+    pj = _device_tables(words.device)["pair_j"]
     bitj = (imask.long()[:, None] >> pj[None, :]) & 1
     cross = (imask.long()[:, None] & 1) != bitj
     rec = (_pack_bits(cross) << 8 | imask.long()).to(torch.int16)

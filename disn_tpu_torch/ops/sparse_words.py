@@ -13,6 +13,9 @@ tensors; there is no fallback from the kernel to the plain version. On the
 card the wrapper allocates the outputs and makes one call into the library
 (``sparse_words_step``: the own-slot table, guard terms (1) and (2), the
 zeroing of bits and cand, and the words), with no PyTorch op on the device.
+The count of valid cells is an int, checked on the host, or a 0-d int32
+tensor on the card, which the kernels read there (clamped to the cells
+given), so that the step can be queued before the count is known.
 ``sparse_cell_words.launches`` counts those calls; when
 ``sparse_cell_words.events`` is a list, each call appends a (start, end)
 pair of CUDA events recorded around the step, and when
@@ -48,8 +51,9 @@ def _lib() -> ctypes.CDLL:
         raise AssertionError(f"owned edge order changed: {pair_j}")
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sparse_words_step.argtypes = [vp, vp, ci, ci, vp, ci, ctypes.c_float,
-                                      ci, vp, vp, vp, vp, vp, vp]
+    lib.sparse_words_step.argtypes = [vp, vp, ci, ci, vp, vp, ci,
+                                      ctypes.c_float, ci, vp, vp, vp, vp, vp,
+                                      vp]
     lib.sparse_words_step.restype = ci
     return lib
 
@@ -72,9 +76,14 @@ def _check(rows, cell_ids, count, vol_c, R) -> int:
     if tuple(vol_c.shape) != (c + 1,) * 3:
         raise ValueError(f"vol_c must be [{c + 1}]^3, got "
                          f"{tuple(vol_c.shape)}")
-    if not 0 <= count <= nk:
+    if torch.is_tensor(count):
+        if count.dim() != 0 or count.dtype != torch.int32:
+            raise TypeError(f"a count tensor must be 0-d int32, got "
+                            f"{tuple(count.shape)} {count.dtype}")
+    elif not 0 <= count <= nk:
         raise ValueError(f"count {count} outside [0, {nk}]")
-    for t in (rows, cell_ids, vol_c):
+    for t in (rows, cell_ids, vol_c) + ((count,) if torch.is_tensor(count)
+                                        else ()):
         if t.device != rows.device:
             raise ValueError(f"all inputs must be on {rows.device}, got "
                              f"{t.device}")
@@ -85,14 +94,15 @@ def _check(rows, cell_ids, count, vol_c, R) -> int:
     return c
 
 
-def sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor, count: int,
+def sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor, count,
                       vol_c: torch.Tensor, *, R: int, iso: float):
     """K5: (words [2|4, NK*64] int32, bits [B3^3, 2] int32, cand [B3^3]
     bool, own_tbl [c^3] int32, guard int32 0-d) of the fine pass's rows
-    [NK*64] f32 of cells cell_ids [NK] int32 (the first `count` valid) over
-    the coarse grid vol_c [c+1]^3 f32 of an R^3 volume; see
-    marching._sparse_cell_words. CUDA tensors launch the kernel on the
-    current stream; CPU tensors take the plain version."""
+    [NK*64] f32 of cells cell_ids [NK] int32 (the first `count` valid: an
+    int in [0, NK], or a 0-d int32 tensor on their device, clamped to [0,
+    NK] where it is read) over the coarse grid vol_c [c+1]^3 f32 of an R^3
+    volume; see marching._sparse_cell_words. CUDA tensors launch the
+    kernel on the current stream; CPU tensors take the plain version."""
     c = _check(rows, cell_ids, count, vol_c, R)
     if rows.device.type == "cpu":
         return marching._sparse_cell_words(rows, cell_ids, count, vol_c, R,
@@ -115,8 +125,10 @@ def sparse_cell_words(rows: torch.Tensor, cell_ids: torch.Tensor, count: int,
     if timed:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record(cur)
+    on_card = torch.is_tensor(count)
     err = lib.sparse_words_step(
-        rows.data_ptr(), cell_ids.data_ptr(), nk, count, vol_c.data_ptr(), c,
+        rows.data_ptr(), cell_ids.data_ptr(), nk, 0 if on_card else count,
+        count.data_ptr() if on_card else None, vol_c.data_ptr(), c,
         float(iso), int(nw == 2), words.data_ptr(), bits.data_ptr(),
         cand.data_ptr(), own_tbl.data_ptr(), guard.data_ptr(),
         cur.cuda_stream)
