@@ -7,24 +7,27 @@ host C++ compiler. It imports nothing of JAX or disn_tpu. Phases, each fatal
 on failure:
 
 1. build every kernel of the port from csrc/ (nvcc, sm_90a: fused_decode.cu,
-   metrics.cu and sparse_words.cu) and, beside them, the host mesh
-   assembler from native/meshassemble.cpp and the OBJ formatter, OBJ parser
-   and voxelizer of evaluation (g++), all started together, and report the
-   build seconds and the compiler's register/shared-memory/wgmma report; a
-   wgmma the compiler serialised, or a spill in K1's f32 kernel, fails the
-   run;
+   metrics.cu, sparse_words.cu, band_cull.cu and block_compact.cu) and,
+   beside them, the host mesh assembler from native/meshassemble.cpp and
+   the OBJ formatter, OBJ parser and voxelizer of evaluation (g++), all
+   started together, and report the build seconds and the compiler's
+   register/shared-memory/wgmma report; a wgmma the compiler serialised,
+   or a spill in K1's f32 kernel, fails the run;
 2. drive the main path, pipeline.image_to_mesh with the default Config at
    sdf_res=256 on the full-width VGG-16 two-stream net (analytic octahedron
    head, r=0.6, the demo camera): a warm-up image and 3 fresh seeded u8
-   images in bf16, then one image in f32 with TF32 off, with the K1 and K5
-   counts set to 0 just before and read just after. Every image must take
+   images in bf16, then one image in f32 with TF32 off, with the K1, K5,
+   K4 (band_tau, active_cells) and compaction counts set to 0 just before
+   and read just after (K4 once an image, the compaction at least once).
+   Every image must take
    the sparse-words flow (route records_sparse, guard 0: K1 in the coarse
    and the fine pass, K5 once on the fine rows, the record route's host
    assembly), with > 1000 faces and every vertex on |x|+|y|+|z| = 0.6
    within SURFACE_TOL + 3 x span/(R-1)/510 (the records' u8 edge
    parameter). Then the volume flow (sparse_words=False) on the same 4 bf16
    images, its counts set to 0 just before and read just after (8 K1
-   launches, no K5): route owned_ids, guard 0, within SURFACE_TOL; the two
+   launches, no K5, 4 of each K4 kernel and of the compaction): route
+   owned_ids, guard 0, within SURFACE_TOL; the two
    flows' meshes have equal faces, in order, and vertices within
    span/(R-1)/510 + 1e-6. The inputs of K1's two launches and K5's one for
    one bf16 image and the f32 image are kept; [swords hold]: on that bf16
@@ -37,8 +40,8 @@ on failure:
    no cells, and lattices with every or no neighbour active and padded
    ids, and with the count as a 0-d int32 on the card (the speculative
    dispatch's: padded, none, past the cells); [k5 profile]: torch.profiler
-   over one step sees the library's memset and two kernels and no other
-   device work; [spec]: the speculative dispatch (phase_spec) on 48 seeded
+   over 8 steps sees the library's memset and two kernels, each at most
+   once a step, and no other device work; [spec]: the speculative dispatch (phase_spec) on 48 seeded
    images whose analytic head's radius varies, each against the seed path
    (_SPEC_CACHE cleared) bit for bit, the single-image walls of the hits
    and of the seed path in turns, each re-run kind forced once (short
@@ -76,8 +79,22 @@ on failure:
    clock around host parts and copies) beside a bound from the run's sizes;
    [flows ab]: the two flows' wall time on 10 more images, in turns (not
    gated); [phase_a profile]: torch.profiler over one phase_a of that image
-   (idle share, top ops and kernels), and [k4]: the band cull on the 65^3
-   grid beside its byte bound; then [dist] (disn_tpu_torch/parallel):
+   (idle share, top ops and kernels), and [k4]: K4 (csrc/band_cull.cu:
+   tau and the cull) against its plain versions on the main path's 65^3
+   grid (tau's bits, ids and count in the exact and the fixed form, both
+   modes, past the cap) and on edge grids (no active cell, every cell,
+   corners at +-0.0, NaN and +-inf), the wrappers and the plain versions
+   timed on CUDA events beside the byte bound, the kernels' device time
+   by the profiler (their kernels and no other device work), and phase_a's
+   launches and stage with the plain versions (the parent's code path,
+   PlainCulls) and with the kernels, in turns; [compact]: the compaction
+   (csrc/block_compact.cu) against its plain version on the main path's
+   words-flow launch (capped, sparse row ids) and volume-flow launch
+   (exact, flat ids), past b2 and with no change bit, timed beside its
+   bound and torch.nonzero on the same block mask, and the main path's
+   launches an image (one image_to_mesh under torch.profiler each) and
+   its single-image wall in turns with the plain versions and with the
+   kernels; then [dist] (disn_tpu_torch/parallel):
    pipeline.image_to_mesh_sharded on the kept bf16 image at 257^3 over a
    1-rank NCCL group in this process (a warm-up, then one timed call: K1
    twice, no dense fallback, the main path's faces, every vertex on the
@@ -286,9 +303,9 @@ on failure:
 13. print per-stage times of both flows, each main-path K1 launch's share
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
-   f32 kernels and K5's launches from the main path's run of phase 2, K6's
-   from the farm's evaluate_tree, where K6d is not called: it serves
-   autograd).
+   f32 kernels, K5's, K4's and the compaction's launches from the main
+   path's run of phase 2, K6's from the farm's evaluate_tree, where K6d is
+   not called: it serves autograd).
 
 A torch.profiler window that a check reads is taken again, up to
 PROFILE_TRIES windows, when it misses a device event the traced work
@@ -300,6 +317,7 @@ before printing it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -390,22 +408,26 @@ def phase_build() -> None:
 
     from disn_tpu_torch import native
     from disn_tpu_torch.eval import metrics
-    from disn_tpu_torch.ops import fused_decode, sparse_words
+    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+                                    sparse_words)
 
     def timed(build):
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(5) as pool:
-        k1_s, k6_s, k5_s, asm_s, eio_s = pool.map(
+    with ThreadPoolExecutor(7) as pool:
+        k1_s, k6_s, k5_s, k4_s, kc_s, asm_s, eio_s = pool.map(
             timed, (fused_decode.build, metrics.build, sparse_words.build,
-                    native.build, native.build_eval))
+                    band_cull.build, block_compact.build, native.build,
+                    native.build_eval))
     secs = fused_decode.build_seconds()
     native._lib()
     native._eval_lib()
     metrics._lib()
     sparse_words._lib()
+    band_cull._lib()
+    block_compact._lib()
     print(f"[build] fused_decode.cu built in {k1_s:.2f} s (loaded in "
           f"{secs:.2f} s); meshassemble.cpp built in {asm_s:.2f} s -> "
           f"{native.build().parent.name}/{native.build().name}")
@@ -414,11 +436,16 @@ def phase_build() -> None:
           f"in {eio_s:.2f} s -> {native.build_eval().name}")
     print(f"[swords build] sparse_words.cu built in {k5_s:.2f} s -> "
           f"{sparse_words.build().name}")
+    print(f"[cull build] band_cull.cu built in {k4_s:.2f} s -> "
+          f"{band_cull.build().name}; block_compact.cu in {kc_s:.2f} s -> "
+          f"{block_compact.build().name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg", "entry function")
     for tag, lib in (("[build]", fused_decode.build()),
                      ("[eval build]", metrics.build()),
-                     ("[swords build]", sparse_words.build())):
+                     ("[swords build]", sparse_words.build()),
+                     ("[cull build]", band_cull.build()),
+                     ("[cull build]", block_compact.build())):
         log = lib.with_suffix(".log").read_text()
         for line in log.splitlines():
             if any(k in line for k in keys):
@@ -676,15 +703,20 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
     """image_to_mesh on each image; returns per-image stats. With
     cfg.sparse_words (the default) every image must take the sparse-words
     flow (route records_sparse: K1 twice, K5 once), otherwise the volume
-    flow (owned_ids: K1 twice, no K5). The inputs of image `keep`'s K1 and
-    K5 launches go into kept[label] and kept[label + " k5"] when `kept` is
-    given; every image's mesh goes into meshes[label]."""
+    flow (owned_ids: K1 twice, no K5); either flow runs K4 (tau and the
+    cull) once and the block compaction at least once an image. The inputs
+    of image `keep`'s K1, K5 and compaction launches go into kept[label],
+    kept[label + " k5"] and kept[label + " compact"] when `kept` is given;
+    every image's mesh goes into meshes[label]."""
     import torch
     from disn_tpu_torch.infer import pipeline
-    from disn_tpu_torch.ops import fused_decode, sparse_words
+    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+                                    sparse_words)
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
+    culls = (band_cull.band_tau, band_cull.active_cells,
+             block_compact.compact_block_bits)
     words = cfg.sparse_words
     route = "records_sparse" if words else "owned_ids"
     R = cfg.grid_resolution
@@ -696,9 +728,11 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
     for i, img in enumerate(imgs):
         stats: dict = {}
         before = (k1.launches, k5.launches)
+        before_cull = [f.launches for f in culls]
         k1.events, k5.events = [], []
         k1.inputs = [] if i == keep else None
         k5.inputs = [] if i == keep else None
+        culls[2].inputs = [] if i == keep else None
         t0 = time.perf_counter()
         verts, faces = pipeline.image_to_mesh(params, img, trans, cfg,
                                               stats=stats)
@@ -708,13 +742,17 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         k5_ms = sum(s.elapsed_time(e) for s, e in k5.events)
         if i == keep and kept is not None:
             kept[label], kept[label + " k5"] = k1.inputs, k5.inputs
+            kept[label + " compact"] = culls[2].inputs
         k1.events = k1.inputs = k5.events = k5.inputs = None
+        culls[2].inputs = None
         launches = k1.launches - before[0]
         k5_launches = k5.launches - before[1]
+        cull_launches = [f.launches - b for f, b in zip(culls, before_cull)]
         dist = np.abs(np.abs(verts).sum(1) - 0.6)
         stats.update(label=label, image=i, wall_ms=wall_ms, k1_ms=k1_ms,
                      k5_ms=k5_ms,
                      k1_launches=launches, k5_launches=k5_launches,
+                     cull_launches=cull_launches,
                      faces=len(faces), verts=len(verts),
                      max_surface_dist=float(dist.max()) if len(verts)
                      else float("nan"))
@@ -731,6 +769,9 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         check(k5_launches == int(words),
               f"{label} image {i}: {k5_launches} K5 launches, expected "
               f"{int(words)}")
+        check(cull_launches[:2] == [1, 1] and cull_launches[2] >= 1,
+              f"{label} image {i}: K4 (tau, cull) and compaction launches "
+              f"{cull_launches}, expected 1, 1 and at least 1")
         check(stats["route"] == route and stats["guard"] == 0
               and stats.get("swords_guard", 0) == 0,
               f"{label} image {i}: expected route {route} with guard 0, got "
@@ -768,10 +809,20 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     import torch
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
-    from disn_tpu_torch.ops import fused_decode, sparse_words
+    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+                                    sparse_words)
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
+    culls = {"band_tau": band_cull.band_tau,
+             "active_cells": band_cull.active_cells,
+             "compact": block_compact.compact_block_bits}
+
+    def zero_counts():
+        k1.launches = k5.launches = 0
+        for f in culls.values():
+            f.launches = 0
+
     rng = np.random.RandomState(0)
     imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
             for _ in range(5)]
@@ -782,13 +833,18 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     kept: dict = {}
     held: dict = {}
     torch.cuda.synchronize()
-    k1.launches = k5.launches = 0
+    zero_counts()
     runs = run_main_path(cfg, params, imgs[:4], trans, "bf16", 1, kept,
                          held)
     cfg32 = cfg.replace(compute_dtype="float32")
     runs += run_main_path(cfg32, params, imgs[4:], trans, "f32", 0, kept,
                           held)
-    launches = {"k1": k1.launches, "k5": k5.launches}
+    launches = {"k1": k1.launches, "k5": k5.launches,
+                **{k: f.launches for k, f in culls.items()}}
+    check(launches["band_tau"] == launches["active_cells"] == len(runs)
+          and launches["compact"] >= len(runs),
+          f"the main path's K4 and compaction launches {launches}, expected "
+          f"one K4 an image and at least one compaction")
     for dt in ("bf16", "f32"):
         launches[f"k1 {dt}"] = sum(r["k1_launches"] for r in runs
                                    if r["label"] == dt)
@@ -796,16 +852,21 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
           f"K1 launches by type do not add up: {launches}")
     cfgv = cfg.replace(sparse_words=False)
     torch.cuda.synchronize()
-    k1.launches = k5.launches = 0
+    zero_counts()
     vruns = run_main_path(cfgv, params, imgs[:4], trans, "bf16 volume", 1,
                           None, held)
-    check(k1.launches == 8 and k5.launches == 0,
-          f"volume flow: {k1.launches} K1 and {k5.launches} K5 launches, "
-          f"expected 8 and 0")
+    vcounts = [f.launches for f in culls.values()]
+    check(k1.launches == 8 and k5.launches == 0 and vcounts == [4, 4, 4],
+          f"volume flow: {k1.launches} K1, {k5.launches} K5 and {vcounts} "
+          f"K4 (tau, cull) and compaction launches, expected 8, 0 and 4 "
+          f"each")
     hold_flows(held["bf16"], held["bf16 volume"], cfg.grid_resolution)
     # made after the counts were read
     held.update(cfg=cfg, params=params, img=imgs[1], trans=trans)
+    culls["compact"].inputs = []
     held["257"] = volume_and_scan(cfgv, params, imgs[1], trans)
+    kept["bf16 volume compact"] = culls["compact"].inputs
+    culls["compact"].inputs = None
     held["49"] = volume_and_scan(cfgv.replace(compute_dtype="float32",
                                               sdf_res=48), params, imgs[1],
                                  trans)
@@ -917,8 +978,11 @@ def hold_k5(label: str, args, kw, timed: bool = False) -> dict:
 # H100's profiler returns a window without some device events of the work
 # it traced, or without any (seen on kernels' memsets and on a whole K6a
 # window); the work itself does not change, so a window that misses an
-# event the work always launches is taken again
-PROFILE_TRIES = 3
+# event the work always launches is taken again (late in a long process
+# the first windows after a stretch without the profiler have lost up to
+# every event they traced, and a window taken at once after one has kept
+# them; a host pause inside the window did not help)
+PROFILE_TRIES = 5
 
 
 def profiled(fn, want: tuple = (), tdir: str | None = None):
@@ -953,26 +1017,29 @@ def profiled(fn, want: tuple = (), tdir: str | None = None):
 
 
 def profile_k5(args, kw) -> None:
-    """[k5 profile]: torch.profiler over one step on these inputs; the
-    device must run the library's work alone (the own-slot memset and its
-    two kernels), no PyTorch op's kernel."""
+    """[k5 profile]: torch.profiler over LIBRARY_CALLS steps on these
+    inputs; the device must run the library's work alone (the own-slot
+    memset and its two kernels, once a step), no PyTorch op's kernel."""
     from torch.autograd import DeviceType
 
     from disn_tpu_torch.ops import sparse_words
 
     ours = ("Memset", "own_scatter", "sparse_words_grid")
-    prof, _ = profiled(lambda: sparse_words.sparse_cell_words(*args, **kw),
-                       want=ours)
+    prof, _ = profiled(lambda: [sparse_words.sparse_cell_words(*args, **kw)
+                                for _ in range(LIBRARY_CALLS)], want=ours)
     avg = prof.key_averages()
     dev = [(e.key, e.count, _device_time(e, True)) for e in avg
            if e.device_type == DeviceType.CUDA]
     ops = sorted(e.key for e in avg if e.device_type == DeviceType.CPU
                  and e.key.startswith("aten::"))
     for key, count, us in dev:
-        print(f"[k5 profile] device: {key[:90]} x{count} {us:.2f} us")
-    print(f"[k5 profile] {len(dev)} device events in one step; PyTorch ops "
-          f"on the host (allocation and views, no device work): {ops}")
-    check(len(dev) == 3 and all(any(o in k for o in ours) for k, _, _ in dev),
+        print(f"[k5 profile] device: {key[:90]} x{count} {us / count:.2f} "
+              "us each")
+    print(f"[k5 profile] {len(dev)} kinds of device event in "
+          f"{LIBRARY_CALLS} steps; PyTorch ops on the host (allocation and "
+          f"views, no device work): {ops}")
+    check(len(dev) == 3 and all(any(o in k for o in ours) for k, _, _ in dev)
+          and all(count <= LIBRARY_CALLS for _, count, _ in dev),
           f"[k5 profile] the step ran other device work: {dev}")
 
 
@@ -1343,17 +1410,345 @@ def profile_phase_a(cfg, params, img, trans) -> None:
             t = _device_time(e, True)
             print(f"{tag} top {kind}: {e.key[:100]} self {t / 1e3:.3f} ms "
                   f"in {e.count} calls ({t / busy:.4f} of busy)")
+    return phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c)
+
+
+class PlainCulls:
+    """A context in which infer/sparse's _band_tau and _active_cells and
+    ops/marching's _compact_block_bits take their plain versions on the
+    card: the parent tree's code path (the plain versions are its
+    functions, unchanged)."""
+
+    def __enter__(self):
+        from disn_tpu_torch.infer import sparse
+        from disn_tpu_torch.ops import marching
+        self.saved = (sparse._band_tau, sparse._active_cells,
+                      marching._compact_block_bits)
+        sparse._band_tau = sparse._band_tau_plain
+        sparse._active_cells = sparse._active_cells_plain
+        marching._compact_block_bits = marching._compact_block_bits_plain
+        return self
+
+    def __exit__(self, *exc):
+        from disn_tpu_torch.infer import sparse
+        from disn_tpu_torch.ops import marching
+        (sparse._band_tau, sparse._active_cells,
+         marching._compact_block_bits) = self.saved
+
+
+def count_launches(fn) -> int:
+    """cudaLaunchKernel calls in one fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+
+
+def k_bound(nbytes: int, flops: float) -> tuple[float, str]:
+    """(least ms, "bytes" or "operations") for nbytes moved once and flops
+    f32 operations on the FMA units."""
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def same_tau(a, b) -> bool:
+    import torch
+    if bool(torch.isnan(a)) and bool(torch.isnan(b)):
+        return True
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def hold_k4(label: str, vol_c, sdfp, cfg, mode: str, max_cells: int) -> int:
+    """K4's kernels against their plain versions on one grid: tau's bits,
+    the exact form's ids and count, the fixed form's at max_cells (padding
+    and count); returns the active cells."""
+    from disn_tpu_torch.infer import sparse
+
     rc = vol_c.shape[0]
+    tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
+    tau_p = sparse._band_tau_plain(vol_c, sdfp, rc, cfg.band_factor, cfg)
+    ids, n = sparse._active_cells(vol_c, tau, mode)
+    ids_p, n_p = sparse._active_cells_plain(vol_c, tau_p, mode)
+    fix, cnt = sparse._active_cells(vol_c, tau, mode, max_cells)
+    fix_p, cnt_p = sparse._active_cells_plain(vol_c, tau_p, mode, max_cells)
+    ok = (same_tau(tau, tau_p) and n == n_p and torch_equal(ids, ids_p)
+          and torch_equal(fix, fix_p) and torch_equal(cnt, cnt_p))
+    print(f"[k4] {label} ({mode}): tau {float(tau)!r} (plain "
+          f"{float(tau_p)!r}), {n} active cells (plain {n_p}), the fixed "
+          f"form at {max_cells}: count {int(cnt)}; equal={ok}")
+    check(ok, f"[k4] {label} ({mode}): the kernels differ from their plain "
+              f"versions")
+    return n
 
-    def k4():
+
+# calls of a library in one profiler window: late in a long run the
+# profiler drops the first device events of a window, one or two and, in
+# a long enough process, a dozen, so each kernel is timed over the calls
+# it kept
+LIBRARY_CALLS = 8
+
+
+def library_device_us(tag: str, fn, names: tuple) -> float:
+    """torch.profiler over LIBRARY_CALLS calls of fn(): the device must run
+    the library's kernels `names` and nothing else (no PyTorch op's kernel,
+    no copy); returns their device time a call (each kernel's mean over
+    its events), us."""
+    from torch.autograd import DeviceType
+
+    prof, _ = profiled(lambda: [fn() for _ in range(LIBRARY_CALLS)],
+                       want=names)
+    dev = [(e.key, e.count, _device_time(e, True))
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for key, count, us in dev:
+        print(f"{tag} device: {key[:90]} x{count} {us / count:.2f} us each")
+    check(len(dev) == len(names)
+          and all(any(n in k for n in names) for k, _, _ in dev)
+          and all(count <= LIBRARY_CALLS for _, count, _ in dev),
+          f"{tag}: the calls ran other device work: {dev}")
+    return sum(us / count for _, count, us in dev)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
+    """[k4]: K4 (band_tau, active_cells) against its plain versions on the
+    main path's coarse grid and sizes (both forms, both modes, the fixed
+    form past its cap) and on edge grids (no active cell, every cell,
+    corners at +-0.0, NaN and +-inf); kernel and plain version timed on
+    CUDA events (median of 20) beside the bound; phase_a's launches and
+    its host-clock stage with the plain versions (the parent's code path)
+    and with the kernels, in turns. Returns the kernel table's entries'
+    numbers."""
+    import torch
+    from disn_tpu_torch.infer import pipeline, sparse
+
+    rc = vol_c.shape[0]
+    max_cells = (pipeline._spec_sizes(cfg)["max_blocks"]
+                 * pipeline._spec_sizes(cfg)["cells_per_block"])
+    n = hold_k4("main grid", vol_c, sdfp, cfg, "band", max_cells)
+    hold_k4("main grid", vol_c, sdfp, cfg, "sign", max_cells)
+    hold_k4("main grid past the cap", vol_c, sdfp, cfg, "band", n // 2)
+    rng = np.random.RandomState(19)
+    i = torch.arange(rc, device=vol_c.device)
+    parity = (i[:, None, None] + i[None, :, None] + i[None, None, :]) % 2
+    zeros = vol_c.clone().reshape(-1)
+    pick = torch.from_numpy(rng.rand(zeros.numel())).to(vol_c.device)
+    zeros[pick < 0.05] = 0.0
+    zeros[(pick >= 0.05) & (pick < 0.1)] = -0.0
+    bad = vol_c.clone().reshape(-1)
+    bad[pick < 0.01] = float("nan")
+    bad[(pick >= 0.01) & (pick < 0.015)] = float("inf")
+    bad[(pick >= 0.015) & (pick < 0.02)] = -float("inf")
+    for label, grid, want in (
+            ("no active cell", vol_c.abs() + 1.0, 0),
+            ("every cell", (1 - 2 * parity.float()) * 0.01, (rc - 1) ** 3),
+            ("corners at +-0.0", zeros.reshape(vol_c.shape), None),
+            ("NaN and +-inf", bad.reshape(vol_c.shape), None)):
+        for mode in ("band", "sign"):
+            got = hold_k4(label, grid.contiguous(), sdfp, cfg, mode,
+                          max_cells)
+            check(want is None or got == want,
+                  f"[k4] {label} ({mode}): {got} active cells, expected "
+                  f"{want}")
+
+    def kernels():
         tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
-        return sparse._active_cells(vol_c, tau)
+        return sparse._active_cells(vol_c, tau, "band", max_cells)
 
-    ms = median_ms(k4, True)
-    nbytes = vol_c.numel() * 4 + 24 + 4 + 4 * count + 8
-    print(f"[k4] _band_tau + _active_cells on the {rc}^3 grid ({count} "
-          f"active cells): ms={ms:.4f} device clock; bound_ms="
-          f"{nbytes / H100_BYTES_PER_S * 1e3:.5f} ({nbytes} B at 3.35 TB/s)")
+    def plain():
+        tau = sparse._band_tau_plain(vol_c, sdfp, rc, cfg.band_factor, cfg)
+        return sparse._active_cells_plain(vol_c, tau, "band", max_cells)
+
+    tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
+    ms = {
+        "band_tau": median_ms(lambda: sparse._band_tau(
+            vol_c, sdfp, rc, cfg.band_factor, cfg), True, 20),
+        "band_tau plain": median_ms(lambda: sparse._band_tau_plain(
+            vol_c, sdfp, rc, cfg.band_factor, cfg), True, 20),
+        "active_cells": median_ms(lambda: sparse._active_cells(
+            vol_c, tau, "band", max_cells), True, 20),
+        "active_cells plain": median_ms(lambda: sparse._active_cells_plain(
+            vol_c, tau, "band", max_cells), True, 20),
+        "k4": median_ms(kernels, True, 20),
+        "k4 plain": median_ms(plain, True, 20)}
+    grid_b = vol_c.numel() * 4
+    out = {
+        "band_tau": dict(zip(("bound_ms", "bound_by"), k_bound(
+            grid_b + 24 + 4, 7 * 7 * vol_c.numel()))),
+        "active_cells": dict(zip(("bound_ms", "bound_by"), k_bound(
+            grid_b + 4 + 4 * max_cells + 4, 8 * 4 * (rc - 1) ** 3)))}
+    dev_us = {
+        "band_tau": library_device_us("[k4 profile] band_tau", lambda:
+                                      sparse._band_tau(vol_c, sdfp, rc,
+                                                       cfg.band_factor, cfg),
+                                      ("tau_vmin", "tau_lip", "tau_final")),
+        "active_cells": library_device_us(
+            "[k4 profile] active_cells", lambda: sparse._active_cells(
+                vol_c, tau, "band", max_cells), ("cull_count", "cull_write"))}
+    for k in ("band_tau", "active_cells"):
+        out[k].update(ms=ms[k], plain_ms=ms[k + " plain"], max_abs_err=0.0,
+                      library_ms=None, device_us=dev_us[k])
+    print(f"[k4] the main path's cull on the {rc}^3 grid ({n} active cells, "
+          f"the fixed form at {max_cells}), CUDA events, median of 20: "
+          f"kernels {ms['k4']:.4f} ms (tau {ms['band_tau']:.4f}, cull "
+          f"{ms['active_cells']:.4f}; the wrappers on CUDA events, their "
+          f"kernels alone by the profiler {dev_us['band_tau']:.2f} + "
+          f"{dev_us['active_cells']:.2f} us), plain versions "
+          f"{ms['k4 plain']:.4f} "
+          f"(tau {ms['band_tau plain']:.4f}, cull "
+          f"{ms['active_cells plain']:.4f}); bounds tau "
+          f"{out['band_tau']['bound_ms']:.5f} ({out['band_tau']['bound_by']})"
+          f", cull {out['active_cells']['bound_ms']:.5f} "
+          f"({out['active_cells']['bound_by']}); {card_name()}")
+
+    def run():
+        return sparse.phase_a(params, img_t, trans_t, sdfp, cfg,
+                              max_cells=max_cells)
+
+    def stage_ms():
+        st: dict = {}
+        sparse.phase_a(params, img_t, trans_t, sdfp, cfg, stats=st,
+                       max_cells=max_cells)
+        return st["phase_a_ms"]
+
+    with PlainCulls():
+        plain_n = count_launches(run)
+    kern_n = count_launches(run)
+    walls: dict = {"plain": [], "kernels": []}
+    stage: dict = {"plain": [], "kernels": []}
+    for arm in ("plain", "kernels", "kernels", "plain"):
+        with PlainCulls() if arm == "plain" else contextlib.nullcontext():
+            walls[arm].append(median_ms(run, False))
+            stage[arm].append(float(np.median([stage_ms()
+                                               for _ in range(5)])))
+    print(f"[k4] phase_a (encode, fold, the coarse pass, the cull; the "
+          f"speculative dispatch's fixed form): {plain_n} kernel launches "
+          f"with the plain versions (the parent's code path), {kern_n} with "
+          f"the kernels; in turns (plain, kernels, kernels, plain; host "
+          f"clock, medians of 5) wall {[round(w, 3) for w in walls['plain']]}"
+          f" / {[round(w, 3) for w in walls['kernels']]} ms, its phase_a_ms "
+          f"stage {[round(w, 3) for w in stage['plain']]} / "
+          f"{[round(w, 3) for w in stage['kernels']]} ms; {card_name()}")
+    check(kern_n < plain_n, f"[k4] phase_a launched {kern_n} kernels with "
+                            f"the kernels, {plain_n} without")
+    out["phase_a"] = dict(launches=(plain_n, kern_n), walls=walls,
+                          stage=stage)
+    return out
+
+
+def hold_compact(label: str, args, kw) -> dict:
+    """The compaction's kernel against its plain version on one input, in
+    the form given and in the exact form; both timed (CUDA events, median
+    of 20) beside the bound and torch.nonzero on the same block mask."""
+    import torch
+    from disn_tpu_torch.ops import marching
+
+    bits, cand, E = args
+    got = marching._compact_block_bits(*args, **kw)
+    want = marching._compact_block_bits_plain(*args, **kw)
+    capped = kw.get("bcap") is not None
+    same = all(torch_equal(a, b) if torch.is_tensor(a) else a == b
+               for a, b in zip(got, want))
+    exact = marching._compact_block_bits(bits, cand, E,
+                                         srow_tbl=kw.get("srow_tbl"))
+    exact_p = marching._compact_block_bits_plain(
+        bits, cand, E, srow_tbl=kw.get("srow_tbl"))
+    same_exact = (exact[1] == exact_p[1] and torch_equal(exact[0], exact_p[0])
+                  and torch_equal(exact[2], exact_p[2]))
+    n, b = exact[1], exact[2].shape[0]
+    dev_us = library_device_us(
+        "[compact profile]", lambda: marching._compact_block_bits(*args, **kw),
+        ("bc_count", "bc_write", "bc_finish")) if capped else float("nan")
+    sel = cand & ((bits[:, 0] | bits[:, 1]) != 0)
+    ms = median_ms(lambda: marching._compact_block_bits(*args, **kw), True,
+                   20)
+    plain_ms = median_ms(lambda: marching._compact_block_bits_plain(
+        *args, **kw), True, 20)
+    lib_ms = median_ms(lambda: torch.nonzero(sel), True, 20)
+    ids_len, rows = (got[0].numel(), got[3].shape[0]) if capped else (n, b)
+    srow = kw.get("srow_tbl")
+    nbytes = (bits.numel() * 4 + cand.numel()
+              + (0 if srow is None else srow.numel() * 4)
+              + 4 * ids_len + 12 * rows + (8 if capped else 0))
+    bound, by = k_bound(nbytes, 3.0 * bits.shape[0] + n)
+    form = f"capped at bcap {kw['bcap']}" if capped else "exact"
+    print(f"[compact] {label}: {form}, "
+          f"{'sparse row ids' if srow is not None else 'flat ids'}; "
+          f"{b} blocks, {n} cells; kernel = plain {same}, exact form "
+          f"{same_exact}; kernel {ms:.4f} ms (the wrapper on CUDA events; "
+          f"its kernels alone by the profiler {dev_us:.2f} us), plain "
+          f"{plain_ms:.4f}, "
+          f"torch.nonzero of the block mask {lib_ms:.4f}; bound "
+          f"{bound:.5f} ({by}, {nbytes} B); {card_name()}")
+    check(same and same_exact, f"[compact] {label}: the kernel differs "
+                               f"from its plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=0.0, device_us=dev_us)
+
+
+def phase_compact(kept: dict, img_fn) -> dict:
+    """[compact]: the compaction's kernel against its plain version on the
+    words flow's main-path inputs (the kept bf16 image, a hit: capped,
+    sparse row ids, the guard on the card) and the volume flow's (exact,
+    flat ids), then at a cap that overflows and with no change bit; the
+    main path's launches an image and its single-image wall with the plain
+    versions (the parent's code path) and with the kernels (img_fn:
+    image_turns). Returns the words flow's entry for the kernel table."""
+    import torch
+
+    args, kw = kept["bf16 compact"][0]
+    vargs, vkw = kept["bf16 volume compact"][0]
+    check(kw.get("bcap") is not None and kw.get("srow_tbl") is not None,
+          f"[compact] the kept words-flow launch is not the capped one: "
+          f"{sorted(k for k, v in kw.items() if v is not None)}")
+    entry = hold_compact("words flow, the main path's launch", args, kw)
+    hold_compact("volume flow, the main path's launch", vargs, vkw)
+    hold_compact("words flow past b2", args, dict(kw, bcap=256))
+    bits, cand, E = args
+    hold_compact("no change bit", (torch.zeros_like(bits), cand, E), kw)
+    turns = img_fn()
+    before, after = turns["launches"]
+    print(f"[compact] one main-path image_to_mesh (a hit): {before} kernel "
+          f"launches with the plain K4 and compaction (the parent's code "
+          f"path), {after} with the kernels; its wall in turns (plain, "
+          f"kernels, kernels, plain; host clock, medians of 5) "
+          f"{[round(w, 3) for w in turns['plain']]} / "
+          f"{[round(w, 3) for w in turns['kernels']]} ms; {card_name()}")
+    check(after < before, "[compact] the kernels did not cut the main "
+                          "path's launches")
+    return entry
+
+
+def image_turns(cfg, params, img, trans) -> dict:
+    """One image_to_mesh of the main path (a hit of the speculative
+    dispatch) with the plain K4 and compaction (the parent's code path)
+    and with the kernels: cudaLaunchKernel calls in one image, and the
+    single-image wall in turns (plain, kernels, kernels, plain; host clock
+    with the card synchronised, median of 5 each)."""
+    from disn_tpu_torch.infer import pipeline
+
+    def run():
+        pipeline.image_to_mesh(params, img, trans, cfg)
+
+    with PlainCulls():
+        run()
+        before = count_launches(run)
+    run()
+    out = {"launches": (before, count_launches(run)),
+           "plain": [], "kernels": []}
+    for arm in ("plain", "kernels", "kernels", "plain"):
+        with PlainCulls() if arm == "plain" else contextlib.nullcontext():
+            out[arm].append(median_ms(run, False))
+    return out
 
 
 def volume_and_scan(cfg, params, img, trans) -> dict:
@@ -2643,13 +3038,14 @@ def time_k6_turns(tag: str, pred, gt, mk, g, out: dict) -> None:
 
 
 def profile_k6(tag: str, pred, gt, mk, g) -> None:
-    """torch.profiler over 3 K6a, 3 K6c and 3 K6d calls through the public
-    wrappers: the device runs the library's work alone (K6a: the keys'
-    memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total; K6d: mc_grad_pass,
-    mc_grad_total, one read of match), and each kernel's time a call. The
-    profiler does not record every event of a window (the first is
-    sometimes missing), so a kernel need only be seen (and a window that
-    misses one is taken again: profiled)."""
+    """torch.profiler over LIBRARY_CALLS calls each of K6a, K6c and K6d
+    through the public wrappers: the device runs the library's work alone
+    (K6a: the keys' memset, nn_pass, nn_unpack; K6c: mc_pass, mc_total;
+    K6d: mc_grad_pass, mc_grad_total, one read of match), and each
+    kernel's time a call. The profiler does not record every event of a
+    window (the first ones go missing late in a long run), so a kernel
+    need only be seen (and a window that misses one is taken again:
+    profiled)."""
     from torch.autograd import DeviceType
 
     from disn_tpu_torch.eval import metrics as mt
@@ -2662,11 +3058,13 @@ def profile_k6(tag: str, pred, gt, mk, g) -> None:
             ("match_cost_grad", lambda: mt.match_cost_grad(gt, pred, mk, g),
              ("mc_grad_pass", "mc_grad_total"))):
         fn()
-        prof, _ = profiled(lambda: [fn() for _ in range(3)], want=kerns)
+        prof, _ = profiled(lambda: [fn() for _ in range(LIBRARY_CALLS)],
+                           want=kerns)
         dev = [(e.key, e.count, _device_time(e, True) / e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-        print(f"{tag} {name} profile (3 calls; event, count, us a call): "
+        print(f"{tag} {name} profile ({LIBRARY_CALLS} calls; event, count, "
+              f"us a call): "
               f"{[(k[:40], c, round(us, 2)) for k, c, us in dev]}")
         check(all(any(o in k for o in ("Memset", *kerns)) for k, _, _ in dev)
               and all(any(o in k for k, _, _ in dev) for o in kerns),
@@ -5585,6 +5983,24 @@ def k6_entries(hold: dict, counts: dict) -> list[dict]:
             for name, line in lines.items()]
 
 
+def cull_entries(k4: dict, kc: dict, launches: dict) -> list[dict]:
+    """K4's two kernels ([k4]: the main path's fixed form on its coarse
+    grid) and the compaction ([compact]: the words flow's capped launch of
+    the main path); launches from the main path's run of phase 2."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = (("band_tau", "band_cull", "disn_tpu/infer/sparse.py:113",
+             k4["band_tau"], launches["band_tau"]),
+            ("active_cells", "band_cull", "disn_tpu/infer/sparse.py:67",
+             k4["active_cells"], launches["active_cells"]),
+            ("compact_block_bits", "block_compact",
+             "disn_tpu/ops/marching.py:694", kc, launches["compact"]))
+    return [{"name": name, "route": "cuda",
+             "source": f"disn_tpu_torch/csrc/{src}.cu", "replaces": where,
+             "launches": n, **{k: res[k] for k in keys}}
+            for name, src, where, res, n in rows]
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of disn_tpu_torch "
@@ -5644,7 +6060,8 @@ def main() -> int:
         hold_divisions(held["49"])
         time_extraction(held["257"])
         compare_flows(held["cfg"], held["params"], held["trans"])
-        profile_phase_a(*main_inputs)
+        k4 = profile_phase_a(*main_inputs)
+        kc = phase_compact(kept, lambda: image_turns(*main_inputs))
         phase_dist(held["img"], held["trans"], held["bf16"][1][1],
                    float(np.median([r["wall_ms"] for r in runs[1:4]])))
         pred_mesh = held["bf16"][1]
@@ -5710,7 +6127,8 @@ def main() -> int:
             "launches": launches["k5"],
             "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
             "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
-            "bound_by": k5["bound_by"], "library_ms": None}]}))
+            "bound_by": k5["bound_by"], "library_ms": None},
+            *cull_entries(k4, kc, launches)]}))
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1

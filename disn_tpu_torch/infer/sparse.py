@@ -11,7 +11,9 @@ coarse grid upsampled with corners aligned, which keeps the signs.
 * phase_a: encode + fold, decode the coarse (R-1)/4+1 grid
   (fused.dense_grid_via_cells where fused.kernel_enabled allows it, else
   the plain decode), threshold ('band' for regression heads, 'sign' for
-  binary ones), compact the active cells.
+  binary ones), compact the active cells (K4: a hand-written kernel on the
+  card, ops/band_cull and csrc/band_cull.cu; the plain versions
+  _band_tau_plain and _active_cells_plain on the CPU).
 * finish: decode exactly the active cells (through the kernel where
   kernel_enabled allows it, else the plain decode), upsample the coarse
   grid, scatter the fine values, and decode the boundary planes when an
@@ -50,7 +52,7 @@ from disn_tpu_torch.config import Config, Variant
 from disn_tpu_torch.infer import dense as dense_mod
 from disn_tpu_torch.infer import fused
 from disn_tpu_torch.models import disn
-from disn_tpu_torch.ops import marching, sparse_words
+from disn_tpu_torch.ops import band_cull, marching, sparse_words
 
 Params = dict[str, Any]
 
@@ -85,8 +87,18 @@ def _corners(vol: torch.Tensor) -> torch.Tensor:
                         for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)])
 
 
-def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor,
+def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor | None,
                   mode: str = "band", max_cells: int | None = None):
+    """The band cull's cells: on a CUDA grid the kernel
+    (band_cull.active_cells), on a CPU grid _active_cells_plain, which says
+    what it computes; the two agree bit for bit."""
+    if vol_c.device.type == "cpu":
+        return _active_cells_plain(vol_c, tau, mode, max_cells)
+    return band_cull.active_cells(vol_c, tau, mode, max_cells)
+
+
+def _active_cells_plain(vol_c: torch.Tensor, tau: torch.Tensor,
+                        mode: str = "band", max_cells: int | None = None):
     """Ids (int32, ascending) of coarse cells that may hold the surface.
     Returns (ids [count], count), or with `max_cells` (port of
     disn_tpu/infer/sparse.py _active_cells, whose shapes are fixed) (ids
@@ -132,6 +144,17 @@ def _active_cells(vol_c: torch.Tensor, tau: torch.Tensor,
 
 def _band_tau(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
               band_factor: float, cfg: Config) -> torch.Tensor:
+    """The cull band's tau: on a CUDA grid the kernel (band_cull.band_tau),
+    on a CPU grid _band_tau_plain, which says what it computes; the two
+    agree bit for bit."""
+    if vol_c.device.type == "cpu":
+        return _band_tau_plain(vol_c, sdf_params, rc, band_factor, cfg)
+    return band_cull.band_tau(vol_c, sdf_params, rc, band_factor,
+                              cfg.band_autocal and not cfg.binary)
+
+
+def _band_tau_plain(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
+                    band_factor: float, cfg: Config) -> torch.Tensor:
     """Cull-band threshold: band_factor x coarse cell diagonal, widened by
     the OBSERVED near-band slope over 7 directions (3 axes + 4 space
     diagonals) when cfg.band_autocal (see disn_tpu/infer/sparse._band_tau

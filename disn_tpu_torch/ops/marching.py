@@ -32,6 +32,9 @@ The active cells come from a scan of the volume: ``_active_cells_ext``
 over the whole extended grid, or ``_active_cells_from_coarse`` over the 4^3
 blocks of the sparse pass's active coarse cells. Both emit the same order:
 block ascending, then the cell's bit l = (z*4 + y)*4 + x inside its block.
+Their compaction (``_compact_block_bits``) is a hand-written kernel on the
+card (``ops/block_compact``, ``csrc/block_compact.cu``) and
+``_compact_block_bits_plain`` on the CPU.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 
 from disn_tpu_torch import device as device_mod
+from disn_tpu_torch.ops import block_compact
 
 # Cube corner offsets (x, y, z), indexed 0..7.
 CORNERS = np.array([
@@ -444,16 +448,28 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
     return ids, n_cells, guard, blk
 
 
-def _b2cap(bcap: int) -> int:
-    """Rows of the capped compaction's block buffer for a candidate-block
-    cap (the JAX package's rule: half the cap, whole 256s, at least 512)."""
-    return max(512, -(-(bcap // 2) // 256) * 256)
+_b2cap = block_compact.b2cap  # the capped compaction's rows for a cap
 
 
 def _compact_block_bits(bits: torch.Tensor, cand: torch.Tensor, E: int,
                         srow_tbl: torch.Tensor | None = None,
                         bcap: int | None = None,
                         guard: torch.Tensor | None = None):
+    """The compaction both flows end their scan in: on CUDA tensors the
+    kernel (block_compact.compact_block_bits), on CPU tensors
+    _compact_block_bits_plain, which says what it computes; the two agree
+    bit for bit."""
+    if bits.device.type == "cpu":
+        return _compact_block_bits_plain(bits, cand, E, srow_tbl, bcap,
+                                         guard)
+    return block_compact.compact_block_bits(bits, cand, E, srow_tbl, bcap,
+                                            guard)
+
+
+def _compact_block_bits_plain(bits: torch.Tensor, cand: torch.Tensor,
+                              E: int, srow_tbl: torch.Tensor | None = None,
+                              bcap: int | None = None,
+                              guard: torch.Tensor | None = None):
     """The tail both flows share (port of disn_tpu/ops/marching.py
     _compact_block_bits): the candidate blocks that hold a change bit, in
     block order, and their cells in bit order -> (ids [n] int32, n, blk

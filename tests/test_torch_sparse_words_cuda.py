@@ -135,14 +135,18 @@ def test_kernel_equals_plain_on_lattices(card, R, stride, pad):
 # device event now and then (K5's 1.25 us memset, once a whole window), so
 # a window that misses an event the step always launches is taken again
 PROFILE_TRIES = 3
+# steps in one window: late in a long process the profiler drops the
+# first device events of a window (the first step's memset), so the
+# window holds more than one step
+PROFILE_STEPS = 3
 
 
 @pytest.mark.cuda
 def test_one_step_is_only_the_librarys_work(card):
-    """torch.profiler over one CUDA step: the device runs the library's
-    memset of the own-slot table and its two kernels, and nothing else. A
-    window that misses one of the three is taken again (up to
-    PROFILE_TRIES, each printed); a window with any other device event
+    """torch.profiler over PROFILE_STEPS CUDA steps: the device runs the
+    library's memset of the own-slot table and its two kernels, and
+    nothing else. A window that misses one of the three is taken again (up
+    to PROFILE_TRIES, each printed); a window with any other device event
     fails at once; the assertions read the window kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -154,7 +158,8 @@ def test_one_step_is_only_the_librarys_work(card):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            sw.sparse_cell_words(*args, R=257, iso=0.0)
+            for _ in range(PROFILE_STEPS):
+                sw.sparse_cell_words(*args, R=257, iso=0.0)
             torch.cuda.synchronize()
         names = sorted(e.key for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA)
