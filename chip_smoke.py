@@ -17,8 +17,9 @@ on failure:
    sdf_res=256 on the full-width VGG-16 two-stream net (analytic octahedron
    head, r=0.6, the demo camera): a warm-up image and 3 fresh seeded u8
    images in bf16, then one image in f32 with TF32 off, with the K1, K5,
-   K4 (band_tau, active_cells) and compaction counts set to 0 just before
-   and read just after (K4 once an image, the compaction at least once).
+   K4 (band_cull, band_tau, active_cells) and compaction counts set to 0
+   just before and read just after (K4's fused entry, tau and the cull in
+   one launch, once an image; the compaction at least once).
    Every image must take
    the sparse-words flow (route records_sparse, guard 0: K1 in the coarse
    and the fine pass, K5 once on the fine rows, the record route's host
@@ -26,7 +27,7 @@ on failure:
    within SURFACE_TOL + 3 x span/(R-1)/510 (the records' u8 edge
    parameter). Then the volume flow (sparse_words=False) on the same 4 bf16
    images, its counts set to 0 just before and read just after (8 K1
-   launches, no K5, 4 of each K4 kernel and of the compaction): route
+   launches, no K5, 4 fused K4 calls and 4 compactions): route
    owned_ids, guard 0, within SURFACE_TOL; the two
    flows' meshes have equal faces, in order, and vertices within
    span/(R-1)/510 + 1e-6. The inputs of K1's two launches and K5's one for
@@ -80,19 +81,27 @@ on failure:
    [flows ab]: the two flows' wall time on 10 more images, in turns (not
    gated); [phase_a profile]: torch.profiler over one phase_a of that image
    (idle share, top ops and kernels), and [k4]: K4 (csrc/band_cull.cu:
-   tau and the cull) against its plain versions on the main path's 65^3
-   grid (tau's bits, ids and count in the exact and the fixed form, both
-   modes, past the cap) and on edge grids (no active cell, every cell,
-   corners at +-0.0, NaN and +-inf), the wrappers and the plain versions
-   timed on CUDA events beside the byte bound, the kernels' device time
-   by the profiler (their kernels and no other device work), and phase_a's
-   launches and stage with the plain versions (the parent's code path,
-   PlainCulls) and with the kernels, in turns; [compact]: the compaction
-   (csrc/block_compact.cu) against its plain version on the main path's
-   words-flow launch (capped, sparse row ids) and volume-flow launch
-   (exact, flat ids), past b2 and with no change bit, timed beside its
-   bound and torch.nonzero on the same block mask, and the main path's
-   launches an image (one image_to_mesh under torch.profiler each) and
+   tau and the cull in one launch of one 16-CTA cluster) against its
+   plain versions through each entry (fused, tau, cull) on the main
+   path's 65^3 grid (tau's bits, ids and count in the exact and the fixed
+   form, both modes, past the cap), on edge grids (no active cell, every
+   cell, corners at +-0.0, NaN and +-inf) and on 129^3 and a ragged
+   100^3 grid; one launch a call; the fused call and the plain pair timed
+   on CUDA events beside the bound, its kernel's device time by the
+   profiler (that kernel and no other device work), host us a call,
+   clusters of 16 and 8 CTAs in turns, and with --parent DIR that
+   checkout's K4 in turns (parent, change, change, parent: wrapper ms,
+   device us, host us); phase_a's launches and stage with the plain
+   versions (PlainCulls) and with the kernel, in turns; [compact]: the
+   compaction (csrc/block_compact.cu, one cluster launch capped, two
+   exact) against its plain version on the main path's words-flow launch
+   (capped, sparse row ids) and volume-flow launch (exact, flat ids),
+   past b2, at b2's edge, with no change bit, every block and a 513^3
+   grid; one launch capped, at most two exact, no copy call; timed beside
+   its bound and torch.nonzero on the same block mask (the selection
+   alone), 16 and 8 CTAs and --parent DIR's in turns; and the main path's
+   launches an image (every runtime launch call, one image_to_mesh under
+   torch.profiler each) and
    its single-image wall in turns with the plain versions and with the
    kernels; then [dist] (disn_tpu_torch/parallel):
    pipeline.image_to_mesh_sharded on the kept bf16 image at 257^3 over a
@@ -704,7 +713,8 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
     cfg.sparse_words (the default) every image must take the sparse-words
     flow (route records_sparse: K1 twice, K5 once), otherwise the volume
     flow (owned_ids: K1 twice, no K5); either flow runs K4 (tau and the
-    cull) once and the block compaction at least once an image. The inputs
+    cull in one launch) once and the block compaction at least once an
+    image. The inputs
     of image `keep`'s K1, K5 and compaction launches go into kept[label],
     kept[label + " k5"] and kept[label + " compact"] when `kept` is given;
     every image's mesh goes into meshes[label]."""
@@ -715,8 +725,9 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
-    culls = (band_cull.band_tau, band_cull.active_cells,
+    culls = (band_cull.band_cull, band_cull.band_tau, band_cull.active_cells,
              block_compact.compact_block_bits)
+    compact = culls[3]
     words = cfg.sparse_words
     route = "records_sparse" if words else "owned_ids"
     R = cfg.grid_resolution
@@ -732,7 +743,7 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         k1.events, k5.events = [], []
         k1.inputs = [] if i == keep else None
         k5.inputs = [] if i == keep else None
-        culls[2].inputs = [] if i == keep else None
+        compact.inputs = [] if i == keep else None
         t0 = time.perf_counter()
         verts, faces = pipeline.image_to_mesh(params, img, trans, cfg,
                                               stats=stats)
@@ -742,9 +753,9 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         k5_ms = sum(s.elapsed_time(e) for s, e in k5.events)
         if i == keep and kept is not None:
             kept[label], kept[label + " k5"] = k1.inputs, k5.inputs
-            kept[label + " compact"] = culls[2].inputs
+            kept[label + " compact"] = compact.inputs
         k1.events = k1.inputs = k5.events = k5.inputs = None
-        culls[2].inputs = None
+        compact.inputs = None
         launches = k1.launches - before[0]
         k5_launches = k5.launches - before[1]
         cull_launches = [f.launches - b for f, b in zip(culls, before_cull)]
@@ -769,9 +780,9 @@ def run_main_path(cfg, params, imgs, trans, label: str, keep: int,
         check(k5_launches == int(words),
               f"{label} image {i}: {k5_launches} K5 launches, expected "
               f"{int(words)}")
-        check(cull_launches[:2] == [1, 1] and cull_launches[2] >= 1,
-              f"{label} image {i}: K4 (tau, cull) and compaction launches "
-              f"{cull_launches}, expected 1, 1 and at least 1")
+        check(cull_launches[:3] == [1, 0, 0] and cull_launches[3] >= 1,
+              f"{label} image {i}: K4 (fused, tau, cull) and compaction "
+              f"calls {cull_launches}, expected 1, 0, 0 and at least 1")
         check(stats["route"] == route and stats["guard"] == 0
               and stats.get("swords_guard", 0) == 0,
               f"{label} image {i}: expected route {route} with guard 0, got "
@@ -814,7 +825,8 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
-    culls = {"band_tau": band_cull.band_tau,
+    culls = {"band_cull": band_cull.band_cull,
+             "band_tau": band_cull.band_tau,
              "active_cells": band_cull.active_cells,
              "compact": block_compact.compact_block_bits}
 
@@ -841,10 +853,12 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
                           held)
     launches = {"k1": k1.launches, "k5": k5.launches,
                 **{k: f.launches for k, f in culls.items()}}
-    check(launches["band_tau"] == launches["active_cells"] == len(runs)
+    check(launches["band_cull"] == len(runs)
+          and launches["band_tau"] == launches["active_cells"] == 0
           and launches["compact"] >= len(runs),
           f"the main path's K4 and compaction launches {launches}, expected "
-          f"one K4 an image and at least one compaction")
+          f"one K4 (tau and the cull in one launch) an image and at least "
+          f"one compaction")
     for dt in ("bf16", "f32"):
         launches[f"k1 {dt}"] = sum(r["k1_launches"] for r in runs
                                    if r["label"] == dt)
@@ -856,10 +870,11 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     vruns = run_main_path(cfgv, params, imgs[:4], trans, "bf16 volume", 1,
                           None, held)
     vcounts = [f.launches for f in culls.values()]
-    check(k1.launches == 8 and k5.launches == 0 and vcounts == [4, 4, 4],
+    check(k1.launches == 8 and k5.launches == 0
+          and vcounts == [4, 0, 0, 4],
           f"volume flow: {k1.launches} K1, {k5.launches} K5 and {vcounts} "
-          f"K4 (tau, cull) and compaction launches, expected 8, 0 and 4 "
-          f"each")
+          f"K4 (fused, tau, cull) and compaction calls, expected 8, 0 and "
+          f"[4, 0, 0, 4]")
     hold_flows(held["bf16"], held["bf16 volume"], cfg.grid_resolution)
     # made after the counts were read
     held.update(cfg=cfg, params=params, img=imgs[1], trans=trans)
@@ -1373,9 +1388,7 @@ def profile_phase_a(cfg, params, img, trans) -> None:
     (twice; the second is read): the device's idle share of the span of
     its activity and of the unprofiled wall, the 10 PyTorch ops and the 5
     kernels with the most self time on the device (K1 is a kernel of no
-    PyTorch op). Then [k4]: _band_tau and _active_cells on the coarse grid,
-    median of 5 on CUDA events, beside a byte bound: the 65^3 grid and the
-    box read once, tau, the ids and their count written once."""
+    PyTorch op). Then [k4] (phase_k4) on the coarse grid it made."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1414,16 +1427,17 @@ def profile_phase_a(cfg, params, img, trans) -> None:
 
 
 class PlainCulls:
-    """A context in which infer/sparse's _band_tau and _active_cells and
-    ops/marching's _compact_block_bits take their plain versions on the
-    card: the parent tree's code path (the plain versions are its
-    functions, unchanged)."""
+    """A context in which infer/sparse's _band_cull, _band_tau and
+    _active_cells and ops/marching's _compact_block_bits take their plain
+    versions on the card: the code path before K4 and the compaction were
+    kernels (the plain versions are its functions, unchanged)."""
 
     def __enter__(self):
         from disn_tpu_torch.infer import sparse
         from disn_tpu_torch.ops import marching
-        self.saved = (sparse._band_tau, sparse._active_cells,
-                      marching._compact_block_bits)
+        self.saved = (sparse._band_cull, sparse._band_tau,
+                      sparse._active_cells, marching._compact_block_bits)
+        sparse._band_cull = sparse._band_cull_plain
         sparse._band_tau = sparse._band_tau_plain
         sparse._active_cells = sparse._active_cells_plain
         marching._compact_block_bits = marching._compact_block_bits_plain
@@ -1432,12 +1446,14 @@ class PlainCulls:
     def __exit__(self, *exc):
         from disn_tpu_torch.infer import sparse
         from disn_tpu_torch.ops import marching
-        (sparse._band_tau, sparse._active_cells,
+        (sparse._band_cull, sparse._band_tau, sparse._active_cells,
          marching._compact_block_bits) = self.saved
 
 
-def count_launches(fn) -> int:
-    """cudaLaunchKernel calls in one fn() under torch.profiler."""
+def launch_calls(fn) -> dict:
+    """The runtime's kernel launch calls (cudaLaunchKernel, the cluster
+    launches' cudaLaunchKernelExC, ...) and copy calls in one fn() under
+    torch.profiler, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1446,7 +1462,18 @@ def count_launches(fn) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.name == "cudaLaunchKernel")
+    out: dict = {}
+    for e in prof.events():
+        if "LaunchKernel" in e.name or "Memcpy" in e.name:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def count_launches(fn) -> int:
+    """Kernel launches in one fn() under torch.profiler: the runtime's
+    launch calls of every kind (cudaLaunchKernel alone leaves out the
+    cluster launches, cudaLaunchKernelExC)."""
+    return sum(n for k, n in launch_calls(fn).items() if "LaunchKernel" in k)
 
 
 def k_bound(nbytes: int, flops: float) -> tuple[float, str]:
@@ -1465,26 +1492,124 @@ def same_tau(a, b) -> bool:
 
 
 def hold_k4(label: str, vol_c, sdfp, cfg, mode: str, max_cells: int) -> int:
-    """K4's kernels against their plain versions on one grid: tau's bits,
-    the exact form's ids and count, the fixed form's at max_cells (padding
-    and count); returns the active cells."""
+    """K4 against its plain versions on one grid, through each entry: the
+    fused call (tau and the cull in one launch) in the exact form and the
+    fixed form at max_cells (padding and count), tau alone, and the cull
+    alone on the plain tau; tau's bits, ids and counts equal. Returns the
+    active cells."""
     from disn_tpu_torch.infer import sparse
+    from disn_tpu_torch.ops import band_cull
 
     rc = vol_c.shape[0]
-    tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
-    tau_p = sparse._band_tau_plain(vol_c, sdfp, rc, cfg.band_factor, cfg)
-    ids, n = sparse._active_cells(vol_c, tau, mode)
-    ids_p, n_p = sparse._active_cells_plain(vol_c, tau_p, mode)
-    fix, cnt = sparse._active_cells(vol_c, tau, mode, max_cells)
-    fix_p, cnt_p = sparse._active_cells_plain(vol_c, tau_p, mode, max_cells)
-    ok = (same_tau(tau, tau_p) and n == n_p and torch_equal(ids, ids_p)
-          and torch_equal(fix, fix_p) and torch_equal(cnt, cnt_p))
-    print(f"[k4] {label} ({mode}): tau {float(tau)!r} (plain "
+    bf = cfg.band_factor
+    tau_p, ids_p, n_p = sparse._band_cull_plain(vol_c, sdfp, rc, bf, cfg,
+                                                mode)
+    _, fix_p, cnt_p = sparse._band_cull_plain(vol_c, sdfp, rc, bf, cfg,
+                                              mode, max_cells)
+    tau, ids, n = sparse._band_cull(vol_c, sdfp, rc, bf, cfg, mode)
+    tau_f, fix, cnt = sparse._band_cull(vol_c, sdfp, rc, bf, cfg, mode,
+                                        max_cells)
+    tau_e = sparse._band_tau(vol_c, sdfp, rc, bf, cfg)
+    ids_e, n_e = band_cull.active_cells(vol_c, tau_p, mode)
+    fix_e, cnt_e = band_cull.active_cells(vol_c, tau_p, mode, max_cells)
+    ok = (same_tau(tau, tau_p) and same_tau(tau_f, tau_p)
+          and same_tau(tau_e, tau_p) and n == n_p == n_e
+          and torch_equal(ids, ids_p) and torch_equal(ids_e, ids_p)
+          and torch_equal(fix, fix_p) and torch_equal(cnt, cnt_p)
+          and torch_equal(fix_e, fix_p) and torch_equal(cnt_e, cnt_p))
+    print(f"[k4] {label} ({mode}, {rc}^3): tau {float(tau)!r} (plain "
           f"{float(tau_p)!r}), {n} active cells (plain {n_p}), the fixed "
-          f"form at {max_cells}: count {int(cnt)}; equal={ok}")
-    check(ok, f"[k4] {label} ({mode}): the kernels differ from their plain "
+          f"form at {max_cells}: count {int(cnt)}; fused, tau and cull "
+          f"entries equal={ok}")
+    check(ok, f"[k4] {label} ({mode}): the kernel differs from its plain "
               f"versions")
     return n
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of fn over `calls` calls queued with no
+    sync (time.perf_counter_ns), after a warm-up; the card is synchronised
+    after."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
+PARENT_CULL: dict = {}  # another checkout's K4 and compaction (--parent)
+
+
+def cull_parent(root: str) -> dict:
+    """Another checkout's K4 and compaction wrappers (ops/band_cull.py and
+    ops/block_compact.py, loaded under other names; they import this
+    checkout's helpers), each bound to a build of that checkout's source."""
+    import importlib.util
+
+    from disn_tpu_torch import kernels
+
+    out = {}
+    for name in ("band_cull", "block_compact"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}",
+            os.path.join(root, "disn_tpu_torch", "ops", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        src = os.path.join(root, "disn_tpu_torch", "csrc", f"{name}.cu")
+        mod.build = (lambda name=name, src=src:
+                     kernels.nvcc_build(name, src=src))
+        mod._lib.cache_clear()
+        out[name] = mod
+    return out
+
+
+def k4_call(mod, vol_c, sdfp, rc, cfg, mode, max_cells):
+    """phase_a's tau and cull through a checkout's K4 wrappers: its fused
+    entry where it has one, else tau then the cull (two calls)."""
+    autocal = cfg.band_autocal and not cfg.binary
+    if hasattr(mod, "band_cull"):
+        return lambda: mod.band_cull(vol_c, sdfp, rc, cfg.band_factor,
+                                     autocal, mode, max_cells)
+
+    def pair():
+        tau = mod.band_tau(vol_c, sdfp, rc, cfg.band_factor, autocal)
+        return (tau, *mod.active_cells(vol_c, tau, mode, max_cells))
+    return pair
+
+
+# the kernels of each checkout's K4 and compaction, for the profiler
+K4_KERNELS = {"change": ("band_cull_kernel",),
+              "parent": ("tau_vmin", "tau_lip", "tau_final", "cull_count",
+                         "cull_write")}
+KC_KERNELS = {"change": ("compact_kernel",),
+              "parent": ("bc_count", "bc_write", "bc_finish")}
+
+
+def turns(tag: str, fns: dict, names: dict) -> dict:
+    """The change's and, with --parent, the parent's calls in turns
+    (parent, change, change, parent): the wrapper's ms on CUDA events
+    (median of 20), its kernels' device us by the profiler (their kernels
+    and no other device work) and its host us a call; returns the lists by
+    arm."""
+    order = (["parent", "change", "change", "parent"] if "parent" in fns
+             else ["change", "change"])
+    out: dict = {k: {"ms": [], "device_us": [], "host_us": []} for k in fns}
+    for arm in order:
+        out[arm]["ms"].append(median_ms(fns[arm], True, 20))
+        out[arm]["device_us"].append(library_device_us(
+            f"{tag} {arm}", fns[arm], names[arm]))
+        out[arm]["host_us"].append(host_us(fns[arm]))
+    for arm, r in out.items():
+        print(f"{tag} {arm} in turns: wrapper "
+              f"{[round(v, 4) for v in r['ms']]} ms (CUDA events, median of "
+              f"20), kernels {[round(v, 2) for v in r['device_us']]} us "
+              f"(profiler), host {[round(v, 2) for v in r['host_us']]} us a "
+              f"call; {card_name()}")
+    return out
 
 
 # calls of a library in one profiler window: late in a long run the
@@ -1519,29 +1644,43 @@ def torch_equal(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a, b)
 
 
+def octahedron_grid(rc: int, device):
+    """The analytic head's field |x|+|y|+|z| - 0.6 on an rc^3 lattice over
+    the unit box (the main path's coarse grid at rc 65)."""
+    import torch
+    lin = torch.linspace(-1.0, 1.0, rc, device=device)
+    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
+    return (x.abs() + y.abs() + z.abs() - 0.6).contiguous()
+
+
 def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
-    """[k4]: K4 (band_tau, active_cells) against its plain versions on the
-    main path's coarse grid and sizes (both forms, both modes, the fixed
-    form past its cap) and on edge grids (no active cell, every cell,
-    corners at +-0.0, NaN and +-inf); kernel and plain version timed on
-    CUDA events (median of 20) beside the bound; phase_a's launches and
-    its host-clock stage with the plain versions (the parent's code path)
-    and with the kernels, in turns. Returns the kernel table's entries'
-    numbers."""
+    """[k4]: K4 (one cluster launch: tau and the cull) against its plain
+    versions on the main path's coarse grid and sizes (both forms, both
+    modes, the fixed form past its cap, every entry), on edge grids (no
+    active cell, every cell, corners at +-0.0, NaN and +-inf) and on grids
+    past the main path's (129^3, a ragged 100^3); one launch a call of each
+    entry; the fused call and the plain pair timed on CUDA events beside
+    the bound, the kernel's device time by the profiler, host us a call;
+    clusters of 16 and 8 CTAs in turns; with --parent, that checkout's K4
+    in turns with this one's; phase_a's launches and its host-clock stage
+    with the plain versions (PlainCulls) and with the kernel, in turns.
+    Returns the kernel table's entry's numbers."""
     import torch
     from disn_tpu_torch.infer import pipeline, sparse
+    from disn_tpu_torch.ops import band_cull
 
     rc = vol_c.shape[0]
+    dev = vol_c.device
     max_cells = (pipeline._spec_sizes(cfg)["max_blocks"]
                  * pipeline._spec_sizes(cfg)["cells_per_block"])
     n = hold_k4("main grid", vol_c, sdfp, cfg, "band", max_cells)
     hold_k4("main grid", vol_c, sdfp, cfg, "sign", max_cells)
     hold_k4("main grid past the cap", vol_c, sdfp, cfg, "band", n // 2)
     rng = np.random.RandomState(19)
-    i = torch.arange(rc, device=vol_c.device)
+    i = torch.arange(rc, device=dev)
     parity = (i[:, None, None] + i[None, :, None] + i[None, None, :]) % 2
     zeros = vol_c.clone().reshape(-1)
-    pick = torch.from_numpy(rng.rand(zeros.numel())).to(vol_c.device)
+    pick = torch.from_numpy(rng.rand(zeros.numel())).to(dev)
     zeros[pick < 0.05] = 0.0
     zeros[(pick >= 0.05) & (pick < 0.1)] = -0.0
     bad = vol_c.clone().reshape(-1)
@@ -1552,63 +1691,75 @@ def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
             ("no active cell", vol_c.abs() + 1.0, 0),
             ("every cell", (1 - 2 * parity.float()) * 0.01, (rc - 1) ** 3),
             ("corners at +-0.0", zeros.reshape(vol_c.shape), None),
-            ("NaN and +-inf", bad.reshape(vol_c.shape), None)):
+            ("NaN and +-inf", bad.reshape(vol_c.shape), None),
+            ("past the main grid", octahedron_grid(129, dev), None),
+            ("a ragged grid", (0.3 * torch.from_numpy(rng.randn(
+                100, 100, 100)).float()).to(dev), None)):
         for mode in ("band", "sign"):
             got = hold_k4(label, grid.contiguous(), sdfp, cfg, mode,
                           max_cells)
             check(want is None or got == want,
                   f"[k4] {label} ({mode}): {got} active cells, expected "
                   f"{want}")
-
-    def kernels():
-        tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
-        return sparse._active_cells(vol_c, tau, "band", max_cells)
+    fused = k4_call(band_cull, vol_c, sdfp, rc, cfg, "band", max_cells)
+    tau = fused()[0]
+    counts = {"band_cull": count_launches(fused),
+              "band_tau": count_launches(lambda: band_cull.band_tau(
+                  vol_c, sdfp, rc, cfg.band_factor, True)),
+              "active_cells": count_launches(lambda: band_cull.active_cells(
+                  vol_c, tau, "band", max_cells))}
+    print(f"[k4] kernel launches a call (torch.profiler): {counts}")
+    check(all(v == 1 for v in counts.values()),
+          f"[k4] an entry took other than one launch: {counts}")
 
     def plain():
-        tau = sparse._band_tau_plain(vol_c, sdfp, rc, cfg.band_factor, cfg)
-        return sparse._active_cells_plain(vol_c, tau, "band", max_cells)
+        return sparse._band_cull_plain(vol_c, sdfp, rc, cfg.band_factor, cfg,
+                                       "band", max_cells)
 
-    tau = sparse._band_tau(vol_c, sdfp, rc, cfg.band_factor, cfg)
-    ms = {
-        "band_tau": median_ms(lambda: sparse._band_tau(
-            vol_c, sdfp, rc, cfg.band_factor, cfg), True, 20),
-        "band_tau plain": median_ms(lambda: sparse._band_tau_plain(
-            vol_c, sdfp, rc, cfg.band_factor, cfg), True, 20),
-        "active_cells": median_ms(lambda: sparse._active_cells(
-            vol_c, tau, "band", max_cells), True, 20),
-        "active_cells plain": median_ms(lambda: sparse._active_cells_plain(
-            vol_c, tau, "band", max_cells), True, 20),
-        "k4": median_ms(kernels, True, 20),
-        "k4 plain": median_ms(plain, True, 20)}
+    ms = {"band_cull": median_ms(fused, True, 20),
+          "plain": median_ms(plain, True, 20),
+          "band_tau": median_ms(lambda: band_cull.band_tau(
+              vol_c, sdfp, rc, cfg.band_factor, True), True, 20)}
+    dev_us = library_device_us("[k4 profile] band_cull", fused,
+                               K4_KERNELS["change"])
+    host = host_us(fused)
+    sizes: dict = {16: [], 8: []}
+    for ctas in (16, 8, 8, 16):
+        band_cull.CTAS = ctas
+        sizes[ctas].append((median_ms(fused, True, 20), library_device_us(
+            f"[k4 profile] {ctas} CTAs", fused, K4_KERNELS["change"])))
+    band_cull.CTAS = 16
+    print(f"[k4] clusters in turns (16, 8, 8, 16), (wrapper ms, kernel us): "
+          f"16 CTAs {[(round(a, 4), round(b, 2)) for a, b in sizes[16]]}, "
+          f"8 CTAs {[(round(a, 4), round(b, 2)) for a, b in sizes[8]]}; "
+          f"{card_name()}")
+    fns = {"change": fused}
+    if PARENT_CULL:
+        fns["parent"] = k4_call(PARENT_CULL["band_cull"], vol_c, sdfp, rc,
+                                cfg, "band", max_cells)
+        want = plain()
+        got = fns["parent"]()
+        check(same_tau(got[0], want[0]) and torch_equal(got[1], want[1])
+              and torch_equal(got[2], want[2]),
+              "[k4] the parent's K4 differs from the plain versions")
+    k4_turns = turns("[k4 turns]", fns, K4_KERNELS)
     grid_b = vol_c.numel() * 4
-    out = {
-        "band_tau": dict(zip(("bound_ms", "bound_by"), k_bound(
-            grid_b + 24 + 4, 7 * 7 * vol_c.numel()))),
-        "active_cells": dict(zip(("bound_ms", "bound_by"), k_bound(
-            grid_b + 4 + 4 * max_cells + 4, 8 * 4 * (rc - 1) ** 3)))}
-    dev_us = {
-        "band_tau": library_device_us("[k4 profile] band_tau", lambda:
-                                      sparse._band_tau(vol_c, sdfp, rc,
-                                                       cfg.band_factor, cfg),
-                                      ("tau_vmin", "tau_lip", "tau_final")),
-        "active_cells": library_device_us(
-            "[k4 profile] active_cells", lambda: sparse._active_cells(
-                vol_c, tau, "band", max_cells), ("cull_count", "cull_write"))}
-    for k in ("band_tau", "active_cells"):
-        out[k].update(ms=ms[k], plain_ms=ms[k + " plain"], max_abs_err=0.0,
-                      library_ms=None, device_us=dev_us[k])
-    print(f"[k4] the main path's cull on the {rc}^3 grid ({n} active cells, "
-          f"the fixed form at {max_cells}), CUDA events, median of 20: "
-          f"kernels {ms['k4']:.4f} ms (tau {ms['band_tau']:.4f}, cull "
-          f"{ms['active_cells']:.4f}; the wrappers on CUDA events, their "
-          f"kernels alone by the profiler {dev_us['band_tau']:.2f} + "
-          f"{dev_us['active_cells']:.2f} us), plain versions "
-          f"{ms['k4 plain']:.4f} "
-          f"(tau {ms['band_tau plain']:.4f}, cull "
-          f"{ms['active_cells plain']:.4f}); bounds tau "
-          f"{out['band_tau']['bound_ms']:.5f} ({out['band_tau']['bound_by']})"
-          f", cull {out['active_cells']['bound_ms']:.5f} "
-          f"({out['active_cells']['bound_by']}); {card_name()}")
+    bound, by = k_bound(grid_b + 24 + 4 + 4 * max_cells + 4,
+                        7 * 7 * vol_c.numel() + 8 * 4 * (rc - 1) ** 3)
+    out = {"band_cull": dict(bound_ms=bound, bound_by=by, ms=ms["band_cull"],
+                             plain_ms=ms["plain"], max_abs_err=0.0,
+                             library_ms=None, device_us=dev_us,
+                             host_us=host, turns=k4_turns)}
+    print(f"[k4] the main path's tau and cull on the {rc}^3 grid ({n} "
+          f"active cells, the fixed form at {max_cells}): the fused call "
+          f"{ms['band_cull']:.4f} ms (CUDA events, median of 20; its kernel "
+          f"alone {dev_us:.2f} us by the profiler; host {host:.2f} us a "
+          f"call), tau alone {ms['band_tau']:.4f}, the plain pair "
+          f"{ms['plain']:.4f}; bound {bound:.5f} ({by}); {card_name()}")
+    sign = k4_call(band_cull, vol_c, sdfp, rc, cfg, "sign", max_cells)
+    print(f"[k4] sign mode on the main grid: {median_ms(sign, True, 20):.4f}"
+          f" ms, kernel {library_device_us('[k4 profile] sign', sign, K4_KERNELS['change']):.2f}"
+          f" us; {card_name()}")
 
     def run():
         return sparse.phase_a(params, img_t, trans_t, sdfp, cfg,
@@ -1621,8 +1772,10 @@ def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
         return st["phase_a_ms"]
 
     with PlainCulls():
-        plain_n = count_launches(run)
-    kern_n = count_launches(run)
+        plain_calls = launch_calls(run)
+    kern_calls = launch_calls(run)
+    plain_n, kern_n = (sum(v for k, v in c.items() if "LaunchKernel" in k)
+                       for c in (plain_calls, kern_calls))
     walls: dict = {"plain": [], "kernels": []}
     stage: dict = {"plain": [], "kernels": []}
     for arm in ("plain", "kernels", "kernels", "plain"):
@@ -1632,77 +1785,136 @@ def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
                                                for _ in range(5)])))
     print(f"[k4] phase_a (encode, fold, the coarse pass, the cull; the "
           f"speculative dispatch's fixed form): {plain_n} kernel launches "
-          f"with the plain versions (the parent's code path), {kern_n} with "
-          f"the kernels; in turns (plain, kernels, kernels, plain; host "
-          f"clock, medians of 5) wall {[round(w, 3) for w in walls['plain']]}"
-          f" / {[round(w, 3) for w in walls['kernels']]} ms, its phase_a_ms "
+          f"with the plain versions, {kern_n} with the kernel (runtime "
+          f"calls: {plain_calls} / {kern_calls}); in turns (plain, kernel, "
+          f"kernel, plain; host clock, medians of 5) wall "
+          f"{[round(w, 3) for w in walls['plain']]} / "
+          f"{[round(w, 3) for w in walls['kernels']]} ms, its phase_a_ms "
           f"stage {[round(w, 3) for w in stage['plain']]} / "
           f"{[round(w, 3) for w in stage['kernels']]} ms; {card_name()}")
     check(kern_n < plain_n, f"[k4] phase_a launched {kern_n} kernels with "
-                            f"the kernels, {plain_n} without")
+                            f"the kernel, {plain_n} without")
     out["phase_a"] = dict(launches=(plain_n, kern_n), walls=walls,
                           stage=stage)
     return out
 
 
-def hold_compact(label: str, args, kw) -> dict:
+def hold_compact(label: str, args, kw, timed: bool = True) -> dict:
     """The compaction's kernel against its plain version on one input, in
-    the form given and in the exact form; both timed (CUDA events, median
-    of 20) beside the bound and torch.nonzero on the same block mask."""
+    the form given and in the exact form; its launches a call (one capped,
+    at most two exact, with no copy call: the exact form's (b, n) come
+    through mapped host memory). Timed (CUDA events, median of 20) beside
+    the bound and torch.nonzero on the same block mask; the capped form's
+    kernel by the profiler, host us a call, and with --parent that
+    checkout's compaction in turns with this one's."""
     import torch
     from disn_tpu_torch.ops import marching
 
     bits, cand, E = args
+    srow = kw.get("srow_tbl")
     got = marching._compact_block_bits(*args, **kw)
     want = marching._compact_block_bits_plain(*args, **kw)
     capped = kw.get("bcap") is not None
     same = all(torch_equal(a, b) if torch.is_tensor(a) else a == b
                for a, b in zip(got, want))
-    exact = marching._compact_block_bits(bits, cand, E,
-                                         srow_tbl=kw.get("srow_tbl"))
-    exact_p = marching._compact_block_bits_plain(
-        bits, cand, E, srow_tbl=kw.get("srow_tbl"))
+    exact = marching._compact_block_bits(bits, cand, E, srow_tbl=srow)
+    exact_p = marching._compact_block_bits_plain(bits, cand, E,
+                                                 srow_tbl=srow)
     same_exact = (exact[1] == exact_p[1] and torch_equal(exact[0], exact_p[0])
                   and torch_equal(exact[2], exact_p[2]))
     n, b = exact[1], exact[2].shape[0]
-    dev_us = library_device_us(
-        "[compact profile]", lambda: marching._compact_block_bits(*args, **kw),
-        ("bc_count", "bc_write", "bc_finish")) if capped else float("nan")
-    sel = cand & ((bits[:, 0] | bits[:, 1]) != 0)
-    ms = median_ms(lambda: marching._compact_block_bits(*args, **kw), True,
-                   20)
-    plain_ms = median_ms(lambda: marching._compact_block_bits_plain(
-        *args, **kw), True, 20)
-    lib_ms = median_ms(lambda: torch.nonzero(sel), True, 20)
-    ids_len, rows = (got[0].numel(), got[3].shape[0]) if capped else (n, b)
-    srow = kw.get("srow_tbl")
-    nbytes = (bits.numel() * 4 + cand.numel()
-              + (0 if srow is None else srow.numel() * 4)
-              + 4 * ids_len + 12 * rows + (8 if capped else 0))
-    bound, by = k_bound(nbytes, 3.0 * bits.shape[0] + n)
     form = f"capped at bcap {kw['bcap']}" if capped else "exact"
     print(f"[compact] {label}: {form}, "
           f"{'sparse row ids' if srow is not None else 'flat ids'}; "
           f"{b} blocks, {n} cells; kernel = plain {same}, exact form "
-          f"{same_exact}; kernel {ms:.4f} ms (the wrapper on CUDA events; "
-          f"its kernels alone by the profiler {dev_us:.2f} us), plain "
-          f"{plain_ms:.4f}, "
-          f"torch.nonzero of the block mask {lib_ms:.4f}; bound "
-          f"{bound:.5f} ({by}, {nbytes} B); {card_name()}")
+          f"{same_exact}")
     check(same and same_exact, f"[compact] {label}: the kernel differs "
                                f"from its plain version")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, max_abs_err=0.0, device_us=dev_us)
+    calls = {"capped": launch_calls(lambda: marching._compact_block_bits(
+                 bits, cand, E, srow_tbl=srow, bcap=kw.get("bcap") or 1024,
+                 guard=kw.get("guard"))),
+             "exact": launch_calls(lambda: marching._compact_block_bits(
+                 bits, cand, E, srow_tbl=srow))}
+    launches = {k: sum(v for name, v in c.items() if "LaunchKernel" in name)
+                for k, c in calls.items()}
+    copies = {k: sum(v for name, v in c.items() if "Memcpy" in name)
+              for k, c in calls.items()}
+    print(f"[compact] {label}: runtime calls a call {calls}")
+    check(launches["capped"] == 1 and 1 <= launches["exact"] <= 2
+          and copies["capped"] == copies["exact"] == 0,
+          f"[compact] {label}: launches {launches}, copies {copies}; "
+          f"expected one capped, at most two exact, no copy")
+    if not timed:
+        return {}
+    fn = lambda: marching._compact_block_bits(*args, **kw)  # noqa: E731
+    dev_us = library_device_us("[compact profile]", fn,
+                               KC_KERNELS["change"]) if capped else None
+    sel = cand & ((bits[:, 0] | bits[:, 1]) != 0)
+    ms = median_ms(fn, True, 20)
+    plain_ms = median_ms(lambda: marching._compact_block_bits_plain(
+        *args, **kw), True, 20)
+    lib_ms = median_ms(lambda: torch.nonzero(sel), True, 20)
+    host = host_us(fn, 1000 if capped else 100)
+    ids_len, rows = (got[0].numel(), got[3].shape[0]) if capped else (n, b)
+    nbytes = (bits.numel() * 4 + cand.numel()
+              + (0 if srow is None else srow.numel() * 4)
+              + 4 * ids_len + 12 * rows + (8 if capped else 0))
+    bound, by = k_bound(nbytes, 3.0 * bits.shape[0] + n)
+    print(f"[compact] {label}: kernel {ms:.4f} ms (the wrapper on CUDA "
+          f"events; its kernel alone "
+          f"{'%.2f us' % dev_us if capped else 'not profiled'} by the "
+          f"profiler; host {host:.2f} us a call), plain {plain_ms:.4f}, "
+          f"torch.nonzero of the block mask (the selection alone) "
+          f"{lib_ms:.4f}; bound {bound:.5f} ({by}, {nbytes} B); "
+          f"{card_name()}")
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=lib_ms, max_abs_err=0.0, device_us=dev_us,
+               host_us=host)
+    if capped:
+        from disn_tpu_torch.ops import block_compact
+        sizes: dict = {16: [], 8: []}
+        for ctas in (16, 8, 8, 16):
+            block_compact.CTAS = ctas
+            sizes[ctas].append((median_ms(fn, True, 20), library_device_us(
+                f"[compact profile] {ctas} CTAs", fn, KC_KERNELS["change"])))
+        block_compact.CTAS = 16
+        print(f"[compact] {label}: clusters in turns (16, 8, 8, 16), "
+              f"(wrapper ms, kernel us): 16 CTAs "
+              f"{[(round(a, 4), round(b, 2)) for a, b in sizes[16]]}, 8 CTAs "
+              f"{[(round(a, 4), round(b, 2)) for a, b in sizes[8]]}; "
+              f"{card_name()}")
+        fns = {"change": fn}
+        if PARENT_CULL:
+            pmod = PARENT_CULL["block_compact"]
+            fns["parent"] = lambda: pmod.compact_block_bits(*args, **kw)
+            check(all(torch_equal(a, b) for a, b in zip(fns["parent"](),
+                                                        want)),
+                  "[compact] the parent's compaction differs from the plain "
+                  "version")
+        out["turns"] = turns(f"[compact turns] {label}", fns, KC_KERNELS)
+    else:
+        exact_fns = {"change": fn}
+        if PARENT_CULL:
+            pmod = PARENT_CULL["block_compact"]
+            exact_fns["parent"] = lambda: pmod.compact_block_bits(*args, **kw)
+        order = (["parent", "change", "change", "parent"]
+                 if "parent" in exact_fns else ["change", "change"])
+        res = [(arm, round(median_ms(exact_fns[arm], True, 20), 4),
+                round(host_us(exact_fns[arm], 100), 2)) for arm in order]
+        print(f"[compact turns] {label}: (arm, wrapper ms, host us a call) "
+              f"{res}; {card_name()}")
+    return out
 
 
 def phase_compact(kept: dict, img_fn) -> dict:
     """[compact]: the compaction's kernel against its plain version on the
     words flow's main-path inputs (the kept bf16 image, a hit: capped,
     sparse row ids, the guard on the card) and the volume flow's (exact,
-    flat ids), then at a cap that overflows and with no change bit; the
-    main path's launches an image and its single-image wall with the plain
-    versions (the parent's code path) and with the kernels (img_fn:
-    image_turns). Returns the words flow's entry for the kernel table."""
+    flat ids), then at a cap that overflows, with no change bit, with
+    every block selected, past b2 by one block and on a 513^3 grid; the
+    main path's launches an image and its single-image wall with the
+    plain versions and with the kernels (img_fn: image_turns). Returns the
+    words flow's entry for the kernel table."""
     import torch
 
     args, kw = kept["bf16 compact"][0]
@@ -1712,28 +1924,49 @@ def phase_compact(kept: dict, img_fn) -> dict:
           f"{sorted(k for k, v in kw.items() if v is not None)}")
     entry = hold_compact("words flow, the main path's launch", args, kw)
     hold_compact("volume flow, the main path's launch", vargs, vkw)
-    hold_compact("words flow past b2", args, dict(kw, bcap=256))
+    hold_compact("words flow past b2", args, dict(kw, bcap=256), False)
     bits, cand, E = args
-    hold_compact("no change bit", (torch.zeros_like(bits), cand, E), kw)
-    turns = img_fn()
-    before, after = turns["launches"]
+    hold_compact("no change bit", (torch.zeros_like(bits), cand, E), kw,
+                 False)
+    every = torch.ones_like(cand)
+    full = torch.full_like(bits, -1)
+    hold_compact("every block selected", (full, every, E),
+                 dict(kw, bcap=2 * cand.numel()), False)
+    sel = int((cand & ((bits[:, 0] | bits[:, 1]) != 0)).sum())
+    for b2 in (max(512, (sel - 1) // 256 * 256), -(-sel // 256) * 256):
+        hold_compact(f"b2 {b2} against {sel} selected blocks", args,
+                     dict(kw, bcap=2 * b2), False)
+    rng = np.random.RandomState(20)
+    E2 = 513
+    nb2 = (-(-E2 // 4)) ** 3
+    words = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31 - 1, (nb2, 2),
+                                         dtype=np.int64).astype(np.int32))
+    keep = torch.from_numpy(rng.rand(nb2) < 0.02)
+    hold_compact("a 513^3 grid", ((words * keep[:, None]).cuda(),
+                                  torch.from_numpy(rng.rand(nb2) < 0.8)
+                                  .cuda(), E2), dict(bcap=65536), False)
+    turns_ = img_fn()
+    before, after = turns_["launches"]
     print(f"[compact] one main-path image_to_mesh (a hit): {before} kernel "
-          f"launches with the plain K4 and compaction (the parent's code "
-          f"path), {after} with the kernels; its wall in turns (plain, "
+          f"launches with the plain K4 and compaction, {after} with the "
+          f"kernels (every launch call; runtime calls "
+          f"{turns_['calls'][0]} / {turns_['calls'][1]}); its wall in turns "
+          f"(plain, "
           f"kernels, kernels, plain; host clock, medians of 5) "
-          f"{[round(w, 3) for w in turns['plain']]} / "
-          f"{[round(w, 3) for w in turns['kernels']]} ms; {card_name()}")
+          f"{[round(w, 3) for w in turns_['plain']]} / "
+          f"{[round(w, 3) for w in turns_['kernels']]} ms; {card_name()}")
     check(after < before, "[compact] the kernels did not cut the main "
                           "path's launches")
+    entry["image_launches"] = (before, after)
     return entry
 
 
 def image_turns(cfg, params, img, trans) -> dict:
     """One image_to_mesh of the main path (a hit of the speculative
-    dispatch) with the plain K4 and compaction (the parent's code path)
-    and with the kernels: cudaLaunchKernel calls in one image, and the
-    single-image wall in turns (plain, kernels, kernels, plain; host clock
-    with the card synchronised, median of 5 each)."""
+    dispatch) with the plain K4 and compaction and with the kernels: the
+    runtime's launch calls in one image, and the single-image wall in
+    turns (plain, kernels, kernels, plain; host clock with the card
+    synchronised, median of 5 each)."""
     from disn_tpu_torch.infer import pipeline
 
     def run():
@@ -1741,9 +1974,13 @@ def image_turns(cfg, params, img, trans) -> dict:
 
     with PlainCulls():
         run()
-        before = count_launches(run)
+        before = launch_calls(run)
     run()
-    out = {"launches": (before, count_launches(run)),
+    after = launch_calls(run)
+    out = {"calls": (before, after),
+           "launches": tuple(sum(v for k, v in c.items()
+                                 if "LaunchKernel" in k)
+                             for c in (before, after)),
            "plain": [], "kernels": []}
     for arm in ("plain", "kernels", "kernels", "plain"):
         with PlainCulls() if arm == "plain" else contextlib.nullcontext():
@@ -5984,21 +6221,21 @@ def k6_entries(hold: dict, counts: dict) -> list[dict]:
 
 
 def cull_entries(k4: dict, kc: dict, launches: dict) -> list[dict]:
-    """K4's two kernels ([k4]: the main path's fixed form on its coarse
-    grid) and the compaction ([compact]: the words flow's capped launch of
-    the main path); launches from the main path's run of phase 2."""
+    """K4 ([k4]: the fused call of tau and the cull, the main path's fixed
+    form on its coarse grid; it replaces both functions, :113 and :67) and
+    the compaction ([compact]: the words flow's capped launch of the main
+    path); launches from the main path's run of phase 2."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    rows = (("band_tau", "band_cull", "disn_tpu/infer/sparse.py:113",
-             k4["band_tau"], launches["band_tau"]),
-            ("active_cells", "band_cull", "disn_tpu/infer/sparse.py:67",
-             k4["active_cells"], launches["active_cells"]),
+    rows = (("band_cull", "band_cull", "disn_tpu/infer/sparse.py:113",
+             k4["band_cull"], launches["band_cull"],
+             {"also_replaces": "disn_tpu/infer/sparse.py:67"}),
             ("compact_block_bits", "block_compact",
-             "disn_tpu/ops/marching.py:694", kc, launches["compact"]))
+             "disn_tpu/ops/marching.py:694", kc, launches["compact"], {}))
     return [{"name": name, "route": "cuda",
              "source": f"disn_tpu_torch/csrc/{src}.cu", "replaces": where,
-             "launches": n, **{k: res[k] for k in keys}}
-            for name, src, where, res, n in rows]
+             "launches": n, **{k: res[k] for k in keys}, **extra}
+            for name, src, where, res, n, extra in rows]
 
 
 def main() -> int:
@@ -6014,8 +6251,9 @@ def main() -> int:
                          "measured against the float64 referee, its K6d "
                          "likewise, its K6a, K6c and K6d timed in turns "
                          "with this checkout's at the protocol's shape; its "
-                         "farm in turns with this checkout's in [farm "
-                         "pipe]")
+                         "K4 and compaction in turns with this checkout's "
+                         "in [k4] and [compact]; its farm in turns with "
+                         "this checkout's in [farm pipe]")
     ap.add_argument("--farm-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.farm_worker:  # [farm pipe]'s runs of a checkout
@@ -6047,6 +6285,7 @@ def main() -> int:
                 "metrics", src=os.path.join(args.parent, "disn_tpu_torch",
                                             "csrc", "metrics.cu"))))
             PARENT_K1.update(k1_parent(args.parent))
+            PARENT_CULL.update(cull_parent(args.parent))
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])

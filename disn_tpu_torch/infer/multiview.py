@@ -188,9 +188,9 @@ def phase_a(params: Params, imgs: torch.Tensor, trans_mats: torch.Tensor,
         pts = grids.grid_block(sdf_params, rc, 0, rc ** 3)
         vol_c = _decode_points(params, state, trans_mats, pts,
                                cfg).reshape(rc, rc, rc)
-        tau = sparse_mod._band_tau(vol_c, sdf_params, rc, BAND_FACTOR, cfg)
-        cell_ids, count = sparse_mod._active_cells(
-            vol_c, tau, mode="sign" if cfg.binary else "band")
+        _, cell_ids, count = sparse_mod._band_cull(
+            vol_c, sdf_params, rc, BAND_FACTOR, cfg,
+            mode="sign" if cfg.binary else "band")
     return state, vol_c, cell_ids, count
 
 

@@ -11,9 +11,10 @@ coarse grid upsampled with corners aligned, which keeps the signs.
 * phase_a: encode + fold, decode the coarse (R-1)/4+1 grid
   (fused.dense_grid_via_cells where fused.kernel_enabled allows it, else
   the plain decode), threshold ('band' for regression heads, 'sign' for
-  binary ones), compact the active cells (K4: a hand-written kernel on the
-  card, ops/band_cull and csrc/band_cull.cu; the plain versions
-  _band_tau_plain and _active_cells_plain on the CPU).
+  binary ones), compact the active cells (K4: tau and the cull in one
+  launch of a hand-written kernel on the card, ops/band_cull and
+  csrc/band_cull.cu; the plain versions _band_tau_plain then
+  _active_cells_plain on the CPU).
 * finish: decode exactly the active cells (through the kernel where
   kernel_enabled allows it, else the plain decode), upsample the coarse
   grid, scatter the fine values, and decode the boundary planes when an
@@ -142,6 +143,29 @@ def _active_cells_plain(vol_c: torch.Tensor, tau: torch.Tensor,
     return ids[:count], count
 
 
+def _band_cull(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
+               band_factor: float, cfg: Config, mode: str = "band",
+               max_cells: int | None = None):
+    """The cull band's tau and the cull with it -> (tau, ids, count) as
+    _band_tau and _active_cells give them: on a CUDA grid one launch of the
+    kernel (band_cull.band_cull), on a CPU grid _band_cull_plain; the two
+    agree bit for bit."""
+    if vol_c.device.type == "cpu":
+        return _band_cull_plain(vol_c, sdf_params, rc, band_factor, cfg, mode,
+                                max_cells)
+    return band_cull.band_cull(vol_c, sdf_params, rc, band_factor,
+                               cfg.band_autocal and not cfg.binary, mode,
+                               max_cells)
+
+
+def _band_cull_plain(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
+                     band_factor: float, cfg: Config, mode: str = "band",
+                     max_cells: int | None = None):
+    """_band_tau_plain, then _active_cells_plain with its tau."""
+    tau = _band_tau_plain(vol_c, sdf_params, rc, band_factor, cfg)
+    return (tau, *_active_cells_plain(vol_c, tau, mode, max_cells))
+
+
 def _band_tau(vol_c: torch.Tensor, sdf_params: torch.Tensor, rc: int,
               band_factor: float, cfg: Config) -> torch.Tensor:
     """The cull band's tau: on a CUDA grid the kernel (band_cull.band_tau),
@@ -249,10 +273,9 @@ def phase_a(params: Params, img: torch.Tensor, trans_mat: torch.Tensor,
                 params, endpoints, embedding, trans_mat, sdf_params,
                 cfg.replace(sdf_res=rc - 1), 0, rc ** 3, folded=fold
             ).float().reshape(rc, rc, rc)
-        tau = _band_tau(vol_c, sdf_params, rc, cfg.band_factor, cfg)
-        cell_ids, count = _active_cells(
-            vol_c, tau, mode="sign" if cfg.binary else "band",
-            max_cells=max_cells)
+        _, cell_ids, count = _band_cull(
+            vol_c, sdf_params, rc, cfg.band_factor, cfg,
+            mode="sign" if cfg.binary else "band", max_cells=max_cells)
     return embedding, endpoints, vol_c, cell_ids, count
 
 

@@ -27,8 +27,8 @@ TAU = np.float32(0.2)
 def grid(kind: str, rc: int, seed: int = 0) -> np.ndarray:
     """A seeded coarse grid [rc]^3 f32: a noisy sphere's distance, the same
     steepened 3x (the autocal's slope), nothing near the surface, every
-    cell near it and changing sign, or the sphere with corners exactly at
-    +0.0 and -0.0."""
+    cell near it and changing sign, the sphere with corners exactly at
+    +0.0 and -0.0, or the sphere with NaN and +-inf corners."""
     rng = np.random.RandomState(seed)
     lin = np.linspace(-1, 1, rc)
     z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
@@ -48,6 +48,11 @@ def grid(kind: str, rc: int, seed: int = 0) -> np.ndarray:
         vol = sphere.copy()
         vol[rng.rand(rc, rc, rc) < 0.1] = 0.0
         vol[rng.rand(rc, rc, rc) < 0.1] = -0.0
+    elif kind == "nan":
+        vol = sphere.copy()
+        vol[rng.rand(rc, rc, rc) < 0.02] = np.nan
+        vol[rng.rand(rc, rc, rc) < 0.01] = np.inf
+        vol[rng.rand(rc, rc, rc) < 0.01] = -np.inf
     else:
         raise ValueError(kind)
     return vol.astype(np.float32)
@@ -216,3 +221,113 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         wrappers["compact_block_bits"](bits, cand, 33)
     assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("rc", [9, 17])
+@pytest.mark.parametrize("kind", ["sphere", "zeros", "nan"])
+@pytest.mark.parametrize("mode", ["band", "sign"])
+@pytest.mark.parametrize("max_cells", [None, 40])
+def test_band_cull_equals_the_pair_and_jax(rc, kind, mode, max_cells):
+    """The fused entry's dispatcher on the CPU (_band_cull: tau, then the
+    cull with it) against _band_tau then _active_cells, bit for bit, and
+    against disn_tpu's _band_tau then _active_cells on that tau, in both
+    modes and both forms, with corners at +-0.0 and at NaN and +-inf."""
+    vol = grid(kind, rc, seed=rc)
+    sp = torch.from_numpy(SKEWED_BOX)
+    cfg = Config(**SMALL)
+    tau, ids, count = sparse._band_cull(torch.from_numpy(vol), sp, rc, 1.5,
+                                        cfg, mode, max_cells)
+    tau2 = sparse._band_tau(torch.from_numpy(vol), sp, rc, 1.5, cfg)
+    ids2, count2 = sparse._active_cells(torch.from_numpy(vol), tau2, mode,
+                                        max_cells)
+    assert torch.equal(tau.view(torch.int32), tau2.view(torch.int32))
+    assert torch.equal(ids, ids2)
+    if max_cells is None:
+        assert count == count2
+    else:
+        assert torch.equal(count, count2)
+    jtau = jsparse._band_tau(jnp.asarray(vol), jnp.asarray(SKEWED_BOX), rc,
+                             1.5, JConfig(**SMALL))
+    np.testing.assert_allclose(float(tau), float(jtau), rtol=1e-6)
+    c = rc - 1
+    jids, jcount = jsparse._active_cells(
+        jnp.asarray(vol), jnp.asarray(tau.numpy()),
+        c ** 3 if max_cells is None else max_cells, mode)
+    jn = int(jcount)
+    assert int(count) == jn
+    if max_cells is None:
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids)[:jn])
+    else:
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
+@pytest.mark.parametrize("ctas", [8, 16])
+@pytest.mark.parametrize("rc", [2, 3, 9, 17, 33, 65, 129, 257, 1290])
+def test_cull_plan_walks_every_plane_once_in_order(rc, ctas):
+    """K4's split of the c = rc - 1 cell planes: each round gives every CTA
+    one slab of at most ZMAX planes; the slabs, in the kernel's order
+    (round, then CTA), cover [0, c) once, contiguous and ascending, so the
+    ids come out in row-major order; the main path's 65^3 grid takes one
+    round."""
+    c = rc - 1
+    zr = band_cull.cull_plan(rc, ctas)
+    assert 1 <= zr <= band_cull.ZMAX
+    slabs = band_cull.cull_slabs(rc, ctas)
+    assert len(slabs) % ctas == 0
+    assert [j for _, j, _, _ in slabs] == list(range(ctas)) * (
+        len(slabs) // ctas)
+    end = 0
+    for _, _, z0, z1 in slabs:
+        assert z0 == end and z0 <= z1 <= z0 + zr
+        end = z1
+    assert end == c
+    assert slabs[-ctas][2] < c  # the last round holds a plane
+    if rc == 65:
+        assert len(slabs) == ctas
+
+
+@pytest.mark.parametrize("ctas", [8, 16])
+@pytest.mark.parametrize("E", [1, 5, 17, 65, 257, 513, 1285])
+def test_compact_plan_owns_every_chunk_once_in_order(E, ctas):
+    """K2c's split of the B3^3 block rows: 128-row chunks covering every
+    row, units of `group` consecutive chunks dealt to the CTAs in turn
+    (CTA j the units j, j + ctas, ...), at most MAX_UNITS a CTA, every
+    chunk in exactly one unit; read in global unit order the units run
+    through the chunks in row-major order."""
+    nb = (-(-E // 4)) ** 3
+    chunks, group = block_compact.compact_plan(nb, ctas)
+    assert chunks * block_compact.CHUNK_ROWS >= nb > (
+        chunks - 1) * block_compact.CHUNK_ROWS
+    dealt = block_compact.compact_units(nb, ctas)
+    assert len(dealt) == ctas
+    assert all(len(units) <= block_compact.MAX_UNITS for units in dealt)
+    by_unit = sorted((u * ctas + j, run) for j, units in enumerate(dealt)
+                     for u, run in enumerate(units))
+    assert [k for k, _ in by_unit] == list(range(len(by_unit)))
+    end = 0
+    for _, (c0, c1) in by_unit:
+        assert c0 == end and c0 < c1 <= c0 + group
+        end = c1
+    assert end == chunks
+    if E == 257:
+        assert group == 1
+
+
+def test_cpu_tensors_take_the_plain_band_cull(monkeypatch):
+    """_band_cull sends a CPU grid to _band_cull_plain: the fused entry is
+    not called and its counter stays put; the entry refuses a CPU grid."""
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU tensor reached the kernel's wrapper")
+
+    entry = band_cull.band_cull
+    before = entry.launches
+    monkeypatch.setattr(band_cull, "band_cull", refuse)
+    vol = torch.from_numpy(grid("sphere", 13))
+    for mode in ("band", "sign"):
+        for max_cells in (None, 100):
+            sparse._band_cull(vol, torch.from_numpy(BOX), 13, 1.5,
+                              Config(**SMALL), mode, max_cells)
+    assert entry.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        entry(vol, torch.from_numpy(BOX), 13, 1.5, True)
+    assert entry.launches == before

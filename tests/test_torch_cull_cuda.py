@@ -230,3 +230,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         block_compact.compact_block_bits(bits, cand, 61)
     with pytest.raises(ValueError):
         block_compact.compact_block_bits(bits, cand.int(), 65)
+
+
+def launch_calls(fn) -> dict:
+    """The runtime's kernel launch and copy calls in one fn(), by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if "LaunchKernel" in e.name or "Memcpy" in e.name:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
+def launches(calls: dict) -> int:
+    return sum(n for k, n in calls.items() if "LaunchKernel" in k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "lattice", "zeros", "nan"])
+@pytest.mark.parametrize("rc", [3, 9, 33, 100, 129])
+@pytest.mark.parametrize("mode", ["band", "sign"])
+def test_band_cull_equals_the_plain_pair(card, kind, rc, mode):
+    """The fused entry (tau and the cull in one launch) against
+    _band_tau_plain then _active_cells_plain, bit for bit: tau, ids and
+    count in the exact form and the fixed form with room and past its cap,
+    with and without autocal, on grids from 3^3 up to 129^3 (past the main
+    path's 65^3), ragged at 100^3."""
+    vol = torch.from_numpy(grid(kind, rc, seed=rc + 7)).to(card)
+    sp = torch.tensor(BOXES["skewed"], dtype=torch.float32, device=card)
+    c = rc - 1
+    for autocal in (True, False):
+        cfg = Config(band_autocal=autocal)
+        want = sparse._band_cull_plain(vol, sp, rc, 1.5, cfg, mode)
+        before = band_cull.band_cull.launches
+        got = sparse._band_cull(vol, sp, rc, 1.5, cfg, mode)
+        assert band_cull.band_cull.launches == before + 1
+        assert same_bits(got[0], want[0])
+        assert got[2] == want[2] and torch.equal(got[1], want[1])
+        for cap in (c ** 3, max(1, want[2] // 2)):
+            want_f = sparse._band_cull_plain(vol, sp, rc, 1.5, cfg, mode, cap)
+            got_f = sparse._band_cull(vol, sp, rc, 1.5, cfg, mode, cap)
+            assert same_bits(got_f[0], want_f[0])
+            assert torch.equal(got_f[1], want_f[1])
+            assert got_f[2].dtype == torch.int32 and got_f[2].dim() == 0
+            assert torch.equal(got_f[2], want_f[2])
+
+
+@pytest.mark.cuda
+def test_one_launch_a_call(card):
+    """The fused call (both forms), tau alone, the fixed-form cull and the
+    capped compaction each make one kernel launch; the exact compaction at
+    most two, and no copy call: its (b, n) come through mapped host
+    memory."""
+    vol = torch.from_numpy(grid("lattice", 65)).to(card)
+    sp = torch.tensor(BOXES["unit"], dtype=torch.float32, device=card)
+    cfg = Config()
+    tau = sparse._band_tau(vol, sp, 65, 1.5, cfg)
+    bits, cand, own = block_inputs(257, 0.06, seed=4, dev=card)
+    guard = torch.zeros((), dtype=torch.int32, device=card)
+    one = {
+        "fused fixed": lambda: sparse._band_cull(vol, sp, 65, 1.5, cfg,
+                                                 "band", 65536),
+        "fused exact": lambda: sparse._band_cull(vol, sp, 65, 1.5, cfg),
+        "fused sign": lambda: sparse._band_cull(vol, sp, 65, 1.5, cfg,
+                                                "sign", 65536),
+        "tau": lambda: sparse._band_tau(vol, sp, 65, 1.5, cfg),
+        "cull fixed": lambda: sparse._active_cells(vol, tau, "band", 65536),
+        "compact capped": lambda: m._compact_block_bits(
+            bits, cand, 257, own, 16384, guard)}
+    for name, fn in one.items():
+        fn()
+        calls = launch_calls(fn)
+        assert launches(calls) == 1, (name, calls)
+        assert not any("Memcpy" in k for k in calls), (name, calls)
+    calls = launch_calls(lambda: m._compact_block_bits(bits, cand, 257))
+    assert 1 <= launches(calls) <= 2, calls
+    assert not any("Memcpy" in k for k in calls), calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse_ids", [False, True])
+@pytest.mark.parametrize("case", ["b2 exactly", "b2 past by one",
+                                  "no change bit", "every block"])
+def test_compaction_edges_equal_plain(card, sparse_ids, case):
+    """The capped compaction at its b2 boundary (exactly b2 selected
+    blocks, and one more), with no change bit, and with every block
+    selected with every bit; the exact form beside it; bit for bit."""
+    E = 129
+    bits, cand, own = block_inputs(E, 0.3, seed=5, dev=card)
+    nb = bits.shape[0]
+    sel = cand & ((bits[:, 0] | bits[:, 1]) != 0)
+    bcap = 1024  # b2 = 512 rows
+    if case.startswith("b2"):
+        keep = torch.nonzero(sel)[:, 0][:512 + (case == "b2 past by one")]
+        cand = torch.zeros_like(cand)
+        cand[keep] = True
+    elif case == "no change bit":
+        bits = torch.zeros_like(bits)
+    else:
+        bits = torch.full_like(bits, -1)
+        cand = torch.ones_like(cand)
+        bcap = 2 * nb
+    srow = own if sparse_ids else None
+    guard = torch.tensor(2, dtype=torch.int32, device=card)
+    got = m._compact_block_bits(bits, cand, E, srow, bcap, guard)
+    want = m._compact_block_bits_plain(bits, cand, E, srow, bcap, guard)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    got = m._compact_block_bits(bits, cand, E, srow)
+    want = m._compact_block_bits_plain(bits, cand, E, srow)
+    assert got[1] == want[1] and torch.equal(got[0], want[0])
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_same_bits_over_repeats(card):
+    """Ten repeats of the fused cull (fixed form) and of the capped
+    compaction give the same output bits: no atomics, nothing carried from
+    one launch to the next."""
+    vol = torch.from_numpy(grid("random", 65, seed=3)).to(card)
+    sp = torch.tensor(BOXES["unit"], dtype=torch.float32, device=card)
+    bits, cand, own = block_inputs(257, 0.06, seed=6, dev=card)
+    guard = torch.zeros((), dtype=torch.int32, device=card)
+    first = None
+    for _ in range(10):
+        tau, ids, n = sparse._band_cull(vol, sp, 65, 1.5, Config(), "band",
+                                        65536)
+        out = (tau.view(torch.int32).clone(), ids.clone(), n.clone(),
+               *(t.clone() for t in m._compact_block_bits(
+                   bits, cand, 257, own, 16384, guard)))
+        if first is None:
+            first = out
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
