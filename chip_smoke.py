@@ -48,7 +48,15 @@ on failure:
    and of the seed path in turns, each re-run kind forced once (short
    block and record buckets, compaction overflow, guard trip, cap
    overflow) and held the same way, and a warm _fused_dispatch under
-   torch.cuda.set_sync_debug_mode("error");
+   torch.cuda.set_sync_debug_mode("error"); [vspec]: the volume flow's
+   speculative dispatch (phase_vspec, sparse_words=False) the same way on
+   48 images, its hits' kernel launches counted (K1 twice, K4 once, the
+   capped compaction once an image), the calling thread's waits and
+   launch calls an image under torch.profiler through the seed path and
+   as hits, every kind of its re-runs forced (blocks, planes, guard,
+   overflow, extract, cap), the sync-free dispatch, and a surface the box
+   cuts: the words guard pins (cfg, iso), then a volume-flow hit with the
+   boundary planes;
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -170,7 +178,9 @@ on failure:
    the calling thread's time in the runtime's waits an image; with
    --parent DIR, DIR's farm and this tree's at depth 1-3, each in a fresh
    worker process, in turns (parent, change, change, parent), their trees
-   the same reference's byte for byte, and their waits.
+   the same reference's byte for byte, and their waits. All of it also on
+   the volume flow (sparse_words=False; tagged [vspec farm]: K1 x2 and no
+   K5 an image, no C++ pass).
    [closed loop]: tools.closed_loop's gt-cam row (sdf_res 256, bf16, full
    width: the ground truth's face count, IoU >= CL_IOU, F1 = 1 at 20%,
    CD and EMD within CL_FLOOR_RATIO of their noise floor) and cam-est row
@@ -1362,6 +1372,305 @@ def phase_spec(smi: str) -> None:
     pipeline._SPEC_CACHE.update(saved)
 
 
+VSPEC_IMAGES = 48
+VSPEC_R = (0.5, 0.7)        # the analytic head's radius, drawn an image
+VSPEC_CUT = (0.5, 0.5, 0.5)  # the centre that puts r 0.6's tips past the box
+VSPEC_PROFILED = 8          # images of a profiled run of waits and launches
+
+
+def volume_counters() -> dict:
+    """The wrappers of the kernels the volume flow can launch, by name:
+    K1, K5 (never on this flow), K4's fused entry and the compaction."""
+    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+                                    sparse_words)
+    return {"k1": fused_decode.fused_cell_decode,
+            "k5": sparse_words.sparse_cell_words,
+            "band_cull": band_cull.band_cull,
+            "compact": block_compact.compact_block_bits}
+
+
+def image_waits(fn, images: list) -> tuple[float, int, int]:
+    """fn(img) on each image under torch.profiler: (ms the calling thread
+    spent in SYNC_CALLS, its runtime launch calls of every kind, cluster
+    launches included; its cudaLaunchKernel calls), per image."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for img in images:
+            fn(img)
+        torch.cuda.synchronize()
+    main_ms, _, n_launch, _, all_launch = sync_waits(prof)
+    k = len(images)
+    return main_ms / k, all_launch / k, n_launch / k
+
+
+def phase_vspec(smi: str) -> None:
+    """[vspec]: the volume flow's speculative dispatch on the main path's
+    configuration with sparse_words=False (full width, analytic head,
+    257^3 bf16, demo camera). VSPEC_IMAGES seeded u8 images, each with the
+    head's radius drawn in VSPEC_R (the buckets move): each image through
+    image_to_mesh with the prediction the earlier images left and through
+    the seed path (_SPEC_CACHE cleared), in turns, the meshes equal bit
+    for bit, at least half of them hits. Then 4 hits with the kernels'
+    counts set to 0 just before and read just after (K1 twice, no K5, K4
+    once, the capped compaction once an image); the fixed owned extractor
+    against the exact one on one image's volume and ids (bit for bit;
+    CUDA events over 20 calls, in turns; launch calls); the calling
+    thread's waits and runtime launch calls an image under torch.profiler,
+    on
+    VSPEC_PROFILED images through the seed path (the synchronous flow, the
+    parent's) and as hits, in turns; each kind of the volume arm forced
+    once and held to the seed path (blocks: a bucket of 1; planes: the bit
+    flipped; guard: a scan told of no active coarse cell; overflow: a
+    compaction cap of 256 blocks; extract: a vertex prediction of 1; cap:
+    a cell cap under the active cells); _fused_dispatch on a warm
+    prediction under torch.cuda.set_sync_debug_mode("error"); and the head
+    moved to VSPEC_CUT, so that the box cuts the surface, on the words
+    flow's config: the words guard trips and pins (cfg, iso), the next
+    image is a volume-flow hit with the boundary planes, the seed path's
+    mesh bit for bit."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import marching
+
+    t_phase = time.perf_counter()
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16", sparse_words=False)
+    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
+    bias = params["sdfprediction"]["fold2"]["conv5"]["biases"]
+    shift = params["sdfprediction"]["fold1"]["conv1"]["biases"]
+    trans = synthetic.demo_trans_mat()
+    rng = np.random.RandomState(21)
+    imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
+            for _ in range(VSPEC_IMAGES)]
+    radii = rng.uniform(*VSPEC_R, VSPEC_IMAGES)
+    key = pipeline._vkey(cfg, cfg.iso)
+    saved = dict(pipeline._SPEC_CACHE)
+    counters = volume_counters()
+
+    def radius(r: float) -> None:  # the head's field 10 (|x|+|y|+|z| - r)
+        with torch.no_grad():
+            bias.fill_(-10.0 * r)
+
+    def image(c=cfg):
+        return lambda img: pipeline.image_to_mesh(params, img, trans, c)
+
+    kinds: dict = {}
+    walls: dict = {"spec": [], "seed": [], "kind": []}
+    for i, (img, r) in enumerate(zip(imgs, radii)):
+        radius(r)
+        runs = {}
+        for which in (("spec", "seed") if i % 2 == 0 else ("seed", "spec")):
+            runs[which] = (seed_path(params, img, trans, cfg)
+                           if which == "seed" else
+                           spec_run(pipeline.image_to_mesh, params, img,
+                                    trans, cfg))
+        kind = runs["spec"][2]
+        kinds[kind] = kinds.get(kind, 0) + 1
+        walls["spec"].append(runs["spec"][3])
+        walls["seed"].append(runs["seed"][3])
+        walls["kind"].append(kind)
+        check(runs["seed"][2] == "seed" and len(runs["seed"][1]) > 1000,
+              f"[vspec] image {i}: the seed path ended as {runs['seed'][2]}")
+        check(same_mesh(runs["spec"], runs["seed"]),
+              f"[vspec] image {i} (r {r:.4f}, {kind}): the speculative mesh "
+              f"is not the seed path's")
+    print(f"[vspec] {VSPEC_IMAGES} images, r in {VSPEC_R}: the speculative "
+          f"route ended as {kinds}, every mesh the seed path's bit for bit; "
+          f"prediction now {pipeline._SPEC_CACHE.get(key)}")
+    check(kinds.get("hit", 0) >= VSPEC_IMAGES // 2,
+          f"[vspec] only {kinds.get('hit', 0)} hits in {VSPEC_IMAGES} images")
+    hits = np.array([k == "hit" for k in walls["kind"]])
+    s, d = np.array(walls["spec"])[hits], np.array(walls["seed"])[hits]
+    print(f"[vspec] single-image wall on the {hits.sum()} hits, in turns with "
+          f"the seed path on the same image (host clock, card synchronised "
+          f"before and after): hit median {np.median(s):.3f} ms (quartiles "
+          f"{np.percentile(s, 25):.3f}-{np.percentile(s, 75):.3f}), seed path "
+          f"median {np.median(d):.3f} ms ({np.percentile(d, 25):.3f}-"
+          f"{np.percentile(d, 75):.3f}); the hit won {int((s < d).sum())} of "
+          f"{hits.sum()}; {smi}")
+
+    # the kernels a hit launches, counted over 4 hits
+    radius(0.6)
+    spec_run(pipeline.image_to_mesh, params, imgs[0], trans, cfg)  # warm
+    before = dict(pipeline.spec_counts)
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    for img in imgs[:4]:
+        pipeline.image_to_mesh(params, img, trans, cfg)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters.items()}
+    n_hits = pipeline.spec_counts["hit"] - before.get("hit", 0)
+    print(f"[vspec] 4 hits at r 0.6: launches {counts}")
+    check(n_hits == 4 and counts == {"k1": 8, "k5": 0, "band_cull": 4,
+                                     "compact": 4},
+          f"[vspec] {n_hits} hits in 4, kernel launches {counts}; expected "
+          f"8 K1, 0 K5, 4 K4 and 4 capped compactions")
+
+    # the fixed extractor against the exact one on a hit's volume and ids
+    from disn_tpu_torch.infer import sparse
+
+    vol, (ids, n, _, _) = sparse.sparse_volume(
+        params, imgs[0], trans, pipeline.UNIT_BOX, cfg, scan_iso=cfg.iso)
+    sizes = pipeline._spec_sizes(cfg)
+    slots = pipeline._ids_len(pipeline._SPEC_CACHE[key][0], sizes)
+    padded = torch.zeros(slots, dtype=torch.int32, device=vol.device)
+    padded[:n] = ids
+    n_iter, batch = marching.records_n_iter(slots, n, pipeline.SPEC_BATCH)
+    box = torch.as_tensor(pipeline.UNIT_BOX, device=vol.device)
+    n_t = torch.tensor(n, dtype=torch.int32, device=vol.device)
+
+    def fixed():
+        return marching._extract_owned_fixed(vol, box, padded, n_t, 0.0,
+                                             n_iter, batch)
+
+    def exact():
+        return marching._extract_owned(vol, box, ids, 0.0)
+
+    ext = {"fixed": [], "exact": []}
+    for who in ("fixed", "exact", "exact", "fixed"):
+        ext[who].append(cuda_ms(fixed if who == "fixed" else exact, 20))
+    calls = {who: count_launches(f) for who, f in (("fixed", fixed),
+                                                   ("exact", exact))}
+    got, want = fixed(), exact()
+    nv, ntri = int(got[1]), int(got[3])
+    check(torch.equal(got[0][:nv], want[0])
+          and torch.equal(got[2][:ntri], want[1]),
+          "[vspec] the fixed extractor is not the exact one on the volume")
+    print(f"[vspec] the owned extractor on one image's volume ({n} cells, "
+          f"{n_iter} x {batch} slots, {nv} vertices, {ntri} faces; CUDA "
+          f"events over 20 calls, in turns): fixed form "
+          f"{[round(t, 4) for t in ext['fixed']]} ms in {calls['fixed']} "
+          f"launch calls, exact {[round(t, 4) for t in ext['exact']]} ms "
+          f"in {calls['exact']} (with its waits); equal bit for bit; {smi}")
+    del vol, ids, padded, got, want
+
+    # the calling thread's waits and launch calls an image, in turns
+    prof_imgs = imgs[:VSPEC_PROFILED]
+    waits: dict = {"seed path": [], "hit": []}
+
+    def seeded(img):
+        pipeline._SPEC_CACHE.pop(key, None)
+        return image()(img)
+
+    for turn in range(2):
+        for who in (("seed path", "hit") if turn == 0
+                    else ("hit", "seed path")):
+            image()(imgs[0])  # a prediction to start from
+            waits[who].append(image_waits(
+                seeded if who == "seed path" else image(), prof_imgs))
+    for who, runs in waits.items():
+        print(f"[vspec] {who}, {VSPEC_PROFILED} images under torch.profiler "
+              f"(2 turns): the calling thread waited "
+              f"{[round(w[0], 3) for w in runs]} ms an image in "
+              f"{'/'.join(SYNC_CALLS)}, with "
+              f"{[round(w[1], 1) for w in runs]} runtime launch calls an "
+              f"image (cluster launches included; cudaLaunchKernel alone "
+              f"{[round(w[2], 1) for w in runs]}); {smi}")
+
+    # each kind of the volume arm once, against the seed path
+    img = imgs[0]
+    spec_run(pipeline.image_to_mesh, params, img, trans, cfg)  # warm
+    nb, ni, nv, _, nvc, ntri, planes = pipeline._SPEC_CACHE[key]
+
+    def forced(kind: str, c=cfg, pred=None, bcap=None, scan=None):
+        saved_pred = dict(pipeline._SPEC_CACHE)
+        real_bcap = pipeline._fused_bcap
+        real_scan = marching._active_cells_from_coarse
+        if pred is not None:
+            pipeline._SPEC_CACHE[pipeline._vkey(c, c.iso)] = pred
+        if bcap is not None:
+            pipeline._fused_bcap = lambda n, s: bcap
+        if scan is not None:
+            marching._active_cells_from_coarse = scan
+        try:
+            got = spec_run(pipeline.image_to_mesh, params, img, trans, c)
+        finally:
+            pipeline._fused_bcap = real_bcap
+            marching._active_cells_from_coarse = real_scan
+            pipeline._SPEC_CACHE.clear()
+            pipeline._SPEC_CACHE.update(saved_pred)
+        want = seed_path(params, img, trans, c)
+        print(f"[vspec] forced {kind}: ended as {got[2]}, {len(got[1])} "
+              f"faces, equal to the seed path's ({want[2]}) bit for bit: "
+              f"{same_mesh(got, want)}; {got[3]:.3f} ms against "
+              f"{want[3]:.3f}")
+        check(got[2] == kind and same_mesh(got, want),
+              f"[vspec] forced {kind}: ended as {got[2]}, or its mesh is not "
+              f"the seed path's")
+
+    def blind(vol, coarse_ids, iso, stride, count=None, bcap=None):
+        """The candidate scan told of no active coarse cell."""
+        real = blind.real
+        if count is None:
+            return real(vol, coarse_ids[:0], iso, stride=stride)
+        return real(vol, coarse_ids, iso, stride=stride, count=count * 0,
+                    bcap=bcap)
+
+    blind.real = marching._active_cells_from_coarse
+    forced("blocks", pred=(1, ni, nv, 0, nvc, ntri, planes))
+    forced("planes", pred=(nb, ni, nv, 0, nvc, ntri, not planes))
+    forced("guard", scan=blind)
+    forced("overflow", bcap=256)
+    forced("extract", pred=(nb, ni, 1, 0, nvc, ntri, planes))
+    ccap = cfg.replace(cell_cap_frac=SPEC_CAP_FRAC)
+    forced("cap", c=ccap,
+           pred=(pipeline._spec_sizes(ccap)["max_blocks"], ni, nv, 0, nvc,
+                 ntri, planes))
+
+    # no synchronisation on a warm prediction
+    spec_run(pipeline.image_to_mesh, params, img, trans, cfg)
+    want = seed_path(params, img, trans, cfg)
+    verts, faces, kind = sync_free_dispatch(params, img, trans, cfg)
+    print(f"[vspec] _fused_dispatch under set_sync_debug_mode('error'): no "
+          f"synchronising call; collect ended as {kind}, the seed path's "
+          f"mesh: {same_mesh((verts, faces), want)}")
+    check(kind == ["hit"] and same_mesh((verts, faces), want),
+          "[vspec] the sync-free dispatch did not hit, or its mesh is not "
+          "the seed path's")
+
+    # the box cuts the surface: the words flow pins, the volume flow hits
+    words = cfg.replace(sparse_words=True)
+    wkey = (words, float(words.iso))
+    with torch.no_grad():
+        shift[:6] = torch.tensor([-VSPEC_CUT[i // 2] * (1 - 2 * (i % 2))
+                                  for i in range(6)], device=shift.device)
+    try:
+        pinned = wkey in pipeline._SWORDS_SKIP
+        got = [spec_run(pipeline.image_to_mesh, params, im, trans, words)
+               for im in imgs[:2]]
+        vpred = pipeline._SPEC_CACHE.get(pipeline._vkey(words, words.iso))
+        want = seed_path(params, imgs[1], trans, words)
+        print(f"[vspec] the surface cut by the box (centre {VSPEC_CUT}, r "
+              f"0.6) on the words flow's config: pinned before {pinned}, "
+              f"after {wkey in pipeline._SWORDS_SKIP}; the images ended as "
+              f"{[g[2] for g in got]}, the volume prediction {vpred}; the "
+              f"hit's {len(got[1][1])} faces are the seed path's bit for "
+              f"bit: {same_mesh(got[1], want)}")
+        check(not pinned and got[0][2] in ("guard", "seed")
+              and wkey in pipeline._SWORDS_SKIP and vpred is not None
+              and vpred[6] is True and got[1][2] == "hit"
+              and same_mesh(got[1], want),
+              f"[vspec] the cut surface: pinned before {pinned}, after "
+              f"{wkey in pipeline._SWORDS_SKIP}, volume prediction {vpred}, "
+              f"the images {[g[2] for g in got]} (expected a words guard "
+              f"or seed, then a hit), or the hit's mesh is not the seed "
+              f"path's")
+    finally:
+        with torch.no_grad():
+            shift[:6] = 0.0
+        pipeline._SWORDS_SKIP.discard(wkey)
+    radius(0.6)
+    pipeline._SPEC_CACHE.clear()
+    pipeline._SPEC_CACHE.update(saved)
+    print(f"[vspec] phase seconds {time.perf_counter() - t_phase:.1f}")
+
+
 def trace_busy(tdir: str) -> tuple[float, float, int, int]:
     """(device busy us, span of device activity us, device events, host
     synchronisations) of the Chrome trace in tdir."""
@@ -1581,12 +1890,23 @@ def k4_call(mod, vol_c, sdfp, rc, cfg, mode, max_cells):
     return pair
 
 
-# the kernels of each checkout's K4 and compaction, for the profiler
+# the kernels of each checkout's K4 and compaction, for the profiler: a
+# parent from before the cluster kernels has these, a later one the
+# change's (parent_kernels)
 K4_KERNELS = {"change": ("band_cull_kernel",),
               "parent": ("tau_vmin", "tau_lip", "tau_final", "cull_count",
                          "cull_write")}
 KC_KERNELS = {"change": ("compact_kernel",),
               "parent": ("bc_count", "bc_write", "bc_finish")}
+
+
+def parent_kernels(table: dict, name: str) -> dict:
+    """`table` with the parent's kernel names for PARENT_CULL[name]: the
+    change's when that checkout launches a cluster kernel (its wrapper
+    module plans the cluster: CTAS)."""
+    if hasattr(PARENT_CULL.get(name), "CTAS"):
+        return {"change": table["change"], "parent": table["change"]}
+    return table
 
 
 def turns(tag: str, fns: dict, names: dict) -> dict:
@@ -1742,7 +2062,8 @@ def phase_k4(cfg, params, img_t, trans_t, sdfp, vol_c) -> dict:
         check(same_tau(got[0], want[0]) and torch_equal(got[1], want[1])
               and torch_equal(got[2], want[2]),
               "[k4] the parent's K4 differs from the plain versions")
-    k4_turns = turns("[k4 turns]", fns, K4_KERNELS)
+    k4_turns = turns("[k4 turns]", fns,
+                     parent_kernels(K4_KERNELS, "band_cull"))
     grid_b = vol_c.numel() * 4
     bound, by = k_bound(grid_b + 24 + 4 + 4 * max_cells + 4,
                         7 * 7 * vol_c.numel() + 8 * 4 * (rc - 1) ** 3)
@@ -1891,7 +2212,8 @@ def hold_compact(label: str, args, kw, timed: bool = True) -> dict:
                                                         want)),
                   "[compact] the parent's compaction differs from the plain "
                   "version")
-        out["turns"] = turns(f"[compact turns] {label}", fns, KC_KERNELS)
+        out["turns"] = turns(f"[compact turns] {label}", fns,
+                             parent_kernels(KC_KERNELS, "block_compact"))
     else:
         exact_fns = {"change": fn}
         if PARENT_CULL:
@@ -5746,18 +6068,22 @@ class PassSpy:
             setattr(self.native, n, fn)
 
 
-def sync_waits(prof) -> tuple[float, float, int, dict]:
+def sync_waits(prof) -> tuple[float, float, int, dict, int]:
     """From a torch.profiler run: (ms the calling thread spent in the CUDA
     runtime calls that wait for the card, SYNC_CALLS, ms of those calls on
     every other thread, the calling thread's kernel launches, the calling
-    thread's ms and calls by name). The calling thread is the one that
-    launched the kernels (the farm's pool launches none). A non-blocking
-    cudaMemcpyAsync counts too: it returns at once, so it adds its few
-    microseconds."""
+    thread's ms and calls by name, its runtime launch calls of every kind,
+    cluster launches (cudaLaunchKernelExC) included). The calling thread
+    is the one that launched the kernels (the farm's pool launches none).
+    A non-blocking cudaMemcpyAsync counts too: it returns at once, so it
+    adds its few microseconds."""
     launches: dict = {}
+    every: dict = {}
     waits: dict = {}
     named: dict = {}
     for evt in prof.events():
+        if "LaunchKernel" in evt.name:
+            every[evt.thread] = every.get(evt.thread, 0) + 1
         if evt.name == "cudaLaunchKernel":
             launches[evt.thread] = launches.get(evt.thread, 0) + 1
         elif evt.name in SYNC_CALLS:
@@ -5767,21 +6093,26 @@ def sync_waits(prof) -> tuple[float, float, int, dict]:
             named[evt.thread][evt.name][0] += ms
             named[evt.thread][evt.name][1] += 1
     if not launches:
-        return float("nan"), float("nan"), 0, {}
+        return float("nan"), float("nan"), 0, {}, 0
     main = max(launches, key=launches.get)
     return (waits.get(main, 0.0),
             sum(v for t, v in waits.items() if t != main), launches[main],
-            named.get(main, {}))
+            named.get(main, {}), every.get(main, 0))
 
 
-def farm_setup() -> dict:
+def farm_setup(flow: str = "words", base: dict | None = None) -> dict:
     """[farm pipe]'s split: [eval farm]'s 2 objects x 24 views (full-width
     net, analytic head, sdf_res 256, bf16, in-memory records) under
-    PIPE_DIR, with whichever disn_tpu_torch is imported."""
+    PIPE_DIR, with whichever disn_tpu_torch is imported; flow "volume"
+    takes sparse_words=False. With `base` (another flow's), its net and
+    records."""
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import listing, synthetic
 
-    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16",
+                 sparse_words=flow == "words")
+    if base is not None:
+        return dict(base, cfg=cfg)
     paths = listing.SplitPaths(os.path.join(PIPE_DIR, "sdf"),
                                os.path.join(PIPE_DIR, "renders"))
     views, sdf = farm_records(paths)
@@ -5816,30 +6147,57 @@ def farm_run(farm: dict, depth: int, tag: str) -> tuple[float, dict]:
     return len(farm["listinfo"]) / dt, got
 
 
+def single_walls(farm: dict) -> list[float]:
+    """The split's images one at a time through image_to_mesh, the card
+    synchronised before and after each: their walls in ms (host clock)."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+
+    cfg, paths, ms = farm["cfg"], farm["paths"], []
+    for c, o, v in farm["listinfo"]:
+        rec = farm["views"][paths.img_path(c, o, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.image_to_mesh(
+            farm["params"], rec.img_arr[:, :, :cfg.img_channels],
+            rec.trans_mat, cfg, sdf_params=farm["sdf"][paths.sdf_path(c, o)],
+            iso=cfg.iso)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
 def farm_worker(checkout: str) -> int:
     """`chip_smoke.py --farm-worker DIR`: [farm pipe]'s runs with DIR's
     disn_tpu_torch (this checkout's, or another's unpacked with git
-    archive). After one untimed run (the builds, the warm-up) it answers
-    "FARM {"ready": true}", then each line of stdin: "depth N" runs the
-    split at depth N, "profile" one depth-2 run under torch.profiler,
+    archive). After one untimed run of each flow's split (the builds, the
+    warm-up) it answers "FARM {"ready": true}", then each line of stdin:
+    "depth N FLOW" runs FLOW's split ("words" or "volume", farm_setup) at
+    depth N, "single FLOW" its images one at a time through image_to_mesh
+    (single_walls), "profile FLOW" one depth-2 run under torch.profiler,
     "quit" ends; each answers one line "FARM <json>" on stdout (images/s
-    and the tree's digests, or the calling thread's waits). Its trees go
-    under PIPE_DIR/worker<pid>."""
+    and the tree's digests, the walls, or the calling thread's waits). Its
+    trees go under PIPE_DIR/worker<pid>."""
     sys.path.insert(0, os.path.abspath(checkout))
     import torch
     from disn_tpu_torch.infer import pipeline
 
     tag = f"worker{os.getpid()}"
-    farm = farm_setup()
-    farm_run(farm, 2, tag)
+    farms = {"words": farm_setup("words")}
+    farms["volume"] = farm_setup("volume", base=farms["words"])
+    for farm in farms.values():
+        farm_run(farm, 2, tag)
     print("FARM " + json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
         cmd = line.split()
         if cmd[0] == "quit":
             break
+        farm = farms[cmd[-1]]
         if cmd[0] == "depth":
             rate, got = farm_run(farm, int(cmd[1]), tag)
             out = {"rate": rate, "digests": got}
+        elif cmd[0] == "single":
+            out = {"ms": single_walls(farm)}
         else:
             root = os.path.join(PIPE_DIR, tag)
             with torch.profiler.profile(activities=[
@@ -5850,9 +6208,9 @@ def farm_worker(checkout: str) -> int:
                     farm["listinfo"], root, depth=2, **farm["readers"])
             import shutil
             shutil.rmtree(root)
-            main_ms, other_ms, n_launch, named = sync_waits(prof)
+            main_ms, other_ms, n_launch, named, every = sync_waits(prof)
             out = {"main_ms": main_ms, "other_ms": other_ms,
-                   "launches": n_launch, "named": named}
+                   "launches": n_launch, "named": named, "every": every}
         print("FARM " + json.dumps(out), flush=True)
     return 0
 
@@ -5900,26 +6258,34 @@ class FarmWorker:
                 self.proc.wait()
 
 
+PIPE_FLOWS = ("words", "volume")
+
+
 def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
     """[farm pipe]: reconstruct_split's depth-deep pipeline on [eval
-    farm]'s 2 objects x 24 views (farm_setup): first image_to_mesh +
-    write_obj on this thread, image by image (the reference tree; it
-    leaves the speculative dispatch's prediction warm); then, in turns,
-    PIPE_TURNS times, the parent's loop (image_to_mesh on this thread,
-    writes on a pool) and the farm at depth 1, 2 and 3 (its K1/K5 counts
-    set to 0 just before each run and read just after: 2 and 1 an image;
-    every image a hit of the speculative dispatch), each tree byte for byte
-    the reference, the farm's C++ passes called 0 times on this thread
-    (PassSpy); images/s, the pool's seconds in the passes; then one
-    depth-2 run under torch.profiler for the calling thread's time blocked
-    in the runtime's waits (sync_waits), per image. With `parent` (another
-    checkout, e.g. the parent commit's, unpacked with git archive), two
-    farm_worker processes, one on that checkout and one on this, run the
-    farm at depth 1, 2 and 3 in turns (parent, change, change, parent):
-    fresh processes alike, where this process carries every earlier
-    phase's state. Their trees are held to the same reference byte for
-    byte, and each gives its calling thread's waits from one profiled
-    depth-2 run."""
+    farm]'s 2 objects x 24 views (farm_setup), on the words flow and, as
+    [vspec farm], on the volume flow (sparse_words=False): first
+    image_to_mesh + write_obj on this thread, image by image (each flow's
+    reference tree; it leaves the speculative dispatch's prediction warm);
+    then, in turns, PIPE_TURNS times, the parent's loop (image_to_mesh on
+    this thread, writes on a pool; the words flow) and each flow's farm at
+    depth 1, 2 and 3 (its K1/K5 counts set to 0 just before each run and
+    read just after: 2 and 1 an image on the words flow, 2 and 0 on the
+    volume flow; every image a hit of the speculative dispatch), each tree
+    byte for byte its reference, the words farm's C++ passes called 0
+    times on this thread (PassSpy), the volume farm's not at all;
+    images/s, the pool's seconds in the passes; then one depth-2 run of
+    each flow under torch.profiler for the calling thread's time blocked
+    in the runtime's waits (sync_waits) and its launch calls, per image.
+    With `parent` (another checkout, e.g. the parent commit's, unpacked
+    with git archive), two farm_worker processes, one on that checkout and
+    one on this, run both flows' farms at depth 1, 2 and 3 in turns
+    (parent, change, change, parent): fresh processes alike, where this
+    process carries every earlier phase's state. Their trees are held to
+    the same references byte for byte, each times the volume flow's
+    images one at a time in the same turns (single_walls), and each gives
+    its calling thread's waits from one profiled depth-2 run of each
+    flow."""
     import shutil
 
     import torch
@@ -5930,27 +6296,36 @@ def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
     shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    farm = farm_setup()
-    cfg, params, paths = farm["cfg"], farm["params"], farm["paths"]
+    farms = {"words": farm_setup("words")}
+    farms["volume"] = farm_setup("volume", base=farms["words"])
+    farm = farms["words"]
+    params, paths = farm["params"], farm["paths"]
     views, sdf, listinfo = farm["views"], farm["sdf"], farm["listinfo"]
     n = len(listinfo)
-    ref_root = os.path.join(PIPE_DIR, "ref")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for c, o, v in listinfo:
-        rec = views[paths.img_path(c, o, v)]
-        mesh = pipeline.image_to_mesh(
-            params, rec.img_arr[:, :, :cfg.img_channels], rec.trans_mat, cfg,
-            sdf_params=sdf[paths.sdf_path(c, o)], iso=cfg.iso)
-        codecs.write_obj(os.path.join(pipeline.result_dir(ref_root, cfg), c,
-                                      f"{c}_{o}_{v:02d}.obj"), *mesh)
-    seq_s = time.perf_counter() - t0
-    ref = tree_digests(pipeline.result_dir(ref_root, cfg))
-    shutil.rmtree(ref_root)
-    check(len(ref) == n, f"farm pipe: {len(ref)} reference meshes")
-    print(f"[farm pipe] reference: image_to_mesh + write_obj on the calling "
-          f"thread, {n} images in {seq_s:.3f} s = {n / seq_s:.2f} images/s; "
-          f"{smi}")
+    tags = {"words": "[farm pipe]", "volume": "[vspec farm]"}
+    refs: dict = {}
+    seq_s: dict = {}
+    for flow, f in farms.items():
+        cfg = f["cfg"]
+        ref_root = os.path.join(PIPE_DIR, "ref")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, o, v in listinfo:
+            rec = views[paths.img_path(c, o, v)]
+            mesh = pipeline.image_to_mesh(
+                params, rec.img_arr[:, :, :cfg.img_channels], rec.trans_mat,
+                cfg, sdf_params=sdf[paths.sdf_path(c, o)], iso=cfg.iso)
+            codecs.write_obj(os.path.join(pipeline.result_dir(ref_root, cfg),
+                                          c, f"{c}_{o}_{v:02d}.obj"), *mesh)
+        seq_s[flow] = time.perf_counter() - t0
+        refs[flow] = tree_digests(pipeline.result_dir(ref_root, cfg))
+        shutil.rmtree(ref_root)
+        check(len(refs[flow]) == n,
+              f"farm pipe: {len(refs[flow])} {flow} reference meshes")
+        print(f"{tags[flow]} reference: image_to_mesh + write_obj on the "
+              f"calling thread, {n} images in {seq_s[flow]:.3f} s = "
+              f"{n / seq_s[flow]:.2f} images/s; {smi}")
+    cfg = farm["cfg"]
 
     def parent_loop(root: str) -> None:
         """The parent's farm loop: image_to_mesh (its host assembly too)
@@ -5979,20 +6354,33 @@ def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
                  "this tree (worker)": ROOT} if parent else {})
     workers: dict = {}
     spy = PassSpy()
-    rates: dict = {d: [] for d in ("parent loop", *PIPE_DEPTHS)}
-    rates.update({f"{w} {d}": [] for w in who_dirs for d in PIPE_DEPTHS})
+    rates: dict = {"parent loop": []}
+    rates.update({f"{flow} {d}": [] for flow in PIPE_FLOWS
+                  for d in PIPE_DEPTHS})
+    rates.update({f"{w} {flow} {d}": [] for w in who_dirs
+                  for flow in PIPE_FLOWS for d in PIPE_DEPTHS})
+    walls: dict = {w: [] for w in who_dirs}
 
     def worker_turn(turn: int) -> None:
         for who in (list(workers) if turn % 2 == 0 else list(workers)[::-1]):
-            for depth in PIPE_DEPTHS:
-                out = workers[who].ask(f"depth {depth}")
-                rates[f"{who} {depth}"].append(out["rate"])
-                print(f"[farm pipe] {who}: the farm at depth {depth} (turn "
-                      f"{turn + 1}): {n} images, {out['rate']:.2f} "
-                      f"images/s; {smi}")
-                check(out["digests"] == ref, f"farm pipe: {who}'s tree at "
-                                             f"depth {depth} is not the "
-                                             f"reference's byte for byte")
+            ms = np.array(workers[who].ask("single volume")["ms"])
+            walls[who].append(float(np.median(ms)))
+            print(f"[vspec farm] {who}: the volume flow's {n} images one at "
+                  f"a time through image_to_mesh (turn {turn + 1}; host "
+                  f"clock, the card synchronised before and after each): "
+                  f"median {np.median(ms):.3f} ms (quartiles "
+                  f"{np.percentile(ms, 25):.3f}-{np.percentile(ms, 75):.3f}"
+                  f"); {smi}")
+            for flow in PIPE_FLOWS:
+                for depth in PIPE_DEPTHS:
+                    out = workers[who].ask(f"depth {depth} {flow}")
+                    rates[f"{who} {flow} {depth}"].append(out["rate"])
+                    print(f"{tags[flow]} {who}: the farm at depth {depth} "
+                          f"(turn {turn + 1}): {n} images, "
+                          f"{out['rate']:.2f} images/s; {smi}")
+                    check(out["digests"] == refs[flow],
+                          f"farm pipe: {who}'s {flow} tree at depth {depth} "
+                          f"is not the reference's byte for byte")
 
     try:
         for who, checkout in who_dirs.items():  # one at a time, warm
@@ -6012,54 +6400,69 @@ def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
             print(f"[farm pipe] the parent's loop (turn {turn + 1}): {n} "
                   f"images in {dt:.3f} s = {n / dt:.2f} images/s, "
                   f"{hits() - before} hits; {smi}")
-            check(got == ref, "farm pipe: the parent loop's tree is not the "
-                              "reference's byte for byte")
-            for depth in PIPE_DEPTHS:
-                spy.reset()
-                before = hits()
-                torch.cuda.synchronize()
-                k1.launches = k5.launches = 0
-                rate, got = farm_run(farm, depth, f"d{depth}")
-                counts = (k1.launches, k5.launches)
-                rates[depth].append(rate)
-                print(f"[farm pipe] depth {depth} (turn {turn + 1}): {n} "
-                      f"images, {rate:.2f} images/s, {hits() - before} "
-                      f"hits; K1 {counts[0]}, K5 {counts[1]} launches; C++ "
-                      f"passes: {spy.main_calls} calls on the calling "
-                      f"thread, {spy.pool_calls} on the pool, "
-                      f"{spy.pool_s * 1e3:.1f} ms there "
-                      f"({spy.pool_s * 1e3 / n:.2f} ms an image); {smi}")
-                check(got == ref, f"farm pipe: depth {depth}'s tree is not "
-                                  f"the reference's byte for byte")
-                check(counts == (2 * n, n) and hits() - before == n,
-                      f"farm pipe: depth {depth}: K1 {counts[0]} and K5 "
-                      f"{counts[1]} launches, {hits() - before} hits; "
-                      f"expected {2 * n}, {n} and {n}")
-                check(spy.main_calls == 0 and spy.pool_calls == 3 * n,
-                      f"farm pipe: depth {depth}: {spy.main_calls} C++ "
-                      f"pass calls on the calling thread and "
-                      f"{spy.pool_calls} on the pool (0 and {3 * n} "
-                      f"expected)")
+            check(got == refs["words"], "farm pipe: the parent loop's tree "
+                                        "is not the reference's byte for "
+                                        "byte")
+            for flow in PIPE_FLOWS:
+                words = flow == "words"
+                for depth in PIPE_DEPTHS:
+                    spy.reset()
+                    before = hits()
+                    torch.cuda.synchronize()
+                    k1.launches = k5.launches = 0
+                    rate, got = farm_run(farms[flow], depth, f"d{depth}")
+                    counts = (k1.launches, k5.launches)
+                    rates[f"{flow} {depth}"].append(rate)
+                    print(f"{tags[flow]} depth {depth} (turn {turn + 1}): "
+                          f"{n} images, {rate:.2f} images/s, "
+                          f"{hits() - before} hits; K1 {counts[0]}, K5 "
+                          f"{counts[1]} launches; C++ passes: "
+                          f"{spy.main_calls} calls on the calling thread, "
+                          f"{spy.pool_calls} on the pool, "
+                          f"{spy.pool_s * 1e3:.1f} ms there "
+                          f"({spy.pool_s * 1e3 / n:.2f} ms an image); {smi}")
+                    check(got == refs[flow], f"farm pipe: the {flow} flow's "
+                                             f"tree at depth {depth} is not "
+                                             f"the reference's byte for "
+                                             f"byte")
+                    check(counts == (2 * n, n * words)
+                          and hits() - before == n,
+                          f"farm pipe: {flow} depth {depth}: K1 {counts[0]} "
+                          f"and K5 {counts[1]} launches, {hits() - before} "
+                          f"hits; expected {2 * n}, {n * words} and {n}")
+                    check(spy.main_calls == 0
+                          and spy.pool_calls == 3 * n * words,
+                          f"farm pipe: {flow} depth {depth}: "
+                          f"{spy.main_calls} C++ pass calls on the calling "
+                          f"thread and {spy.pool_calls} on the pool (0 and "
+                          f"{3 * n * words} expected)")
             if workers and turn % 2 == 1:
                 worker_turn(turn)
-        root = os.path.join(PIPE_DIR, "profiled")
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            pipeline.reconstruct_split(params, cfg, paths, listinfo, root,
-                                       depth=2, **farm["readers"])
-        shutil.rmtree(root)
-        waits = {"this tree": sync_waits(prof)}
-        for who, worker in workers.items():
-            out = worker.ask("profile")
-            waits[who] = (out["main_ms"], out["other_ms"],
-                          out["launches"], out["named"])
-        for who, (main_ms, other_ms, n_launch, named) in waits.items():
-            print(f"[farm pipe] {who} under torch.profiler, depth 2: the "
+        waits: dict = {}
+        for flow in PIPE_FLOWS:
+            root = os.path.join(PIPE_DIR, "profiled")
+            f = farms[flow]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                pipeline.reconstruct_split(params, f["cfg"], paths, listinfo,
+                                           root, depth=2, **f["readers"])
+            shutil.rmtree(root)
+            waits[("this tree", flow)] = sync_waits(prof)
+            for who, worker in workers.items():
+                out = worker.ask(f"profile {flow}")
+                waits[(who, flow)] = (out["main_ms"], out["other_ms"],
+                                      out["launches"], out["named"],
+                                      out["every"])
+        for (who, flow), (main_ms, other_ms, n_launch, named,
+                          every) in waits.items():
+            print(f"{tags[flow]} {who} under torch.profiler, depth 2: the "
                   f"calling thread waited {main_ms:.1f} ms in "
                   f"{'/'.join(SYNC_CALLS)} = {main_ms / n:.2f} ms an image "
-                  f"({n_launch} kernel launches from it, "
-                  f"{n_launch / n:.1f} an image; by call, ms and calls: "
+                  f"({n_launch} cudaLaunchKernel calls from it, "
+                  f"{n_launch / n:.1f} an image; every launch call, cluster "
+                  f"launches included, {every / n:.1f} an image; by call, "
+                  f"ms and calls: "
                   f"{ {k: [round(v[0], 2), v[1]] for k, v in named.items()} }"
                   f"); the other threads {other_ms:.1f} ms (the closures' "
                   f"event waits); {smi}")
@@ -6068,10 +6471,18 @@ def phase_farm_pipe(smi: str, parent: str | None = None) -> None:
         for worker in workers.values():
             worker.close()
         shutil.rmtree(PIPE_DIR, ignore_errors=True)
-    print(f"[farm pipe] images/s by depth: "
-          f"{ {d: [round(r, 2) for r in v] for d, v in rates.items()} } "
-          f"against {n / seq_s:.2f} with every write on the calling thread "
-          f"too; {smi}")
+    if walls:
+        print(f"[vspec farm] the volume flow's single-image medians by "
+              f"tree, in turns: "
+              f"{ {w: [round(m, 3) for m in v] for w, v in walls.items()} }"
+              f"; {smi}")
+    for flow in PIPE_FLOWS:
+        mine = {d: [round(r, 2) for r in v] for d, v in rates.items()
+                if flow in d.split() or (d, flow) == ("parent loop",
+                                                      "words")}
+        print(f"{tags[flow]} images/s by depth: {mine} against "
+              f"{n / seq_s[flow]:.2f} with every write on the calling "
+              f"thread too; {smi}")
 
 
 def phase_conv(smi: str) -> None:
@@ -6291,6 +6702,7 @@ def main() -> int:
                        held["trans"])
         k5 = hold_swords(*main_inputs, kept)
         phase_spec(card_name())
+        phase_vspec(card_name())
         k1 = phase_k1_check(kept)
         time_k1_turns(kept, k1)
         hold_routes("257^3 bf16", held["257"],

@@ -11,14 +11,17 @@ the owned-edge extractor builds the welded mesh on the device, so one copy
 brings it to the host; the dense paths scan the whole volume for that
 extractor. image_to_mesh is _fused_dispatch (all device work and copies)
 followed by _fused_collect (the host half, a closure that touches no
-device). On the sparse-words flow the dispatch is speculative, as the
-JAX package's: once a first image of a (cfg, iso) has seeded _SPEC_CACHE
-with the block and record buckets it needed, later images queue their
-whole chain at the predicted buckets without waiting for the card, and
+device). On both sparse flows the dispatch is speculative, as the JAX
+package's: once a first image of a (cfg, iso) has seeded _SPEC_CACHE
+with the buckets it needed (the words flow's block and record buckets;
+the volume flow's block and slot buckets, vertex and face counts and
+whether the boundary planes were due), later images queue their whole
+chain at the predicted buckets without waiting for the card, and
 _fused_collect reads one flags vector and re-runs only a stage whose
-bucket fell short. The rest of the JAX package's remote-link machinery
-(optimistic background assembly, chunked fetch streams, its block
-assembler) is not ported.
+bucket fell short. The volume flow extracts with the owned-edge route
+where the JAX package speculates through its dense record stage. The
+rest of the JAX package's remote-link machinery (optimistic background
+assembly, chunked fetch streams, its block assembler) is not ported.
 
 ``reconstruct_split`` runs every (category, object, view) of a split into
 the reference's output tree as the JAX package's farm does: a reader
@@ -158,6 +161,7 @@ _SPEC_CACHE: dict = {}
 _SHRINK_STREAK = 12
 SPEC_BLOCK = 32768  # points of a fine-pass block on the JAX fast path
 SPEC_BATCH = 4096   # record slots a batch on the JAX fast path
+_NVCAP_MARGIN = 1.25  # headroom on a predicted vertex or face count
 # how each speculative image ended, by kind (see _fused_collect)
 spec_counts: Counter = Counter()
 
@@ -170,24 +174,45 @@ def _merge_nvc(nvc_p, nvc):
     return (*nvc[:3], tuple(max(a, b) for a, b in zip(nvc_p[3], nvc[3])))
 
 
+def _ratchet(new, old):
+    """The larger of two counts; None (not known) when either is."""
+    return new if (old is None or new is None) else max(new, old)
+
+
 def _update_pred(key, nb: int, ni: int, nv: int | None, nvc=None) -> None:
     """Fold this image's exact-needed buckets into the prediction for
     `key`: upward at once, downward after _SHRINK_STREAK smaller images."""
+    _fold_pred(key, (nb, ni, nv, nvc), ())
+
+
+def _update_vpred(key, nb: int, ni: int, nv: int, ntri: int,
+                  planes: bool) -> None:
+    """_update_pred for the volume flow's entries, (nb, ni, nv, streak,
+    None, ntri, planes): the face count ratchets as the vertex count
+    does; whether the boundary planes were due follows the last image."""
+    _fold_pred(key, (nb, ni, nv, None), (ntri, planes))
+
+
+def _fold_pred(key, new: tuple, tail: tuple) -> None:
+    """The ratchet of _update_pred on `new` = (nb, ni, nv, nvc) and an
+    entry's extra fields `tail` (a count that ratchets, then a flag)."""
+    nb, ni, nv, nvc = new
     prev = _SPEC_CACHE.get(key)
     if prev is None:
-        _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+        _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc, *tail)
         return
-    nb_p, ni_p, nv_p, streak, nvc_p = prev
+    nb_p, ni_p, nv_p, streak, nvc_p = prev[:5]
     nb_n, ni_n = max(nb, nb_p), max(ni, ni_p)
-    nv_n = nv if (nv_p is None or nv is None) else max(nv, nv_p)
+    nv_n = _ratchet(nv, nv_p)
     nvc_n = _merge_nvc(nvc_p, nvc)
-    if (nb_n, ni_n, nv_n, nvc_n) != (nb, ni, nv, nvc):
+    tail_n = (_ratchet(tail[0], prev[5]), tail[1]) if tail else ()
+    if (nb_n, ni_n, nv_n, nvc_n, *tail_n) != (nb, ni, nv, nvc, *tail):
         if streak + 1 >= _SHRINK_STREAK:
-            _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+            _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc, *tail)
             return
-        _SPEC_CACHE[key] = (nb_n, ni_n, nv_n, streak + 1, nvc_n)
+        _SPEC_CACHE[key] = (nb_n, ni_n, nv_n, streak + 1, nvc_n, *tail_n)
         return
-    _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc)
+    _SPEC_CACHE[key] = (nb, ni, nv, 0, nvc, *tail)
 
 
 def _spec_sizes(cfg: Config) -> dict:
@@ -285,17 +310,56 @@ def _records_ctx(ctx: dict, words, sids, n: int, blk) -> dict:
 
 def _volume_ctx(ctx: dict, count: int) -> dict:
     """The words flow's guard tripped: pin (cfg, iso) to the volume flow
-    (_SWORDS_SKIP) and run this image through it from the same phase_a
-    outputs (phase_b_mesh on the `count` active cells, then the owned-edge
-    extraction)."""
-    _SWORDS_SKIP.add(ctx["key"])
+    (_SWORDS_SKIP) and run this image through its synchronous form from
+    the same phase_a outputs (_volume_exact)."""
+    _SWORDS_SKIP.add((ctx["cfg"], ctx["iso"]))
+    return _volume_exact(ctx, count)
+
+
+def _vkey(cfg: Config, iso: float) -> tuple:
+    """The volume flow's key in _SPEC_CACHE: apart from the words flow's
+    (cfg, iso), whose entries have other fields."""
+    return (cfg, float(iso), "volume")
+
+
+def _volume_exact(ctx: dict, count: int) -> dict:
+    """The volume flow synchronously on exactly the `count` active cells
+    (the flow before the speculation): phase_b_mesh, the candidate scan,
+    then the owned-edge extraction (route owned_ids, or owned_scan when
+    the scan's guard fired), which seeds the volume flow's prediction for
+    (cfg, iso) (_volume_tail)."""
     embedding, endpoints, vol_c, cell_ids, _ = ctx["pa"]
+    cells = cell_ids[:count]
     vol, *scan = sparse_mod.phase_b_mesh(
-        ctx["params"], endpoints, vol_c, cell_ids[:count], ctx["trans"],
-        ctx["sdfp"], ctx["cfg"], ctx["iso"], ctx["stats"],
-        embedding=embedding)
-    return _extraction(vol, tuple(scan), ctx["sdf_params"], ctx["iso"],
-                       ctx["dev"], ctx["stats"])
+        ctx["params"], endpoints, vol_c, cells, ctx["trans"], ctx["sdfp"],
+        ctx["cfg"], ctx["iso"], ctx["stats"], embedding=embedding)
+    planes = int(sparse_mod.boundary_cells(cells, vol_c.shape[0] - 1)) > 0
+    return _volume_tail(ctx, vol, _needed_blocks(count, ctx["sizes"]),
+                        planes, count, tuple(scan))
+
+
+def _volume_tail(ctx: dict, vol, nb: int, planes: bool, count: int,
+                 scan: tuple | None) -> dict:
+    """The volume flow's extraction on `vol` (the exact candidate scan
+    over the `count` active cells first when `scan` is None), then the
+    volume flow's prediction for (cfg, iso) updated from its counts: the
+    block bucket nb, the slots the scan's cells need, the vertex and face
+    counts, and whether the planes were due."""
+    stats, sizes = ctx["stats"], ctx["sizes"]
+    if scan is None:
+        with device_mod.stage(stats, "scan_ms", ctx["dev"]):
+            scan = marching._active_cells_from_coarse(
+                vol, ctx["pa"][3][:count], ctx["iso"],
+                stride=sparse_mod.STRIDE)
+    out = _extraction(vol, scan, ctx["sdf_params"], ctx["iso"], ctx["dev"],
+                      stats)
+    # the owned routes' closures hold the fetched mesh: no device work
+    verts, faces = out["fin"]()
+    _update_vpred(_vkey(ctx["cfg"], ctx["iso"]), nb,
+                  marching.records_n_iter(_ids_len(nb, sizes), scan[1],
+                                          SPEC_BATCH)[0],
+                  len(verts), len(faces), planes)
+    return out
 
 
 def _dense_fallback(ctx: dict) -> dict:
@@ -388,6 +452,81 @@ def _words_dispatch(params: Params, img, trans_mat, sdf_params, cfg: Config,
     return ctx
 
 
+def _nvcap_of(n: int | None, most: int) -> int:
+    """Rows of a predicted vertex or face count to copy back (the JAX
+    package's _nvcap_of: the count with _NVCAP_MARGIN of headroom,
+    quarter-power-of-two bucketed), at most `most`; all of them when the
+    count is not known."""
+    if n is None:
+        return most
+    return min(most, marching._qbucket(max(4, int(n * _NVCAP_MARGIN))))
+
+
+def _volume_dispatch(params: Params, img, trans_mat, sdf_params,
+                     cfg: Config, iso: float, dev: torch.device,
+                     stats: dict | None) -> dict:
+    """The volume flow's device half: phase_a with the fixed-size cull;
+    then, with a prediction for (cfg, iso), the whole chain at its buckets
+    with no host synchronisation (phase_b_mesh's fixed form at the
+    predicted block bucket and plane bit: K1 over the bucket, the planes
+    if predicted, the candidate scan with the capped compaction; the
+    owned-edge extractor's fixed form over the predicted slots; then
+    non-blocking copies of the flags and of the first predicted rows of
+    the vertices and the faces into page-locked buffers, and one event);
+    without one, the synchronous flow (_volume_exact), which seeds the
+    prediction."""
+    key = _vkey(cfg, iso)
+    sizes = _spec_sizes(cfg)
+    params = device_mod.tree_to(params, dev)
+    img_t, trans, sdfp = dense_mod.as_inputs(img, trans_mat, sdf_params, dev)
+    pa = sparse_mod.phase_a(
+        params, img_t, trans, sdfp, cfg, stats,
+        max_cells=sizes["max_blocks"] * sizes["cells_per_block"])
+    ctx = dict(params=params, trans=trans, sdfp=sdfp, sdf_params=sdf_params,
+               cfg=cfg, iso=float(iso), key=key, sizes=sizes, pa=pa,
+               stats=stats, dev=dev, flow="volume")
+    pred = _SPEC_CACHE.get(key)
+    if pred is None:
+        count = int(pa[4])
+        if stats is not None:
+            stats.update(active_cells=count, spec="seed",
+                         dense_fallback=count > sizes["cell_cap"])
+        spec_counts["seed"] += 1
+        if count > sizes["cell_cap"]:
+            return _dense_fallback(ctx)
+        return _volume_exact(ctx, count)
+    nb_p, ni_p, nv_p, _, _, ntri_p, planes_p = pred
+    nb_p = min(nb_p, sizes["max_blocks"])
+    embedding, endpoints, vol_c, cell_ids, count = pa
+    # the chain's stage times go to stats only if its result is used
+    spec_stats = None if stats is None else {}
+    vol, ids, n, guard, gov, _, n_bd = sparse_mod.phase_b_mesh(
+        params, endpoints, vol_c, cell_ids, trans, sdfp, cfg, float(iso),
+        spec_stats, embedding=embedding, count=count,
+        n_kcells=nb_p * sizes["cells_per_block"],
+        bcap=_fused_bcap(nb_p, sizes), planes=planes_p)
+    ni, batch = marching.records_n_iter(ids.shape[0], ni_p * SPEC_BATCH,
+                                        SPEC_BATCH)
+    t0 = None
+    if stats is not None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+    with device_mod.stage(spec_stats, "extract_ms", dev):
+        verts, nv, faces, ntri, missing = marching._extract_owned_fixed(
+            vol, sdfp, ids, n, float(iso), ni, batch)
+        flags = torch.stack([x.reshape(()).int() for x in (
+            count, n, guard, gov, n_bd, nv, ntri, missing)])
+    caps = (_nvcap_of(nv_p, verts.shape[0]), _nvcap_of(ntri_p,
+                                                        faces.shape[0]))
+    with device_mod.stage(spec_stats, "fetch_ms", dev):
+        host, done = marching._to_host(
+            (flags, verts[:caps[0]], faces[:caps[1]]), join=False)
+    ctx.update(pred=(nb_p, ni, batch, planes_p, *caps), chain=(vol, ids),
+               host=host, done=done, t0=t0, spec_stats=spec_stats)
+    return ctx
+
+
 def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
                     cfg: Config, iso: float, sparse: bool = True,
                     device: str | torch.device | None = None,
@@ -398,32 +537,28 @@ def _fused_dispatch(params: Params, img, trans_mat, sdf_params,
     image_to_mesh's route choice and _SWORDS_SKIP rule. Returns the
     context _fused_collect finishes.
 
-    On the sparse-words flow with a prediction in _SPEC_CACHE for (cfg,
+    On either sparse flow with a prediction in _SPEC_CACHE for (cfg,
     iso), nothing here waits for the card (uploads through page-locked
     buffers, the fixed-shape chain, copies into page-locked buffers and
-    one event; _words_dispatch), so a farm can dispatch image k+1 while
-    image k's work is still queued. With `stats` the stages are
-    synchronised as they are timed. Every other route (no prediction yet,
-    the volume flow, the dense paths) runs synchronously here, and the
+    one event; _words_dispatch, _volume_dispatch), so a farm can dispatch
+    image k+1 while image k's work is still queued. With `stats` the
+    stages are synchronised as they are timed. Every other route (no
+    prediction yet, the dense paths) runs synchronously here, and the
     context holds the extraction's closure (host work only: it holds no
     CUDA tensor and issues no device operation). join=False makes the
     record route's final copy non-blocking there too (see
     marching.extract_mesh_records_deferred)."""
     dev = device_mod.resolve(device)
-    if (sparse and _sparse_eligible(cfg) and cfg.sparse_words
-            and (cfg, float(iso)) not in _SWORDS_SKIP
-            and sparse_mod.words_eligible(cfg)):
-        return _words_dispatch(params, img, trans_mat, sdf_params, cfg, iso,
-                               dev, stats, join)
-    scan = None
     if sparse and _sparse_eligible(cfg):
-        vol, scan = sparse_mod.sparse_volume(
-            params, img, trans_mat, sdf_params, cfg, device=dev,
-            stats=stats, scan_iso=iso)
-    else:
-        vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
-                             device=dev, sparse=False)
-    return _extraction(vol, scan, sdf_params, iso, dev, stats)
+        if (cfg.sparse_words and (cfg, float(iso)) not in _SWORDS_SKIP
+                and sparse_mod.words_eligible(cfg)):
+            return _words_dispatch(params, img, trans_mat, sdf_params, cfg,
+                                   iso, dev, stats, join)
+        return _volume_dispatch(params, img, trans_mat, sdf_params, cfg, iso,
+                                dev, stats)
+    vol = predict_volume(params, img, trans_mat, sdf_params, cfg,
+                         device=dev, sparse=False)
+    return _extraction(vol, None, sdf_params, iso, dev, stats)
 
 
 def _spec_resolve(ctx: dict) -> dict | None:
@@ -450,6 +585,8 @@ def _spec_resolve(ctx: dict) -> dict | None:
     Each kind gives the synchronous flow's mesh bit for bit; it is counted
     in spec_counts and given as stats["spec"]. Runs on the calling thread;
     every re-run is on the card."""
+    if ctx.get("flow") == "volume":
+        return _vspec_resolve(ctx)
     stats, sizes, key = ctx["stats"], ctx["sizes"], ctx["key"]
     if ctx["done"] is not None:
         ctx["done"].synchronize()
@@ -458,17 +595,10 @@ def _spec_resolve(ctx: dict) -> dict | None:
     nb_p, ni, batch = ctx["pred"]
     words, sids, _, blk, guard = ctx["chain"]
 
-    def ends(kind: str, drop: tuple = ()) -> None:
-        spec_counts[kind] += 1
-        if stats is not None:
-            stats["spec"] = kind
-            for k in drop:  # the chain's times of stages run again
-                stats.pop(k, None)
-
     if stats is not None:
         stats.update(active_cells=c, dense_fallback=c > sizes["cell_cap"])
     if c > sizes["cell_cap"]:
-        ends("cap")
+        _ends(stats, "cap")
         return None
     covered = ni * batch >= nc
     _update_pred(key, _needed_blocks(c, sizes), marching.records_n_iter(
@@ -477,7 +607,7 @@ def _spec_resolve(ctx: dict) -> dict | None:
         if stats is not None:
             stats.update(ctx["spec_stats"], swords_guard=int(guard))
         if gov <= 0 and covered:
-            ends("hit", () if nc else ("extract_ms", "fetch_ms"))
+            _ends(stats, "hit", () if nc else ("extract_ms", "fetch_ms"))
             if stats is not None:
                 stats.update(route="records_sparse", fine_cells=nc, guard=0)
             fin = marching._empty_mesh if nc == 0 else functools.partial(
@@ -485,7 +615,7 @@ def _spec_resolve(ctx: dict) -> dict | None:
                 ctx["cfg"].grid_resolution, ctx["box"], stats)
             return {"fin": fin, "stats": stats, "t0": ctx["t0"]}
         if gov <= 0:
-            ends("records", ("extract_ms", "fetch_ms"))
+            _ends(stats, "records", ("extract_ms", "fetch_ms"))
             return _records_ctx(ctx, words, sids, nc, blk)
     else:
         nb = _needed_blocks(c, sizes)
@@ -501,13 +631,99 @@ def _spec_resolve(ctx: dict) -> dict | None:
         if stats is not None:
             stats["swords_guard"] = int(guard)
         if gov <= 0:
-            ends("blocks")
+            _ends(stats, "blocks")
             return _records_ctx(ctx, words, sids, nc, blk)
     if int(guard) == 0:
-        ends("overflow", ("phase_b_ms", "scan_ms", "extract_ms", "fetch_ms"))
+        _ends(stats, "overflow", ("phase_b_ms", "scan_ms", "extract_ms",
+                                  "fetch_ms"))
         return _words_exact(ctx, c, seed=False)
-    ends("guard", ("extract_ms", "fetch_ms"))
+    _ends(stats, "guard", ("extract_ms", "fetch_ms"))
     return _volume_ctx(ctx, c)
+
+
+def _ends(stats: dict | None, kind: str, drop: tuple = ()) -> None:
+    """Count how a speculative chain ended, and drop from `stats` the
+    chain's times of the stages that run again."""
+    spec_counts[kind] += 1
+    if stats is not None:
+        stats["spec"] = kind
+        for k in drop:
+            stats.pop(k, None)
+
+
+def _vspec_resolve(ctx: dict) -> dict | None:
+    """_spec_resolve's volume arm (port of the JAX _fused_collect with
+    swords=False, through the owned-edge extractor): wait once for the
+    chain's copies, read the flags [count, n, guard, gov, n_boundary, nv,
+    ntri, missing] and end in one of these kinds:
+
+    - ``hit``: the block bucket covered the active cells, the plane bit
+      was right, gov is 0, the slots covered n and the copied rows nv and
+      ntri: the closure slices the copied buffers;
+    - ``blocks`` / ``planes``: the block bucket fell short / the plane bit
+      was wrong: phase_b_mesh's fixed form again from phase_a's outputs at
+      the needed bucket with the right bit, then its extraction (the exact
+      scan first if its gov is not 0);
+    - ``guard``: the scan's guard fired: the exact scan of the chain's
+      volume, whose guard sends the extraction through the full-volume
+      scan (route owned_scan);
+    - ``overflow``: gov came from the capped compaction alone: the exact
+      scan of the chain's volume, then the extraction;
+    - ``extract``: the slots or a copy's rows fell short: the exact
+      owned-edge extractor on the chain's volume and ids;
+    - ``cap``: more active cells than the cap: returns None (the caller
+      takes _dense_fallback).
+
+    Each kind gives the synchronous flow's mesh bit for bit; it is counted
+    in spec_counts and given as stats["spec"]. The prediction is updated
+    from the run whose mesh is returned. Runs on the calling thread; every
+    re-run is on the card."""
+    stats, sizes, key = ctx["stats"], ctx["sizes"], ctx["key"]
+    if ctx["done"] is not None:
+        ctx["done"].synchronize()
+    flags, verts, faces = ctx["host"]
+    c, n, guard, gov, n_bd, nv, ntri, missing = (int(x) for x in flags)
+    nb_p, ni, batch, planes_p, vcap, tcap = ctx["pred"]
+    vol, ids = ctx["chain"]
+    planes = n_bd > 0
+    if stats is not None:
+        stats.update(active_cells=c, dense_fallback=c > sizes["cell_cap"])
+    if c > sizes["cell_cap"]:
+        _ends(stats, "cap")
+        return None
+    nb = _needed_blocks(c, sizes)
+    if nb_p < _exact_blocks(c, sizes) or planes != planes_p:
+        _ends(stats, "blocks" if nb_p < _exact_blocks(c, sizes)
+              else "planes")
+        embedding, endpoints, vol_c, cell_ids, count = ctx["pa"]
+        vol, ids, n_d, _, gov_d, _, _ = sparse_mod.phase_b_mesh(
+            ctx["params"], endpoints, vol_c, cell_ids, ctx["trans"],
+            ctx["sdfp"], ctx["cfg"], ctx["iso"], stats, embedding=embedding,
+            count=count, n_kcells=nb * sizes["cells_per_block"],
+            bcap=_fused_bcap(nb, sizes), planes=planes)
+        n, gov = int(n_d), int(gov_d)
+        return _volume_tail(ctx, vol, nb, planes, c,
+                            None if gov > 0 else (ids[:n], n, 0, None))
+    if stats is not None:
+        stats.update(ctx["spec_stats"])
+    if gov > 0:
+        _ends(stats, "guard" if guard > 0 else "overflow",
+              ("scan_ms", "extract_ms", "fetch_ms"))
+        return _volume_tail(ctx, vol, nb, planes, c, None)
+    if ni * batch < n or nv > vcap or ntri > tcap:
+        _ends(stats, "extract", ("extract_ms", "fetch_ms"))
+        return _volume_tail(ctx, vol, nb, planes, c, (ids[:n], n, 0, None))
+    if missing:
+        raise ValueError("a triangle's edge belongs to a cell that is not "
+                         "in the active-cell list")
+    _ends(stats, "hit")
+    _update_vpred(key, nb, marching.records_n_iter(ids.shape[0], n,
+                                                   SPEC_BATCH)[0],
+                  nv, ntri, planes)
+    if stats is not None:
+        stats.update(route="owned_ids", fine_cells=n, guard=0)
+    return {"fin": lambda: (verts[:nv].copy(), faces[:ntri].copy()),
+            "stats": stats, "t0": ctx["t0"]}
 
 
 def _fused_collect(ctx: dict, defer: bool = False, clean: bool = False):
@@ -575,7 +791,8 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     scans the fine cells inside the active coarse cells and extracts the
     welded mesh on the device (route ``owned_ids``); if the scan's guard
     finds a sign change outside those cells, the whole volume is scanned
-    instead (``owned_scan``). When the active cells overflow the cap, the
+    instead (``owned_scan``); it speculates as the words flow does, its
+    prediction apart (_vkey). When the active cells overflow the cap, the
     config is not eligible for the sparse path (_sparse_eligible: binary
     heads without cfg.binary_sparse, THREEDCNN, other grids), or
     ``sparse`` is false, the dense volume (predict_volume; THREEDCNN's
@@ -590,11 +807,13 @@ def image_to_mesh(params: Params, img, trans_mat, cfg: Config,
     volume and the scan, with its parts extract on the device and fetch to
     the host on the owned and records_sparse routes, and assemble on the
     host on records_sparse), ``active_cells``, ``route`` with, on the
-    sparse path, ``fine_cells`` and ``guard``, and on the sparse-words
-    flow ``swords_guard`` and ``spec`` (``seed``, ``hit``, or the re-run
-    that _spec_resolve took: ``records``, ``blocks``, ``guard``,
-    ``overflow``, ``cap``). The stage times are those of the run whose
-    result is returned.
+    sparse path, ``fine_cells``, ``guard`` and ``spec`` (``seed``,
+    ``hit``, or the re-run that _spec_resolve took: on the words flow
+    ``records``, ``blocks``, ``guard``, ``overflow``, ``cap``; on the
+    volume flow ``blocks``, ``planes``, ``guard``, ``overflow``,
+    ``extract``, ``cap``), and on the sparse-words flow
+    ``swords_guard``. The stage times are those of the run whose result
+    is returned.
 
     The call is _fused_dispatch (the device half, with every copy) and
     _fused_collect (the host half); reconstruct_split runs the two apart."""

@@ -38,9 +38,11 @@ count read once from the card). The speculative dispatch of
 infer/pipeline takes the fixed-shape forms instead (port of the JAX
 package's static shapes): phase_a(max_cells=) keeps the count on the card
 and the ids padded, and phase_b_mesh_sparse(count=, n_kcells=, bcap=)
-decodes a predicted bucket of blocks and compacts at a fixed cap, so that
-nothing waits for a count. There is no escape re-run in either: the
-kernel has no escapes.
+(the words flow) and phase_b_mesh(count=, n_kcells=, bcap=, planes=) (the
+volume flow) decode a predicted bucket of blocks and compact at a fixed
+cap, so that nothing waits for a count; the volume flow's caller also
+predicts whether the boundary planes are due. There is no escape re-run
+in either: the kernel has no escapes.
 """
 from __future__ import annotations
 
@@ -279,33 +281,70 @@ def phase_a(params: Params, img: torch.Tensor, trans_mat: torch.Tensor,
     return embedding, endpoints, vol_c, cell_ids, count
 
 
+def boundary_cells(cell_ids: torch.Tensor, c: int,
+                   count: torch.Tensor | None = None) -> torch.Tensor:
+    """0-d count of the coarse cells in `cell_ids` (of a c^3 grid) on the
+    + boundary layer, whose fine cells reach the planes no cell owns; with
+    `count`, over the first count slots of a padded list."""
+    ids = cell_ids.long()
+    edge = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
+            | (ids // (c * c) == c - 1))
+    if count is not None:
+        edge = edge & (torch.arange(ids.shape[0], device=ids.device) < count)
+    return edge.sum()
+
+
 def finish(params: Params, endpoints: dict, vol_c: torch.Tensor,
            cell_ids: torch.Tensor, trans_mat: torch.Tensor,
            sdf_params: torch.Tensor, cfg: Config,
-           embedding: torch.Tensor | None = None) -> torch.Tensor:
+           embedding: torch.Tensor | None = None,
+           count: torch.Tensor | None = None, n_kcells: int | None = None,
+           planes: bool | None = None) -> torch.Tensor:
     """Fine pass over exactly the active cells (the kernel, or the plain
     decode of their points, which reads `embedding` on the arms that need
-    it) + far-field fill + boundary planes -> the [R,R,R] f32 volume."""
+    it) + far-field fill + boundary planes -> the [R,R,R] f32 volume.
+
+    With `count`, `n_kcells` and `planes` the shapes are fixed and nothing
+    waits for the card (port of the n_blocks form of the JAX package's
+    _sparse_parts finish): cell_ids is phase_a's padded list and count its
+    0-d count; the first n_kcells cells are decoded, the values of the
+    slots at or past count go to an extra last element, dropped, and the
+    boundary planes are decoded when `planes` says so (the JAX function's
+    cond on the boundary cells, which the caller predicts). Where n_kcells
+    covers count and `planes` is boundary_cells(..) > 0, the volume is the
+    exact form's bit for bit."""
     fold, fine_kernel, _ = _folds(cfg)
     fine_r = cfg.grid_resolution
     c = vol_c.shape[0] - 1
+    fixed = count is not None
+    kcells = cell_ids[:n_kcells] if fixed else cell_ids
     vol = _upsample_aligned(vol_c, STRIDE).reshape(-1)
-    if cell_ids.shape[0]:
-        pts, flats = fused._cell_points(cell_ids, c, fine_r, sdf_params)
+    if fixed:
+        vol = torch.cat([vol, vol.new_zeros(1)])
+    if kcells.shape[0]:
+        pts, flats = fused._cell_points(kcells, c, fine_r, sdf_params)
         if fine_kernel:
             vals = fused.decode_cells(params, endpoints, trans_mat,
-                                      sdf_params, cell_ids, cfg,
+                                      sdf_params, kcells, cfg,
                                       fine_r=fine_r, coarse_c=c)
         else:
             vals = dense_mod.decode_points(params, endpoints, embedding,
                                            trans_mat, pts, cfg, folded=fold)
-        vol[flats] = vals.float()
-    # exact plane values only matter inside ACTIVE boundary-layer cells:
-    # inactive cells have no crossings and sign-safe interpolation
-    ids = cell_ids.long()
-    on_boundary = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
-                   | (ids // (c * c) == c - 1))
-    if bool(on_boundary.any()):
+        if fixed:
+            k = STRIDE ** 3
+            slot = torch.arange(flats.shape[0], device=flats.device) // k
+            vol.scatter_(0, torch.where(slot < count, flats, fine_r ** 3),
+                         vals.float())
+        else:
+            vol[flats] = vals.float()
+    if fixed:
+        vol = vol[:fine_r ** 3]
+    else:
+        # exact plane values only matter inside ACTIVE boundary-layer
+        # cells: inactive cells have no crossings and sign-safe
+        # interpolation
+        planes = bool(boundary_cells(cell_ids, c))
+    if planes:
         fused.decode_planes(params, endpoints, trans_mat, sdf_params, fine_r,
                             cfg, vol, embedding=embedding, folded=fold)
     return vol.reshape(fine_r, fine_r, fine_r)
@@ -315,20 +354,38 @@ def phase_b_mesh(params: Params, endpoints: dict, vol_c: torch.Tensor,
                  cell_ids: torch.Tensor, trans_mat: torch.Tensor,
                  sdf_params: torch.Tensor, cfg: Config, iso: float,
                  stats: dict | None = None,
-                 embedding: torch.Tensor | None = None):
+                 embedding: torch.Tensor | None = None,
+                 count: torch.Tensor | None = None,
+                 n_kcells: int | None = None, bcap: int | None = None,
+                 planes: bool | None = None):
     """`finish`, then the mesh extractor's candidate scan on the volume it
     built, limited to the blocks of the active coarse cells. Returns (vol,
     ids [n] int32 fine sign-change cells, n, guard, blk); see
     marching._active_cells_from_coarse. `stats` receives ``phase_b_ms`` and
-    ``scan_ms``."""
+    ``scan_ms``.
+
+    With `count`, `n_kcells`, `bcap` and `planes` the shapes are fixed and
+    nothing waits for the card (port of _phase_b_mesh_jit): finish's fixed
+    form, then the scan's at bcap. Returns (vol, ids [b2*64], n, guard,
+    gov, blk [b2,3], n_boundary), the counts 0-d on the card; n_boundary
+    (boundary_cells over the whole padded list, so that a bucket too small
+    to cover the active cells cannot hide one) says whether the planes
+    were due."""
     dev = sdf_params.device
+    fixed = count is not None
     with device_mod.stage(stats, "phase_b_ms", dev):
         vol = finish(params, endpoints, vol_c, cell_ids, trans_mat,
-                     sdf_params, cfg, embedding=embedding)
+                     sdf_params, cfg, embedding=embedding, count=count,
+                     n_kcells=n_kcells, planes=planes)
     with device_mod.stage(stats, "scan_ms", dev):
-        scan = marching._active_cells_from_coarse(vol, cell_ids, iso,
-                                                  stride=STRIDE)
-    return (vol, *scan)
+        if not fixed:
+            scan = marching._active_cells_from_coarse(vol, cell_ids, iso,
+                                                      stride=STRIDE)
+            return (vol, *scan)
+        scan = marching._active_cells_from_coarse(
+            vol, cell_ids, iso, stride=STRIDE, count=count, bcap=bcap)
+        n_boundary = boundary_cells(cell_ids, vol_c.shape[0] - 1, count)
+    return (vol, *scan, n_boundary)
 
 
 def words_eligible(cfg: Config) -> bool:
@@ -383,12 +440,7 @@ def phase_b_mesh_sparse(params: Params, endpoints: dict, vol_c: torch.Tensor,
             count.clamp(max=n_kcells) if fixed else kcells.shape[0],
             vol_c.contiguous(), R=fine_r, iso=iso)
     with device_mod.stage(stats, "scan_ms", dev):
-        ids = cells.long()
-        edge = ((ids % c == c - 1) | ((ids // c) % c == c - 1)
-                | (ids // (c * c) == c - 1))
-        if fixed:
-            edge = edge & (torch.arange(ids.shape[0], device=dev) < count)
-        guard = (guard + edge.sum()).int()
+        guard = (guard + boundary_cells(cells, c, count)).int()
         if fixed:
             sids, n, gov, blk = marching._compact_block_bits(
                 bits, cand, fine_r, srow_tbl=own_tbl, bcap=bcap, guard=guard)

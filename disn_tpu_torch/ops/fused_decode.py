@@ -69,7 +69,9 @@ def cell_points(cell_ids: torch.Tensor, coarse_c: int, fine_r: int,
     c = coarse_c
     dev = cell_ids.device
     k = stride ** 3
-    cell = cell_ids.long().repeat_interleave(k)
+    # each id k times by an expand: repeat_interleave may size its output
+    # on the host, which waits for the card
+    cell = cell_ids.long()[:, None].expand(-1, k).reshape(-1)
     off = torch.arange(k, device=dev).repeat(cell_ids.shape[0])
     cz = cell // (c * c)
     cy = (cell // c) % c

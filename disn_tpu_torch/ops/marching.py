@@ -22,6 +22,8 @@ Three routes share those tables:
   mask. The mesh leaves the device welded; no sort runs. Cells on the high
   faces own edges of no real cell: a ghost layer of cells (corner reads
   clamped to the last plane) owns them and emits vertices, never triangles.
+  ``_extract_owned_fixed`` is the same extraction at fixed shapes, with
+  its counts on the card (the speculative volume flow's).
 * the record route (``extract_mesh_records``): the device emits per active
   cell its inside mask, crossing mask and quantised edge parameters; the
   host rebuilds the same mesh from them (``disn_tpu_torch.native``, C++;
@@ -350,7 +352,8 @@ def _device_tables(dev: torch.device) -> dict[str, torch.Tensor]:
     _, pair_j, nb_tbl, dir_tbl = _owned_tables()
     tbl = dict(corners=CORNERS, tets=TETS, counts=counts, pair_j=pair_j,
                nb=nb_tbl, dir=dir_tbl, alias=_alias_axes(),
-               pop7=[bin(i).count("1") for i in range(1 << D_OWNED)])
+               pop7=[bin(i).count("1") for i in range(1 << D_OWNED)],
+               pop8=[bin(i).count("1") for i in range(256)])
     return {k: torch.as_tensor(np.asarray(v, np.int64)).to(dev)
             for k, v in tbl.items()}
 
@@ -414,9 +417,9 @@ def _active_cells_ext(volume: torch.Tensor, iso: float
 
 
 def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
-                              iso: float, stride: int = BLOCK
-                              ) -> tuple[torch.Tensor, int, int,
-                                         torch.Tensor]:
+                              iso: float, stride: int = BLOCK,
+                              count: torch.Tensor | None = None,
+                              bcap: int | None = None):
     """Fine sign-change cells inside the sparse pass's ACTIVE coarse cells
     (and the ghost blocks clamped onto them) -> (ids [n] int32, n, guard,
     blk [b,3] int32 rows (block id, mask lo, mask hi)).
@@ -428,7 +431,17 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
     0 the premise failed and the caller must run _active_cells_ext. The id
     sequence equals _active_cells_ext's when the guard is 0: the blocks are
     the same, only blocks without a change are skipped. The masks are held
-    as int32 bit patterns; the host reads them as uint32."""
+    as int32 bit patterns; the host reads them as uint32.
+
+    With `count` and `bcap` the shapes are fixed and nothing waits for the
+    card (port of disn_tpu/ops/marching.py _active_cells_from_coarse with
+    coarse_count and bcap): coarse_ids is phase_a's padded list, `count`
+    its 0-d count, and the compaction runs capped at bcap
+    (_compact_block_bits). Returns (ids [b2*64] int32, n, guard, gov, blk
+    [b2,3]), all on the card: guard as above, gov the JAX function's
+    overflow (the blocks past b2, plus the change cells the kept blocks
+    leave out), so that gov is 0 exactly when ids[:n] is the exact scan's
+    list."""
     if stride != BLOCK:
         raise ValueError(f"the candidate scan's blocks are {BLOCK}^3 cells; "
                          f"got stride {stride}")
@@ -438,14 +451,32 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
     # an int64 mask read as two int32 words is (lo, hi): little-endian, as
     # every platform of PyTorch is
     bits = _block_bits(change).view(torch.int32).view(-1, 2)
-    act = torch.zeros(cgrid ** 3, dtype=torch.bool, device=volume.device)
-    act[coarse_ids.long()] = True
+    dev = volume.device
+    fixed = count is not None
+    act = torch.zeros(cgrid ** 3 + int(fixed), dtype=torch.bool, device=dev)
+    if fixed:  # the padding slots set the extra last flag, dropped
+        live = torch.arange(coarse_ids.shape[0], device=dev) < count
+        act.scatter_(0, torch.where(live, coarse_ids.long(), cgrid ** 3),
+                     True)
+        act = act[:cgrid ** 3]
+    else:
+        act[coarse_ids.long()] = True
     cand = act.view(cgrid, cgrid, cgrid)
     for ax in range(3):  # the ghost blocks take their low neighbour's flag
         cand = torch.cat([cand, cand.narrow(ax, cgrid - 1, 1)], ax)
-    ids, n_cells, blk = _compact_block_bits(bits, cand.reshape(-1), R)
-    guard = int(change.sum()) - n_cells
-    return ids, n_cells, guard, blk
+    cand = cand.reshape(-1)
+    if not fixed:
+        ids, n_cells, blk = _compact_block_bits(bits, cand, R)
+        guard = int(change.sum()) - n_cells
+        return ids, n_cells, guard, blk
+    ids, n_cells, g_blocks, blk = _compact_block_bits(bits, cand, R,
+                                                      bcap=bcap)
+    total = change.sum()
+    pop8 = _device_tables(dev)["pop8"]  # a block's bits, byte by byte
+    inside = (pop8[bits.view(torch.uint8).long()].sum(1) * cand).sum()
+    guard = (total - inside).int()
+    gov = (g_blocks + (total - n_cells)).int()
+    return ids, n_cells, guard, gov, blk
 
 
 _b2cap = block_compact.b2cap  # the capped compaction's rows for a cap
@@ -658,6 +689,81 @@ def _extract_owned(volume: torch.Tensor, sdf_params: torch.Tensor,
                 torch.zeros(0, 3, dtype=torch.int32, device=volume.device))
     verts, c, imask, cmask = _owned_pass1(volume, sdf_params, cell_ids, iso)
     return verts, _owned_pass2(c, imask, cmask, cell_ids, volume.shape[0])
+
+
+def _extract_owned_fixed(volume: torch.Tensor, sdf_params: torch.Tensor,
+                         cell_ids: torch.Tensor, n_cells: torch.Tensor,
+                         iso: float, n_iter: int, batch: int):
+    """_extract_owned at fixed shapes, with nothing waiting for the card
+    (port of disn_tpu/ops/marching.py _extract_owned(..., n_cells, n_iter,
+    batch)): the first S = n_iter * batch slots of the padded id list
+    `cell_ids`, those at or past n_cells (a 0-d tensor) masked out ->
+    (verts [S*D,3] f32, nv, faces [S*12,3] int32, ntri, missing), the
+    counts 0-d on the card and the rows past them zero.
+
+    Both passes run over every slot: a mask and a cumsum give each crossing
+    edge its vertex row and each triangle its face row, in the exact
+    function's orders (slot then direction; slot, tet, triangle), and a
+    scatter puts the masked rows into an extra last row that is dropped.
+    On its first nv / ntri rows the result is _extract_owned's on
+    cell_ids[:n_cells], bit for bit, when S >= n_cells. `missing` counts
+    the triangle corners whose owner cell is not in the first S slots
+    (where _extract_owned raises): 0 on a scan's list that S covers."""
+    dev = volume.device
+    tb = _device_tables(dev)
+    R = volume.shape[0]
+    S = n_iter * batch
+    if S > cell_ids.shape[0]:
+        raise ValueError(f"{n_iter} x {batch} slots past the "
+                         f"{cell_ids.shape[0]} ids")
+    ids = cell_ids[:S].long()
+    live = torch.arange(S, device=dev) < n_cells
+    c, vals, inside, cross = _slot_data(volume, ids, iso)
+    cross = cross & live[:, None]
+    # pass 1: every (slot, direction)'s vertex, the crossing ones kept
+    pj = tb["pair_j"]
+    t = _edge_t(vals[:, :1], vals[:, pj], iso)[..., None]          # [S,D,1]
+    gi = c[:, None, :]
+    gj = torch.clamp(gi + tb["corners"][pj][None], max=R - 1)
+    pi_, pj_ = _world(gi, R, sdf_params), _world(gj, R, sdf_params)
+    pos = (pi_ + t * (pj_ - pi_)).reshape(-1, 3)
+    flat = cross.reshape(-1)
+    vcs = torch.cumsum(flat, 0)
+    vcap = S * D_OWNED
+    vrow = torch.where(flat, vcs - 1, vcap)
+    verts = torch.zeros(vcap + 1, 3, device=dev).scatter_(
+        0, vrow[:, None].expand(-1, 3), pos)[:vcap]
+    # pass 2: every (slot, tet, triangle)'s corners, the real ones kept
+    imask, cmask = _pack_bits(inside), _pack_bits(cross)
+    counts = tb["pop7"][cmask]
+    vstart = torch.cumsum(counts, 0) - counts
+    owner = torch.full((R ** 3 + 1,), -1, dtype=torch.int32, device=dev)
+    owner.scatter_(0, torch.where(live, ids, R ** 3),
+                   torch.arange(S, dtype=torch.int32, device=dev))
+    case = (((imask[:, None, None] >> tb["tets"][None]) & 1)
+            << torch.arange(4, device=dev)).sum(-1)                  # [S,6]
+    tet = torch.arange(6, device=dev)[None, :]
+    n_tris = tb["counts"][tet, case]
+    real = (c <= R - 2).all(1) & live           # ghost cells emit no triangle
+    valid = ((torch.arange(2, device=dev) < n_tris[..., None])
+             & real[:, None, None])                                # [S,6,2]
+    nb_v, dr_v = tb["nb"][tet, case], tb["dir"][tet, case]       # [S,6,2,3]
+    corner = (tb["corners"][:, 2] * R + tb["corners"][:, 1]) * R \
+        + tb["corners"][:, 0]                   # a corner's flat offset
+    vvalid = valid[..., None].expand_as(nb_v)
+    slot = owner[torch.where(vvalid, ids[:, None, None, None]
+                             + corner[nb_v], R ** 3)].long()
+    missing = (vvalid & (slot < 0)).sum().int()
+    slot = slot.clamp(min=0)
+    rank = tb["pop7"][cmask[slot] & ((1 << dr_v) - 1)]
+    tri = (vstart[slot] + rank).int().reshape(-1, 3)
+    tflat = valid.reshape(-1)
+    tcs = torch.cumsum(tflat, 0)
+    tcap = S * _N_SLOTS
+    trow = torch.where(tflat, tcs - 1, tcap)
+    faces = torch.zeros(tcap + 1, 3, dtype=torch.int32, device=dev).scatter_(
+        0, trow[:, None].expand(-1, 3), tri)[:tcap]
+    return verts, vcs[-1].int(), faces, tcs[-1].int(), missing
 
 
 def _fetch_mesh(verts: torch.Tensor, faces: torch.Tensor

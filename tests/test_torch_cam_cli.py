@@ -16,6 +16,7 @@ from disn_tpu import cli as jcli
 from disn_tpu_torch import cli
 from disn_tpu_torch.core import codecs
 from disn_tpu_torch.data import synthetic
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(__file__))
 CAM_CKPT = os.path.join(ROOT, "demo", "tiny_posenet.npz")

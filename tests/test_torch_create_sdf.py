@@ -23,6 +23,7 @@ from disn_tpu_torch.core import codecs
 from disn_tpu_torch.data import listing, synthetic
 from disn_tpu_torch.infer import pipeline
 from disn_tpu_torch.ops import marching
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 CKPT = os.path.join(os.path.dirname(os.path.dirname(__file__)), "demo",
                     "tiny_synth.npz")

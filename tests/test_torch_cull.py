@@ -17,6 +17,7 @@ from disn_tpu.ops import marching as jmarching
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import sparse
 from disn_tpu_torch.ops import band_cull, block_compact, marching
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 SKEWED_BOX = np.array([-0.7, -1.1, -0.4, 0.9, 1.3, 0.8], np.float32)

@@ -17,6 +17,7 @@ from disn_tpu.data import synthetic as jsynthetic
 from disn_tpu.train import checkpoint as jcheckpoint
 from disn_tpu_torch.core import camera, codecs
 from disn_tpu_torch.data import listing, pipeline, synthetic
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TREE = dict(views=2, num_samples=1024, grid_res=8)

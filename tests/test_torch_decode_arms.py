@@ -31,6 +31,7 @@ from disn_tpu_torch.config import Config, Variant
 from disn_tpu_torch.data import synthetic
 from disn_tpu_torch.infer import dense, fused, pipeline, sparse
 from disn_tpu_torch.ops import fused_decode
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 SMALL = dict(num_classes=32, width_mult=0.125, compute_dtype="float32")

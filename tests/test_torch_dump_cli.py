@@ -23,6 +23,7 @@ from disn_tpu_torch.data import synthetic
 from disn_tpu_torch.infer import pipeline
 from disn_tpu_torch.train import checkpoint
 from disn_tpu_torch.utils import output
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 SMALL = dict(num_classes=32, width_mult=0.125, batch_size=2,
              num_sample_points=64)

@@ -26,6 +26,7 @@ from disn_tpu_torch.core import codecs
 from disn_tpu_torch.data import synthetic
 from disn_tpu_torch.infer import pipeline
 from disn_tpu_torch.train import checkpoint
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 KW = dict(num_classes=32, width_mult=0.125, sdf_res=32, cell_cap_frac=0.9)
 SET = [x for k, v in KW.items() for x in ("--set", f"{k}={v}")]

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from disn_tpu.eval import metrics as jm
 from disn_tpu_torch.eval import metrics as tm
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 EPS32 = 2.0 ** -23
 # nearest-neighbour distances: a.b and the Gram sum (|a|^2 - 2a.b) + |b|^2

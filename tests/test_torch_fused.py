@@ -25,6 +25,7 @@ from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense, fused
 from disn_tpu_torch.ops import fused_decode
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 TRANS = np.vstack([np.eye(3) * 60, [68.0, 68.0, 2.0]]).astype(np.float32)
 GEOM = np.array([-1, -1, -1, 1, 1, 1], np.float32)

@@ -24,6 +24,7 @@ from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config, Variant
 from disn_tpu_torch.models import disn, layers, sdfnet
 from disn_tpu_torch.train import checkpoint, trainer
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 RTOL = 1e-4
 

@@ -26,6 +26,7 @@ from disn_tpu.ops import marching as jm
 from disn_tpu_torch import native
 from disn_tpu_torch.infer import fused, sparse
 from disn_tpu_torch.ops import marching as m
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 SKEW_BOX = np.array([-0.3, -1, -2, 0.9, 1, 2], np.float32)

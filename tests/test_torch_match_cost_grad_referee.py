@@ -20,6 +20,7 @@ from disn_tpu.eval import metrics as jm
 from disn_tpu_torch import kernels
 from disn_tpu_torch.eval import metrics as tm
 from disn_tpu_torch.eval import referee
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 # the gradient's entries sum up to M (or N) match-weighted unit vectors in

@@ -22,6 +22,7 @@ from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense, multiview, pipeline, sparse
 from disn_tpu_torch.models import disn, sdfnet
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 SMALL = dict(num_classes=32, width_mult=0.125)

@@ -20,6 +20,7 @@ from disn_tpu_torch.core import codecs
 from disn_tpu_torch.data import synthetic
 from disn_tpu_torch.ops import marching
 from disn_tpu_torch.train import checkpoint
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 

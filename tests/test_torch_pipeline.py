@@ -17,6 +17,7 @@ from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense, pipeline, sparse
 from disn_tpu_torch.ops import marching
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 SMALL = dict(num_classes=32, width_mult=0.125, compute_dtype="float32")
@@ -264,8 +265,12 @@ def test_image_to_mesh_guard_takes_full_scan(monkeypatch):
     want_v, want_f = pipeline.image_to_mesh(p, img, trans, cfg, device="cpu")
     real_scan = marching._active_cells_from_coarse
 
-    def blind_scan(vol, coarse_ids, iso, stride):
-        return real_scan(vol, coarse_ids[:0], iso, stride=stride)
+    def blind_scan(vol, coarse_ids, iso, stride, count=None, bcap=None):
+        if count is None:
+            return real_scan(vol, coarse_ids[:0], iso, stride=stride)
+        # the speculative dispatch's fixed form: a count of 0
+        return real_scan(vol, coarse_ids, iso, stride=stride,
+                         count=count * 0, bcap=bcap)
 
     monkeypatch.setattr(marching, "_active_cells_from_coarse", blind_scan)
     stats = {}

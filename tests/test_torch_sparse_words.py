@@ -19,6 +19,7 @@ from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config
 from disn_tpu_torch.infer import dense, pipeline, sparse
 from disn_tpu_torch.ops import marching, sparse_words
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 BOX = np.array([-1, -1, -1, 1, 1, 1], np.float32)
 # the JAX test_sparse_words_exact_twin's configuration: at sdf_res 64 the

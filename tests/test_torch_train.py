@@ -24,6 +24,7 @@ from disn_tpu_torch.core import camera
 from disn_tpu_torch.data import synthetic
 from disn_tpu_torch.models import disn, layers
 from disn_tpu_torch.train import checkpoint, trainer
+from torch_threads import few_threads  # noqa: F401  (autouse)
 
 SMALL = dict(num_classes=32, width_mult=0.125, compute_dtype="float32",
              batch_size=2, num_sample_points=64)
