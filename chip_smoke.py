@@ -7,7 +7,8 @@ host C++ compiler. It imports nothing of JAX or disn_tpu. Phases, each fatal
 on failure:
 
 1. build every kernel of the port from csrc/ (nvcc, sm_90a: fused_decode.cu,
-   metrics.cu, sparse_words.cu, band_cull.cu and block_compact.cu) and,
+   metrics.cu, sparse_words.cu, band_cull.cu, block_compact.cu,
+   change_scan.cu and owned_extract.cu) and,
    beside them, the host mesh assembler from native/meshassemble.cpp and
    the OBJ formatter, OBJ parser and voxelizer of evaluation (g++), all
    started together, and report the build seconds and the compiler's
@@ -25,9 +26,11 @@ on failure:
    and the fine pass, K5 once on the fine rows, the record route's host
    assembly), with > 1000 faces and every vertex on |x|+|y|+|z| = 0.6
    within SURFACE_TOL + 3 x span/(R-1)/510 (the records' u8 edge
-   parameter). Then the volume flow (sparse_words=False) on the same 4 bf16
-   images, its counts set to 0 just before and read just after (8 K1
-   launches, no K5, 4 fused K4 calls and 4 compactions): route
+   parameter), no K2s or K7 call. Then the volume flow (sparse_words=False)
+   on the same 4 bf16 images, its counts set to 0 just before and read
+   just after (8 K1 launches, no K5, 4 fused K4 calls, 4 compactions, 4
+   candidate scans (K2s) and 4 owned extractions (K7); the seed's and
+   the first hit's scan and extraction inputs kept): route
    owned_ids, guard 0, within SURFACE_TOL; the two
    flows' meshes have equal faces, in order, and vertices within
    span/(R-1)/510 + 1e-6. The inputs of K1's two launches and K5's one for
@@ -56,7 +59,21 @@ on failure:
    as hits, every kind of its re-runs forced (blocks, planes, guard,
    overflow, extract, cap), the sync-free dispatch, and a surface the box
    cuts: the words guard pins (cfg, iso), then a volume-flow hit with the
-   boundary planes;
+   boundary planes; [scan owned]: K2s (csrc/change_scan.cu, the candidate
+   scan) and K7 (csrc/owned_extract.cu, the owned extractor) against
+   their plain versions bit for bit over their whole outputs, on the
+   volume flow's kept seed (exact forms) and hit (fixed forms), on 49^3,
+   65^3, 129^3 and 100^3 (full scan) grids, on a surface the box cuts
+   (ghost cells), on no cell, every cell, +-0.0, NaN and values at the
+   iso, and with slots past the cells, count 0 and a list the slots do
+   not cover (missing > 0, the exact route raising where the plain one
+   raises); each wrapper on CUDA events (median of 20) beside the plain
+   version and its bound, its kernels by torch.profiler, its launch
+   calls (at most 3 a scan, 4 an extraction, no copy), the whole scan
+   and extractor in turns with --parent DIR's (else the plain
+   versions'), and a volume-flow hit's launch calls an image with the
+   plain versions (PlainScanOwned) and with the kernels (at least 150
+   fewer);
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -323,8 +340,9 @@ on failure:
    of its bound (bf16 and f32, per pass and per image) and the weight bytes
    it moves from L2, the card, and the kernel table as JSON (K1's bf16 and
    f32 kernels, K5's, K4's and the compaction's launches from the main
-   path's run of phase 2, K6's from the farm's evaluate_tree, where K6d is
-   not called: it serves autograd).
+   path's run of phase 2, K2s's and K7's from its volume-flow run, K6's
+   from the farm's evaluate_tree, where K6d is not called: it serves
+   autograd).
 
 A torch.profiler window that a check reads is taken again, up to
 PROFILE_TRIES windows, when it misses a device event the traced work
@@ -421,13 +439,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build() -> None:
-    """nvcc on the three kernel sources and the host compiler on the mesh
+    """nvcc on the seven kernel sources and the host compiler on the mesh
     assembler and the evaluation library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from disn_tpu_torch import native
     from disn_tpu_torch.eval import metrics
-    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+    from disn_tpu_torch.ops import (band_cull, block_compact, change_scan,
+                                    fused_decode, owned_extract,
                                     sparse_words)
 
     def timed(build):
@@ -435,11 +454,11 @@ def phase_build() -> None:
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(7) as pool:
-        k1_s, k6_s, k5_s, k4_s, kc_s, asm_s, eio_s = pool.map(
+    with ThreadPoolExecutor(9) as pool:
+        k1_s, k6_s, k5_s, k4_s, kc_s, ks_s, k7_s, asm_s, eio_s = pool.map(
             timed, (fused_decode.build, metrics.build, sparse_words.build,
-                    band_cull.build, block_compact.build, native.build,
-                    native.build_eval))
+                    band_cull.build, block_compact.build, change_scan.build,
+                    owned_extract.build, native.build, native.build_eval))
     secs = fused_decode.build_seconds()
     native._lib()
     native._eval_lib()
@@ -447,6 +466,8 @@ def phase_build() -> None:
     sparse_words._lib()
     band_cull._lib()
     block_compact._lib()
+    change_scan._lib()
+    owned_extract._lib()
     print(f"[build] fused_decode.cu built in {k1_s:.2f} s (loaded in "
           f"{secs:.2f} s); meshassemble.cpp built in {asm_s:.2f} s -> "
           f"{native.build().parent.name}/{native.build().name}")
@@ -458,13 +479,18 @@ def phase_build() -> None:
     print(f"[cull build] band_cull.cu built in {k4_s:.2f} s -> "
           f"{band_cull.build().name}; block_compact.cu in {kc_s:.2f} s -> "
           f"{block_compact.build().name}")
+    print(f"[scan owned build] change_scan.cu built in {ks_s:.2f} s -> "
+          f"{change_scan.build().name}; owned_extract.cu in {k7_s:.2f} s -> "
+          f"{owned_extract.build().name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg", "entry function")
     for tag, lib in (("[build]", fused_decode.build()),
                      ("[eval build]", metrics.build()),
                      ("[swords build]", sparse_words.build()),
                      ("[cull build]", band_cull.build()),
-                     ("[cull build]", block_compact.build())):
+                     ("[cull build]", block_compact.build()),
+                     ("[scan owned build]", change_scan.build()),
+                     ("[scan owned build]", owned_extract.build())):
         log = lib.with_suffix(".log").read_text()
         for line in log.splitlines():
             if any(k in line for k in keys):
@@ -830,7 +856,8 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     import torch
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.data import synthetic
-    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+    from disn_tpu_torch.ops import (band_cull, block_compact, change_scan,
+                                    fused_decode, owned_extract,
                                     sparse_words)
 
     k1 = fused_decode.fused_cell_decode
@@ -839,10 +866,12 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
              "band_tau": band_cull.band_tau,
              "active_cells": band_cull.active_cells,
              "compact": block_compact.compact_block_bits}
+    scan_owned = {"change_scan": change_scan.change_scan,
+                  "extract_owned": owned_extract.extract_owned}
 
     def zero_counts():
         k1.launches = k5.launches = 0
-        for f in culls.values():
+        for f in (*culls.values(), *scan_owned.values()):
             f.launches = 0
 
     rng = np.random.RandomState(0)
@@ -863,6 +892,9 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
                           held)
     launches = {"k1": k1.launches, "k5": k5.launches,
                 **{k: f.launches for k, f in culls.items()}}
+    words_so = {k: f.launches for k, f in scan_owned.items()}
+    check(words_so == {"change_scan": 0, "extract_owned": 0},
+          f"the words flow launched K2s or K7: {words_so}")
     check(launches["band_cull"] == len(runs)
           and launches["band_tau"] == launches["active_cells"] == 0
           and launches["compact"] >= len(runs),
@@ -876,15 +908,29 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
           f"K1 launches by type do not add up: {launches}")
     cfgv = cfg.replace(sparse_words=False)
     torch.cuda.synchronize()
+    # the volume flow's first image is a seed (exact scan, exact
+    # extraction), the next ones hits (the fixed forms): their inputs are
+    # kept for [scan owned]
+    for f in scan_owned.values():
+        f.inputs = []
     zero_counts()
     vruns = run_main_path(cfgv, params, imgs[:4], trans, "bf16 volume", 1,
                           None, held)
     vcounts = [f.launches for f in culls.values()]
+    so_counts = {k: f.launches for k, f in scan_owned.items()}
+    kept["volume scan"] = scan_owned["change_scan"].inputs[:2]
+    kept["volume extract"] = scan_owned["extract_owned"].inputs[:2]
+    for f in scan_owned.values():
+        f.inputs = None
     check(k1.launches == 8 and k5.launches == 0
           and vcounts == [4, 0, 0, 4],
           f"volume flow: {k1.launches} K1, {k5.launches} K5 and {vcounts} "
           f"K4 (fused, tau, cull) and compaction calls, expected 8, 0 and "
           f"[4, 0, 0, 4]")
+    check(so_counts == {"change_scan": 4, "extract_owned": 4},
+          f"volume flow: K2s and K7 calls {so_counts}, expected one scan "
+          f"and one extraction an image")
+    launches.update(so_counts)
     hold_flows(held["bf16"], held["bf16 volume"], cfg.grid_resolution)
     # made after the counts were read
     held.update(cfg=cfg, params=params, img=imgs[1], trans=trans)
@@ -1380,13 +1426,17 @@ VSPEC_PROFILED = 8          # images of a profiled run of waits and launches
 
 def volume_counters() -> dict:
     """The wrappers of the kernels the volume flow can launch, by name:
-    K1, K5 (never on this flow), K4's fused entry and the compaction."""
-    from disn_tpu_torch.ops import (band_cull, block_compact, fused_decode,
+    K1, K5 (never on this flow), K4's fused entry, the compaction, the
+    candidate scan (K2s) and the owned extractor (K7)."""
+    from disn_tpu_torch.ops import (band_cull, block_compact, change_scan,
+                                    fused_decode, owned_extract,
                                     sparse_words)
     return {"k1": fused_decode.fused_cell_decode,
             "k5": sparse_words.sparse_cell_words,
             "band_cull": band_cull.band_cull,
-            "compact": block_compact.compact_block_bits}
+            "compact": block_compact.compact_block_bits,
+            "change_scan": change_scan.change_scan,
+            "extract_owned": owned_extract.extract_owned}
 
 
 def image_waits(fn, images: list) -> tuple[float, int, int]:
@@ -1416,7 +1466,8 @@ def phase_vspec(smi: str) -> None:
     the seed path (_SPEC_CACHE cleared), in turns, the meshes equal bit
     for bit, at least half of them hits. Then 4 hits with the kernels'
     counts set to 0 just before and read just after (K1 twice, no K5, K4
-    once, the capped compaction once an image); the fixed owned extractor
+    once, the capped compaction, the scan and the fixed extractor once an
+    image); the fixed owned extractor
     against the exact one on one image's volume and ids (bit for bit;
     CUDA events over 20 calls, in turns; launch calls); the calling
     thread's waits and runtime launch calls an image under torch.profiler,
@@ -1508,9 +1559,11 @@ def phase_vspec(smi: str) -> None:
     n_hits = pipeline.spec_counts["hit"] - before.get("hit", 0)
     print(f"[vspec] 4 hits at r 0.6: launches {counts}")
     check(n_hits == 4 and counts == {"k1": 8, "k5": 0, "band_cull": 4,
-                                     "compact": 4},
+                                     "compact": 4, "change_scan": 4,
+                                     "extract_owned": 4},
           f"[vspec] {n_hits} hits in 4, kernel launches {counts}; expected "
-          f"8 K1, 0 K5, 4 K4 and 4 capped compactions")
+          f"8 K1, 0 K5, 4 K4, 4 capped compactions, 4 scans and 4 fixed "
+          f"extractions")
 
     # the fixed extractor against the exact one on a hit's volume and ids
     from disn_tpu_torch.infer import sparse
@@ -1671,6 +1724,437 @@ def phase_vspec(smi: str) -> None:
     print(f"[vspec] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
+SO_GRIDS = (49, 65, 129, 100)   # 100: R - 1 not a multiple of 4 (full scan)
+SO_EDGES = ("none", "every", "zeros", "nan", "at_iso")
+SO_AT_ISO = 0.25                # the iso of the "at_iso" field
+SO_NAMES = {"full scan": ("Memset", "scan_kernel"),
+            "coarse scan": ("Memset", "mark_kernel", "scan_kernel"),
+            "extract": ("Memset", "owned_count", "owned_prefix",
+                        "owned_write")}
+PARENT_SO: dict = {}  # another checkout's ops/marching (--parent)
+
+
+def so_parent(root: str):
+    """Another checkout's ops/marching.py, loaded under another name (it
+    imports this checkout's helpers): its scans and owned extractor, as
+    that checkout runs them."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_marching",
+        os.path.join(root, "disn_tpu_torch", "ops", "marching.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def so_field(kind: str, R: int, device):
+    """A seeded [R]^3 f32 field on the card: a sphere inside the box, one
+    the box cuts (ghost cells), no change cell, every cell changing (a
+    checkerboard), corners at +-0.0, NaN, values exactly at SO_AT_ISO."""
+    import torch
+    rng = np.random.RandomState(22)
+    lin = np.linspace(-1, 1, R)
+    z, y, x = np.meshgrid(lin, lin, lin, indexing="ij")
+    sphere = np.sqrt(x * x + y * y + z * z) - 0.6
+    if kind == "sphere":
+        v = sphere
+    elif kind == "cut":
+        v = np.sqrt((x - 0.5) ** 2 + (y - 0.45) ** 2 + (z - 0.55) ** 2) - 0.9
+    elif kind == "none":
+        v = np.ones((R, R, R))
+    elif kind == "every":
+        v = np.where(np.indices((R, R, R)).sum(0) % 2 == 0, 1.0, -1.0)
+    elif kind == "zeros":
+        v = sphere + 0.02 * rng.randn(R, R, R)
+        v[rng.rand(R, R, R) < 0.1] = 0.0
+        v[rng.rand(R, R, R) < 0.1] = -0.0
+    elif kind == "nan":
+        v = sphere + 0.05 * rng.randn(R, R, R)
+        v[rng.rand(R, R, R) < 0.02] = np.nan
+    elif kind == "at_iso":
+        v = np.round(sphere * 8) / 8 + SO_AT_ISO
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+
+
+def so_coarse(vol, iso: float):
+    """The coarse cells (stride 4) with a corner within 0.3 of the iso or
+    corners of both signs: a band like the sparse pass's active cells."""
+    import torch
+    c = (vol.shape[0] - 1) // 4
+    vc = vol[::4, ::4, ::4][:c + 1, :c + 1, :c + 1] - iso
+    corners = torch.stack([vc[dz:dz + c, dy:dy + c, dx:dx + c]
+                           for dz in (0, 1) for dy in (0, 1)
+                           for dx in (0, 1)])
+    act = ((corners.abs().amin(0) < 0.3)
+           | ((corners < 0).any(0) & (corners >= 0).any(0)))
+    return torch.nonzero(act.reshape(-1))[:, 0].int()
+
+
+def same_bits(a, b) -> bool:
+    """Equal type, shape and bits (floats as their bit patterns)."""
+    import torch
+    if not torch.is_tensor(a):
+        return a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def hold_scan(label: str, vol, iso: float, ids=None, count=None):
+    """K2s against _candidate_scan_plain on one input: bits, flags and
+    counts bit for bit -> the counts."""
+    from disn_tpu_torch.ops import marching
+    got = marching._candidate_scan(vol, iso, ids, count)
+    want = marching._candidate_scan_plain(vol, iso, ids, count)
+    ok = [same_bits(g, w) for g, w in zip(got, want)]
+    check(all(ok), f"[scan owned] {label}: the scan differs from its plain "
+                   f"version (bits, cand, counts equal: {ok}; counts "
+                   f"{got[2].tolist()} against {want[2].tolist()})")
+    return got[2].tolist()
+
+
+def hold_fixed(label: str, args) -> tuple:
+    """K7's fixed form against _extract_owned_fixed_plain on (volume,
+    sdf_params, ids, n, iso, n_iter, batch): every output bit for bit ->
+    (nv, ntri, missing)."""
+    from disn_tpu_torch.ops import marching
+    got = marching._extract_owned_fixed(*args)
+    want = marching._extract_owned_fixed_plain(*args)
+    ok = [same_bits(g, w) for g, w in zip(got, want)]
+    check(all(ok), f"[scan owned] {label}: the fixed extractor differs from "
+                   f"its plain version (verts, nv, faces, ntri, missing "
+                   f"equal: {ok})")
+    return int(got[1]), int(got[3]), int(got[4])
+
+
+def hold_exact(label: str, vol, sp, ids, iso: float) -> tuple:
+    """K7's exact route against _extract_owned_plain: the rows bit for
+    bit, or the same ValueError -> (nv, ntri), or the error's text."""
+    from disn_tpu_torch.ops import marching
+    outs = []
+    for fn in (marching._extract_owned, marching._extract_owned_plain):
+        try:
+            outs.append(fn(vol, sp, ids, iso))
+        except ValueError as e:
+            outs.append(str(e))
+    got, want = outs
+    if isinstance(want, str):
+        check(got == want, f"[scan owned] {label}: the plain route raised "
+                           f"{want!r}, the kernel's gave {got!r}")
+        return want
+    check(not isinstance(got, str) and same_bits(got[0], want[0])
+          and same_bits(got[1], want[1]),
+          f"[scan owned] {label}: the exact route differs from the plain "
+          f"one ({got if isinstance(got, str) else 'rows'})")
+    return got[0].shape[0], got[1].shape[0]
+
+
+def device_us_all(tag: str, fn) -> float:
+    """torch.profiler over LIBRARY_CALLS calls of fn(): the device time a
+    call of every device event (a chain of PyTorch ops), us."""
+    from torch.autograd import DeviceType
+    prof, _ = profiled(lambda: [fn() for _ in range(LIBRARY_CALLS)])
+    dev = [(e.key, e.count, _device_time(e, True))
+           for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(us for _, _, us in dev) / LIBRARY_CALLS
+    print(f"{tag} device: {len(dev)} kinds of device event, {total:.2f} us "
+          f"a call")
+    return total
+
+
+class PlainScanOwned:
+    """A context in which ops/marching's _candidate_scan, _extract_owned
+    and _extract_owned_fixed take their plain versions on the card: the
+    code path before K2s and K7 were kernels."""
+
+    def __enter__(self):
+        from disn_tpu_torch.ops import marching as m
+        self.saved = (m._candidate_scan, m._extract_owned,
+                      m._extract_owned_fixed)
+        m._candidate_scan = m._candidate_scan_plain
+        m._extract_owned = m._extract_owned_plain
+        m._extract_owned_fixed = m._extract_owned_fixed_plain
+        return self
+
+    def __exit__(self, *exc):
+        from disn_tpu_torch.ops import marching as m
+        (m._candidate_scan, m._extract_owned,
+         m._extract_owned_fixed) = self.saved
+
+
+def so_turns(tag: str, change, plain) -> dict:
+    """This tree's function (change) and its yardstick (plain: --parent's
+    function, else the plain version) in turns (plain, change, change,
+    plain): ms on CUDA events (median of 20) and device us by the
+    profiler (every device event of a call)."""
+    out: dict = {"plain": {"ms": [], "device_us": []},
+                 "change": {"ms": [], "device_us": []}}
+    for arm in ("plain", "change", "change", "plain"):
+        fn = change if arm == "change" else plain
+        out[arm]["ms"].append(median_ms(fn, True, 20))
+        out[arm]["device_us"].append(device_us_all(f"{tag} {arm}", fn))
+    for arm, r in out.items():
+        print(f"{tag} {arm} in turns: {[round(v, 4) for v in r['ms']]} ms "
+              f"(CUDA events, median of 20), device "
+              f"{[round(v, 2) for v in r['device_us']]} us (profiler); "
+              f"{card_name()}")
+    return out
+
+
+def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
+    """[scan owned]: K2s (csrc/change_scan.cu) and K7
+    (csrc/owned_extract.cu) against their plain versions on the card, bit
+    for bit over their whole outputs: on the main path's kept inputs of a
+    volume-flow seed (the exact scan, the exact extraction) and a hit (the
+    fixed forms); on grids of SO_GRIDS (100^3 through _active_cells_ext);
+    on SO_EDGES at 65^3; with ghost cells, slots past the cells, count 0
+    and a list the slots do not cover (missing > 0, the exact route
+    raising where the plain one raises). Then each kernel's wrapper on
+    CUDA events (median of 20) beside the plain version and its bound,
+    its kernels' device time by the profiler, both in turns with --parent
+    DIR's function (else the plain version); launch calls a call; and a
+    volume-flow hit's launch calls an image with the plain versions
+    (PlainScanOwned) and with the kernels (cfg: the main path's, with
+    sparse_words=False). Returns the kernel table's entries."""
+    import torch
+    from disn_tpu_torch.infer import pipeline
+    from disn_tpu_torch.ops import change_scan, marching, owned_extract
+
+    t_phase = time.perf_counter()
+    smi = card_name()
+    dev = torch.device("cuda")
+    (sargs_s, skw_s), (sargs_h, skw_h) = kept["volume scan"]
+    (eargs_s, _), (eargs_h, _) = kept["volume extract"]
+    check(skw_s["count"] is None and skw_h["count"] is not None
+          and not torch.is_tensor(eargs_s[3]) and torch.is_tensor(eargs_h[3]),
+          "[scan owned] the kept volume-flow launches are not a seed's "
+          "(exact forms) then a hit's (fixed forms)")
+
+    # the main path's inputs
+    for label, (args, kw) in (("seed's scan (exact form)", (sargs_s, skw_s)),
+                              ("hit's scan (fixed form)", (sargs_h, skw_h))):
+        counts = hold_scan(label, *args, kw["coarse_ids"], kw["count"])
+        print(f"[scan owned] main path, {label}: bit for bit; total, inside, "
+              f"outside {counts}")
+    vol_h, sp_h, ids_h, n_h, iso_h, S_h = eargs_h
+    res = hold_fixed("hit's extraction", (vol_h, sp_h, ids_h, n_h, iso_h,
+                                          S_h, 1))
+    print(f"[scan owned] main path, hit's extraction (S = {S_h}, n = "
+          f"{int(n_h)}): bit for bit; nv, ntri, missing {res}")
+    vol_s, sp_s, ids_s, n_s, iso_s, _ = eargs_s
+    res = hold_exact("seed's extraction", vol_s, sp_s, ids_s, iso_s)
+    fres = hold_fixed("seed's list, fixed at S = n",
+                      (vol_s, sp_s, ids_s, n_s, iso_s, n_s, 1))
+    print(f"[scan owned] main path, seed's extraction (exact, n = {n_s}): "
+          f"bit for bit, (nv, ntri) {res}; the fixed form at S = n "
+          f"{fres}")
+
+    # grids, edge cases, slot cases
+    boxes = {"unit": torch.tensor([-1, -1, -1, 1, 1, 1], dtype=torch.float32,
+                                  device=dev),
+             "skewed": torch.tensor([-0.7, -1.1, -0.4, 0.9, 1.3, 0.8],
+                                    dtype=torch.float32, device=dev)}
+    cases = [("sphere", R) for R in SO_GRIDS] + [("cut", 65)] + [
+        (kind, 65) for kind in SO_EDGES]
+    for kind, R in cases:
+        iso = SO_AT_ISO if kind == "at_iso" else 0.0
+        vol = so_field(kind, R, dev)
+        full = hold_scan(f"{kind} {R}^3 full", vol, iso)
+        line = f"full {full}"
+        if R != 100:
+            cids = so_coarse(vol, iso)
+            pad = torch.full((cids.shape[0] + 333,), 7, dtype=torch.int32,
+                             device=dev)
+            pad[:cids.shape[0]] = cids
+            line += f", coarse {hold_scan(f'{kind} {R}^3 coarse', vol, iso, cids)}"
+            for cnt in (cids.shape[0], 0, pad.shape[0] + 5):
+                hold_scan(f"{kind} {R}^3 fixed count {cnt}", vol, iso, pad,
+                          torch.tensor(cnt, dtype=torch.int32, device=dev))
+            line += " (fixed: the count, 0, past the list)"
+        ids, n = marching._active_cells_ext(vol, iso)
+        if 0 < n < 100000:
+            padded = torch.zeros(n + 700, dtype=torch.int32, device=dev)
+            padded[:n] = ids
+            for box, sp in boxes.items():
+                got = [hold_fixed(f"{kind} {R}^3 {box} S {S} live {live}",
+                                  (vol, sp, padded,
+                                   torch.tensor(live, dtype=torch.int32,
+                                                device=dev), iso, S, 1))
+                       for S, live in ((n + 500, n), (n, n), (n + 500, 0),
+                                       (n // 2, n))]
+                check(got[0][2] == 0 and got[3][2] > 0,
+                      f"[scan owned] {kind} {R}^3: missing {got}, expected "
+                      f"0 where the slots cover the cells and > 0 where "
+                      f"they do not")
+                ex = hold_exact(f"{kind} {R}^3 {box} exact", vol, sp, ids,
+                                iso)
+                cut = hold_exact(f"{kind} {R}^3 {box} a third of the list",
+                                 vol, sp, ids[:n // 3], iso)
+                check(isinstance(cut, str),
+                      f"[scan owned] {kind} {R}^3: the cut list did not "
+                      f"raise")
+            line += (f"; {n} cells extracted ({box}: S past n, S = n, count "
+                     f"0, S = n/2 with missing {got[3][2]}; exact {ex}; a "
+                     f"third of the list raises on both routes)")
+        print(f"[scan owned] {kind} {R}^3 iso {iso}: bit for bit; {line}")
+    vol = so_field("cut", 65, dev)
+    ids, n = marching._active_cells_ext(vol, 0.0)
+    ghosts = ids[(marching._cell_xyz(ids, 65) == 64).any(1)].contiguous()
+    g = hold_fixed("cut 65^3 ghost cells alone",
+                   (vol, boxes["skewed"], ghosts, ghosts.shape[0], 0.0,
+                    ghosts.shape[0], 1))
+    check(ghosts.shape[0] > 0 and g[0] > 0 and g[1] == 0,
+          f"[scan owned] ghost cells: {ghosts.shape[0]} cells, (nv, ntri, "
+          f"missing) {g}; expected vertices and no triangle")
+    print(f"[scan owned] cut 65^3: {ghosts.shape[0]} ghost cells alone, bit "
+          f"for bit, (nv, ntri, missing) {g}")
+
+    # times, launches, bounds on the main path's inputs
+    key = pipeline._vkey(cfg, cfg.iso)
+    sizes = pipeline._spec_sizes(cfg)
+    nb_p = min(pipeline._SPEC_CACHE[key][0], sizes["max_blocks"])
+    bcap = pipeline._fused_bcap(nb_p, sizes)
+    pm = PARENT_SO.get("marching")
+    vol, iso = sargs_h
+    cids, cnt = skw_h["coarse_ids"], skw_h["count"]
+    R = vol.shape[0]
+    nb = (-(-R // 4)) ** 3
+    fns = {
+        "scan": (lambda: change_scan.change_scan(vol, iso, cids, cnt),
+                 lambda: marching._candidate_scan_plain(vol, iso, cids, cnt),
+                 SO_NAMES["coarse scan"]),
+        "extract": (lambda: owned_extract.extract_owned(*eargs_h),
+                    lambda: marching._extract_owned_fixed_plain(
+                        vol_h, sp_h, ids_h, n_h, iso_h, S_h, 1),
+                    SO_NAMES["extract"]),
+        "full scan": (lambda: change_scan.change_scan(vol, iso),
+                      lambda: marching._candidate_scan_plain(vol, iso),
+                      SO_NAMES["full scan"])}
+    live = min(int(n_h), S_h)
+    nbytes = {"scan": 4 * R ** 3 + 4 * int(cnt) + 9 * nb + 12,
+              "extract": 4 * S_h + 32 * live + 24 + S_h * 7 * 12
+              + S_h * 12 * 12 + 12,
+              "full scan": 4 * R ** 3 + 9 * nb + 12}
+    out = {}
+    for name, (fn, plain, names) in fns.items():
+        ms = median_ms(fn, True, 20)
+        plain_ms = median_ms(plain, True, 20)
+        dev_us = library_device_us(f"[scan owned profile] {name}", fn, names)
+        bound, by = k_bound(nbytes[name], 0.0)
+        calls = launch_calls(fn)
+        n_calls = sum(v for k, v in calls.items()
+                      if k.startswith("cuda") and "Memcpy" not in k)
+        print(f"[scan owned] {name} on the main path's hit inputs: wrapper "
+              f"{ms:.4f} ms (CUDA events, median of 20), its kernels "
+              f"{dev_us:.2f} us by the profiler, plain {plain_ms:.4f} ms; "
+              f"bound {bound:.5f} ms ({by}, {nbytes[name]} B); runtime "
+              f"calls a call {calls}; {smi}")
+        check(n_calls <= (3 if "scan" in name else 4)
+              and not any("Memcpy" in k for k in calls),
+              f"[scan owned] {name}: {calls}; expected at most "
+              f"{3 if 'scan' in name else 4} launch calls (memsets "
+              f"included) and no copy")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=None, max_abs_err=0.0,
+                         device_us=dev_us, calls=n_calls)
+    exact_ms = median_ms(lambda: marching._extract_owned(vol_s, sp_s, ids_s,
+                                                         iso_s), True, 20)
+    exact_plain = median_ms(lambda: marching._extract_owned_plain(
+        vol_s, sp_s, ids_s, iso_s), True, 20)
+    calls = launch_calls(lambda: marching._extract_owned(vol_s, sp_s, ids_s,
+                                                          iso_s))
+    print(f"[scan owned] exact extraction on the seed's list ({n_s} cells): "
+          f"{exact_ms:.4f} ms (its wait included), plain {exact_plain:.4f} "
+          f"ms; runtime calls {calls}; {smi}")
+
+    # in turns with --parent's functions (else the plain versions)
+    arm = "--parent's" if pm else "the plain version's"
+    src = pm if pm else None
+    whole = {
+        "candidate scan, fixed (scan + compaction + gov)": (
+            lambda: marching._active_cells_from_coarse(
+                vol, cids, iso, count=cnt, bcap=bcap),
+            lambda: (src._active_cells_from_coarse(vol, cids, iso, count=cnt,
+                                                   bcap=bcap) if src else
+                     _plain_call(marching._active_cells_from_coarse, vol,
+                                 cids, iso, count=cnt, bcap=bcap))),
+        "owned extractor, fixed": (
+            lambda: marching._extract_owned_fixed(vol_h, sp_h, ids_h, n_h,
+                                                  iso_h, S_h, 1),
+            lambda: (src._extract_owned_fixed(vol_h, sp_h, ids_h, n_h, iso_h,
+                                              S_h, 1) if src else
+                     marching._extract_owned_fixed_plain(
+                         vol_h, sp_h, ids_h, n_h, iso_h, S_h, 1)))}
+    for name, (fn, yard) in whole.items():
+        if pm:
+            want = yard()
+            got = fn()
+            check(all(same_bits(a, b) for a, b in zip(got, want)),
+                  f"[scan owned] {name}: this tree's result is not "
+                  f"--parent's")
+        calls = (launch_calls(fn), launch_calls(yard))
+        print(f"[scan owned turns] {name}, in turns with {arm}: runtime "
+              f"calls a call {calls[0]} against {calls[1]}")
+        so_turns(f"[scan owned turns] {name}", fn, yard)
+    for name, (fn, yard) in {
+            "candidate scan, exact (the seed's)": (
+                lambda: marching._active_cells_from_coarse(
+                    vol_s, skw_s["coarse_ids"], iso_s),
+                lambda: (src._active_cells_from_coarse(
+                    vol_s, skw_s["coarse_ids"], iso_s) if src else
+                    _plain_call(marching._active_cells_from_coarse, vol_s,
+                                skw_s["coarse_ids"], iso_s))),
+            "owned extractor, exact (the seed's)": (
+                lambda: marching._extract_owned(vol_s, sp_s, ids_s, iso_s),
+                lambda: (src._extract_owned(vol_s, sp_s, ids_s, iso_s)
+                         if src else marching._extract_owned_plain(
+                             vol_s, sp_s, ids_s, iso_s)))}.items():
+        res = {"plain": [], "change": []}
+        for a in ("plain", "change", "change", "plain"):
+            res[a].append(round(median_ms(fn if a == "change" else yard,
+                                          True, 20), 4))
+        print(f"[scan owned turns] {name}, in turns with {arm} (CUDA events, "
+              f"median of 20, waits included): {arm} {res['plain']} ms, "
+              f"this tree {res['change']} ms; {smi}")
+
+    # a volume-flow hit's launch calls an image
+    def run():
+        pipeline.image_to_mesh(params, img, trans, cfg)
+
+    run()
+    hits = pipeline.spec_counts["hit"]
+    with PlainScanOwned():
+        run()
+        before = launch_calls(run)
+    run()
+    after = launch_calls(run)
+    check(pipeline.spec_counts["hit"] - hits == 4,
+          "[scan owned] the counted volume-flow images were not all hits")
+    launches = [sum(v for k, v in c.items() if "LaunchKernel" in k)
+                for c in (before, after)]
+    print(f"[scan owned] one volume-flow image_to_mesh (a hit): "
+          f"{launches[0]} launch calls with the plain scan and extractor, "
+          f"{launches[1]} with K2s and K7 (every launch call, cluster "
+          f"launches included); runtime calls {before} / "
+          f"{after}; {smi}")
+    check(launches[0] - launches[1] >= 150,
+          f"[scan owned] the kernels cut a hit's launch calls by "
+          f"{launches[0] - launches[1]}, fewer than 150")
+    out["image_launches"] = launches
+    print(f"[scan owned] phase seconds {time.perf_counter() - t_phase:.1f}")
+    return out
+
+
+def _plain_call(fn, *args, **kw):
+    """fn(*args, **kw) with the plain scan and extractor (PlainScanOwned)."""
+    with PlainScanOwned():
+        return fn(*args, **kw)
+
+
 def trace_busy(tdir: str) -> tuple[float, float, int, int]:
     """(device busy us, span of device activity us, device events, host
     synchronisations) of the Chrome trace in tdir."""
@@ -1761,8 +2245,9 @@ class PlainCulls:
 
 def launch_calls(fn) -> dict:
     """The runtime's kernel launch calls (cudaLaunchKernel, the cluster
-    launches' cudaLaunchKernelExC, ...) and copy calls in one fn() under
-    torch.profiler, by name."""
+    launches' cudaLaunchKernelExC, ...), memset and copy calls in one fn()
+    under torch.profiler, by name (with the device's memset and copy
+    events, whose names do not start with "cuda")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1773,7 +2258,7 @@ def launch_calls(fn) -> dict:
         torch.cuda.synchronize()
     out: dict = {}
     for e in prof.events():
-        if "LaunchKernel" in e.name or "Memcpy" in e.name:
+        if any(k in e.name for k in ("LaunchKernel", "Memset", "Memcpy")):
             out[e.name] = out.get(e.name, 0) + 1
     return out
 
@@ -2490,11 +2975,12 @@ def hold_divisions(k: dict) -> None:
               "_world is off the IEEE f32 / float64 evaluation")
         check(np.array_equal(pts, p32) and e_p <= ulp,
               "plane_points is off the IEEE f32 / float64 evaluation")
-    # the extracted vertices: the same code on the CPU (IEEE f32), and the
-    # interpolation redone in float64 from the same f32 volume
+    # the extracted vertices (K7 on the card): the plain version on the
+    # CPU (IEEE f32), and the interpolation redone in float64 from the same
+    # f32 volume
     sdfp = k["sdfp"]
-    verts = m._owned_pass1(vol, sdfp, ids, iso)[0].cpu().numpy()
-    cpu = m._owned_pass1(vol.cpu(), sdfp.cpu(), ids.cpu(), iso)[0].numpy()
+    verts = m._extract_owned(vol, sdfp, ids, iso)[0].cpu().numpy()
+    cpu = m._extract_owned(vol.cpu(), sdfp.cpu(), ids.cpu(), iso)[0].numpy()
     tb = m._device_tables(torch.device("cpu"))
     c, vals, _, cross = m._slot_data(vol.cpu().double(), ids.cpu(), iso)
     slot, d = torch.nonzero(cross, as_tuple=True)
@@ -2532,12 +3018,13 @@ def time_extraction(k: dict) -> dict:
     t["scan"] = median_ms(
         lambda: m._active_cells_from_coarse(vol, coarse, iso), True)
     t["full_scan"] = median_ms(lambda: m._active_cells_ext(vol, iso), True)
-    t["owned_pass1"] = median_ms(
-        lambda: m._owned_pass1(vol, sdfp, ids, iso), True)
-    verts, c, imask, cmask = m._owned_pass1(vol, sdfp, ids, iso)
-    t["owned_pass2"] = median_ms(
-        lambda: m._owned_pass2(c, imask, cmask, ids, R), True)
-    faces = m._owned_pass2(c, imask, cmask, ids, R)
+    # the owned extractor as the route runs it on the card (K7 at S = n,
+    # its counts read once), and its plain version's two passes
+    t["owned_extract"] = median_ms(
+        lambda: m._extract_owned(vol, sdfp, ids, iso), True)
+    t["owned_passes_plain"] = median_ms(
+        lambda: m._extract_owned_plain(vol, sdfp, ids, iso), True)
+    verts, faces = m._extract_owned(vol, sdfp, ids, iso)
     t["mesh_copy"] = median_ms(lambda: m._fetch_mesh(verts, faces), False)
     # the alternative the port does not take: one copy into a page-locked
     # buffer kept across calls, and a copy out of it into a fresh array
@@ -2616,8 +3103,8 @@ def time_extraction(k: dict) -> dict:
     dev_bytes = {
         "scan": 4 * R ** 3 + 4 * coarse.numel() + 4 * n + blk_np.nbytes,
         "full_scan": 4 * R ** 3 + 4 * n,
-        "owned_pass1": 4 * n + touched + verts.numel() * 4 + 24 * n,
-        "owned_pass2": 28 * n + faces.numel() * 4,
+        "owned_extract": 4 * n + touched + mesh_b,
+        "owned_passes_plain": 4 * n + touched + mesh_b,
         "record_emit": 4 * n + touched + 2 * n + tq_d.numel()
         * tq_d.element_size(),
         "marching_tets": 4 * R ** 3 + soup_b,
@@ -2644,14 +3131,13 @@ def time_extraction(k: dict) -> dict:
         else:
             extra = " host clock, host code"
         print(f"{tag} {name} ms={ms:.4f}{extra}")
-    owned = (t["scan"] + t["owned_pass1"] + t["owned_pass2"]
-             + t["mesh_copy"])
+    owned = t["scan"] + t["owned_extract"] + t["mesh_copy"]
     record = (t["scan"] + t["record_emit"] + t["record_copy"]
               + t["derive_recs"] + t["mesh_faces_blocks"]
               + t["mesh_verts_blocks"])
     tets = t["marching_tets"] + t["soup_copy"] + t["weld"]
     bound = ((4 * R ** 3 + mesh_b) / H100_BYTES_PER_S + mesh_b / link) * 1e3
-    print(f"{tag} sums: owned route (scan + passes + copy) {owned:.4f} ms "
+    print(f"{tag} sums: owned route (scan + extractor + copy) {owned:.4f} ms "
           f"against a bound of {bound:.5f} ms (volume read once and the "
           f"mesh written at 3.35 TB/s, the mesh over the link); record "
           f"route {record:.4f} ms; marching_tets + copy + weld "
@@ -6649,6 +7135,24 @@ def cull_entries(k4: dict, kc: dict, launches: dict) -> list[dict]:
             for name, src, where, res, n, extra in rows]
 
 
+def scan_owned_entries(so: dict, launches: dict) -> list[dict]:
+    """K2s ([scan owned]: the coarse scan's fixed form on a volume-flow
+    hit's inputs; it replaces :540 with :608's packing and flags) and K7
+    (the fixed extractor on the same hit's inputs); launches from the
+    volume flow's run in phase 2 (a seed and 3 hits)."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rows = (("change_scan", "change_scan", "disn_tpu/ops/marching.py:540",
+             so["scan"], {"also_replaces": "disn_tpu/ops/marching.py:608"}),
+            ("extract_owned", "owned_extract",
+             "disn_tpu/ops/marching.py:780", so["extract"], {}))
+    return [{"name": name, "route": "cuda",
+             "source": f"disn_tpu_torch/csrc/{src}.cu", "replaces": where,
+             "launches": launches[name], **{k: res[k] for k in keys},
+             **extra}
+            for name, src, where, res, extra in rows]
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of disn_tpu_torch "
@@ -6663,8 +7167,10 @@ def main() -> int:
                          "likewise, its K6a, K6c and K6d timed in turns "
                          "with this checkout's at the protocol's shape; its "
                          "K4 and compaction in turns with this checkout's "
-                         "in [k4] and [compact]; its farm in turns with "
-                         "this checkout's in [farm pipe]")
+                         "in [k4] and [compact]; its candidate scan and "
+                         "owned extractor in turns with this checkout's in "
+                         "[scan owned]; its farm in turns with this "
+                         "checkout's in [farm pipe]")
     ap.add_argument("--farm-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.farm_worker:  # [farm pipe]'s runs of a checkout
@@ -6697,12 +7203,16 @@ def main() -> int:
                                             "csrc", "metrics.cu"))))
             PARENT_K1.update(k1_parent(args.parent))
             PARENT_CULL.update(cull_parent(args.parent))
+            PARENT_SO["marching"] = so_parent(args.parent)
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])
         k5 = hold_swords(*main_inputs, kept)
         phase_spec(card_name())
         phase_vspec(card_name())
+        so = phase_scan_owned(
+            kept, held["cfg"].replace(sparse_words=False), held["params"],
+            held["img"], held["trans"])
         k1 = phase_k1_check(kept)
         time_k1_turns(kept, k1)
         hold_routes("257^3 bf16", held["257"],
@@ -6779,7 +7289,8 @@ def main() -> int:
             "max_abs_err": k5["max_abs_err"], "ms": k5["ms"],
             "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
             "bound_by": k5["bound_by"], "library_ms": None},
-            *cull_entries(k4, kc, launches)]}))
+            *cull_entries(k4, kc, launches),
+            *scan_owned_entries(so, launches)]}))
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1

@@ -34,9 +34,15 @@ The active cells come from a scan of the volume: ``_active_cells_ext``
 over the whole extended grid, or ``_active_cells_from_coarse`` over the 4^3
 blocks of the sparse pass's active coarse cells. Both emit the same order:
 block ascending, then the cell's bit l = (z*4 + y)*4 + x inside its block.
-Their compaction (``_compact_block_bits``) is a hand-written kernel on the
-card (``ops/block_compact``, ``csrc/block_compact.cu``) and
-``_compact_block_bits_plain`` on the CPU.
+Three of the functions they and the owned route run are hand-written
+kernels on the card and plain PyTorch on the CPU, chosen by the tensors'
+device: the scan (``_candidate_scan``: ``ops/change_scan``,
+``csrc/change_scan.cu``; ``_candidate_scan_plain``), its compaction
+(``_compact_block_bits``: ``ops/block_compact``, ``csrc/block_compact.cu``;
+``_compact_block_bits_plain``) and the owned extractor
+(``_extract_owned_fixed`` and ``_extract_owned``: ``ops/owned_extract``,
+``csrc/owned_extract.cu``; ``_extract_owned_fixed_plain``,
+``_extract_owned_plain``).
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 
 from disn_tpu_torch import device as device_mod
-from disn_tpu_torch.ops import block_compact
+from disn_tpu_torch.ops import block_compact, change_scan, owned_extract
 
 # Cube corner offsets (x, y, z), indexed 0..7.
 CORNERS = np.array([
@@ -405,14 +411,66 @@ def _block_bits(change: torch.Tensor) -> torch.Tensor:
     return z.reshape(-1)
 
 
+def _candidate_scan(volume: torch.Tensor, iso: float,
+                    coarse_ids: torch.Tensor | None = None,
+                    count: torch.Tensor | None = None):
+    """The scan both volume-flow scans start with: on a CUDA tensor the
+    kernel (change_scan.change_scan), on a CPU tensor
+    _candidate_scan_plain, which says what it computes; the two agree bit
+    for bit."""
+    if volume.device.type == "cpu":
+        return _candidate_scan_plain(volume, iso, coarse_ids, count)
+    return change_scan.change_scan(volume, iso, coarse_ids, count)
+
+
+def _candidate_scan_plain(volume: torch.Tensor, iso: float,
+                          coarse_ids: torch.Tensor | None = None,
+                          count: torch.Tensor | None = None):
+    """[R,R,R] field -> (bits [B3^3, 2] int32: each 4^3 block's change
+    bits as (lo, hi) (_block_bits of _sign_change_cells; B3 = ceil(R/4)),
+    cand [B3^3] bool, counts [3] int32: total (the change cells), inside
+    (the change bits in candidate blocks) and outside (the rest)).
+
+    The candidates: with coarse_ids [n] (cells of the (B3 - 1)^3 coarse
+    grid, stride 4), those cells, the first `count` of them when a 0-d
+    count is given, the ghost blocks taking their low neighbour's flag;
+    without, every block (the full scan)."""
+    change = _sign_change_cells(volume, iso)
+    # an int64 mask read as two int32 words is (lo, hi): little-endian, as
+    # every platform of PyTorch is
+    bits = _block_bits(change).view(torch.int32).view(-1, 2)
+    dev = volume.device
+    total = change.sum()
+    if coarse_ids is None:
+        cand = torch.ones(bits.shape[0], dtype=torch.bool, device=dev)
+        inside = total
+    else:
+        cgrid = (volume.shape[0] - 1) // BLOCK
+        fixed = count is not None
+        act = torch.zeros(cgrid ** 3 + int(fixed), dtype=torch.bool,
+                          device=dev)
+        if fixed:  # the padding slots set the extra last flag, dropped
+            live = torch.arange(coarse_ids.shape[0], device=dev) < count
+            act.scatter_(0, torch.where(live, coarse_ids.long(), cgrid ** 3),
+                         True)
+            act = act[:cgrid ** 3]
+        else:
+            act[coarse_ids.long()] = True
+        cand = act.view(cgrid, cgrid, cgrid)
+        for ax in range(3):  # the ghost blocks take their low neighbour's
+            cand = torch.cat([cand, cand.narrow(ax, cgrid - 1, 1)], ax)
+        cand = cand.reshape(-1)
+        pop8 = _device_tables(dev)["pop8"]  # a block's bits, byte by byte
+        inside = (pop8[bits.view(torch.uint8).long()].sum(1) * cand).sum()
+    return bits, cand, torch.stack([total, inside, total - inside]).int()
+
+
 def _active_cells_ext(volume: torch.Tensor, iso: float
                       ) -> tuple[torch.Tensor, int]:
     """Sign-change scan of the whole extended cell grid -> (cell ids [n]
     int32 flat over E^3, n)."""
-    change = _sign_change_cells(volume, iso)
-    bits = _block_bits(change).view(torch.int32).view(-1, 2)
-    every = torch.ones(bits.shape[0], dtype=torch.bool, device=bits.device)
-    ids, n, _ = _compact_block_bits(bits, every, change.shape[0])
+    bits, every, _ = _candidate_scan(volume.contiguous(), iso)
+    ids, n, _ = _compact_block_bits(bits, every, volume.shape[0])
     return ids, n
 
 
@@ -446,37 +504,18 @@ def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
         raise ValueError(f"the candidate scan's blocks are {BLOCK}^3 cells; "
                          f"got stride {stride}")
     R = volume.shape[0]
-    cgrid = (R - 1) // BLOCK
-    change = _sign_change_cells(volume, iso)
-    # an int64 mask read as two int32 words is (lo, hi): little-endian, as
-    # every platform of PyTorch is
-    bits = _block_bits(change).view(torch.int32).view(-1, 2)
-    dev = volume.device
-    fixed = count is not None
-    act = torch.zeros(cgrid ** 3 + int(fixed), dtype=torch.bool, device=dev)
-    if fixed:  # the padding slots set the extra last flag, dropped
-        live = torch.arange(coarse_ids.shape[0], device=dev) < count
-        act.scatter_(0, torch.where(live, coarse_ids.long(), cgrid ** 3),
-                     True)
-        act = act[:cgrid ** 3]
-    else:
-        act[coarse_ids.long()] = True
-    cand = act.view(cgrid, cgrid, cgrid)
-    for ax in range(3):  # the ghost blocks take their low neighbour's flag
-        cand = torch.cat([cand, cand.narrow(ax, cgrid - 1, 1)], ax)
-    cand = cand.reshape(-1)
-    if not fixed:
+    if count is not None and count.dtype != torch.int32:
+        count = count.int()
+    bits, cand, counts = _candidate_scan(
+        volume.contiguous(), iso, coarse_ids.int().contiguous(), count)
+    if count is None:
         ids, n_cells, blk = _compact_block_bits(bits, cand, R)
-        guard = int(change.sum()) - n_cells
-        return ids, n_cells, guard, blk
-    ids, n_cells, g_blocks, blk = _compact_block_bits(bits, cand, R,
-                                                      bcap=bcap)
-    total = change.sum()
-    pop8 = _device_tables(dev)["pop8"]  # a block's bits, byte by byte
-    inside = (pop8[bits.view(torch.uint8).long()].sum(1) * cand).sum()
-    guard = (total - inside).int()
-    gov = (g_blocks + (total - n_cells)).int()
-    return ids, n_cells, guard, gov, blk
+        return ids, n_cells, int(counts[0]) - n_cells, blk
+    # the compaction adds the change cells to its g_over: gov = its blocks
+    # past b2 + (total - n)
+    ids, n_cells, g_total, blk = _compact_block_bits(
+        bits, cand, R, bcap=bcap, guard=counts[0])
+    return ids, n_cells, counts[2], g_total - n_cells, blk
 
 
 _b2cap = block_compact.b2cap  # the capped compaction's rows for a cap
@@ -683,7 +722,23 @@ def _extract_owned(volume: torch.Tensor, sdf_params: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass owned-edge extraction over exactly the cells `cell_ids`
     (scan order) -> (verts [nv,3] f32, faces [ntri,3] int32) on the
-    volume's device: welded, outward-wound."""
+    volume's device: welded, outward-wound. On a CUDA tensor the kernel
+    at S = n (owned_extract.extract_owned_exact: the first nv / ntri rows
+    of _extract_owned_fixed's result, its counts read once); on a CPU
+    tensor, or with no cell, _extract_owned_plain; the two agree bit for
+    bit."""
+    if volume.device.type == "cpu" or cell_ids.shape[0] == 0:
+        return _extract_owned_plain(volume, sdf_params, cell_ids, iso)
+    return owned_extract.extract_owned_exact(
+        volume.float().contiguous(), sdf_params.float().contiguous(),
+        cell_ids.int().contiguous(), iso)
+
+
+def _extract_owned_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
+                         cell_ids: torch.Tensor, iso: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """_extract_owned in plain PyTorch: _owned_pass1, then _owned_pass2
+    with its dense owner table."""
     if cell_ids.shape[0] == 0:
         return (torch.zeros(0, 3, device=volume.device),
                 torch.zeros(0, 3, dtype=torch.int32, device=volume.device))
@@ -694,6 +749,23 @@ def _extract_owned(volume: torch.Tensor, sdf_params: torch.Tensor,
 def _extract_owned_fixed(volume: torch.Tensor, sdf_params: torch.Tensor,
                          cell_ids: torch.Tensor, n_cells: torch.Tensor,
                          iso: float, n_iter: int, batch: int):
+    """The owned extractor at fixed shapes: on CUDA tensors the kernel
+    (owned_extract.extract_owned), on CPU tensors
+    _extract_owned_fixed_plain, which says what it computes; the two
+    agree bit for bit."""
+    if volume.device.type == "cpu":
+        return _extract_owned_fixed_plain(volume, sdf_params, cell_ids,
+                                          n_cells, iso, n_iter, batch)
+    if torch.is_tensor(n_cells) and n_cells.dtype != torch.int32:
+        n_cells = n_cells.int()
+    return owned_extract.extract_owned(
+        volume.float().contiguous(), sdf_params.float().contiguous(),
+        cell_ids.int().contiguous(), n_cells, iso, n_iter * batch)
+
+
+def _extract_owned_fixed_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
+                               cell_ids: torch.Tensor, n_cells: torch.Tensor,
+                               iso: float, n_iter: int, batch: int):
     """_extract_owned at fixed shapes, with nothing waiting for the card
     (port of disn_tpu/ops/marching.py _extract_owned(..., n_cells, n_iter,
     batch)): the first S = n_iter * batch slots of the padded id list
