@@ -67,13 +67,17 @@ on failure:
    (ghost cells), on no cell, every cell, +-0.0, NaN and values at the
    iso, and with slots past the cells, count 0 and a list the slots do
    not cover (missing > 0, the exact route raising where the plain one
-   raises); each wrapper on CUDA events (median of 20) beside the plain
+   raises), the capped compaction's lists and zero rows; K7 through the
+   scan's rows (the main path's route; no K7 call over the main path and
+   [vspec] takes the dense owner table) and held to its dense route
+   too; each wrapper on CUDA events (median of 20) beside the plain
    version and its bound, its kernels by torch.profiler, its launch
-   calls (at most 3 a scan, 4 an extraction, no copy), the whole scan
-   and extractor in turns with --parent DIR's (else the plain
-   versions'), and a volume-flow hit's launch calls an image with the
-   plain versions (PlainScanOwned) and with the kernels (at least 150
-   fewer);
+   calls (at most 3 a scan, 3 an extraction with no memset, no copy),
+   K7's scratch a call (at most 2 MB at 257^3), the whole scan and
+   extractor in turns with --parent DIR's (its own K7 build; else the
+   plain versions'), and a volume-flow hit's launch calls an image with
+   the plain versions (PlainScanOwned), --parent's K7 and the kernels
+   (at least 150 fewer);
 3. hold K1 against its plain PyTorch version on the card, timing both with
    CUDA events: (a) on those kept main-path inputs; (b) at the same two
    shapes (the coarse pass: all 4,096 cells of the 65^3 grid; the fine
@@ -873,6 +877,7 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
         k1.launches = k5.launches = 0
         for f in (*culls.values(), *scan_owned.values()):
             f.launches = 0
+        owned_extract.extract_owned.dense_calls = 0
 
     rng = np.random.RandomState(0)
     imgs = [rng.randint(0, 256, (137, 137, 3), dtype=np.uint8)
@@ -930,6 +935,11 @@ def phase_main_path() -> tuple[dict, list[dict], list[dict], dict, dict]:
     check(so_counts == {"change_scan": 4, "extract_owned": 4},
           f"volume flow: K2s and K7 calls {so_counts}, expected one scan "
           f"and one extraction an image")
+    dense = owned_extract.extract_owned.dense_calls
+    check(dense == 0 and all(kw["blk"] is not None
+                             for _, kw in kept["volume extract"]),
+          f"volume flow: {dense} K7 calls without the scan's rows (the "
+          f"dense owner table), expected 0")
     launches.update(so_counts)
     hold_flows(held["bf16"], held["bf16 volume"], cfg.grid_resolution)
     # made after the counts were read
@@ -1502,6 +1512,7 @@ def phase_vspec(smi: str) -> None:
     key = pipeline._vkey(cfg, cfg.iso)
     saved = dict(pipeline._SPEC_CACHE)
     counters = volume_counters()
+    counters["extract_owned"].dense_calls = 0
 
     def radius(r: float) -> None:  # the head's field 10 (|x|+|y|+|z| - r)
         with torch.no_grad():
@@ -1568,7 +1579,7 @@ def phase_vspec(smi: str) -> None:
     # the fixed extractor against the exact one on a hit's volume and ids
     from disn_tpu_torch.infer import sparse
 
-    vol, (ids, n, _, _) = sparse.sparse_volume(
+    vol, (ids, n, _, blk) = sparse.sparse_volume(
         params, imgs[0], trans, pipeline.UNIT_BOX, cfg, scan_iso=cfg.iso)
     sizes = pipeline._spec_sizes(cfg)
     slots = pipeline._ids_len(pipeline._SPEC_CACHE[key][0], sizes)
@@ -1580,10 +1591,10 @@ def phase_vspec(smi: str) -> None:
 
     def fixed():
         return marching._extract_owned_fixed(vol, box, padded, n_t, 0.0,
-                                             n_iter, batch)
+                                             n_iter, batch, blk=blk)
 
     def exact():
-        return marching._extract_owned(vol, box, ids, 0.0)
+        return marching._extract_owned(vol, box, ids, 0.0, blk)
 
     ext = {"fixed": [], "exact": []}
     for who in ("fixed", "exact", "exact", "fixed"):
@@ -1601,7 +1612,7 @@ def phase_vspec(smi: str) -> None:
           f"{[round(t, 4) for t in ext['fixed']]} ms in {calls['fixed']} "
           f"launch calls, exact {[round(t, 4) for t in ext['exact']]} ms "
           f"in {calls['exact']} (with its waits); equal bit for bit; {smi}")
-    del vol, ids, padded, got, want
+    del vol, ids, padded, got, want, blk
 
     # the calling thread's waits and launch calls an image, in turns
     prof_imgs = imgs[:VSPEC_PROFILED]
@@ -1721,6 +1732,11 @@ def phase_vspec(smi: str) -> None:
     radius(0.6)
     pipeline._SPEC_CACHE.clear()
     pipeline._SPEC_CACHE.update(saved)
+    dense = counters["extract_owned"].dense_calls
+    print(f"[vspec] K7 calls without the scan's rows over the phase: "
+          f"{dense}")
+    check(dense == 0, f"[vspec] {dense} K7 calls took the dense owner "
+                      f"table, expected 0: every caller passes its rows")
     print(f"[vspec] phase seconds {time.perf_counter() - t_phase:.1f}")
 
 
@@ -1729,9 +1745,11 @@ SO_EDGES = ("none", "every", "zeros", "nan", "at_iso")
 SO_AT_ISO = 0.25                # the iso of the "at_iso" field
 SO_NAMES = {"full scan": ("Memset", "scan_kernel"),
             "coarse scan": ("Memset", "mark_kernel", "scan_kernel"),
-            "extract": ("Memset", "owned_count", "owned_prefix",
-                        "owned_write")}
-PARENT_SO: dict = {}  # another checkout's ops/marching (--parent)
+            "extract": ("owned_count", "owned_prefix", "owned_write"),
+            "dense extract": ("Memset", "owned_count", "owned_prefix",
+                              "owned_write")}
+SO_SCRATCH_MAX = 2 << 20  # K7's scratch a call at the hit's 257^3 inputs
+PARENT_SO: dict = {}  # another checkout's ops/marching and K7 (--parent)
 
 
 def so_parent(root: str):
@@ -1744,6 +1762,23 @@ def so_parent(root: str):
         os.path.join(root, "disn_tpu_torch", "ops", "marching.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def so_parent_k7(root: str):
+    """Another checkout's ops/owned_extract.py, loaded under another name
+    and built from that checkout's csrc/owned_extract.cu: its K7, with its
+    own entry points (another checkout's ops/marching would call this
+    checkout's wrapper)."""
+    import importlib.util
+    from disn_tpu_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        "parent_owned_extract",
+        os.path.join(root, "disn_tpu_torch", "ops", "owned_extract.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = os.path.join(root, "disn_tpu_torch", "csrc", "owned_extract.cu")
+    mod.build = lambda: kernels.nvcc_build("owned_extract", src=src)
     return mod
 
 
@@ -1817,39 +1852,54 @@ def hold_scan(label: str, vol, iso: float, ids=None, count=None):
     return got[2].tolist()
 
 
-def hold_fixed(label: str, args) -> tuple:
+def hold_fixed(label: str, args, blk=None) -> tuple:
     """K7's fixed form against _extract_owned_fixed_plain on (volume,
-    sdf_params, ids, n, iso, n_iter, batch): every output bit for bit ->
+    sdf_params, ids, n, iso, n_iter, batch), through the scan's rows `blk`
+    when given: every output bit for bit; with rows, also against the
+    dense route's kernel (the same owners through the [R^3] table) ->
     (nv, ntri, missing)."""
     from disn_tpu_torch.ops import marching
-    got = marching._extract_owned_fixed(*args)
-    want = marching._extract_owned_fixed_plain(*args)
+    got = marching._extract_owned_fixed(*args, blk=blk)
+    want = marching._extract_owned_fixed_plain(*args, blk=blk)
     ok = [same_bits(g, w) for g, w in zip(got, want)]
     check(all(ok), f"[scan owned] {label}: the fixed extractor differs from "
                    f"its plain version (verts, nv, faces, ntri, missing "
                    f"equal: {ok})")
+    if blk is not None:
+        dense = marching._extract_owned_fixed(*args)
+        ok = [same_bits(g, w) for g, w in zip(got, dense)]
+        check(all(ok), f"[scan owned] {label}: the rows' look-up differs "
+                       f"from the dense table's ({ok})")
     return int(got[1]), int(got[3]), int(got[4])
 
 
-def hold_exact(label: str, vol, sp, ids, iso: float) -> tuple:
-    """K7's exact route against _extract_owned_plain: the rows bit for
-    bit, or the same ValueError -> (nv, ntri), or the error's text."""
+def hold_exact(label: str, vol, sp, ids, iso: float, blk=None) -> tuple:
+    """K7's exact route against _extract_owned_plain, through the rows
+    `blk` when given (and then against the dense route's kernel too): the
+    rows bit for bit, or the same ValueError -> (nv, ntri), or the error's
+    text."""
     from disn_tpu_torch.ops import marching
     outs = []
-    for fn in (marching._extract_owned, marching._extract_owned_plain):
+    fns = [(marching._extract_owned, blk), (marching._extract_owned_plain,
+                                            blk)]
+    if blk is not None:
+        fns.append((marching._extract_owned, None))
+    for fn, rows in fns:
         try:
-            outs.append(fn(vol, sp, ids, iso))
+            outs.append(fn(vol, sp, ids, iso, rows))
         except ValueError as e:
             outs.append(str(e))
-    got, want = outs
+    got, want = outs[:2]
+    for other, what in zip(outs[1:], ("plain", "dense route's")):
+        if isinstance(other, str) or isinstance(got, str):
+            check(got == other, f"[scan owned] {label}: the {what} route "
+                                f"gave {other!r}, the kernel's {got!r}")
+        else:
+            check(same_bits(got[0], other[0]) and same_bits(got[1], other[1]),
+                  f"[scan owned] {label}: the exact route differs from the "
+                  f"{what} one")
     if isinstance(want, str):
-        check(got == want, f"[scan owned] {label}: the plain route raised "
-                           f"{want!r}, the kernel's gave {got!r}")
         return want
-    check(not isinstance(got, str) and same_bits(got[0], want[0])
-          and same_bits(got[1], want[1]),
-          f"[scan owned] {label}: the exact route differs from the plain "
-          f"one ({got if isinstance(got, str) else 'rows'})")
     return got[0].shape[0], got[1].shape[0]
 
 
@@ -1910,16 +1960,24 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
     (csrc/owned_extract.cu) against their plain versions on the card, bit
     for bit over their whole outputs: on the main path's kept inputs of a
     volume-flow seed (the exact scan, the exact extraction) and a hit (the
-    fixed forms); on grids of SO_GRIDS (100^3 through _active_cells_ext);
-    on SO_EDGES at 65^3; with ghost cells, slots past the cells, count 0
-    and a list the slots do not cover (missing > 0, the exact route
-    raising where the plain one raises). Then each kernel's wrapper on
-    CUDA events (median of 20) beside the plain version and its bound,
-    its kernels' device time by the profiler, both in turns with --parent
-    DIR's function (else the plain version); launch calls a call; and a
+    fixed forms, the capped compaction's rows with their zero rows), the
+    hit's list cut at half its slots; on grids of SO_GRIDS (100^3 through
+    _active_cells_ext_rows); on SO_EDGES at 65^3; with ghost cells, slots
+    past the cells, count 0, a list the slots do not cover (missing > 0,
+    the exact route raising where the plain one raises) and the capped
+    compaction's lists and rows (a cap that keeps every block, the least
+    cap). K7 takes the scan's rows, as the main path calls it, and is held
+    to the dense table's route of the same kernels too. Then each
+    kernel's wrapper on CUDA events (median of 20) beside the plain
+    version and its bound, its kernels' device time by the profiler (no
+    memset on K7's rows route), launch calls a call, K7's scratch bytes a
+    call (at most SO_SCRATCH_MAX); both kernels in turns with --parent
+    DIR's functions (its own K7 build: the dense-table design; else the
+    plain versions), K7's kernels by name in the same turns; and a
     volume-flow hit's launch calls an image with the plain versions
-    (PlainScanOwned) and with the kernels (cfg: the main path's, with
-    sparse_words=False). Returns the kernel table's entries."""
+    (PlainScanOwned), with --parent's K7 and with this tree's kernels
+    (cfg: the main path's, with sparse_words=False). Returns the kernel
+    table's entries."""
     import torch
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.ops import change_scan, marching, owned_extract
@@ -1928,11 +1986,13 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
     smi = card_name()
     dev = torch.device("cuda")
     (sargs_s, skw_s), (sargs_h, skw_h) = kept["volume scan"]
-    (eargs_s, _), (eargs_h, _) = kept["volume extract"]
+    (eargs_s, ekw_s), (eargs_h, ekw_h) = kept["volume extract"]
+    blk_s, blk_h = ekw_s["blk"], ekw_h["blk"]
     check(skw_s["count"] is None and skw_h["count"] is not None
-          and not torch.is_tensor(eargs_s[3]) and torch.is_tensor(eargs_h[3]),
+          and not torch.is_tensor(eargs_s[3]) and torch.is_tensor(eargs_h[3])
+          and blk_s is not None and blk_h is not None,
           "[scan owned] the kept volume-flow launches are not a seed's "
-          "(exact forms) then a hit's (fixed forms)")
+          "(exact forms) then a hit's (fixed forms), each with its rows")
 
     # the main path's inputs
     for label, (args, kw) in (("seed's scan (exact form)", (sargs_s, skw_s)),
@@ -1942,16 +2002,24 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
               f"outside {counts}")
     vol_h, sp_h, ids_h, n_h, iso_h, S_h = eargs_h
     res = hold_fixed("hit's extraction", (vol_h, sp_h, ids_h, n_h, iso_h,
-                                          S_h, 1))
+                                          S_h, 1), blk_h)
+    zero_rows = int((blk_h[:, 1:] == 0).all(1).sum())
     print(f"[scan owned] main path, hit's extraction (S = {S_h}, n = "
-          f"{int(n_h)}): bit for bit; nv, ntri, missing {res}")
+          f"{int(n_h)}, {blk_h.shape[0]} rows of which {zero_rows} zero "
+          f"rows): bit for bit its plain version and the dense table's "
+          f"route; nv, ntri, missing {res}")
+    cut = hold_fixed("hit's list at S = n/2", (vol_h, sp_h, ids_h, n_h,
+                                                iso_h, int(n_h) // 2, 1),
+                     blk_h)
+    check(cut[2] > 0, f"[scan owned] the hit's list cut at n/2: missing "
+                      f"{cut[2]}, expected > 0")
     vol_s, sp_s, ids_s, n_s, iso_s, _ = eargs_s
-    res = hold_exact("seed's extraction", vol_s, sp_s, ids_s, iso_s)
+    res = hold_exact("seed's extraction", vol_s, sp_s, ids_s, iso_s, blk_s)
     fres = hold_fixed("seed's list, fixed at S = n",
-                      (vol_s, sp_s, ids_s, n_s, iso_s, n_s, 1))
-    print(f"[scan owned] main path, seed's extraction (exact, n = {n_s}): "
-          f"bit for bit, (nv, ntri) {res}; the fixed form at S = n "
-          f"{fres}")
+                      (vol_s, sp_s, ids_s, n_s, iso_s, n_s, 1), blk_s)
+    print(f"[scan owned] main path, seed's extraction (exact, n = {n_s}, "
+          f"{blk_s.shape[0]} rows): bit for bit, (nv, ntri) {res}; the "
+          f"fixed form at S = n {fres}; the hit's list at S = n/2 {cut}")
 
     # grids, edge cases, slot cases
     boxes = {"unit": torch.tensor([-1, -1, -1, 1, 1, 1], dtype=torch.float32,
@@ -1975,7 +2043,21 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
                 hold_scan(f"{kind} {R}^3 fixed count {cnt}", vol, iso, pad,
                           torch.tensor(cnt, dtype=torch.int32, device=dev))
             line += " (fixed: the count, 0, past the list)"
-        ids, n = marching._active_cells_ext(vol, iso)
+            cnt = torch.tensor(cids.shape[0], dtype=torch.int32, device=dev)
+            capped = []
+            for bcap in (4 * cids.shape[0] + 4096, 64):
+                cap_ids, cap_n, _, gov, cap_blk = \
+                    marching._active_cells_from_coarse(vol, cids, iso,
+                                                       count=cnt, bcap=bcap)
+                nn = int(cap_n)
+                if nn:
+                    for S in (nn, max(1, nn // 2)):
+                        capped.append(hold_fixed(
+                            f"{kind} {R}^3 capped at {bcap} S {S}",
+                            (vol, boxes["skewed"], cap_ids, cap_n, iso, S, 1),
+                            cap_blk) + (int(gov),))
+            line += f"; capped lists (nv, ntri, missing, gov) {capped}"
+        ids, n, blk = marching._active_cells_ext_rows(vol, iso)
         if 0 < n < 100000:
             padded = torch.zeros(n + 700, dtype=torch.int32, device=dev)
             padded[:n] = ids
@@ -1983,7 +2065,7 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
                 got = [hold_fixed(f"{kind} {R}^3 {box} S {S} live {live}",
                                   (vol, sp, padded,
                                    torch.tensor(live, dtype=torch.int32,
-                                                device=dev), iso, S, 1))
+                                                device=dev), iso, S, 1), blk)
                        for S, live in ((n + 500, n), (n, n), (n + 500, 0),
                                        (n // 2, n))]
                 check(got[0][2] == 0 and got[3][2] > 0,
@@ -1991,16 +2073,17 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
                       f"0 where the slots cover the cells and > 0 where "
                       f"they do not")
                 ex = hold_exact(f"{kind} {R}^3 {box} exact", vol, sp, ids,
-                                iso)
+                                iso, blk)
                 cut = hold_exact(f"{kind} {R}^3 {box} a third of the list",
-                                 vol, sp, ids[:n // 3], iso)
+                                 vol, sp, ids[:n // 3], iso, blk)
                 check(isinstance(cut, str),
                       f"[scan owned] {kind} {R}^3: the cut list did not "
                       f"raise")
             line += (f"; {n} cells extracted ({box}: S past n, S = n, count "
                      f"0, S = n/2 with missing {got[3][2]}; exact {ex}; a "
-                     f"third of the list raises on both routes)")
-        print(f"[scan owned] {kind} {R}^3 iso {iso}: bit for bit; {line}")
+                     f"third of the list raises on every route)")
+        print(f"[scan owned] {kind} {R}^3 iso {iso}: bit for bit, rows and "
+              f"dense routes; {line}")
     vol = so_field("cut", 65, dev)
     ids, n = marching._active_cells_ext(vol, 0.0)
     ghosts = ids[(marching._cell_xyz(ids, 65) == 64).any(1)].contiguous()
@@ -2010,35 +2093,44 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
     check(ghosts.shape[0] > 0 and g[0] > 0 and g[1] == 0,
           f"[scan owned] ghost cells: {ghosts.shape[0]} cells, (nv, ntri, "
           f"missing) {g}; expected vertices and no triangle")
-    print(f"[scan owned] cut 65^3: {ghosts.shape[0]} ghost cells alone, bit "
-          f"for bit, (nv, ntri, missing) {g}")
+    print(f"[scan owned] cut 65^3: {ghosts.shape[0]} ghost cells alone (a "
+          f"hand-built list: the dense route), bit for bit, (nv, ntri, "
+          f"missing) {g}")
 
     # times, launches, bounds on the main path's inputs
     key = pipeline._vkey(cfg, cfg.iso)
     sizes = pipeline._spec_sizes(cfg)
     nb_p = min(pipeline._SPEC_CACHE[key][0], sizes["max_blocks"])
     bcap = pipeline._fused_bcap(nb_p, sizes)
-    pm = PARENT_SO.get("marching")
+    pm, pk7 = PARENT_SO.get("marching"), PARENT_SO.get("k7")
     vol, iso = sargs_h
     cids, cnt = skw_h["coarse_ids"], skw_h["count"]
     R = vol.shape[0]
     nb = (-(-R // 4)) ** 3
+    fixed_args = (vol_h, sp_h, ids_h, n_h, iso_h, S_h, 1)
     fns = {
         "scan": (lambda: change_scan.change_scan(vol, iso, cids, cnt),
                  lambda: marching._candidate_scan_plain(vol, iso, cids, cnt),
                  SO_NAMES["coarse scan"]),
-        "extract": (lambda: owned_extract.extract_owned(*eargs_h),
+        "extract": (lambda: owned_extract.extract_owned(*eargs_h, **ekw_h),
                     lambda: marching._extract_owned_fixed_plain(
-                        vol_h, sp_h, ids_h, n_h, iso_h, S_h, 1),
+                        *fixed_args, blk=blk_h),
                     SO_NAMES["extract"]),
+        "dense extract": (lambda: owned_extract.extract_owned(*eargs_h),
+                          lambda: marching._extract_owned_fixed_plain(
+                              *fixed_args),
+                          SO_NAMES["dense extract"]),
         "full scan": (lambda: change_scan.change_scan(vol, iso),
                       lambda: marching._candidate_scan_plain(vol, iso),
                       SO_NAMES["full scan"])}
     live = min(int(n_h), S_h)
+    outputs = S_h * 7 * 12 + S_h * 12 * 12 + 12
     nbytes = {"scan": 4 * R ** 3 + 4 * int(cnt) + 9 * nb + 12,
-              "extract": 4 * S_h + 32 * live + 24 + S_h * 7 * 12
-              + S_h * 12 * 12 + 12,
+              "extract": 4 * S_h + 32 * live + 24 + 4 + 12 * blk_h.shape[0]
+              + outputs,
+              "dense extract": 4 * S_h + 32 * live + 24 + 4 + outputs,
               "full scan": 4 * R ** 3 + 9 * nb + 12}
+    most = {"scan": 3, "extract": 3, "dense extract": 4, "full scan": 2}
     out = {}
     for name, (fn, plain, names) in fns.items():
         ms = median_ms(fn, True, 20)
@@ -2053,23 +2145,35 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
               f"{dev_us:.2f} us by the profiler, plain {plain_ms:.4f} ms; "
               f"bound {bound:.5f} ms ({by}, {nbytes[name]} B); runtime "
               f"calls a call {calls}; {smi}")
-        check(n_calls <= (3 if "scan" in name else 4)
-              and not any("Memcpy" in k for k in calls),
-              f"[scan owned] {name}: {calls}; expected at most "
-              f"{3 if 'scan' in name else 4} launch calls (memsets "
-              f"included) and no copy")
+        check(n_calls <= most[name] and not any("Memcpy" in k for k in calls),
+              f"[scan owned] {name}: {calls}; expected at most {most[name]} "
+              f"launch calls (memsets included) and no copy")
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, library_ms=None, max_abs_err=0.0,
                          device_us=dev_us, calls=n_calls)
-    exact_ms = median_ms(lambda: marching._extract_owned(vol_s, sp_s, ids_s,
-                                                         iso_s), True, 20)
+    check(out["extract"]["calls"] == 3,
+          f"[scan owned] K7 on the rows route made {out['extract']['calls']} "
+          f"launch calls, expected 3 and no memset")
+    scratch = {"rows": owned_extract.scratch_bytes(R, S_h, blk_h.shape[0]),
+               "dense": owned_extract.scratch_bytes(R, S_h, None)}
+    if pk7:
+        scratch["--parent's"] = 4 * pk7._lib().owned_scratch_words(R, S_h)
+    print(f"[scan owned] K7's scratch a call at R = {R}, S = {S_h}, "
+          f"{blk_h.shape[0]} rows: {scratch} bytes")
+    check(scratch["rows"] <= SO_SCRATCH_MAX,
+          f"[scan owned] K7's scratch {scratch['rows']} B a call, more than "
+          f"{SO_SCRATCH_MAX}")
+    out["extract"]["scratch"] = scratch["rows"]
+
+    exact_ms = median_ms(lambda: marching._extract_owned(
+        vol_s, sp_s, ids_s, iso_s, blk_s), True, 20)
     exact_plain = median_ms(lambda: marching._extract_owned_plain(
-        vol_s, sp_s, ids_s, iso_s), True, 20)
-    calls = launch_calls(lambda: marching._extract_owned(vol_s, sp_s, ids_s,
-                                                          iso_s))
-    print(f"[scan owned] exact extraction on the seed's list ({n_s} cells): "
-          f"{exact_ms:.4f} ms (its wait included), plain {exact_plain:.4f} "
-          f"ms; runtime calls {calls}; {smi}")
+        vol_s, sp_s, ids_s, iso_s, blk_s), True, 20)
+    calls = launch_calls(lambda: marching._extract_owned(
+        vol_s, sp_s, ids_s, iso_s, blk_s))
+    print(f"[scan owned] exact extraction on the seed's list ({n_s} cells, "
+          f"its rows): {exact_ms:.4f} ms (its wait included), plain "
+          f"{exact_plain:.4f} ms; runtime calls {calls}; {smi}")
 
     # in turns with --parent's functions (else the plain versions)
     arm = "--parent's" if pm else "the plain version's"
@@ -2083,12 +2187,9 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
                      _plain_call(marching._active_cells_from_coarse, vol,
                                  cids, iso, count=cnt, bcap=bcap))),
         "owned extractor, fixed": (
-            lambda: marching._extract_owned_fixed(vol_h, sp_h, ids_h, n_h,
-                                                  iso_h, S_h, 1),
-            lambda: (src._extract_owned_fixed(vol_h, sp_h, ids_h, n_h, iso_h,
-                                              S_h, 1) if src else
-                     marching._extract_owned_fixed_plain(
-                         vol_h, sp_h, ids_h, n_h, iso_h, S_h, 1)))}
+            lambda: marching._extract_owned_fixed(*fixed_args, blk=blk_h),
+            lambda: (pk7.extract_owned(*eargs_h) if pk7 else
+                     marching._extract_owned_fixed_plain(*fixed_args)))}
     for name, (fn, yard) in whole.items():
         if pm:
             want = yard()
@@ -2100,6 +2201,18 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
         print(f"[scan owned turns] {name}, in turns with {arm}: runtime "
               f"calls a call {calls[0]} against {calls[1]}")
         so_turns(f"[scan owned turns] {name}", fn, yard)
+    if pk7:  # K7's kernels by name, in turns with --parent's
+        for who in ("--parent's", "this tree's", "this tree's",
+                    "--parent's"):
+            if who == "--parent's":
+                library_device_us(f"[scan owned turns] K7 kernels, {who}",
+                                  lambda: pk7.extract_owned(*eargs_h),
+                                  SO_NAMES["dense extract"])
+            else:
+                library_device_us(
+                    f"[scan owned turns] K7 kernels, {who}",
+                    lambda: owned_extract.extract_owned(*eargs_h, **ekw_h),
+                    SO_NAMES["extract"])
     for name, (fn, yard) in {
             "candidate scan, exact (the seed's)": (
                 lambda: marching._active_cells_from_coarse(
@@ -2109,9 +2222,10 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
                     _plain_call(marching._active_cells_from_coarse, vol_s,
                                 skw_s["coarse_ids"], iso_s))),
             "owned extractor, exact (the seed's)": (
-                lambda: marching._extract_owned(vol_s, sp_s, ids_s, iso_s),
-                lambda: (src._extract_owned(vol_s, sp_s, ids_s, iso_s)
-                         if src else marching._extract_owned_plain(
+                lambda: marching._extract_owned(vol_s, sp_s, ids_s, iso_s,
+                                                blk_s),
+                lambda: (pk7.extract_owned_exact(vol_s, sp_s, ids_s, iso_s)
+                         if pk7 else marching._extract_owned_plain(
                              vol_s, sp_s, ids_s, iso_s)))}.items():
         res = {"plain": [], "change": []}
         for a in ("plain", "change", "change", "plain"):
@@ -2130,21 +2244,41 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
     with PlainScanOwned():
         run()
         before = launch_calls(run)
+    counted = [before]
+    if pk7:  # --parent's K7 (no rows) in this tree's flow
+        this_k7 = owned_extract.extract_owned
+        owned_extract.extract_owned = (
+            lambda *args, blk=None: pk7.extract_owned(*args))
+        try:
+            run()
+            counted.append(launch_calls(run))
+        finally:
+            owned_extract.extract_owned = this_k7
     run()
     after = launch_calls(run)
-    check(pipeline.spec_counts["hit"] - hits == 4,
+    counted.append(after)
+    check(pipeline.spec_counts["hit"] - hits == 2 * len(counted),
           "[scan owned] the counted volume-flow images were not all hits")
     launches = [sum(v for k, v in c.items() if "LaunchKernel" in k)
-                for c in (before, after)]
+                for c in counted]
+    memsets = [c.get("cudaMemsetAsync", 0) for c in counted]
     print(f"[scan owned] one volume-flow image_to_mesh (a hit): "
           f"{launches[0]} launch calls with the plain scan and extractor, "
-          f"{launches[1]} with K2s and K7 (every launch call, cluster "
-          f"launches included); runtime calls {before} / "
-          f"{after}; {smi}")
-    check(launches[0] - launches[1] >= 150,
+          + (f"{launches[1]} with --parent's K7, " if pk7 else "")
+          + f"{launches[-1]} with K2s and this K7 (every launch call, "
+          f"cluster launches included), and {memsets} memset calls; runtime "
+          f"calls {counted}; {smi}")
+    check(launches[0] - launches[-1] >= 150,
           f"[scan owned] the kernels cut a hit's launch calls by "
-          f"{launches[0] - launches[1]}, fewer than 150")
+          f"{launches[0] - launches[-1]}, fewer than 150")
+    if pk7:
+        check(launches[1] == launches[-1] and memsets[1] - memsets[-1] == 1,
+              f"[scan owned] a hit with --parent's K7: {launches[1]} launch "
+              f"calls and {memsets[1]} memsets, with this one "
+              f"{launches[-1]} and {memsets[-1]}: expected one memset fewer "
+              f"(the owner table's)")
     out["image_launches"] = launches
+    out["image_memsets"] = memsets
     print(f"[scan owned] phase seconds {time.perf_counter() - t_phase:.1f}")
     return out
 
@@ -2873,7 +3007,7 @@ def hold_routes(label: str, k: dict, main_mesh=None) -> None:
           f"{tag} candidate scan ids differ from the full scan's "
           f"({n} vs {n_full} cells)")
     # (a) the full-scan owned route equals the owned_ids route
-    ov, of_ = m.extract_mesh_from_ids(vol, sdfp, ids, iso=iso)
+    ov, of_ = m.extract_mesh_from_ids(vol, sdfp, ids, iso=iso, blk=blk)
     sv, sf = m.extract_mesh_owned(vol, sdfp, iso=iso)
     check(np.array_equal(sv, ov) and np.array_equal(sf, of_),
           f"{tag} extract_mesh_owned differs from the owned_ids route")
@@ -2979,8 +3113,10 @@ def hold_divisions(k: dict) -> None:
     # CPU (IEEE f32), and the interpolation redone in float64 from the same
     # f32 volume
     sdfp = k["sdfp"]
-    verts = m._extract_owned(vol, sdfp, ids, iso)[0].cpu().numpy()
-    cpu = m._extract_owned(vol.cpu(), sdfp.cpu(), ids.cpu(), iso)[0].numpy()
+    blk = k["blk"]
+    verts = m._extract_owned(vol, sdfp, ids, iso, blk)[0].cpu().numpy()
+    cpu = m._extract_owned(vol.cpu(), sdfp.cpu(), ids.cpu(), iso,
+                           blk.cpu())[0].numpy()
     tb = m._device_tables(torch.device("cpu"))
     c, vals, _, cross = m._slot_data(vol.cpu().double(), ids.cpu(), iso)
     slot, d = torch.nonzero(cross, as_tuple=True)
@@ -3021,10 +3157,10 @@ def time_extraction(k: dict) -> dict:
     # the owned extractor as the route runs it on the card (K7 at S = n,
     # its counts read once), and its plain version's two passes
     t["owned_extract"] = median_ms(
-        lambda: m._extract_owned(vol, sdfp, ids, iso), True)
+        lambda: m._extract_owned(vol, sdfp, ids, iso, blk), True)
     t["owned_passes_plain"] = median_ms(
-        lambda: m._extract_owned_plain(vol, sdfp, ids, iso), True)
-    verts, faces = m._extract_owned(vol, sdfp, ids, iso)
+        lambda: m._extract_owned_plain(vol, sdfp, ids, iso, blk), True)
+    verts, faces = m._extract_owned(vol, sdfp, ids, iso, blk)
     t["mesh_copy"] = median_ms(lambda: m._fetch_mesh(verts, faces), False)
     # the alternative the port does not take: one copy into a page-locked
     # buffer kept across calls, and a copy out of it into a fresh array
@@ -7204,6 +7340,7 @@ def main() -> int:
             PARENT_K1.update(k1_parent(args.parent))
             PARENT_CULL.update(cull_parent(args.parent))
             PARENT_SO["marching"] = so_parent(args.parent)
+            PARENT_SO["k7"] = so_parent_k7(args.parent)
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])

@@ -6,7 +6,7 @@
 // masks, cumsums and scatters; ~130 small ops in the port's plain version,
 // ops/marching._extract_owned_fixed_plain). Over the first S slots of the
 // cell list ids (flat over the R^3 extended cell grid; slot s is live when
-// s < n):
+// s < min(n, S)):
 //   - a live cell's 8 corner values, reads clamped to R - 1; its inside
 //     mask (value < iso), and its crossing mask over the 7 owned edge
 //     directions (corner 0 to corner pair_j[d]), aliased directions
@@ -25,39 +25,91 @@
 //     owner is not a live slot (slot 0 stands in for them, as in the plain
 //     version). Rows past nv and ntri are zero.
 // Bit for bit the plain version: the rounding above, integer sums only
-// (one integer atomic for missing: order-free), rows placed by a prefix
-// over the slots as the plain version's cumsum places them.
+// (one integer atomic a warp for missing: order-free), rows placed by
+// prefixes over the slots as the plain version's cumsum places them.
 //
-// What bounds it on the H100 (3.35 TB/s): bytes. It must read the ids and
-// the corner values (8 floats a live cell) and write the padded outputs
-// (S*21*4 + S*36*4 bytes: 18.7 MB at S = 81,920): 0.006 ms. What the
-// design does about it: four launch calls, no copy. A memset of the owner
-// table ([R^3] int32 to -1: 68 MB at 257^3, the largest term), owned_count
-// (a thread a slot: the masks, the slot's vertex and triangle counts
-// packed in one int, its entry in the owner table, and each CTA's sums),
-// owned_prefix (a CTA the same run of 256 slots: the sum of the runs
-// before it, then a CTA scan of its slots; the last CTA writes the totals
-// and resets missing) and owned_write (a thread a slot: its vertices and
-// faces at their rows; the rows past the counts zeroed by the whole grid
-// in stride, so that the stores coalesce). The case tables come from the
-// wrapper by value and sit in shared memory. A first design took the
-// prefix in one CTA (a thread a run of 80 slots: 220 us at 81,920 slots
-// on an H100) and zeroed each slot's own padding rows (owned_write 100
-// us there; 39 us strided).
+// The owner look-up. With the scan's rows blk [b,3] (block id, mask lo,
+// mask hi: ops/marching._compact_block_bits, whose cell list ids is; the
+// rows route, the one the main path takes), a neighbour cell (x, y, z) is
+// in block B = (z>>2, y>>2, x>>2) of the B3 = ceil(R/4) blocks an axis, at
+// bit k = ((z&3)*4 + (y&3))*4 + (x&3); its slot is first[r] + popc(mask_r
+// below k), r the row of B and first the exclusive prefix of the rows'
+// popcounts. It is missing where B is not a row with a mask, its bit is not
+// set, or that slot is at or past min(n, S): the cases where a dense
+// [R^3] table of the live slots holds -1. row(B) comes from a [B3^3] table
+// (1.1 MB at 257^3) that is never reset: an entry counts only where the
+// row it names is a row of this call with that block and a mask, which no
+// stale entry can fake. The rows must be those of the scan that produced
+// ids, and ids a prefix of their cells in the scan's order: no check sees
+// another pairing, which gives wrong slots. Without rows (the dense route:
+// hand-built lists) the [R^3] owner table is set to -1 by a memset and
+// filled by owned_count, as in the earlier design.
+//
+// What bounds it on the H100 (3.35 TB/s): bytes. It must read the ids, the
+// rows and the corner values (8 floats a live cell) and write the padded
+// outputs (S*21*4 + S*36*4 bytes: 18.7 MB at S = 81,920): 0.006 ms. The
+// design: three launch calls on the rows route (four on the dense route,
+// its memset first), no copy.
+//   owned_count: a CTA a run of RUN slots (a thread a slot: the masks, the
+//     counts, its run's exclusive offsets, packed in one int; the run's
+//     sums), then CTAs of RUN rows (each row's popcount, its table entry,
+//     its run's exclusive offset; the run's sum);
+//   owned_prefix: one CTA of 1,024 threads, one scan of three channels:
+//     the slot runs' first vertex and face rows, the row runs' first
+//     slots, the totals, missing reset;
+//   owned_write: a CTA of 256 threads a run of RUN slots. A thread a slot
+//     reads its cell again (the corners are in L2 after owned_count) and
+//     leaves in shared memory its t's, its world
+//     coordinates, and for each of its vertex and face rows the slot and
+//     the direction, or the (tet, case, triangle). Then every thread takes
+//     rows, not slots, and each warp stages 32 rows in shared memory and
+//     stores them as 96 consecutive words, neighbouring lanes on
+//     neighbouring words. An owner in the same run is read from shared
+//     memory, another from the packed slots and the runs' bases. The rows
+//     past the counts are zeroed last, by the whole grid in stride.
+// The case tables are ops/marching's, passed by the wrapper in the
+// kernels' parameters (Args, __grid_constant__: read in place, never
+// copied to local memory) and copied to shared memory word by word.
+// (Copied byte by byte from a parameter that was not __grid_constant__,
+// as in the earlier design, the copy was the largest single part of
+// owned_write.)
+// Shared memory a CTA (ptxas): owned_write 17,248 bytes; owned_count
+// 800; owned_prefix 384. All static, under the 48 KB default: no
+// function attribute.
+// Measured against (H100 80GB HBM3, 700 W, in turns on a volume-flow
+// hit's inputs at 257^3, 81,920 slots): row(B) by a binary search over
+// the rows' block ids instead of the [B3^3] table, 40.6-41.7 us of
+// kernels against 26.0 (~14 dependent steps a corner); the 7 edge t's
+// kept from owned_count (28 B a slot of scratch) instead of a second read
+// of the corners, 27.8-28.6 us.
+// The earlier design: a dense [R^3] owner table set by a 68 MB memset,
+// each write thread storing its own slot's rows (up to 32 scattered runs a
+// warp store) and reading its corners again from a volume that L2 no
+// longer held after the memset: 71.39 us of kernels at 81,920 slots on an
+// H100 80GB HBM3 at 700 W (the memset ~22, write 39.02, count 7.59,
+// prefix 2.48), wrapper 0.1249 ms, four launch calls. Before it, the
+// prefix in one CTA (a thread a run of 80 slots: 220 us) and each slot
+// zeroing its own padding rows (write 100 us).
 // Nothing is cached per process or per device: no function attribute, no
 // cluster fit, no table upload.
 
+#include <cstring>
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // slots a CTA, in every kernel
-constexpr int D = 7;  // owned directions a cell
+constexpr int RUN = 128;              // slots (or rows) a run, a count CTA
+constexpr int THREADS = 256;          // owned_write's CTA: two threads a slot
+constexpr int PREFIX_THREADS = 1024;  // owned_prefix's one CTA
+constexpr int D = 7;                  // owned directions a cell
+constexpr int MAX_TRI = 12;           // triangles a cell
+constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
-// ops/marching's tables, filled by the wrapper (owned_extract._tables)
-struct Tables {
+// ops/marching's tables (owned_extract.tables() gives them in this layout)
+struct alignas(4) Tables {
   uint8_t corners[8][3];         // (x, y, z) offsets
   uint8_t tets[6][4];            // Kuhn tets' corners
   uint8_t counts[6][16];         // triangles of a tet case
@@ -65,6 +117,7 @@ struct Tables {
   uint8_t pair_j[D];             // an owned edge's far corner
   uint8_t alias[D];              // the axes (x 1, y 2, z 4) it extends on
 };
+constexpr size_t TABLE_BYTES = offsetof(Tables, alias) + D;
 
 struct Args {
   const float* vol;
@@ -75,26 +128,32 @@ struct Args {
   const int* n_ptr;  // live slots: *n_ptr when not null, else n_host
   int n_host;
   float iso;
-  int* owner;   // [R^3]
-  int* packed;  // [S]: inside | cross << 8 | nv << 16 | ntri << 20
-  int* vstart;  // [S]
-  int* fstart;  // [S]
-  int* bsum;    // [2 * CTAs]: each CTA's vertex and triangle counts
+  const int* blk;  // [b, 3] rows, or null: the dense route
+  int b;
+  int B3;
+  int* owner;  // dense: [R^3] slot or -1; rows: [B3^3] row table
+  int4* rows;  // [b]: block id, mask lo, mask hi, first slot in its run
+  int* pk;     // [S]: cross | run offset of its vertices << 7 | inside << 18
+  int* sums;   // [2*gs + gr]: the slot runs' vertex, face sums; row runs'
+  int* base;   // [2*gs + gr]: the slot runs' first vertex and face rows,
+               // the row runs' first slots
+  int gs, gr;  // slot runs, row runs
   float* verts;
   int* faces;
   int* out;  // nv, ntri, missing
   Tables tb;
 };
 
+// a's tables into shared memory, a word a thread (a: __grid_constant__)
 __device__ __forceinline__ void load_tables(const Args& a, Tables& tb) {
-  const uint8_t* src = reinterpret_cast<const uint8_t*>(&a.tb);
-  uint8_t* dst = reinterpret_cast<uint8_t*>(&tb);
-  for (int i = threadIdx.x; i < (int)sizeof(Tables); i += blockDim.x)
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(&a.tb);
+  uint32_t* dst = reinterpret_cast<uint32_t*>(&tb);
+  for (int i = threadIdx.x; i < (int)(sizeof(Tables) / 4); i += blockDim.x)
     dst[i] = src[i];
 }
 
 __device__ __forceinline__ int live_slots(const Args& a) {
-  return a.n_ptr ? *a.n_ptr : a.n_host;
+  return min(a.n_ptr ? *a.n_ptr : a.n_host, a.S);
 }
 
 struct Cell {
@@ -144,6 +203,12 @@ __device__ __forceinline__ int tet_case(unsigned inside, const Tables& tb,
   return k;
 }
 
+__device__ __forceinline__ int triangles(unsigned inside, const Tables& tb) {
+  int n = 0;
+  for (int t = 0; t < 6; ++t) n += tb.counts[t][tet_case(inside, tb, t)];
+  return n;
+}
+
 // (iso - v0) / (vj - v0) clamped to [0, 1]; 0.5 where |vj - v0| <= 1e-12
 // or is NaN; NaN stays NaN through the clamp, as torch.clamp keeps it
 __device__ __forceinline__ float edge_t(float v0, float vj, float iso) {
@@ -153,100 +218,13 @@ __device__ __forceinline__ float edge_t(float v0, float vj, float iso) {
   return isnan(t) ? t : fminf(fmaxf(t, 0.0f), 1.0f);
 }
 
-// The CTA's sums of (x, y) over its threads, in every thread.
-__device__ __forceinline__ int2 cta_sum(int x, int y) {
-  __shared__ int wx[THREADS / 32], wy[THREADS / 32];
+// v[j] for a j known only at run time, kept in registers (an index into
+// v would put the array in local memory)
+__device__ __forceinline__ float pick(const float (&v)[8], int j) {
+  float r = v[0];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(FULL, x, off);
-    y += __shfl_xor_sync(FULL, y, off);
-  }
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  __syncthreads();  // wx, wy free again after an earlier call
-  if (lane == 0) {
-    wx[warp] = x;
-    wy[warp] = y;
-  }
-  __syncthreads();
-  int sx = 0, sy = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    sx += wx[w];
-    sy += wy[w];
-  }
-  return make_int2(sx, sy);
-}
-
-__global__ void owned_count(const Args a) {
-  __shared__ Tables tb;
-  load_tables(a, tb);
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  int p = 0;
-  if (s < a.S && s < live_slots(a)) {
-    const Cell c = cell_of(a, tb, s);
-    int ntri = 0;
-    if (c.real)
-      for (int t = 0; t < 6; ++t) ntri += tb.counts[t][tet_case(c.inside, tb, t)];
-    p = (int)(c.inside | c.cross << 8 | (unsigned)__popc(c.cross) << 16 |
-              (unsigned)ntri << 20);
-    a.owner[c.id] = s;
-  }
-  if (s < a.S) a.packed[s] = p;
-  const int2 sum = cta_sum((p >> 16) & 15, (p >> 20) & 15);
-  if (threadIdx.x == 0) {
-    a.bsum[2 * blockIdx.x] = sum.x;
-    a.bsum[2 * blockIdx.x + 1] = sum.y;
-  }
-}
-
-// A CTA a run of THREADS slots, as in owned_count: its offset, the sum of
-// the runs before it (bsum), then a CTA scan of its slots' counts; the
-// last CTA writes the totals and resets missing.
-__global__ void owned_prefix(const Args a) {
-  __shared__ int wv[THREADS / 32], wf[THREADS / 32];
-  int ov = 0, of = 0;
-  for (int k = threadIdx.x; k < (int)blockIdx.x; k += THREADS) {
-    ov += a.bsum[2 * k];
-    of += a.bsum[2 * k + 1];
-  }
-  const int2 off = cta_sum(ov, of);
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = s < a.S ? a.packed[s] : 0;
-  const int cv = (p >> 16) & 15, cf = (p >> 20) & 15;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  int iv = cv, jf = cf;  // inclusive in the warp, then over the warps
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(FULL, iv, d);
-    const int w = __shfl_up_sync(FULL, jf, d);
-    if (lane >= d) {
-      iv += u;
-      jf += w;
-    }
-  }
-  if (lane == 31) {
-    wv[warp] = iv;
-    wf[warp] = jf;
-  }
-  __syncthreads();
-  int bv = 0, bf = 0, tv = 0, tf = 0;
-#pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) {
-    bv += w < warp ? wv[w] : 0;
-    bf += w < warp ? wf[w] : 0;
-    tv += wv[w];
-    tf += wf[w];
-  }
-  if (s < a.S) {
-    a.vstart[s] = off.x + bv + iv - cv;
-    a.fstart[s] = off.y + bf + jf - cf;
-  }
-  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    a.out[0] = off.x + tv;
-    a.out[1] = off.y + tf;
-    a.out[2] = 0;
-  }
+  for (int k = 1; k < 8; ++k) r = k == j ? v[k] : r;
+  return r;
 }
 
 __device__ __forceinline__ float world(const float* lo, const float* span,
@@ -255,20 +233,180 @@ __device__ __forceinline__ float world(const float* lo, const float* span,
                    __fmul_rn(__fdiv_rn((float)g, denom), span[axis]));
 }
 
-__global__ void owned_write(const Args a) {
+// The exclusive prefix of v's three channels over a CTA of N threads, and
+// the CTA's totals in *total.
+template <int N>
+__device__ __forceinline__ int3 cta_scan(int3 v, int3* total) {
+  __shared__ int3 ws[N / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int3 in = v;  // inclusive in the warp, then over the warps
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int x = __shfl_up_sync(FULL, in.x, d);
+    const int y = __shfl_up_sync(FULL, in.y, d);
+    const int z = __shfl_up_sync(FULL, in.z, d);
+    if (lane >= d) {
+      in.x += x;
+      in.y += y;
+      in.z += z;
+    }
+  }
+  __syncthreads();  // ws free again after an earlier call
+  if (lane == 31) ws[warp] = in;
+  __syncthreads();
+  int3 b = make_int3(0, 0, 0), t = make_int3(0, 0, 0);
+#pragma unroll
+  for (int w = 0; w < N / 32; ++w) {
+    const int3 s = ws[w];
+    if (w < warp) {
+      b.x += s.x;
+      b.y += s.y;
+      b.z += s.z;
+    }
+    t.x += s.x;
+    t.y += s.y;
+    t.z += s.z;
+  }
+  *total = t;
+  return make_int3(b.x + in.x - v.x, b.y + in.y - v.y, b.z + in.z - v.z);
+}
+
+__global__ void __launch_bounds__(RUN)
+    owned_count(const __grid_constant__ Args a) {
+  if ((int)blockIdx.x >= a.gs) {  // a run of rows
+    const int g = blockIdx.x - a.gs;
+    const int r = g * RUN + threadIdx.x;
+    int bid = 0;
+    unsigned lo = 0, hi = 0;
+    if (r < a.b) {
+      bid = a.blk[3 * r];
+      lo = (unsigned)a.blk[3 * r + 1];
+      hi = (unsigned)a.blk[3 * r + 2];
+    }
+    const int pop = __popc(lo) + __popc(hi);
+    if (pop && (unsigned)bid < (unsigned)(a.B3 * a.B3 * a.B3))
+      a.owner[bid] = r;
+    int3 tot;
+    const int3 ex = cta_scan<RUN>(make_int3(pop, 0, 0), &tot);
+    if (r < a.b) a.rows[r] = make_int4(bid, (int)lo, (int)hi, ex.x);
+    if (threadIdx.x == 0) a.sums[2 * a.gs + g] = tot.x;
+    return;
+  }
   __shared__ Tables tb;
   load_tables(a, tb);
   __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  // the rows past the counts, zeroed by the whole grid in stride
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = 3 * (size_t)a.out[0] + s; i < 3 * (size_t)D * a.S;
-       i += stride)
-    a.verts[i] = 0.0f;
-  for (size_t i = 3 * (size_t)a.out[1] + s; i < 36 * (size_t)a.S; i += stride)
-    a.faces[i] = 0;
-  if (s >= a.S || s >= live_slots(a)) return;
-  const Cell c = cell_of(a, tb, s);
+  const int s = blockIdx.x * RUN + threadIdx.x;
+  int nv = 0, ntri = 0;
+  unsigned cross = 0, inside = 0;
+  if (s < live_slots(a)) {
+    const Cell c = cell_of(a, tb, s);
+    cross = c.cross;
+    inside = c.inside;
+    nv = __popc(cross);
+    if (c.real) ntri = triangles(inside, tb);
+    if (!a.blk) a.owner[c.id] = s;
+  }
+  int3 tot;
+  const int3 ex = cta_scan<RUN>(make_int3(nv, ntri, 0), &tot);
+  if (s < a.S) a.pk[s] = (int)(cross | (unsigned)ex.x << 7 | inside << 18);
+  if (threadIdx.x == 0) {
+    a.sums[blockIdx.x] = tot.x;
+    a.sums[a.gs + blockIdx.x] = tot.y;
+  }
+}
+
+// One CTA, one scan of three channels: the slot runs' first vertex and
+// face rows, the row runs' first slots; the totals, missing reset.
+__global__ void __launch_bounds__(PREFIX_THREADS)
+    owned_prefix(const __grid_constant__ Args a) {
+  int3 c = make_int3(0, 0, 0);
+  const int n = max(a.gs, a.gr);
+  for (int k0 = 0; k0 < n; k0 += PREFIX_THREADS) {
+    const int k = k0 + threadIdx.x;
+    const bool ks = k < a.gs, kr = k < a.gr;
+    int3 tot;
+    const int3 ex = cta_scan<PREFIX_THREADS>(
+        make_int3(ks ? a.sums[k] : 0, ks ? a.sums[a.gs + k] : 0,
+                  kr ? a.sums[2 * a.gs + k] : 0),
+        &tot);
+    if (ks) {
+      a.base[k] = c.x + ex.x;
+      a.base[a.gs + k] = c.y + ex.y;
+    }
+    if (kr) a.base[2 * a.gs + k] = c.z + ex.z;
+    c.x += tot.x;
+    c.y += tot.y;
+    c.z += tot.z;
+  }
+  if (threadIdx.x == 0) {
+    a.out[0] = c.x;
+    a.out[1] = c.y;
+    a.out[2] = 0;
+  }
+}
+
+// The slot of the cell (x, y, z) through the scan's rows, or -1 where it
+// is not a live slot.
+__device__ __forceinline__ int row_slot(const Args& a, int live, int x, int y,
+                                        int z) {
+  const int B = ((z >> 2) * a.B3 + (y >> 2)) * a.B3 + (x >> 2);
+  const int bit = ((z & 3) * 4 + (y & 3)) * 4 + (x & 3);
+  const int r = a.owner[B];
+  if ((unsigned)r >= (unsigned)a.b) return -1;
+  const int4 w = a.rows[r];
+  if (w.x != B || (w.y | w.z) == 0) return -1;
+  const unsigned long long m =
+      (unsigned long long)(unsigned)w.z << 32 | (unsigned)w.y;
+  if (!((m >> bit) & 1ull)) return -1;
+  const int o = a.base[2 * a.gs + r / RUN] + w.w +
+                __popcll(m & ((1ull << bit) - 1ull));
+  return o < live ? o : -1;
+}
+
+struct WriteShared {
+  Tables tb;
+  float t[D][RUN];               // a slot's edge t's
+  float p0[3][RUN], p1[3][RUN];  // the world coordinates of g, g + 1
+  int x[RUN], y[RUN], z[RUN];
+  uint8_t cross[RUN];
+  uint16_t lv[RUN];                        // the slot's first vertex row
+  uint8_t vslot[RUN * D], vdir[RUN * D];   // a vertex row's slot, direction
+  uint8_t fslot[RUN * MAX_TRI];            // a face row's slot,
+  uint8_t ftri[RUN * MAX_TRI];             // tet << 5 | case << 1 | triangle
+  int stage[WARPS][96];  // a warp's 32 rows of 3 words
+};
+
+// The vertex row of the edge in direction dir owned by the cell (x, y, z),
+// counting a missing owner in miss (slot 0 stands in).
+__device__ __forceinline__ int owner_vertex(const Args& a,
+                                            const WriteShared& sh, int live,
+                                            int vbase, int x, int y, int z,
+                                            int dir, int& miss) {
+  int o = a.blk ? row_slot(a, live, x, y, z)
+                : a.owner[((size_t)z * a.R + y) * a.R + x];
+  if (o < 0) {
+    ++miss;
+    o = 0;
+  }
+  unsigned cm;
+  int v0;
+  if (o / RUN == (int)blockIdx.x) {  // in this run: shared memory
+    cm = sh.cross[o % RUN];
+    v0 = vbase + sh.lv[o % RUN];
+  } else {
+    const unsigned p = (unsigned)a.pk[o];
+    cm = p & 0x7fu;
+    v0 = a.base[o / RUN] + (int)((p >> 7) & 0x7ffu);
+  }
+  return v0 + __popc(cm & ((1u << dir) - 1u));
+}
+
+__global__ void __launch_bounds__(THREADS)
+    owned_write(const __grid_constant__ Args a) {
+  __shared__ WriteShared sh;
+  load_tables(a, sh.tb);
+  __syncthreads();
+  const Tables& tb = sh.tb;
   const int R = a.R;
   float lo[3], span[3];
 #pragma unroll
@@ -277,70 +415,150 @@ __global__ void owned_write(const Args a) {
     span[k] = __fsub_rn(a.sp[3 + k], a.sp[k]);
   }
   const float denom = (float)(R - 1);
-  const int gi[3] = {c.x, c.y, c.z};
-  int row = a.vstart[s];
-  for (int d = 0; d < D; ++d) {
-    if (!((c.cross >> d) & 1u)) continue;
-    const int j = tb.pair_j[d];
-    const float t = edge_t(c.v[0], c.v[j], a.iso);
+  const int j = threadIdx.x;  // slot j of the run for j < RUN
+  const int s = blockIdx.x * RUN + j;
+  const int live = live_slots(a);
+  int nv = 0, ntri = 0;
+  unsigned cross = 0, inside = 0;
+  bool real = false;
+  if (j < RUN && s < live) {
+    const Cell c = cell_of(a, tb, s);
+    cross = c.cross;
+    inside = c.inside;
+    real = c.real;
+    const int g[3] = {c.x, c.y, c.z};
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      sh.t[d][j] = edge_t(c.v[0], pick(c.v, tb.pair_j[d]), a.iso);
+    sh.x[j] = g[0];
+    sh.y[j] = g[1];
+    sh.z[j] = g[2];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      const float pi = world(lo, span, denom, gi[k], k);
-      const float pj =
-          world(lo, span, denom, min(gi[k] + tb.corners[j][k], R - 1), k);
-      a.verts[3 * (size_t)row + k] = __fadd_rn(pi, __fmul_rn(t, __fsub_rn(pj, pi)));
+      sh.p0[k][j] = world(lo, span, denom, g[k], k);
+      sh.p1[k][j] = world(lo, span, denom, min(g[k] + 1, R - 1), k);
     }
-    ++row;
+    nv = __popc(cross);
+    if (real) ntri = triangles(inside, tb);
   }
-  if (!c.real) return;  // ghost cells emit no triangle
-  int frow = a.fstart[s], miss = 0;
-  for (int t = 0; t < 6; ++t) {
-    const int k = tet_case(c.inside, tb, t);
-    for (int q = 0; q < tb.counts[t][k]; ++q) {
+  int3 tot;
+  const int3 ex = cta_scan<THREADS>(make_int3(nv, ntri, 0), &tot);
+  if (j < RUN) {
+    sh.cross[j] = (uint8_t)cross;
+    sh.lv[j] = (uint16_t)ex.x;
+    int r = ex.x;
+    for (int d = 0; d < D; ++d)
+      if ((cross >> d) & 1u) {
+        sh.vslot[r] = (uint8_t)j;
+        sh.vdir[r++] = (uint8_t)d;
+      }
+    r = ex.y;
+    if (real)
+      for (int t = 0; t < 6; ++t) {
+        const int k = tet_case(inside, tb, t);
+        for (int q = 0; q < tb.counts[t][k]; ++q) {
+          sh.fslot[r] = (uint8_t)j;
+          sh.ftri[r++] = (uint8_t)(t << 5 | k << 1 | q);
+        }
+      }
+  }
+  __syncthreads();
+
+  const int vbase = a.base[blockIdx.x], fbase = a.base[a.gs + blockIdx.x];
+  const int lane = j % 32, warp = j / 32;
+  int* st = sh.stage[warp];
+  // the run's vertex rows, a warp 32 consecutive ones at a time
+  for (int i0 = warp * 32; i0 < tot.x; i0 += THREADS) {
+    const int rows = min(32, tot.x - i0);
+    if (lane < rows) {
+      const int sl = sh.vslot[i0 + lane], d = sh.vdir[i0 + lane];
+      const float t = sh.t[d][sl];
+      const int jc = tb.pair_j[d];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float pi = sh.p0[k][sl];
+        const float pj = tb.corners[jc][k] ? sh.p1[k][sl] : pi;
+        st[3 * lane + k] =
+            __float_as_int(__fadd_rn(pi, __fmul_rn(t, __fsub_rn(pj, pi))));
+      }
+    }
+    __syncwarp();
+    float* dst = a.verts + 3 * ((size_t)vbase + i0);
+    for (int w = lane; w < 3 * rows; w += 32) dst[w] = __int_as_float(st[w]);
+    __syncwarp();
+  }
+  // the run's face rows, likewise
+  int miss = 0;
+  for (int i0 = warp * 32; i0 < tot.y; i0 += THREADS) {
+    const int rows = min(32, tot.y - i0);
+    if (lane < rows) {
+      const int sl = sh.fslot[i0 + lane], code = sh.ftri[i0 + lane];
+      const int t = code >> 5, k = (code >> 1) & 15, q = code & 1;
+      const int cx = sh.x[sl], cy = sh.y[sl], cz = sh.z[sl];
 #pragma unroll
       for (int v = 0; v < 3; ++v) {
         const int nd = tb.nbdir[t][k][q][v];
         const int nb = nd & 7, dir = nd >> 3;
-        const int nid = ((c.z + tb.corners[nb][2]) * R + c.y +
-                         tb.corners[nb][1]) * R + c.x + tb.corners[nb][0];
-        int o = a.owner[nid];
-        if (o < 0) {
-          ++miss;
-          o = 0;
-        }
-        const unsigned cm = ((unsigned)a.packed[o] >> 8) & 0x7fu;
-        a.faces[3 * (size_t)frow + v] =
-            a.vstart[o] + __popc(cm & ((1u << dir) - 1u));
+        st[3 * lane + v] = owner_vertex(
+            a, sh, live, vbase, cx + tb.corners[nb][0],
+            cy + tb.corners[nb][1], cz + tb.corners[nb][2], dir, miss);
       }
-      ++frow;
     }
+    __syncwarp();
+    int* dst = a.faces + 3 * ((size_t)fbase + i0);
+    for (int w = lane; w < 3 * rows; w += 32) dst[w] = st[w];
+    __syncwarp();
   }
-  if (miss) atomicAdd(a.out + 2, miss);
+  miss = __reduce_add_sync(FULL, miss);
+  if (lane == 0 && miss) atomicAdd(a.out + 2, miss);
+  // the rows past the counts, zeroed by the whole grid in stride
+  const size_t gtid = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * THREADS;
+  for (size_t i = 3 * (size_t)a.out[0] + gtid; i < 3 * (size_t)D * a.S;
+       i += stride)
+    a.verts[i] = 0.0f;
+  for (size_t i = 3 * (size_t)a.out[1] + gtid;
+       i < 3 * (size_t)MAX_TRI * a.S; i += stride)
+    a.faces[i] = 0;
 }
+
+size_t runs(long long n) { return (size_t)((n + RUN - 1) / RUN); }
 
 }  // namespace
 
 // Sizes the wrapper checks its table bytes against, and the scratch words
-// a call takes: the owner table, then the packed slots, vstart, fstart
-// and the CTAs' sums.
-extern "C" int owned_tables_bytes() { return (int)sizeof(Tables); }
-extern "C" long long owned_scratch_words(int R, int S) {
-  return (long long)R * R * R + 3LL * S + 2LL * ((S + THREADS - 1) / THREADS);
+// a call takes (b rows, or dense != 0 for the dense route): the rows
+// (first: 16-byte aligned), the row table ([B3^3]) or the dense owner
+// table ([R^3]), the packed slots, the runs' sums and bases.
+extern "C" int owned_tables_bytes() { return (int)TABLE_BYTES; }
+extern "C" long long owned_scratch_words(int R, int S, int b, int dense) {
+  const long long gs = (long long)runs(S), gr = dense ? 0 : (long long)runs(b);
+  const long long B3 = (R + 3) / 4;
+  const long long table = dense ? (long long)R * R * R : B3 * B3 * B3;
+  return (dense ? 0 : 4LL * b) + table + S + 2 * (2 * gs + gr);
 }
 
 // The extraction of the first S slots of ids over the [R,R,R] volume ->
 // verts [S*7, 3], faces [S*12, 3], out [3] = (nv, ntri, missing), all on
-// the card, with scratch of owned_scratch_words(R, S) int32. Live slots:
-// *n_ptr when n_ptr is not null, else n_host. tables: sizeof(Tables)
-// bytes (owned_tables_bytes). Four launch calls on `stream` (one memset
-// when S = 0), nothing read back. Returns a CUDA error.
+// the card, with scratch of owned_scratch_words(R, S, b, blk == null)
+// int32. Live slots: min(*n_ptr, S) when n_ptr is not null, else
+// min(n_host, S). blk: the scan's rows [b, 3] int32 of the list ids
+// (the rows route), or null (the dense route): the rows of the scan that
+// produced ids, ids a prefix of their cells. tables: owned_tables_bytes()
+// bytes, ops/marching's case tables (owned_extract.tables()), passed in
+// the kernels' parameters. Three launch calls on `stream` with
+// blk, four without (one memset when S = 0), nothing read back. Returns a
+// CUDA error.
 extern "C" int owned_extract(const float* vol, int R, const float* sp,
                              const int* ids, int S, const int* n_ptr,
-                             int n_host, float iso, int* scratch,
-                             float* verts, int* faces, int* out,
-                             const void* tables, cudaStream_t stream) {
+                             int n_host, float iso, const int* blk, int b,
+                             int* scratch, float* verts, int* faces,
+                             int* out, const void* tables,
+                             cudaStream_t stream) {
   if (S == 0) return (int)cudaMemsetAsync(out, 0, 3 * sizeof(int), stream);
-  Args a;
+  const bool dense = blk == nullptr;
+  Args a{};
+  std::memcpy(&a.tb, tables, TABLE_BYTES);
   a.vol = vol;
   a.R = R;
   a.sp = sp;
@@ -349,27 +567,36 @@ extern "C" int owned_extract(const float* vol, int R, const float* sp,
   a.n_ptr = n_ptr;
   a.n_host = n_host;
   a.iso = iso;
-  const size_t cells = (size_t)R * R * R;
-  a.owner = scratch;
-  a.packed = scratch + cells;
-  a.vstart = a.packed + S;
-  a.fstart = a.vstart + S;
-  a.bsum = a.fstart + S;
+  a.blk = blk;
+  a.b = dense ? 0 : b;
+  a.B3 = (R + 3) / 4;
+  a.gs = (int)runs(S);
+  a.gr = (int)runs(a.b);
+  int* p = scratch;
+  a.rows = reinterpret_cast<int4*>(p);
+  p += 4 * (size_t)a.b;
+  a.owner = p;
+  p += dense ? (size_t)R * R * R : (size_t)a.B3 * a.B3 * a.B3;
+  a.pk = p;
+  p += S;
+  a.sums = p;
+  p += 2 * (size_t)a.gs + a.gr;
+  a.base = p;
   a.verts = verts;
   a.faces = faces;
   a.out = out;
-  const uint8_t* t = static_cast<const uint8_t*>(tables);
-  uint8_t* dst = reinterpret_cast<uint8_t*>(&a.tb);
-  for (size_t i = 0; i < sizeof(Tables); ++i) dst[i] = t[i];
-  cudaError_t e = cudaMemsetAsync(a.owner, 0xff, cells * sizeof(int), stream);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (S + THREADS - 1) / THREADS;
-  owned_count<<<grid, THREADS, 0, stream>>>(a);
+  cudaError_t e;
+  if (dense) {
+    e = cudaMemsetAsync(a.owner, 0xff, (size_t)R * R * R * sizeof(int),
+                        stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  owned_count<<<a.gs + a.gr, RUN, 0, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  owned_prefix<<<grid, THREADS, 0, stream>>>(a);
+  owned_prefix<<<1, PREFIX_THREADS, 0, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  owned_write<<<grid, THREADS, 0, stream>>>(a);
+  owned_write<<<a.gs, THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

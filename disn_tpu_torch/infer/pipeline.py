@@ -276,11 +276,12 @@ def _extraction(vol, scan, sdf_params, iso: float, dev: torch.device,
         fin = marching.extract_mesh_owned_deferred(vol, sdf_params, iso=iso,
                                                    device=vol.device)
     else:
-        ids, n_cells, guard, _ = scan
+        ids, n_cells, guard, blk = scan
         if guard == 0:
             route = "owned_ids"
             fin = marching.extract_mesh_from_ids_deferred(
-                vol, sdf_params, ids, iso=iso, device=dev, stats=stats)
+                vol, sdf_params, ids, iso=iso, device=dev, stats=stats,
+                blk=blk)
         else:
             route = "owned_scan"
             fin = marching.extract_mesh_owned_deferred(
@@ -500,7 +501,7 @@ def _volume_dispatch(params: Params, img, trans_mat, sdf_params,
     embedding, endpoints, vol_c, cell_ids, count = pa
     # the chain's stage times go to stats only if its result is used
     spec_stats = None if stats is None else {}
-    vol, ids, n, guard, gov, _, n_bd = sparse_mod.phase_b_mesh(
+    vol, ids, n, guard, gov, blk, n_bd = sparse_mod.phase_b_mesh(
         params, endpoints, vol_c, cell_ids, trans, sdfp, cfg, float(iso),
         spec_stats, embedding=embedding, count=count,
         n_kcells=nb_p * sizes["cells_per_block"],
@@ -514,7 +515,7 @@ def _volume_dispatch(params: Params, img, trans_mat, sdf_params,
         t0 = time.perf_counter()
     with device_mod.stage(spec_stats, "extract_ms", dev):
         verts, nv, faces, ntri, missing = marching._extract_owned_fixed(
-            vol, sdfp, ids, n, float(iso), ni, batch)
+            vol, sdfp, ids, n, float(iso), ni, batch, blk=blk)
         flags = torch.stack([x.reshape(()).int() for x in (
             count, n, guard, gov, n_bd, nv, ntri, missing)])
     caps = (_nvcap_of(nv_p, verts.shape[0]), _nvcap_of(ntri_p,
@@ -522,7 +523,8 @@ def _volume_dispatch(params: Params, img, trans_mat, sdf_params,
     with device_mod.stage(spec_stats, "fetch_ms", dev):
         host, done = marching._to_host(
             (flags, verts[:caps[0]], faces[:caps[1]]), join=False)
-    ctx.update(pred=(nb_p, ni, batch, planes_p, *caps), chain=(vol, ids),
+    ctx.update(pred=(nb_p, ni, batch, planes_p, *caps),
+               chain=(vol, ids, blk),
                host=host, done=done, t0=t0, spec_stats=spec_stats)
     return ctx
 
@@ -684,7 +686,7 @@ def _vspec_resolve(ctx: dict) -> dict | None:
     flags, verts, faces = ctx["host"]
     c, n, guard, gov, n_bd, nv, ntri, missing = (int(x) for x in flags)
     nb_p, ni, batch, planes_p, vcap, tcap = ctx["pred"]
-    vol, ids = ctx["chain"]
+    vol, ids, blk = ctx["chain"]
     planes = n_bd > 0
     if stats is not None:
         stats.update(active_cells=c, dense_fallback=c > sizes["cell_cap"])
@@ -696,14 +698,14 @@ def _vspec_resolve(ctx: dict) -> dict | None:
         _ends(stats, "blocks" if nb_p < _exact_blocks(c, sizes)
               else "planes")
         embedding, endpoints, vol_c, cell_ids, count = ctx["pa"]
-        vol, ids, n_d, _, gov_d, _, _ = sparse_mod.phase_b_mesh(
+        vol, ids, n_d, _, gov_d, blk, _ = sparse_mod.phase_b_mesh(
             ctx["params"], endpoints, vol_c, cell_ids, ctx["trans"],
             ctx["sdfp"], ctx["cfg"], ctx["iso"], stats, embedding=embedding,
             count=count, n_kcells=nb * sizes["cells_per_block"],
             bcap=_fused_bcap(nb, sizes), planes=planes)
         n, gov = int(n_d), int(gov_d)
         return _volume_tail(ctx, vol, nb, planes, c,
-                            None if gov > 0 else (ids[:n], n, 0, None))
+                            None if gov > 0 else (ids[:n], n, 0, blk))
     if stats is not None:
         stats.update(ctx["spec_stats"])
     if gov > 0:
@@ -712,7 +714,7 @@ def _vspec_resolve(ctx: dict) -> dict | None:
         return _volume_tail(ctx, vol, nb, planes, c, None)
     if ni * batch < n or nv > vcap or ntri > tcap:
         _ends(stats, "extract", ("extract_ms", "fetch_ms"))
-        return _volume_tail(ctx, vol, nb, planes, c, (ids[:n], n, 0, None))
+        return _volume_tail(ctx, vol, nb, planes, c, (ids[:n], n, 0, blk))
     if missing:
         raise ValueError("a triangle's edge belongs to a cell that is not "
                          "in the active-cell list")

@@ -469,9 +469,16 @@ def _active_cells_ext(volume: torch.Tensor, iso: float
                       ) -> tuple[torch.Tensor, int]:
     """Sign-change scan of the whole extended cell grid -> (cell ids [n]
     int32 flat over E^3, n)."""
+    return _active_cells_ext_rows(volume, iso)[:2]
+
+
+def _active_cells_ext_rows(volume: torch.Tensor, iso: float
+                           ) -> tuple[torch.Tensor, int, torch.Tensor]:
+    """_active_cells_ext with the scan's rows -> (ids, n, blk [b,3] int32:
+    block id, mask lo, mask hi), which the owned extractor looks its
+    owners up through."""
     bits, every, _ = _candidate_scan(volume.contiguous(), iso)
-    ids, n, _ = _compact_block_bits(bits, every, volume.shape[0])
-    return ids, n
+    return _compact_block_bits(bits, every, volume.shape[0])
 
 
 def _active_cells_from_coarse(volume: torch.Tensor, coarse_ids: torch.Tensor,
@@ -637,6 +644,65 @@ def _slot_data(volume: torch.Tensor, cell_ids: torch.Tensor, iso: float
     return c, vals, inside, cross
 
 
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 in x, byte by byte."""
+    pop8 = _device_tables(x.device)["pop8"]
+    return sum(pop8[(x >> (8 * k)) & 0xFF] for k in range(8))
+
+
+def _dense_owner(cell_ids: torch.Tensor, live: torch.Tensor, R: int):
+    """The owner look-up through a dense [R^3] table of the live slots ->
+    a function from cell coordinates [..., 3] int64 (x, y, z), each in
+    [0, R), to their slots [...] int64, -1 where the cell is not a live
+    slot."""
+    dev = cell_ids.device
+    owner = torch.full((R ** 3 + 1,), -1, dtype=torch.int32, device=dev)
+    owner.scatter_(0, torch.where(live, cell_ids.long(), R ** 3),
+                   torch.arange(cell_ids.shape[0], dtype=torch.int32,
+                                device=dev))
+    owner = owner[:R ** 3]
+    return lambda xyz: owner[(xyz[..., 2] * R + xyz[..., 1]) * R
+                             + xyz[..., 0]].long()
+
+
+def _block_owner(blk: torch.Tensor, R: int, live):
+    """The owner look-up through the scan's rows blk [b,3] int32 (block
+    id, mask lo, mask hi; csrc/owned_extract.cu's rows route) -> a function
+    from cell coordinates [..., 3] int64 (x, y, z), each in [0, R), to
+    their slots [...] int64. A cell in block B (of the B3 = ceil(R/4) 4^3
+    blocks an axis) at bit k has the slot first[r] + popcount(mask_r below
+    k), r the row of B and first the exclusive prefix of the rows'
+    popcounts; -1 where B is not a row with a mask, its bit is not set, or
+    the slot is at or past `live` (an int or a 0-d tensor)."""
+    dev = blk.device
+    B3 = -(-R // BLOCK)
+    rows = blk.long()
+    mask = (rows[:, 1] & 0xFFFFFFFF) | (rows[:, 2] << 32)
+    pop = _popcount64(mask)
+    first = torch.cumsum(pop, 0) - pop
+    bid = rows[:, 0]
+    keep = (mask != 0) & (bid >= 0) & (bid < B3 ** 3)
+    table = torch.full((B3 ** 3 + 1,), -1, dtype=torch.int64, device=dev)
+    table.scatter_(0, torch.where(keep, bid, B3 ** 3),
+                   torch.arange(rows.shape[0], device=dev))
+    table = table[:B3 ** 3]
+    mask = torch.cat([mask, mask.new_zeros(1)])    # row -1: no bit set
+    first = torch.cat([first, first.new_zeros(1)])
+
+    def lookup(xyz: torch.Tensor) -> torch.Tensor:
+        b = (((xyz[..., 2] >> 2) * B3 + (xyz[..., 1] >> 2)) * B3
+             + (xyz[..., 0] >> 2))
+        bit = ((xyz[..., 2] & 3) * 4 + (xyz[..., 1] & 3)) * 4 + (xyz[..., 0]
+                                                                 & 3)
+        m = mask[table[b]]
+        slot = first[table[b]] + _popcount64(m & ((torch.ones_like(bit)
+                                                   << bit) - 1))
+        hit = (((m >> bit) & 1) != 0) & (slot < live)
+        return torch.where(hit, slot, -1)
+
+    return lookup
+
+
 def _edge_t(v0: torch.Tensor, vj: torch.Tensor, iso: float) -> torch.Tensor:
     """Where the iso cuts the edge from v0 to vj, as a fraction in [0, 1];
     0.5 on an edge whose ends are equal."""
@@ -656,12 +722,13 @@ def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
 # The device extractor
 # ---------------------------------------------------------------------------
 
-def _owned_faces(c: torch.Tensor, imask: torch.Tensor, owner: torch.Tensor,
+def _owned_faces(c: torch.Tensor, imask: torch.Tensor, owner,
                  cmask: torch.Tensor, vstart: torch.Tensor, R: int
                  ) -> torch.Tensor:
     """Triangles of the cells `c` [m,3] with inside masks `imask` [m] ->
     [T,3] int64 welded vertex indices, ordered by slot, tet, triangle.
-    `owner` [E^3] maps a cell id to its slot in `cmask`/`vstart`."""
+    `owner` (_dense_owner, _block_owner) maps a cell's coordinates to its
+    slot in `cmask`/`vstart`."""
     tb = _device_tables(c.device)
     case = (((imask[:, None, None] >> tb["tets"][None]) & 1)
             << torch.arange(4, device=c.device)).sum(-1)          # [m,6]
@@ -673,12 +740,10 @@ def _owned_faces(c: torch.Tensor, imask: torch.Tensor, owner: torch.Tensor,
     sc, st, sk = torch.nonzero(valid, as_tuple=True)
     cs = case[sc, st]
     nb_v, dr_v = tb["nb"][st, cs, sk], tb["dir"][st, cs, sk]       # [T,3]
-    ncell = c[sc][:, None, :] + tb["corners"][nb_v]                # [T,3,3]
-    slot = owner[(ncell[..., 2] * R + ncell[..., 1]) * R + ncell[..., 0]]
+    slot = owner(c[sc][:, None, :] + tb["corners"][nb_v])           # [T,3]
     if bool((slot < 0).any()):
         raise ValueError("a triangle's edge belongs to a cell that is not "
                          "in the active-cell list")
-    slot = slot.long()
     rank = tb["pop7"][cmask[slot] & ((1 << dr_v) - 1)]
     return vstart[slot] + rank
 
@@ -701,71 +766,86 @@ def _owned_pass1(volume: torch.Tensor, sdf_params: torch.Tensor,
 
 
 def _owned_pass2(c: torch.Tensor, imask: torch.Tensor, cmask: torch.Tensor,
-                 cell_ids: torch.Tensor, R: int) -> torch.Tensor:
+                 cell_ids: torch.Tensor, R: int,
+                 blk: torch.Tensor | None = None) -> torch.Tensor:
     """Faces [ntri,3] int32: a triangle's vertex is its owner cell's first
     vertex plus the rank of the edge's direction among the owner's crossing
-    directions. The owner's slot comes from a dense [E^3] table."""
+    directions. The owner's slot comes from the scan's rows `blk` when
+    given (_block_owner), else from a dense [E^3] table (_dense_owner)."""
     dev = c.device
     n = c.shape[0]
     counts = _device_tables(dev)["pop7"][cmask]
     vstart = torch.cumsum(counts, 0) - counts
-    owner = torch.full((R ** 3,), -1, dtype=torch.int32, device=dev)
-    owner[cell_ids.long()] = torch.arange(n, dtype=torch.int32, device=dev)
+    owner = (_dense_owner(cell_ids, torch.ones(n, dtype=torch.bool,
+                                               device=dev), R)
+             if blk is None else _block_owner(blk, R, n))
     faces = [_owned_faces(c[i:i + _FACE_BATCH], imask[i:i + _FACE_BATCH],
                           owner, cmask, vstart, R)
              for i in range(0, n, _FACE_BATCH)]
     return torch.cat(faces).int()
 
 
+def _rows_arg(blk: torch.Tensor | None) -> torch.Tensor | None:
+    """The scan's rows as the kernel takes them (contiguous int32)."""
+    return None if blk is None else blk.int().contiguous()
+
+
 def _extract_owned(volume: torch.Tensor, sdf_params: torch.Tensor,
-                   cell_ids: torch.Tensor, iso: float
+                   cell_ids: torch.Tensor, iso: float,
+                   blk: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass owned-edge extraction over exactly the cells `cell_ids`
     (scan order) -> (verts [nv,3] f32, faces [ntri,3] int32) on the
-    volume's device: welded, outward-wound. On a CUDA tensor the kernel
-    at S = n (owned_extract.extract_owned_exact: the first nv / ntri rows
-    of _extract_owned_fixed's result, its counts read once); on a CPU
-    tensor, or with no cell, _extract_owned_plain; the two agree bit for
-    bit."""
+    volume's device: welded, outward-wound. `blk`, the rows of the scan
+    that listed cell_ids, is what the owners are looked up through (a
+    dense table without it). On a CUDA tensor the kernel at S = n
+    (owned_extract.extract_owned_exact: the first nv / ntri rows of
+    _extract_owned_fixed's result, its counts read once); on a CPU tensor,
+    or with no cell, _extract_owned_plain; the two agree bit for bit."""
     if volume.device.type == "cpu" or cell_ids.shape[0] == 0:
-        return _extract_owned_plain(volume, sdf_params, cell_ids, iso)
+        return _extract_owned_plain(volume, sdf_params, cell_ids, iso, blk)
     return owned_extract.extract_owned_exact(
         volume.float().contiguous(), sdf_params.float().contiguous(),
-        cell_ids.int().contiguous(), iso)
+        cell_ids.int().contiguous(), iso, blk=_rows_arg(blk))
 
 
 def _extract_owned_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
-                         cell_ids: torch.Tensor, iso: float
+                         cell_ids: torch.Tensor, iso: float,
+                         blk: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """_extract_owned in plain PyTorch: _owned_pass1, then _owned_pass2
-    with its dense owner table."""
+    with the rows' look-up, or its dense owner table without rows."""
     if cell_ids.shape[0] == 0:
         return (torch.zeros(0, 3, device=volume.device),
                 torch.zeros(0, 3, dtype=torch.int32, device=volume.device))
     verts, c, imask, cmask = _owned_pass1(volume, sdf_params, cell_ids, iso)
-    return verts, _owned_pass2(c, imask, cmask, cell_ids, volume.shape[0])
+    return verts, _owned_pass2(c, imask, cmask, cell_ids, volume.shape[0],
+                               blk)
 
 
 def _extract_owned_fixed(volume: torch.Tensor, sdf_params: torch.Tensor,
                          cell_ids: torch.Tensor, n_cells: torch.Tensor,
-                         iso: float, n_iter: int, batch: int):
+                         iso: float, n_iter: int, batch: int,
+                         blk: torch.Tensor | None = None):
     """The owned extractor at fixed shapes: on CUDA tensors the kernel
     (owned_extract.extract_owned), on CPU tensors
     _extract_owned_fixed_plain, which says what it computes; the two
     agree bit for bit."""
     if volume.device.type == "cpu":
         return _extract_owned_fixed_plain(volume, sdf_params, cell_ids,
-                                          n_cells, iso, n_iter, batch)
+                                          n_cells, iso, n_iter, batch, blk)
     if torch.is_tensor(n_cells) and n_cells.dtype != torch.int32:
         n_cells = n_cells.int()
     return owned_extract.extract_owned(
         volume.float().contiguous(), sdf_params.float().contiguous(),
-        cell_ids.int().contiguous(), n_cells, iso, n_iter * batch)
+        cell_ids.int().contiguous(), n_cells, iso, n_iter * batch,
+        blk=_rows_arg(blk))
 
 
 def _extract_owned_fixed_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
                                cell_ids: torch.Tensor, n_cells: torch.Tensor,
-                               iso: float, n_iter: int, batch: int):
+                               iso: float, n_iter: int, batch: int,
+                               blk: torch.Tensor | None = None):
     """_extract_owned at fixed shapes, with nothing waiting for the card
     (port of disn_tpu/ops/marching.py _extract_owned(..., n_cells, n_iter,
     batch)): the first S = n_iter * batch slots of the padded id list
@@ -780,7 +860,13 @@ def _extract_owned_fixed_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
     On its first nv / ntri rows the result is _extract_owned's on
     cell_ids[:n_cells], bit for bit, when S >= n_cells. `missing` counts
     the triangle corners whose owner cell is not in the first S slots
-    (where _extract_owned raises): 0 on a scan's list that S covers."""
+    (where _extract_owned raises): 0 on a scan's list that S covers.
+
+    The owner of a triangle's edge is looked up through `blk`, the rows of
+    the scan that listed cell_ids (_block_owner; the capped compaction's
+    zero rows are no block), when given; else through a dense [R^3] table
+    of the live slots (_dense_owner). The two give the same slots on a
+    scan's list and its rows."""
     dev = volume.device
     tb = _device_tables(dev)
     R = volume.shape[0]
@@ -809,9 +895,8 @@ def _extract_owned_fixed_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
     imask, cmask = _pack_bits(inside), _pack_bits(cross)
     counts = tb["pop7"][cmask]
     vstart = torch.cumsum(counts, 0) - counts
-    owner = torch.full((R ** 3 + 1,), -1, dtype=torch.int32, device=dev)
-    owner.scatter_(0, torch.where(live, ids, R ** 3),
-                   torch.arange(S, dtype=torch.int32, device=dev))
+    owner = (_dense_owner(ids, live, R) if blk is None
+             else _block_owner(blk, R, live.sum()))
     case = (((imask[:, None, None] >> tb["tets"][None]) & 1)
             << torch.arange(4, device=dev)).sum(-1)                  # [S,6]
     tet = torch.arange(6, device=dev)[None, :]
@@ -820,11 +905,10 @@ def _extract_owned_fixed_plain(volume: torch.Tensor, sdf_params: torch.Tensor,
     valid = ((torch.arange(2, device=dev) < n_tris[..., None])
              & real[:, None, None])                                # [S,6,2]
     nb_v, dr_v = tb["nb"][tet, case], tb["dir"][tet, case]       # [S,6,2,3]
-    corner = (tb["corners"][:, 2] * R + tb["corners"][:, 1]) * R \
-        + tb["corners"][:, 0]                   # a corner's flat offset
     vvalid = valid[..., None].expand_as(nb_v)
-    slot = owner[torch.where(vvalid, ids[:, None, None, None]
-                             + corner[nb_v], R ** 3)].long()
+    ncell = c[:, None, None, None, :] + tb["corners"][nb_v]     # [S,6,2,3,3]
+    slot = torch.where(vvalid, owner(torch.where(vvalid[..., None], ncell,
+                                                 0)), -1)
     missing = (vvalid & (slot < 0)).sum().int()
     slot = slot.clamp(min=0)
     rank = tb["pop7"][cmask[slot] & ((1 << dr_v) - 1)]
@@ -886,7 +970,8 @@ def _on_device(volume, sdf_params, device) -> tuple[torch.Tensor,
 def extract_mesh_from_ids_deferred(volume, sdf_params, ids: torch.Tensor,
                                    iso: float = 0.0,
                                    device: str | torch.device | None = None,
-                                   stats: dict | None = None
+                                   stats: dict | None = None,
+                                   blk: torch.Tensor | None = None
                                    ) -> Callable[[], tuple[np.ndarray,
                                                            np.ndarray]]:
     """extract_mesh_from_ids split for the farm: both passes and the copy
@@ -894,8 +979,9 @@ def extract_mesh_from_ids_deferred(volume, sdf_params, ids: torch.Tensor,
     returns the fetched mesh."""
     vol, sdfp = _on_device(volume, sdf_params, device)
     with device_mod.stage(stats, "extract_ms", vol.device):
-        verts, faces = _extract_owned(vol, sdfp, ids.to(vol.device),
-                                      float(iso))
+        verts, faces = _extract_owned(
+            vol, sdfp, ids.to(vol.device), float(iso),
+            None if blk is None else blk.to(vol.device))
     with device_mod.stage(stats, "fetch_ms", vol.device):
         mesh = _fetch_mesh(verts, faces)
     return lambda: mesh
@@ -904,15 +990,20 @@ def extract_mesh_from_ids_deferred(volume, sdf_params, ids: torch.Tensor,
 def extract_mesh_from_ids(volume, sdf_params, ids: torch.Tensor,
                           iso: float = 0.0,
                           device: str | torch.device | None = None,
-                          stats: dict | None = None
+                          stats: dict | None = None,
+                          blk: torch.Tensor | None = None
                           ) -> tuple[np.ndarray, np.ndarray]:
     """Owned-edge extraction given the active-cell list of a scan (ids [n]
     flat over the extended E^3 grid, in scan order) -> exact welded numpy
-    (verts [nv,3] f32, faces [ntri,3] i32). `stats`, when given, receives
-    ``extract_ms`` (the two passes on the device) and ``fetch_ms`` (the
-    copy to the host)."""
+    (verts [nv,3] f32, faces [ntri,3] i32). `blk`, the scan's rows, is
+    what the owners are looked up through; without it a dense table. It
+    must be the rows of the scan that produced ids, and ids a prefix of
+    their cells in the scan's order: only its dtype and shape are checked,
+    and other rows give wrong owners. `stats`, when given, receives ``extract_ms`` (the two passes on the
+    device) and ``fetch_ms`` (the copy to the host)."""
     return extract_mesh_from_ids_deferred(volume, sdf_params, ids, iso=iso,
-                                          device=device, stats=stats)()
+                                          device=device, stats=stats,
+                                          blk=blk)()
 
 
 def extract_mesh_owned_deferred(volume, sdf_params, iso: float = 0.0,
@@ -924,9 +1015,10 @@ def extract_mesh_owned_deferred(volume, sdf_params, iso: float = 0.0,
     copy run here; the closure returns the fetched mesh."""
     vol, sdfp = _on_device(volume, sdf_params, device)
     with device_mod.stage(stats, "scan_ms", vol.device):
-        ids, _ = _active_cells_ext(vol, float(iso))
+        ids, _, blk = _active_cells_ext_rows(vol, float(iso))
     return extract_mesh_from_ids_deferred(vol, sdfp, ids, iso=iso,
-                                          device=vol.device, stats=stats)
+                                          device=vol.device, stats=stats,
+                                          blk=blk)
 
 
 def extract_mesh_owned(volume, sdf_params, iso: float = 0.0,

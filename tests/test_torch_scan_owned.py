@@ -4,10 +4,15 @@ wrappers refuse them; the plain scan's bits, candidate flags and counts
 against disn_tpu's _sign_change_cells and the candidate rule of its
 _active_cells_from_coarse; the exact and the fixed extractor against each
 other and against disn_tpu's _extract_owned, on the same numpy-seeded
-volumes at small grids (<= 65^3). Integer outputs (bits, counts, faces)
-must be equal; vertices agree to atol 1e-6 (f32 interpolation on a box of
-size 2; the two packages round the lerp's terms in another order), and
-bit for bit between the port's two forms."""
+volumes at small grids (<= 65^3); the extractor's owner look-up through
+the scan's block rows (the kernel's rows route) against the dense table
+and against disn_tpu, on the exact and fixed coarse scans' lists (the
+fixed form's capped rows ending in zero rows), the full scan's, lists cut
+to fewer slots than cells, ragged grids and a list whose first row is
+block 0. Integer outputs (bits, counts, faces) must be equal; vertices
+agree to atol 1e-6 (f32 interpolation on a box of size 2; the two
+packages round the lerp's terms in another order), and bit for bit
+between the port's forms and look-ups."""
 import functools
 
 import numpy as np
@@ -46,6 +51,8 @@ def field(name: str, R: int) -> np.ndarray:
             v = (v + np.roll(v, 1, ax) + np.roll(v, -1, ax)) / 3
     elif name == "dyadic":  # multiples of 1/8: every value exact in f32
         v = np.round(sphere * 8) / 8 + 0.25
+    elif name == "corner":  # a surface in the grid's first block
+        v = np.sqrt((x + 1) ** 2 + (y + 1) ** 2 + (z + 1) ** 2) - 0.3
     else:
         raise KeyError(name)
     return np.ascontiguousarray(v, np.float32)
@@ -137,6 +144,15 @@ def test_extractors_match_each_other_and_jax(name, R, iso, box):
     assert int(missing) == 0 and (int(nv), int(ntri)) == (len(ev), len(ef))
     assert torch.equal(verts[:int(nv)], ev) and torch.equal(
         faces[:int(ntri)], ef)
+    # the same through the full scan's rows (the kernel's rows route)
+    rids, rn, blk = m._active_cells_ext_rows(volt, iso)
+    assert rn == n and torch.equal(rids, ids)
+    rv, rf = m._extract_owned(volt, spt, ids, iso, blk)
+    assert torch.equal(rv, ev) and torch.equal(rf, ef)
+    rfixed = m._extract_owned_fixed(
+        volt, spt, ids, torch.tensor(n, dtype=torch.int32), iso, n, 1, blk)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rfixed, (verts, nv, faces, ntri, missing)))
     jv, jnv, jf, jntri = (np.asarray(a) for a in jm._extract_owned(
         jnp.asarray(vol), jnp.asarray(sp), jnp.asarray(ids.numpy()),
         jnp.int32(n), iso=iso, n_iter=1, batch=n))
@@ -145,6 +161,77 @@ def test_extractors_match_each_other_and_jax(name, R, iso, box):
     np.testing.assert_allclose(verts.numpy(), jv, atol=VERT_ATOL, rtol=0)
     if name == "dyadic" and box == "unit":
         np.testing.assert_array_equal(verts.numpy(), jv)
+
+
+# (list, field, R, iso): the lists and rows the owned extractor is handed.
+# The coarse scan's exact and fixed forms (capped: zero rows past its
+# blocks) and the fixed form's list cut to half its cells, on every case
+# whose grid the coarse pass takes (R - 1 a multiple of 4); the full scan
+# and the fixed coarse scan of a surface in the grid's first block (the
+# first row is block 0), and the full scan of it on a ragged grid.
+ROW_CASES = [(form, name, R, iso)
+             for form in ("coarse exact", "coarse fixed", "cut")
+             for name, R, iso in CASES if (R - 1) % 4 == 0] + [
+    ("full", "corner", 33, 0.0), ("coarse fixed", "corner", 33, 0.0),
+    ("full", "corner", 30, 0.0)]
+
+
+@pytest.mark.parametrize("form,name,R,iso", ROW_CASES)
+def test_block_lookup_matches_dense_and_jax(form, name, R, iso):
+    """The plain extractors with the owners looked up through the scan's
+    rows (_block_owner, the kernel's rows route: a block's row, the rows'
+    popcount prefix, the popcount below the bit) equal them with the dense
+    [R^3] table (_dense_owner) bit for bit, missing owners included, and
+    equal disn_tpu's _extract_owned on the same ids and slots: counts and
+    faces exactly (on a cut list, but for the missing owners' corners),
+    vertices within VERT_ATOL."""
+    vol = field(name, R)
+    volt, spt = torch.from_numpy(vol), torch.from_numpy(SKEW_BOX)
+    if form == "full":
+        ids, n, blk = m._active_cells_ext_rows(volt, iso)
+    elif form == "coarse exact":
+        ids, n, guard, blk = m._active_cells_from_coarse(
+            volt, torch.from_numpy(coarse_cells(vol, iso)), iso)
+        assert guard == 0
+    else:
+        cells = coarse_cells(vol, iso)
+        padded = np.zeros(len(cells) + 50, np.int32)
+        padded[:len(cells)] = cells
+        ids, n_t, guard, gov, blk = m._active_cells_from_coarse(
+            volt, torch.from_numpy(padded), iso,
+            count=torch.tensor(len(cells), dtype=torch.int32),
+            bcap=4 * len(cells) + 1024)
+        n = int(n_t)
+        assert int(guard) == 0 and int(gov) == 0
+        assert not blk[-1].any()  # the capped rows end in zero rows
+    if name == "corner":
+        assert int(blk[0, 0]) == 0 and blk[0, 1:].any()
+    assert n > 0
+    S = n // 2 if form == "cut" else n
+    if form in ("full", "coarse exact"):
+        got = m._extract_owned_plain(volt, spt, ids[:n], iso, blk)
+        want = m._extract_owned_plain(volt, spt, ids[:n], iso)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    n_t = torch.tensor(n, dtype=torch.int32)
+    got = m._extract_owned_fixed_plain(volt, spt, ids, n_t, iso, S, 1, blk)
+    want = m._extract_owned_fixed_plain(volt, spt, ids, n_t, iso, S, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (int(got[4]) > 0) == (form == "cut")
+    jv, jnv, jf, jntri = (np.asarray(a) for a in jm._extract_owned(
+        jnp.asarray(vol), jnp.asarray(SKEW_BOX), jnp.asarray(ids.numpy()),
+        jnp.int32(n), iso=iso, n_iter=1, batch=S))
+    assert (int(jnv), int(jntri)) == (int(got[1]), int(got[3]))
+    np.testing.assert_allclose(got[0].numpy(), jv, atol=VERT_ATOL, rtol=0)
+    faces = got[2].numpy()
+    if form != "cut":
+        np.testing.assert_array_equal(faces, jf)
+        return
+    # a missing owner's corner: the port lets slot 0 stand in (its first
+    # vertex plus the rank of the direction in its mask), disn_tpu reads
+    # index 0; every other corner is equal
+    off = faces != jf
+    assert ((jf[off] == 0) & (faces[off] < 7)).all()
+    assert off.sum() <= int(got[4])
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -169,6 +256,10 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     verts, faces = m._extract_owned(vol, box, ids, 0.0)
     out = m._extract_owned_fixed(vol, box, fids, fn, 0.0, n, 1)
     assert len(faces) > 100 and torch.equal(out[2][:len(faces)], faces)
+    _, _, blk = m._active_cells_ext_rows(vol, 0.0)
+    rows = m._extract_owned_fixed(vol, box, fids, fn, 0.0, n, 1, blk)
+    assert torch.equal(rows[2], out[2])
+    assert torch.equal(m._extract_owned(vol, box, ids, 0.0, blk)[1], faces)
 
 
 def test_wrappers_refuse_cpu_tensors():
