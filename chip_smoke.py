@@ -8,7 +8,7 @@ on failure:
 
 1. build every kernel of the port from csrc/ (nvcc, sm_90a: fused_decode.cu,
    metrics.cu, sparse_words.cu, band_cull.cu, block_compact.cu,
-   change_scan.cu and owned_extract.cu) and,
+   change_scan.cu, owned_extract.cu and mv_taps.cu) and,
    beside them, the host mesh assembler from native/meshassemble.cpp and
    the OBJ formatter, OBJ parser and voxelizer of evaluation (g++), all
    started together, and report the build seconds and the compiler's
@@ -259,27 +259,43 @@ on failure:
    seed-0 state on one batch, whose loss must fall (the median of the last
    5 below that of the first 5), with ms/step;
 9. multi-view fusion (infer/multiview, pipeline.multiview_to_mesh and
-   reconstruct_multiview; no kernel of its own: the reference decodes it
-   with XLA ops, here PyTorch ops, and neither K1 nor K5 runs). [mv full]:
+   reconstruct_multiview; the folded arm's tap mean is K8, csrc/mv_taps.cu,
+   where the reference has XLA's fusion; the MLPs are PyTorch ops, and
+   neither K1 nor K5 runs). [mv taps]: K8 against mv_tap_mean_plain on
+   the card at V = 24, 512 channels, on the maps the full-width net folds
+   from 24 seeded u8 views, bf16 and f32, in the main path's decode steps:
+   the coarse 65^3 grid, the fine points of the object's active cells,
+   the boundary planes, points on the last row and column and off the
+   image (clamped), a NaN projection; bit for bit (NaN where the plain
+   version has NaN); K8, the plain version and grid_sample + mean (the
+   yardstick) timed on a coarse step beside K8's bound. [mv full]:
    multiview_to_mesh on 24 seeded u8 views of one object under 24 cameras
    around the demo camera, full-width net with the analytic octahedron
    head, sdf_res 256: bf16 the median of 3 after a warm-up, the default
-   Config (f32, TF32 off) once, the K1 and K5 counts set to 0 just before
-   each object and read just after (0 both): the sparse flow with no cap
-   overflow, > 1000 faces, every vertex on the surface (f32 within
-   SURFACE_TOL, bf16 within MV_BF16_SURFACE_TOL: the plain decode rounds
-   the head's output layer to bf16), the faces those of phase 2's
-   volume-flow mesh; stage times, peak memory, active cells, the decode
-   beside its bound (mv_bound), and [mv profile]: one bf16 object under
-   torch.profiler. [mv hold]: the flow on the card against the CPU at
-   width 0.25, V = 3, sdf_res 64, f32, random seeded params: the dense
-   stream on the folded (tf1) and the general (native) arm, the sparse
-   flow's two phases on both arms and with a binary head (the sign cull),
-   the dense fallback forced by a tiny cap, all within MV_HOLD_REL; the
-   analytic head's sparse mesh against its dense mesh on the card. [mv
-   cli]: `create-sdf --multi-view` through the port's CLI on the card on
-   a temporary split of 2 objects x 3 views (in-memory readers), one
-   fused mesh an object;
+   Config (f32, TF32 off) once, the K1, K5 and K8 counts set to 0 just
+   before each object and read just after (K1 and K5 0, K8 one launch a
+   decode step): the sparse flow with no cap overflow, > 1000 faces,
+   every vertex on the surface (f32 within SURFACE_TOL, bf16 within
+   MV_BF16_SURFACE_TOL: the MLP rounds the head's output layer to bf16),
+   the faces those of phase 2's volume-flow mesh; stage times, peak
+   memory, active cells, decode steps, K8's time an object, the decode
+   beside its bound (mv_bound); with --parent, bf16 objects in turns with
+   that checkout's decode (its _mv_decode and decode_step); and [mv
+   profile]: one bf16 object under torch.profiler, with no gather of the
+   bf16 maps or nan_to_num kernel (the plain resampler's) on the card,
+   and K8 held bit for bit against the plain version on that object's
+   own launches (their inputs kept through mv_tap_mean.inputs). [mv hold]: the
+   flow on the card against the CPU at width 0.25, V = 3, sdf_res 64,
+   f32, random seeded params: the dense stream on the folded (tf1, K8 on
+   the card) and the general (native) arm, the sparse flow's two phases
+   on both arms and with a binary head (the sign cull), the dense
+   fallback forced by a tiny cap, all within MV_HOLD_REL; the analytic
+   head's sparse mesh against its dense mesh on the card; and _mv_decode
+   on the coarse grid of a random full-width bf16 net at V = 24 with K8
+   against the same with the plain version, both on the card, bit for
+   bit. [mv cli]: `create-sdf --multi-view` through the port's CLI on the
+   card on a temporary split of 2 objects x 3 views (in-memory readers),
+   one fused mesh an object;
 10. the other heads (binary and tanh, onestream, global, 3D-CNN, the
    unfolded forward pass, the fold modes, the train-time dump; no kernel
    of their own: K1 serves the binary twostream head). [var binary]: the
@@ -443,14 +459,14 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build() -> None:
-    """nvcc on the seven kernel sources and the host compiler on the mesh
+    """nvcc on the eight kernel sources and the host compiler on the mesh
     assembler and the evaluation library, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from disn_tpu_torch import native
     from disn_tpu_torch.eval import metrics
     from disn_tpu_torch.ops import (band_cull, block_compact, change_scan,
-                                    fused_decode, owned_extract,
+                                    fused_decode, mv_taps, owned_extract,
                                     sparse_words)
 
     def timed(build):
@@ -458,11 +474,13 @@ def phase_build() -> None:
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(9) as pool:
-        k1_s, k6_s, k5_s, k4_s, kc_s, ks_s, k7_s, asm_s, eio_s = pool.map(
+    with ThreadPoolExecutor(10) as pool:
+        (k1_s, k6_s, k5_s, k4_s, kc_s, ks_s, k7_s, k8_s, asm_s,
+         eio_s) = pool.map(
             timed, (fused_decode.build, metrics.build, sparse_words.build,
                     band_cull.build, block_compact.build, change_scan.build,
-                    owned_extract.build, native.build, native.build_eval))
+                    owned_extract.build, mv_taps.build, native.build,
+                    native.build_eval))
     secs = fused_decode.build_seconds()
     native._lib()
     native._eval_lib()
@@ -472,6 +490,7 @@ def phase_build() -> None:
     block_compact._lib()
     change_scan._lib()
     owned_extract._lib()
+    mv_taps._lib()
     print(f"[build] fused_decode.cu built in {k1_s:.2f} s (loaded in "
           f"{secs:.2f} s); meshassemble.cpp built in {asm_s:.2f} s -> "
           f"{native.build().parent.name}/{native.build().name}")
@@ -486,6 +505,8 @@ def phase_build() -> None:
     print(f"[scan owned build] change_scan.cu built in {ks_s:.2f} s -> "
           f"{change_scan.build().name}; owned_extract.cu in {k7_s:.2f} s -> "
           f"{owned_extract.build().name}")
+    print(f"[mv taps build] mv_taps.cu built in {k8_s:.2f} s -> "
+          f"{mv_taps.build().name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg", "entry function")
     for tag, lib in (("[build]", fused_decode.build()),
@@ -494,7 +515,8 @@ def phase_build() -> None:
                      ("[cull build]", band_cull.build()),
                      ("[cull build]", block_compact.build()),
                      ("[scan owned build]", change_scan.build()),
-                     ("[scan owned build]", owned_extract.build())):
+                     ("[scan owned build]", owned_extract.build()),
+                     ("[mv taps build]", mv_taps.build())):
         log = lib.with_suffix(".log").read_text()
         for line in log.splitlines():
             if any(k in line for k in keys):
@@ -2156,8 +2178,11 @@ def phase_scan_owned(kept: dict, cfg, params, img, trans) -> dict:
           f"launch calls, expected 3 and no memset")
     scratch = {"rows": owned_extract.scratch_bytes(R, S_h, blk_h.shape[0]),
                "dense": owned_extract.scratch_bytes(R, S_h, None)}
-    if pk7:
-        scratch["--parent's"] = 4 * pk7._lib().owned_scratch_words(R, S_h)
+    if pk7:  # its dense route; a K7 before the rows takes (R, S)
+        words = pk7._lib().owned_scratch_words
+        scratch["--parent's"] = (pk7.scratch_bytes(R, S_h, None)
+                                 if len(words.argtypes) == 4
+                                 else 4 * words(R, S_h))
     print(f"[scan owned] K7's scratch a call at R = {R}, S = {S_h}, "
           f"{blk_h.shape[0]} rows: {scratch} bytes")
     check(scratch["rows"] <= SO_SCRATCH_MAX,
@@ -4982,13 +5007,15 @@ def mv_bound(n_pts: int, views: int, dtype: str, map_bytes: int,
              weight_bytes: int) -> dict:
     """The least time the card could take for the multi-view decode of
     n_pts points: the two MLP streams (K1's work a point: k1_macs), the V x
-    4 tap lerps and the view mean (per view and channel 4 multiply-adds and
-    an add, in f32 on the FMA units, as the reference lerps a bf16 map in
-    f32), and the bytes: the V maps and the weights read once, the values
-    written once. bf16: the MLP on the tensor cores, the taps on the FMA
-    units (either may hide the other); f32: both on the FMA units."""
+    4 taps and the view mean (per view and channel 4 multiply-adds: the
+    tap weights formed once a point and view, the view sum chained into
+    the accumulator; in f32 on the FMA units, as the reference lerps a
+    bf16 map in f32), and the bytes: the V maps and the weights read once,
+    the values written once. bf16: the MLP on the tensor cores, the taps
+    on the FMA units (either may hide the other); f32: both on the FMA
+    units."""
     mlp = 2.0 * n_pts * k1_macs(1)
-    taps = 9.0 * n_pts * views * 512
+    taps = 8.0 * n_pts * views * 512
     if dtype == "bf16":
         parts = {"mlp": mlp / H100_BF16_FLOPS, "taps": taps / H100_F32_FLOPS}
         ops = max(parts.values())
@@ -5004,34 +5031,264 @@ def mv_bound(n_pts: int, views: int, dtype: str, map_bytes: int,
             **{f"{k}_ms": t * 1e3 for k, t in parts.items()}}
 
 
-def mv_object(params, imgs, trans, cfg, label: str) -> tuple:
-    """pipeline.multiview_to_mesh on one object on the card, the K1 and K5
-    counts set to 0 just before and read just after (the multi-view decode
-    is PyTorch ops: neither kernel may run). Gates: the sparse flow (no
-    cap overflow), > 1000 faces, finite vertices. Returns (stats, verts,
-    faces)."""
+# [mv taps]: K8 timed over this many launches (CUDA events, the median);
+# the plain version and the library yardstick over MV_TAPS_SLOW
+MV_TAPS_REPS, MV_TAPS_SLOW = 20, 5
+# under mv_edge_cameras: the last column, the last row, both, the corner
+# pixel, off the image on each side (clamped), w = 0 with u, v != 0 (an
+# infinite projection, clamped); MV_NAN_PT: u = v = w = 0 in view 0, a NaN
+# projection (tests/mv_edge.py's EDGE_PTS)
+MV_EDGE_PTS = np.array([[1, 0.25, 0], [0.25, 1, 0], [1, 1, 0],
+                        [-1.125, -1.125, 0], [2, 0.5, 0], [-3, 0.5, 0],
+                        [0.5, 2, 0], [0.5, -3, 0], [5, 5, 0],
+                        [0.5, 0.5, -1]], np.float32)
+MV_NAN_PT = np.array([[-1.125, -1.125, -1]], np.float32)
+PARENT_MV: dict = {}  # another checkout's infer/multiview (--parent)
+
+
+def mv_edge_cameras(v: int) -> np.ndarray:
+    """w = z + 1; view i maps x = 1 to u = (64 + 8i) + (72 - 8i) = 136
+    exactly, the last column (y likewise: the last row): [V,4,3]."""
+    t = np.zeros((v, 4, 3), np.float32)
+    for i in range(v):
+        t[i, 0, 0] = t[i, 1, 1] = 64 + 8 * i
+        t[i, 2, 2] = 1.0
+        t[i, 3] = [72 - 8 * i, 72 - 8 * i, 1.0]
+    return t
+
+
+def mv_parent(root: str):
+    """Another checkout's infer/multiview.py, loaded under another name (it
+    imports this checkout's helpers): its _mv_decode and decode_step."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_multiview",
+        os.path.join(root, "disn_tpu_torch", "infer", "multiview.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def mv_route(mod=None):
+    """A context in which infer/multiview decodes with `mod`'s _mv_decode
+    and decode_step (another checkout's decode, its steps), or, with mod
+    None, with this checkout's code; yields the list of decode steps
+    taken (the points of each _mv_decode call)."""
+    from disn_tpu_torch.infer import multiview
+    saved = (multiview._mv_decode, multiview.decode_step)
+    decode = saved[0] if mod is None else mod._mv_decode
+    steps: list = []
+
+    def counted(params, state, trans_mats, pts, cfg):
+        steps.append(pts.shape[0])
+        return decode(params, state, trans_mats, pts, cfg)
+
+    multiview._mv_decode = counted
+    if mod is not None:
+        multiview.decode_step = mod.decode_step
+    try:
+        yield steps
+    finally:
+        multiview._mv_decode, multiview.decode_step = saved
+
+
+@contextlib.contextmanager
+def plain_k8():
+    """A context in which the folded arm takes mv_tap_mean_plain on the
+    card (the code path before K8)."""
+    from disn_tpu_torch.ops import mv_taps
+    saved = mv_taps.mv_tap_mean
+    mv_taps.mv_tap_mean = mv_taps.mv_tap_mean_plain
+    try:
+        yield
+    finally:
+        mv_taps.mv_tap_mean = saved
+
+
+def k8_differing(got, want) -> tuple[int, float]:
+    """(elements whose bits differ, NaN against NaN counted equal; the
+    largest |got - want| over the rest, inf where one side alone is NaN)."""
+    import torch
+    g, w = got.float(), want.float()
+    both = torch.isnan(g) & torch.isnan(w)
+    n = int(((g.view(torch.int32) != w.view(torch.int32)) & ~both).sum())
+    d = torch.where(both, torch.zeros_like(g), (g - w).abs())
+    err = float(d.max()) if d.numel() else 0.0
+    return n, float("inf") if err != err else err
+
+
+def k8_bound(merged, n_pts: int) -> tuple[float, str]:
+    """K8's least time for n_pts points: 8 FLOP a view-channel on the FMA
+    units (mv_bound's taps: 4 multiply-adds); the maps, the points and the
+    cameras read once, the [P,512] output written once."""
+    v, elt = merged.shape[0], merged.element_size()
+    nbytes = merged.numel() * elt + 12 * n_pts + 48 * v + 512 * elt * n_pts
+    return k_bound(nbytes, 8.0 * n_pts * v * 512)
+
+
+def mv_library(merged, trans, pts):
+    """torch.nn.functional.grid_sample (zeros padding, align_corners=True)
+    over the V maps at the projections, then mean(0): two PyTorch calls,
+    K8's yardstick (the port never calls it). grid_sample takes its grid
+    in the maps' type, so a bf16 grid rounds the pixel coordinates, and an
+    NCHW copy of the maps, made here and not timed. cuDNN is off for the
+    call: its f32 sampler refuses this size (3.2e9 output elements), and
+    PyTorch's own kernel, which bf16 takes anyway, serves both types."""
+    import torch
+    from disn_tpu_torch.core import camera
+    v, h, w, _ = merged.shape
+    px = camera.project_points(pts[None].expand(v, -1, -1), trans,
+                               img_w=w, img_h=h)
+    scale = torch.tensor([2.0 / (w - 1), 2.0 / (h - 1)], device=px.device)
+    grid = (px * scale - 1.0).to(merged.dtype)[:, None]       # [V,1,P,2]
+    nchw = merged.permute(0, 3, 1, 2).contiguous()
+
+    def call():
+        with torch.backends.cudnn.flags(enabled=False):
+            return torch.nn.functional.grid_sample(
+                nchw, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True).mean(0)                    # [C,1,P]
+    return call
+
+
+def phase_mv_taps(params, smi: str) -> dict:
+    """[mv taps]: K8 against mv_tap_mean_plain on the card at V = 24, 512
+    channels, on the maps the full-width net folds from 24 seeded u8 views,
+    in bf16 and f32, cut into the main path's decode steps: the coarse 65^3
+    grid, the fine points of the object's active cells (phase_a's band cull
+    of its coarse grid, cell_points), the three boundary planes, the
+    hand-made edge points under mv_edge_cameras and the NaN point. Bit for
+    bit, NaN where the plain version has NaN. Then, on the first coarse
+    step, K8 (median of MV_TAPS_REPS on CUDA events), the plain version and
+    grid_sample + mean (median of MV_TAPS_SLOW) beside K8's bound. Returns
+    the kernels line's fields by type."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.core import grids
+    from disn_tpu_torch.infer import fused, multiview, pipeline
+    from disn_tpu_torch.ops import fused_decode, mv_taps
+
+    t0 = time.perf_counter()
+    k8 = mv_taps.mv_tap_mean
+    rng = np.random.RandomState(23)
+    imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
+    dev = torch.device("cuda")
+    im, tr, sp = multiview._inputs(imgs, mv_cameras(MV_VIEWS),
+                                   pipeline.UNIT_BOX, dev)
+    edge = torch.from_numpy(mv_edge_cameras(MV_VIEWS)).to(dev)
+    out: dict = {}
+    sets = None
+    for label, cd in (("bf16", "bfloat16"), ("f32", "float32")):
+        cfg = Config(sdf_res=256, compute_dtype=cd)
+        rc = cfg.sdf_res // 4 + 1
+        if sets is None:
+            state, _, ids, count = multiview.phase_a(params, im, tr, sp, cfg,
+                                                     4)
+            fine, _ = fused_decode.cell_points(ids, rc - 1,
+                                               cfg.grid_resolution, sp, 4)
+            planes, _ = fused.plane_points(cfg.grid_resolution, sp)
+            sets = {"coarse 65^3": (tr, grids.grid_block(sp, rc, 0, rc ** 3)),
+                    f"fine ({count} active cells)": (tr, fine),
+                    "boundary planes": (tr, planes),
+                    "edge points": (edge, torch.from_numpy(MV_EDGE_PTS)
+                                    .to(dev)),
+                    "NaN point": (edge, torch.from_numpy(MV_NAN_PT).to(dev))}
+        else:
+            state = multiview._mv_prep(params, im, cfg)
+        merged = state[1]
+        step = multiview.decode_step(state, cfg)
+        err, n_all = 0.0, 0
+        for name, (trans, pts) in sets.items():
+            n_diff, e, n_el, nan_rows = 0, 0.0, 0, 0
+            for i in range(0, pts.shape[0], step):
+                p = pts[i:i + step]
+                got = k8(merged, trans, p)
+                want = mv_taps.mv_tap_mean_plain(merged, trans, p)
+                d, ei = k8_differing(got, want)
+                n_diff, e, n_el = n_diff + d, max(e, ei), n_el + got.numel()
+                nan_rows += int(torch.isnan(got.float()).all(1).sum())
+            print(f"[mv taps] {label} {name}: {pts.shape[0]} points in "
+                  f"steps of {step}, {n_diff} of {n_el} elements differ "
+                  f"(bit for bit, NaN = NaN), max_abs_err {e}, rows all "
+                  f"NaN {nan_rows}")
+            check(n_diff == 0, f"[mv taps] {label} {name}: K8 is not its "
+                               f"plain version ({n_diff} elements)")
+            if name == "NaN point":
+                check(nan_rows == 1, f"[mv taps] {label}: the NaN point "
+                                     f"gave {nan_rows} NaN rows")
+            elif name == "edge points":
+                check(nan_rows == 0, f"[mv taps] {label}: NaN in the edge "
+                                     f"points")
+            err, n_all = max(err, e), n_all + n_diff
+        trans, pts = sets["coarse 65^3"]
+        p = pts[:step]
+        ms = median_ms(lambda: k8(merged, trans, p), True, MV_TAPS_REPS)
+        plain_ms = median_ms(
+            lambda: mv_taps.mv_tap_mean_plain(merged, trans, p), True,
+            MV_TAPS_SLOW)
+        lib = mv_library(merged, trans, p)
+        lib_ms = median_ms(lib, True, MV_TAPS_SLOW)
+        lib_err = float((lib()[:, 0].t().float() - k8(merged, trans, p)
+                         .float()).abs().max())
+        bound_ms, bound_by = k8_bound(merged, p.shape[0])
+        print(f"[mv taps] {label} timed on {p.shape[0]} coarse points (one "
+              f"decode step), V = {MV_VIEWS}: K8 {ms:.4f} ms (CUDA events, "
+              f"median of {MV_TAPS_REPS}), bound {bound_ms:.4f} ms "
+              f"({bound_by}: 8 FLOP a view-channel at 67 TFLOP/s; maps, "
+              f"points and output once), {bound_ms / ms:.4f} of it; plain "
+              f"{plain_ms:.4f} ms; grid_sample + mean(0) (two PyTorch "
+              f"calls, the yardstick) {lib_ms:.4f} ms, max |diff| to K8 "
+              f"{lib_err:.3e}; {smi}")
+        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": lib_ms}
+        del state, merged, lib
+        torch.cuda.empty_cache()
+    print(f"[mv taps] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mv_object(params, imgs, trans, cfg, label: str, parent=None) -> tuple:
+    """pipeline.multiview_to_mesh on one object on the card, the K1, K5
+    and K8 counts set to 0 just before and read just after: neither K1 nor
+    K5 may run; K8 once a decode step (none with `parent`, another
+    checkout's multiview module whose decode runs instead). Gates: the
+    sparse flow (no cap overflow), > 1000 faces, finite vertices. Returns
+    (stats, verts, faces)."""
     import torch
     from disn_tpu_torch.infer import pipeline
-    from disn_tpu_torch.ops import fused_decode, sparse_words
+    from disn_tpu_torch.ops import fused_decode, mv_taps, sparse_words
 
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
+    k8 = mv_taps.mv_tap_mean
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k5.launches = 0
+    k1.launches = k5.launches = k8.launches = 0
+    k8.events = []
     stats: dict = {}
     t0 = time.perf_counter()
-    verts, faces = pipeline.multiview_to_mesh(params, imgs, trans,
-                                              pipeline.UNIT_BOX, cfg,
-                                              stats=stats)
-    stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    try:
+        with mv_route(parent) as steps:
+            verts, faces = pipeline.multiview_to_mesh(
+                params, imgs, trans, pipeline.UNIT_BOX, cfg, stats=stats)
+        stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        stats["k8_ms"] = sum(a.elapsed_time(b) for a, b in k8.events)
+    finally:
+        k8.events = None
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     stats.update(k1_launches=k1.launches, k5_launches=k5.launches,
+                 k8_launches=k8.launches, decode_steps=len(steps),
                  faces=len(faces), verts=len(verts))
     print(f"[mv full] {label}: " + json.dumps(stats))
     check(k1.launches == 0 and k5.launches == 0,
           f"[mv full] {label}: the multi-view path launched K1 "
           f"{k1.launches} and K5 {k5.launches} times")
+    want = 0 if parent is not None else len(steps)
+    check(len(steps) > 0 and k8.launches == want,
+          f"[mv full] {label}: K8 launched {k8.launches} times in "
+          f"{len(steps)} decode steps (want {want})")
     check(not stats["dense_fallback"],
           f"[mv full] {label}: the active cells ({stats['active_cells']}) "
           f"overflowed the cap ({stats['cell_cap']}): dense fallback")
@@ -5040,7 +5297,7 @@ def mv_object(params, imgs, trans, cfg, label: str) -> tuple:
     return stats, verts, faces
 
 
-def phase_mv_full(main_mesh, smi: str) -> None:
+def phase_mv_full(params, main_mesh, smi: str) -> dict:
     """[mv full]: multiview_to_mesh (the body of create-sdf --multi-view)
     on V = 24 seeded u8 views of one object under 24 cameras, full-width
     VGG-16 two-stream net with the analytic octahedron head, 257^3: bf16
@@ -5048,16 +5305,21 @@ def phase_mv_full(main_mesh, smi: str) -> None:
     off) once. Every vertex on |x|+|y|+|z| = 0.6 (f32 within SURFACE_TOL,
     bf16 within MV_BF16_SURFACE_TOL), the faces those of the main path's
     volume-flow mesh of the same field. Stage times, peak memory, active
-    cells; the decode beside its bound; one bf16 object under
-    torch.profiler (device kernels and the idle share)."""
+    cells, decode steps, K8's time; the decode beside its bound; with
+    --parent, bf16 objects in turns with that checkout's decode (parent,
+    change, change, parent); one bf16 object under torch.profiler (device
+    kernels, launches, the idle share; no nan_to_num kernel and no gather
+    of the bf16 maps: the plain resampler's), its K8 launches' inputs kept
+    through mv_tap_mean.inputs and K8 held bit for bit against the plain
+    version on each of them afterwards.
+    Returns (K8's launches an object by type, that hold's max_abs_err)."""
     import torch
     from disn_tpu_torch.config import Config
-    from disn_tpu_torch.data import synthetic
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.models import layers
+    from disn_tpu_torch.ops import mv_taps
 
     cfg = Config(sdf_res=256, compute_dtype="bfloat16")
-    params = synthetic.analytic_octahedron_params(cfg, seed=0, r=0.6)
     trans = mv_cameras(MV_VIEWS)
     rng = np.random.RandomState(13)
     n_weights = sum(layers.param_count(params[k]) for k in
@@ -5087,7 +5349,7 @@ def phase_mv_full(main_mesh, smi: str) -> None:
                 runs[label].append(stats)
     n_pts = (cfg.sdf_res // 4 + 1) ** 3 + 64 * runs["bf16"][0]["active_cells"]
     for label, timed in runs.items():
-        keys = ("encode_ms", "prep_ms", "phase_a_ms", "finish_ms",
+        keys = ("encode_ms", "prep_ms", "phase_a_ms", "finish_ms", "k8_ms",
                 "extraction_ms", "wall_ms", "peak_gib")
         for key in keys:
             vals = [r[key] for r in timed]
@@ -5099,30 +5361,90 @@ def phase_mv_full(main_mesh, smi: str) -> None:
         print(f"[mv full] {label} decode (phase_a + finish) per object: "
               f"median {np.median(decode):.3f} ms, all "
               f"{[round(v, 3) for v in decode]}; {n_pts} points "
-              f"({timed[0]['active_cells']} active cells); bound "
+              f"({timed[0]['active_cells']} active cells) in "
+              f"{timed[0]['decode_steps']} decode steps, K8 launches "
+              f"{timed[0]['k8_launches']}; bound "
               f"{json.dumps({k: round(v, 5) if isinstance(v, float) else v for k, v in b.items()})}; "
               f"share of the bound {b['bound_ms'] / np.median(decode):.5f}; "
               f"wall {np.median([r['wall_ms'] for r in timed]):.3f} ms, the "
-              f"decode's share {np.median(decode) / np.median([r['wall_ms'] for r in timed]):.4f}; {smi}")
+              f"decode's share {np.median(decode) / np.median([r['wall_ms'] for r in timed]):.4f}; "
+              f"peak {np.median([r['peak_gib'] for r in timed]):.3f} GiB; {smi}")
+    if PARENT_MV:
+        turns_mv: dict = {"parent": [], "change": []}
+        for arm in ("parent", "change", "change", "parent"):
+            imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3),
+                               dtype=np.uint8)
+            stats, _, faces = mv_object(
+                params, imgs, trans, cfg, f"bf16 {arm} turn",
+                parent=PARENT_MV["mod"] if arm == "parent" else None)
+            check(np.array_equal(faces, main_mesh[1]),
+                  f"[mv full] {arm} turn: the faces are not the main path's")
+            turns_mv[arm].append(stats)
+        for arm, rs in turns_mv.items():
+            print(f"[mv full] bf16 in turns, {arm}: decode "
+                  f"{[round(r['phase_a_ms'] + r['finish_ms'], 3) for r in rs]}"
+                  f" ms, wall {[round(r['wall_ms'], 3) for r in rs]} ms, "
+                  f"peak {[round(r['peak_gib'], 3) for r in rs]} GiB, decode "
+                  f"steps {[r['decode_steps'] for r in rs]}, K8 launches "
+                  f"{[r['k8_launches'] for r in rs]}; {smi}")
+        peak = {arm: max(r["peak_gib"] for r in rs)
+                for arm, rs in turns_mv.items()}
+        check(peak["change"] <= peak["parent"],
+              f"[mv full] the peak memory rose: {peak['change']:.3f} GiB "
+              f"against the parent's {peak['parent']:.3f}")
     imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
     tdir = os.path.join(TRACE_DIR, "mv")
+    k8 = mv_taps.mv_tap_mean
+    held: list = []   # the profiled object's K8 launches: (args, kwargs)
 
     def one():
+        held.clear()
         return pipeline.multiview_to_mesh(params, imgs, trans,
                                           pipeline.UNIT_BOX, cfg)
 
-    prof, _ = profiled(one, tdir=tdir)
+    k8.inputs = held
+    try:
+        prof, _ = profiled(one, want=("mv_taps_kernel",), tdir=tdir)
+    finally:
+        k8.inputs = None
     busy, window, n_ev, syncs = trace_busy(tdir)
+    launches = sum(1 for e in prof.events() if "LaunchKernel" in e.name)
     print(f"[mv profile] one bf16 object under torch.profiler: {n_ev} device "
-          f"events (kernels, copies, memsets), busy {busy / 1e3:.3f} ms of a "
-          f"{window / 1e3:.3f} ms span, idle share {1 - busy / window:.4f}, "
-          f"{syncs} host synchronisations")
+          f"events (kernels, copies, memsets), {launches} kernel launch "
+          f"calls, busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms span, "
+          f"idle share {1 - busy / window:.4f}, {syncs} host "
+          f"synchronisations")
     from torch.autograd import DeviceType
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     for e in sorted(rows, key=lambda e: -_device_time(e, True))[:6]:
         t = _device_time(e, True)
         print(f"[mv profile] top kernel: {e.key[:100]} {t / 1e3:.3f} ms in "
               f"{e.count} launches ({t / busy:.4f} of busy)")
+    # the plain resampler's hallmarks: nan_to_num, and gathers of the bf16
+    # maps' 2-byte elements (the 4-byte gathers are finish's upsample,
+    # index_select on the f32 coarse grid)
+    gathers = [(e.key[:120], e.count) for e in rows
+               if "scatter_gather" in e.key]
+    print(f"[mv profile] gather kernels on the card: {gathers}")
+    plain = [e.key for e in rows if "nan_to_num" in e.key
+             or ("scatter_gather" in e.key and "OpaqueType<2>" in e.key)]
+    check(not plain, f"[mv profile] the plain resampler's kernels ran on the "
+                     f"card: {plain}")
+    n_diff, err, n_el = 0, 0.0, 0
+    for args, kw in held:
+        d, e = k8_differing(k8(*args, **kw),
+                            mv_taps.mv_tap_mean_plain(*args, **kw))
+        n_diff, err, n_el = n_diff + d, max(err, e), n_el + args[2].numel()
+    print(f"[mv full] K8 on the profiled object's own {len(held)} decode "
+          f"steps ({n_el // 3} points, kept through mv_tap_mean.inputs) "
+          f"against mv_tap_mean_plain: {n_diff} elements differ (bit for "
+          f"bit, NaN = NaN), max_abs_err {err}")
+    check(len(held) > 0 and n_diff == 0,
+          f"[mv full] K8 is not its plain version on the main path's "
+          f"inputs ({n_diff} elements in {len(held)} steps)")
+    held.clear()
+    return ({label: timed[0]["k8_launches"] for label, timed in runs.items()},
+            err)
 
 
 def mv_rel(got, want) -> float:
@@ -5269,6 +5591,52 @@ def phase_mv_hold(smi: str) -> None:
     check(same and dvert <= 1e-6 and len(sf) > 1000,
           "[mv hold] the sparse mesh is not the dense one")
     torch.cuda.empty_cache()
+    mv_hold_k8_decode(smi)
+
+
+def mv_hold_k8_decode(smi: str) -> None:
+    """[mv hold] bf16 at V = 24, full width: _mv_decode on the coarse 65^3
+    grid of a random seeded net (the local stream live) in the decode's
+    steps with K8, against the same steps with mv_tap_mean_plain, both on
+    the card. Held in bf16 bit for bit (a tolerance of 0 ulps): K8 is its
+    plain version bit for bit, and the MLP runs the same ops on the same
+    shapes."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.core import grids
+    from disn_tpu_torch.infer import multiview, pipeline
+    from disn_tpu_torch.models import disn
+
+    cfg = Config(sdf_res=256, compute_dtype="bfloat16")
+    params = disn.init(cfg, seed=6)
+    rng = np.random.RandomState(29)
+    imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
+    im, tr, sp = multiview._inputs(imgs, mv_cameras(MV_VIEWS),
+                                   pipeline.UNIT_BOX, torch.device("cuda"))
+    state = multiview._mv_prep(params, im, cfg)
+    rc = cfg.sdf_res // 4 + 1
+    pts = grids.grid_block(sp, rc, 0, rc ** 3)
+    step = multiview.decode_step(state, cfg)
+    got, want = [], []
+    for i in range(0, pts.shape[0], step):
+        got.append(multiview._mv_decode(params, state, tr, pts[i:i + step],
+                                        cfg))
+        with plain_k8():
+            want.append(multiview._mv_decode(params, state, tr,
+                                             pts[i:i + step], cfg))
+    got, want = torch.cat(got), torch.cat(want)
+    n_diff, err = k8_differing(got, want)
+    print(f"[mv hold] bf16 V = {MV_VIEWS} full width, random net: _mv_decode "
+          f"on the coarse {rc}^3 grid in steps of {step}, K8 against the "
+          f"plain version on the card: {n_diff} of {got.numel()} values "
+          f"differ, max |diff| {err:.3e} (max|v| "
+          f"{float(want.float().abs().max()):.4f}; tolerance 0: bit for "
+          f"bit); {smi}")
+    check(got.dtype == torch.bfloat16 and n_diff == 0
+          and bool(torch.isfinite(got.float()).all()),
+          "[mv hold] the bf16 decode with K8 is not the plain version's")
+    del params, state
+    torch.cuda.empty_cache()
 
 
 def phase_mv_cli(smi: str) -> None:
@@ -5337,16 +5705,41 @@ def phase_mv_cli(smi: str) -> None:
     shutil.rmtree(MV_CLI_DIR, ignore_errors=True)
 
 
-def phase_mv(main_mesh) -> None:
+def phase_mv(main_mesh) -> dict:
+    """[mv taps], [mv full], [mv hold], [mv cli]; returns K8's fields of
+    the kernels line by type, with its launches an object."""
     import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.data import synthetic
 
     t0 = time.perf_counter()
     smi = card_name()
-    phase_mv_full(main_mesh, smi)
+    params = synthetic.analytic_octahedron_params(
+        Config(sdf_res=256, compute_dtype="bfloat16"), seed=0, r=0.6)
+    k8 = phase_mv_taps(params, smi)
+    launches, held_err = phase_mv_full(params, main_mesh, smi)
+    for label, n in launches.items():
+        k8[label]["launches"] = n
+    k8["bf16"]["max_abs_err"] = max(k8["bf16"]["max_abs_err"], held_err)
+    del params
     torch.cuda.empty_cache()
     phase_mv_hold(smi)
     phase_mv_cli(smi)
     print(f"[mv] phase took {time.perf_counter() - t0:.1f} s")
+    return k8
+
+
+def mv_entries(k8: dict) -> list[dict]:
+    """K8 in the kernels line: bf16's launch at the main path's largest
+    step ([mv taps]) and launches an object ([mv full]); f32's beside."""
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return [{"name": "mv_tap_mean", "route": "cuda",
+             "source": "disn_tpu_torch/csrc/mv_taps.cu",
+             "replaces": "disn_tpu/infer/multiview.py:111-119",
+             **{k: k8["bf16"][k] for k in keys},
+             "max_abs_err": max(r["max_abs_err"] for r in k8.values()),
+             "f32": {k: k8["f32"][k] for k in keys}}]
 
 
 # ---- the other heads: binary and tanh, onestream, global, 3D-CNN, the
@@ -7306,7 +7699,8 @@ def main() -> int:
                          "in [k4] and [compact]; its candidate scan and "
                          "owned extractor in turns with this checkout's in "
                          "[scan owned]; its farm in turns with this "
-                         "checkout's in [farm pipe]")
+                         "checkout's in [farm pipe]; its multi-view decode "
+                         "in turns with this checkout's in [mv full]")
     ap.add_argument("--farm-worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.farm_worker:  # [farm pipe]'s runs of a checkout
@@ -7341,6 +7735,7 @@ def main() -> int:
             PARENT_CULL.update(cull_parent(args.parent))
             PARENT_SO["marching"] = so_parent(args.parent)
             PARENT_SO["k7"] = so_parent_k7(args.parent)
+            PARENT_MV["mod"] = mv_parent(args.parent)
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])
@@ -7384,7 +7779,7 @@ def main() -> int:
         phase_cam(records, *cam_inputs)
         del cam_inputs, pred_mesh
         torch.cuda.empty_cache()
-        phase_mv(mv_mesh)
+        k8 = phase_mv(mv_mesh)
         torch.cuda.empty_cache()
         # the binary dense route's K1 holds count in K1's max_abs_err
         for dt, held_k1 in phase_var(records, mv_mesh).items():
@@ -7427,7 +7822,7 @@ def main() -> int:
             "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
             "bound_by": k5["bound_by"], "library_ms": None},
             *cull_entries(k4, kc, launches),
-            *scan_owned_entries(so, launches)]}))
+            *scan_owned_entries(so, launches), *mv_entries(k8)]}))
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         return 1

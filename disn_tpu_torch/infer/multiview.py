@@ -16,9 +16,12 @@ MLPs (sdfnet.apply_two_stream_prefold). General arm (native sampling):
 per-view features through ops/image.sample_native or resize_then_sample,
 their mean, then the unfolded streams (disn.decode_from_features).
 
-The decode is PyTorch ops, as the reference decodes it with XLA ops: the
-fused-decode kernel takes one map and one camera, and here the mean over
-the views comes before the MLP's nonlinearity.
+On the card the folded arm's tap mean (projection, V x 4 taps, the f32
+mean: XLA's fusion in the reference) is one launch of K8
+(ops/mv_taps.mv_tap_mean, csrc/mv_taps.cu); the MLPs are PyTorch ops, as
+the reference leaves them to XLA. The fused-decode kernel takes one map
+and one camera, and here the mean over the views comes before the MLP's
+nonlinearity. The general arm is PyTorch ops.
 
 The sparse flow has the reference's two phases, run eagerly: phase_a
 (encode and fold the views, decode the coarse (R-1)/s+1 grid, the cull
@@ -44,13 +47,16 @@ from disn_tpu_torch.infer import sparse as sparse_mod
 from disn_tpu_torch.models import disn, sdfnet
 from disn_tpu_torch.ops import fused_decode
 from disn_tpu_torch.ops import image as image_ops
+from disn_tpu_torch.ops import mv_taps
 
 Params = dict[str, Any]
 
 # the per-view features of one decode step, [V,P,512] (folded) or
 # [V,P,1472] (general) in float32, stay within this many bytes: P is cut
 # to whole 64-point cells (at V = 24 a folded step takes 10,880 points;
-# the resampler's four gathers and lerps hold ~6x this at their peak)
+# the resampler's four gathers and lerps hold ~6x this at their peak).
+# K8 makes no per-view features: on its route the [P,512] f32 MLP
+# activations stay within it (262,144 points a step)
 TAP_BYTES = 1 << 29
 # the cull band in coarse cell diagonals: the reference's multi-view flow
 # fixes it (cfg.band_factor is the single-view flow's)
@@ -117,13 +123,14 @@ def fused_point_features(endpoints: dict[str, torch.Tensor],
 def _mv_decode(params: Params, state, trans_mats: torch.Tensor,
                pts: torch.Tensor, cfg: Config) -> torch.Tensor:
     """Fused decode of [P,3] world points -> [P] scaled SDF values in the
-    compute type. Folded: the resampler's taps of each view, their mean in
-    float32, cast to the compute type, then the prefold streams."""
+    compute type. Folded: the mean of the V views' bilinear taps in
+    float32, cast to the compute type (K8 on the card), then the prefold
+    streams."""
     fused_embedding, merged, g_contrib, endpoints = state
     if merged is not None:
         cd = merged.dtype
-        taps = image_ops.resampler(merged, _project(pts, trans_mats, cfg))
-        local = taps.mean(0, keepdim=True).to(cd)             # [1,P,512]
+        local = mv_taps.mv_tap_mean(merged, trans_mats, pts, img_w=cfg.img_w,
+                                    img_h=cfg.img_h)[None]    # [1,P,512]
         pred = sdfnet.apply_two_stream_prefold(
             params["sdfprediction"], params["sdfprediction_imgfeat"],
             pts[None], g_contrib, local, cd)
@@ -138,12 +145,17 @@ def _mv_decode(params: Params, state, trans_mats: torch.Tensor,
 
 def decode_step(state, cfg: Config) -> int:
     """Points a decode step takes: TAP_BYTES over the bytes of one point's
-    per-view features, in whole 64-point cells."""
+    per-view features, in whole 64-point cells; on K8's route (the folded
+    arm on the card) over one point's [512] f32 MLP activations."""
     _, merged, _, endpoints = state
-    v = (merged if merged is not None
-         else endpoints[disn.endpoint_names(cfg)[0]]).shape[0]
-    width = 512 if merged is not None else cfg.local_feat_dim
-    return max(64, TAP_BYTES // (v * width * 4) // 64 * 64)
+    if merged is not None and merged.is_cuda:
+        per_point = 512 * 4
+    else:
+        v = (merged if merged is not None
+             else endpoints[disn.endpoint_names(cfg)[0]]).shape[0]
+        width = 512 if merged is not None else cfg.local_feat_dim
+        per_point = v * width * 4
+    return max(64, TAP_BYTES // per_point // 64 * 64)
 
 
 def _decode_points(params: Params, state, trans_mats: torch.Tensor,

@@ -55,8 +55,8 @@ def test_every_module_is_listed():
             "disn_tpu_torch.preprocessing.sdf_gen",
             "disn_tpu_torch.preprocessing.img_gen",
             "disn_tpu_torch.convert", "disn_tpu_torch.convert.tf_ckpt",
-            "disn_tpu_torch.parallel", "disn_tpu_torch.parallel.mesh"
-            } <= names
+            "disn_tpu_torch.parallel", "disn_tpu_torch.parallel.mesh",
+            "disn_tpu_torch.ops.mv_taps"} <= names
 
 
 def test_native_bindings_load_neither_jax_nor_disn_tpu():
