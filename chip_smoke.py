@@ -264,11 +264,15 @@ on failure:
    neither K1 nor K5 runs). [mv taps]: K8 against mv_tap_mean_plain on
    the card at V = 24, 512 channels, on the maps the full-width net folds
    from 24 seeded u8 views, bf16 and f32, in the main path's decode steps:
-   the coarse 65^3 grid, the fine points of the object's active cells,
-   the boundary planes, points on the last row and column and off the
-   image (clamped), a NaN projection; bit for bit (NaN where the plain
-   version has NaN); K8, the plain version and grid_sample + mean (the
-   yardstick) timed on a coarse step beside K8's bound. [mv full]:
+   the coarse 65^3 grid in its natural and its 4^3-block order, the fine
+   points of the object's active cells, the boundary planes, points on the
+   last row and column and off the image (clamped), a NaN projection; bit
+   for bit (NaN where the plain version has NaN); K8 timed on a step of
+   each coarse order and of the fine points, each with its staged /
+   direct tile-views (a -DMV_TRACE build's counts, equal to tile_plan's,
+   and its thread 0's clocks), beside K8's bound and floor (with --parent, in turns with that
+   checkout's K8); the plain version and grid_sample + mean (the
+   yardstick) on the block-order step. [mv full]:
    multiview_to_mesh on 24 seeded u8 views of one object under 24 cameras
    around the demo camera, full-width net with the analytic octahedron
    head, sdf_res 256: bf16 the median of 3 after a warm-up, the default
@@ -279,8 +283,10 @@ on failure:
    MV_BF16_SURFACE_TOL: the MLP rounds the head's output layer to bf16),
    the faces those of phase 2's volume-flow mesh; stage times, peak
    memory, active cells, decode steps, K8's time an object, the decode
-   beside its bound (mv_bound); with --parent, bf16 objects in turns with
-   that checkout's decode (its _mv_decode and decode_step); and [mv
+   beside its bound (mv_bound); the coarse grid's values in the two orders
+   (fails unless equal); with --parent, bf16 and f32 objects in turns
+   with that checkout's decode (its phase_a, _mv_decode, decode_step and
+   K8); and [mv
    profile]: one bf16 object under torch.profiler, with no gather of the
    bf16 maps or nan_to_num kernel (the plain resampler's) on the card,
    and K8 held bit for bit against the plain version on that object's
@@ -474,12 +480,13 @@ def phase_build() -> None:
         build()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(10) as pool:
-        (k1_s, k6_s, k5_s, k4_s, kc_s, ks_s, k7_s, k8_s, asm_s,
+    with ThreadPoolExecutor(11) as pool:
+        (k1_s, k6_s, k5_s, k4_s, kc_s, ks_s, k7_s, k8_s, k8t_s, asm_s,
          eio_s) = pool.map(
             timed, (fused_decode.build, metrics.build, sparse_words.build,
                     band_cull.build, block_compact.build, change_scan.build,
-                    owned_extract.build, mv_taps.build, native.build,
+                    owned_extract.build, mv_taps.build,
+                    lambda: mv_taps.build(MV_TRACE_DEFINES), native.build,
                     native.build_eval))
     secs = fused_decode.build_seconds()
     native._lib()
@@ -506,7 +513,8 @@ def phase_build() -> None:
           f"{change_scan.build().name}; owned_extract.cu in {k7_s:.2f} s -> "
           f"{owned_extract.build().name}")
     print(f"[mv taps build] mv_taps.cu built in {k8_s:.2f} s -> "
-          f"{mv_taps.build().name}")
+          f"{mv_taps.build().name}; its -DMV_TRACE build in {k8t_s:.2f} s "
+          f"-> {mv_taps.build(MV_TRACE_DEFINES).name}")
     keys = ("registers", "spill", "smem", "wgmma", "Performance",
             "setmaxnreg", "entry function")
     for tag, lib in (("[build]", fused_decode.build()),
@@ -5043,7 +5051,13 @@ MV_EDGE_PTS = np.array([[1, 0.25, 0], [0.25, 1, 0], [1, 1, 0],
                         [0.5, 2, 0], [0.5, -3, 0], [5, 5, 0],
                         [0.5, 0.5, -1]], np.float32)
 MV_NAN_PT = np.array([[-1.125, -1.125, -1]], np.float32)
-PARENT_MV: dict = {}  # another checkout's infer/multiview (--parent)
+PARENT_MV: dict = {}  # another checkout's infer/multiview and K8 (--parent)
+MV_TRACE_DEFINES = ("MV_TRACE",)  # K8's build that counts its tile-views
+# K8's floor a view-channel (csrc/mv_taps.cu's header): bf16 6 multiplies,
+# 4 adds, 4 unpacks and half a 16-byte shared-memory load, in issue slots;
+# f32 the 16 bytes of its 4 taps out of shared memory at 128 bytes a clock
+# an SM. Both at 132 SMs x 128 a clock x 1.98 GHz = H100_F32_FLOPS / 2
+K8_FLOOR_SLOTS = {"bf16": 14.5, "f32": 16.0}
 
 
 def mv_edge_cameras(v: int) -> np.ndarray:
@@ -5069,14 +5083,37 @@ def mv_parent(root: str):
     return mod
 
 
+def k8_parent(root: str):
+    """Another checkout's ops/mv_taps (its K8 wrapper and plain version),
+    loaded under another name and bound to a build of that checkout's
+    csrc/mv_taps.cu."""
+    import importlib.util
+    from disn_tpu_torch import kernels
+    spec = importlib.util.spec_from_file_location(
+        "parent_mv_taps", os.path.join(root, "disn_tpu_torch", "ops",
+                                       "mv_taps.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = mod.bind(kernels.nvcc_build("mv_taps", src=os.path.join(
+        root, "disn_tpu_torch", "csrc", "mv_taps.cu")))
+    mod._lib = lambda: lib
+    return mod
+
+
+def k8_floor(n_pts: int, views: int, label: str) -> float:
+    """K8's floor in ms for n_pts points: K8_FLOOR_SLOTS a view-channel."""
+    return (K8_FLOOR_SLOTS[label] * n_pts * views * 512
+            / (H100_F32_FLOPS / 2) * 1e3)
+
+
 @contextlib.contextmanager
 def mv_route(mod=None):
-    """A context in which infer/multiview decodes with `mod`'s _mv_decode
-    and decode_step (another checkout's decode, its steps), or, with mod
-    None, with this checkout's code; yields the list of decode steps
-    taken (the points of each _mv_decode call)."""
+    """A context in which infer/multiview decodes with `mod`'s phase_a,
+    _mv_decode and decode_step (another checkout's coarse order, decode,
+    K8 and steps), or, with mod None, with this checkout's code; yields
+    the list of decode steps taken (the points of each _mv_decode call)."""
     from disn_tpu_torch.infer import multiview
-    saved = (multiview._mv_decode, multiview.decode_step)
+    saved = (multiview._mv_decode, multiview.decode_step, multiview.phase_a)
     decode = saved[0] if mod is None else mod._mv_decode
     steps: list = []
 
@@ -5086,11 +5123,16 @@ def mv_route(mod=None):
 
     multiview._mv_decode = counted
     if mod is not None:
-        multiview.decode_step = mod.decode_step
+        multiview.decode_step, multiview.phase_a = mod.decode_step, \
+            mod.phase_a
+        mod._mv_decode = counted
     try:
         yield steps
     finally:
-        multiview._mv_decode, multiview.decode_step = saved
+        multiview._mv_decode, multiview.decode_step, multiview.phase_a = \
+            saved
+        if mod is not None:
+            mod._mv_decode = decode
 
 
 @contextlib.contextmanager
@@ -5156,13 +5198,20 @@ def phase_mv_taps(params, smi: str) -> dict:
     """[mv taps]: K8 against mv_tap_mean_plain on the card at V = 24, 512
     channels, on the maps the full-width net folds from 24 seeded u8 views,
     in bf16 and f32, cut into the main path's decode steps: the coarse 65^3
-    grid, the fine points of the object's active cells (phase_a's band cull
-    of its coarse grid, cell_points), the three boundary planes, the
-    hand-made edge points under mv_edge_cameras and the NaN point. Bit for
-    bit, NaN where the plain version has NaN. Then, on the first coarse
-    step, K8 (median of MV_TAPS_REPS on CUDA events), the plain version and
-    grid_sample + mean (median of MV_TAPS_SLOW) beside K8's bound. Returns
-    the kernels line's fields by type."""
+    grid in its natural order and in 4^3-block order (grids.block_order,
+    phase_a's), the fine points of the object's active cells (phase_a's
+    band cull of its coarse grid, cell_points), the three boundary planes,
+    the hand-made edge points under mv_edge_cameras and the NaN point. Bit
+    for bit, NaN where the plain version has NaN. Then K8 (median of
+    MV_TAPS_REPS on CUDA events) on the first step of the block-order
+    coarse grid, the natural one and the fine points, each with its staged
+    / direct tile-views as the -DMV_TRACE build counts them (held equal to
+    mv_taps.tile_plan's) and its thread 0's clocks, beside K8's bound and
+    floor; with --parent, the
+    parent's K8 in turns with this one on each (parent, change, change,
+    parent); the plain version and grid_sample + mean (median of
+    MV_TAPS_SLOW) on the block-order step. Returns the kernels line's
+    fields by type."""
     import torch
     from disn_tpu_torch.config import Config
     from disn_tpu_torch.core import grids
@@ -5171,6 +5220,7 @@ def phase_mv_taps(params, smi: str) -> dict:
 
     t0 = time.perf_counter()
     k8 = mv_taps.mv_tap_mean
+    traced = mv_taps.bind(mv_taps.build(MV_TRACE_DEFINES))
     rng = np.random.RandomState(23)
     imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
     dev = torch.device("cuda")
@@ -5188,7 +5238,10 @@ def phase_mv_taps(params, smi: str) -> dict:
             fine, _ = fused_decode.cell_points(ids, rc - 1,
                                                cfg.grid_resolution, sp, 4)
             planes, _ = fused.plane_points(cfg.grid_resolution, sp)
-            sets = {"coarse 65^3": (tr, grids.grid_block(sp, rc, 0, rc ** 3)),
+            natural = grids.grid_block(sp, rc, 0, rc ** 3)
+            sets = {"coarse 65^3": (tr, natural),
+                    "coarse 65^3 in 4^3 blocks": (
+                        tr, natural[grids.block_order(rc, dev)]),
                     f"fine ({count} active cells)": (tr, fine),
                     "boundary planes": (tr, planes),
                     "edge points": (edge, torch.from_numpy(MV_EDGE_PTS)
@@ -5221,28 +5274,71 @@ def phase_mv_taps(params, smi: str) -> dict:
                 check(nan_rows == 0, f"[mv taps] {label}: NaN in the edge "
                                      f"points")
             err, n_all = max(err, e), n_all + n_diff
-        trans, pts = sets["coarse 65^3"]
-        p = pts[:step]
-        ms = median_ms(lambda: k8(merged, trans, p), True, MV_TAPS_REPS)
+        timed = {"4^3-block coarse": sets["coarse 65^3 in 4^3 blocks"][1],
+                 "natural coarse": sets["coarse 65^3"][1],
+                 "fine": fine}
+        ms = {}
+        for name, pts in timed.items():
+            p = pts[:step]
+            ms[name] = median_ms(lambda: k8(merged, tr, p), True,
+                                 MV_TAPS_REPS)
+            counts = mv_taps.trace_launch(traced, merged, tr, p)
+            split = tuple(counts[:2])
+            staged = mv_taps.tile_plan(tr, p)
+            plan = (int(staged.sum()), int((~staged).sum()))
+            clocks = max(counts[3], 1)
+            bound_ms, bound_by = k8_bound(merged, p.shape[0])
+            floor_ms = k8_floor(p.shape[0], MV_VIEWS, label)
+            print(f"[mv taps] {label} {name} step, {p.shape[0]} points, V "
+                  f"= {MV_VIEWS}: K8 {ms[name]:.4f} ms (CUDA events, median "
+                  f"of {MV_TAPS_REPS}); staged / direct tile-views "
+                  f"{split[0]} / {split[1]} (-DMV_TRACE build), {plan[0]} / "
+                  f"{plan[1]} (tile_plan, {mv_taps.STAGES} stages of "
+                  f"{mv_taps.STAGE_PX} px); of thread 0's clocks (the trace "
+                  f"build) waiting for a stage {counts[2] / clocks:.4f}, "
+                  f"tables and boxes {counts[4] / clocks:.4f}, issuing "
+                  f"copies {counts[5] / clocks:.4f}; bound {bound_ms:.4f} ms "
+                  f"({bound_by}: 8 FLOP a view-channel at 67 TFLOP/s; maps, "
+                  f"points and output once), {bound_ms / ms[name]:.4f} of "
+                  f"it; floor {floor_ms:.4f} ms ({K8_FLOOR_SLOTS[label]} "
+                  f"issue slots a view-channel), {floor_ms / ms[name]:.4f} "
+                  f"of it; {smi}")
+            check(split == plan, f"[mv taps] {label} {name}: the kernel "
+                                 f"staged {split}, the plan {plan}")
+            if PARENT_MV:
+                pk8 = PARENT_MV["k8"].mv_tap_mean
+                turns: dict = {"parent": [], "change": []}
+                for arm in ("parent", "change", "change", "parent"):
+                    fn = pk8 if arm == "parent" else k8
+                    turns[arm].append(median_ms(lambda: fn(merged, tr, p),
+                                                True, MV_TAPS_REPS))
+                n_diff, _ = k8_differing(pk8(merged, tr, p),
+                                         k8(merged, tr, p))
+                print(f"[mv taps] {label} {name} step in turns: parent K8 "
+                      f"{[round(t, 4) for t in turns['parent']]} ms, this "
+                      f"K8 {[round(t, 4) for t in turns['change']]} ms "
+                      f"(median of {MV_TAPS_REPS} each); {n_diff} elements "
+                      f"differ between them; {smi}")
+                check(n_diff == 0, f"[mv taps] {label} {name}: K8 and the "
+                                   f"parent's K8 differ")
+        p = timed["4^3-block coarse"][:step]
         plain_ms = median_ms(
-            lambda: mv_taps.mv_tap_mean_plain(merged, trans, p), True,
+            lambda: mv_taps.mv_tap_mean_plain(merged, tr, p), True,
             MV_TAPS_SLOW)
-        lib = mv_library(merged, trans, p)
+        lib = mv_library(merged, tr, p)
         lib_ms = median_ms(lib, True, MV_TAPS_SLOW)
-        lib_err = float((lib()[:, 0].t().float() - k8(merged, trans, p)
+        lib_err = float((lib()[:, 0].t().float() - k8(merged, tr, p)
                          .float()).abs().max())
         bound_ms, bound_by = k8_bound(merged, p.shape[0])
-        print(f"[mv taps] {label} timed on {p.shape[0]} coarse points (one "
-              f"decode step), V = {MV_VIEWS}: K8 {ms:.4f} ms (CUDA events, "
-              f"median of {MV_TAPS_REPS}), bound {bound_ms:.4f} ms "
-              f"({bound_by}: 8 FLOP a view-channel at 67 TFLOP/s; maps, "
-              f"points and output once), {bound_ms / ms:.4f} of it; plain "
+        print(f"[mv taps] {label} on the 4^3-block coarse step: plain "
               f"{plain_ms:.4f} ms; grid_sample + mean(0) (two PyTorch "
               f"calls, the yardstick) {lib_ms:.4f} ms, max |diff| to K8 "
               f"{lib_err:.3e}; {smi}")
-        out[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": lib_ms}
+        out[label] = {"max_abs_err": err, "ms": ms["4^3-block coarse"],
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "natural_ms": ms["natural coarse"],
+                      "fine_ms": ms["fine"]}
         del state, merged, lib
         torch.cuda.empty_cache()
     print(f"[mv taps] phase took {time.perf_counter() - t0:.1f} s")
@@ -5253,9 +5349,9 @@ def mv_object(params, imgs, trans, cfg, label: str, parent=None) -> tuple:
     """pipeline.multiview_to_mesh on one object on the card, the K1, K5
     and K8 counts set to 0 just before and read just after: neither K1 nor
     K5 may run; K8 once a decode step (none with `parent`, another
-    checkout's multiview module whose decode runs instead). Gates: the
-    sparse flow (no cap overflow), > 1000 faces, finite vertices. Returns
-    (stats, verts, faces)."""
+    checkout's multiview module whose phase_a, decode and K8 run instead;
+    its K8's events give k8_ms). Gates: the sparse flow (no cap overflow),
+    > 1000 faces, finite vertices. Returns (stats, verts, faces)."""
     import torch
     from disn_tpu_torch.infer import pipeline
     from disn_tpu_torch.ops import fused_decode, mv_taps, sparse_words
@@ -5263,10 +5359,12 @@ def mv_object(params, imgs, trans, cfg, label: str, parent=None) -> tuple:
     k1 = fused_decode.fused_cell_decode
     k5 = sparse_words.sparse_cell_words
     k8 = mv_taps.mv_tap_mean
+    # K8's time an object: this checkout's launches, or the parent's
+    timed_k8 = k8 if parent is None else parent.mv_taps.mv_tap_mean
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1.launches = k5.launches = k8.launches = 0
-    k8.events = []
+    timed_k8.events = []
     stats: dict = {}
     t0 = time.perf_counter()
     try:
@@ -5274,9 +5372,9 @@ def mv_object(params, imgs, trans, cfg, label: str, parent=None) -> tuple:
             verts, faces = pipeline.multiview_to_mesh(
                 params, imgs, trans, pipeline.UNIT_BOX, cfg, stats=stats)
         stats["wall_ms"] = (time.perf_counter() - t0) * 1e3
-        stats["k8_ms"] = sum(a.elapsed_time(b) for a, b in k8.events)
+        stats["k8_ms"] = sum(a.elapsed_time(b) for a, b in timed_k8.events)
     finally:
-        k8.events = None
+        timed_k8.events = None
     stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     stats.update(k1_launches=k1.launches, k5_launches=k5.launches,
                  k8_launches=k8.launches, decode_steps=len(steps),
@@ -5305,9 +5403,11 @@ def phase_mv_full(params, main_mesh, smi: str) -> dict:
     off) once. Every vertex on |x|+|y|+|z| = 0.6 (f32 within SURFACE_TOL,
     bf16 within MV_BF16_SURFACE_TOL), the faces those of the main path's
     volume-flow mesh of the same field. Stage times, peak memory, active
-    cells, decode steps, K8's time; the decode beside its bound; with
-    --parent, bf16 objects in turns with that checkout's decode (parent,
-    change, change, parent); one bf16 object under torch.profiler (device
+    cells, decode steps, K8's time; the decode beside its bound; the
+    coarse grid in 4^3-block and natural order (mv_orders); with --parent,
+    bf16 and f32 objects in turns with that checkout's phase_a, decode and
+    K8 (parent, change, change, parent); one bf16 object under
+    torch.profiler (device
     kernels, launches, the idle share; no nan_to_num kernel and no gather
     of the bf16 maps: the plain resampler's), its K8 launches' inputs kept
     through mv_tap_mean.inputs and K8 held bit for bit against the plain
@@ -5369,29 +5469,33 @@ def phase_mv_full(params, main_mesh, smi: str) -> dict:
               f"wall {np.median([r['wall_ms'] for r in timed]):.3f} ms, the "
               f"decode's share {np.median(decode) / np.median([r['wall_ms'] for r in timed]):.4f}; "
               f"peak {np.median([r['peak_gib'] for r in timed]):.3f} GiB; {smi}")
+    mv_orders(params, rng, trans, smi)
     if PARENT_MV:
-        turns_mv: dict = {"parent": [], "change": []}
-        for arm in ("parent", "change", "change", "parent"):
-            imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3),
-                               dtype=np.uint8)
-            stats, _, faces = mv_object(
-                params, imgs, trans, cfg, f"bf16 {arm} turn",
-                parent=PARENT_MV["mod"] if arm == "parent" else None)
-            check(np.array_equal(faces, main_mesh[1]),
-                  f"[mv full] {arm} turn: the faces are not the main path's")
-            turns_mv[arm].append(stats)
-        for arm, rs in turns_mv.items():
-            print(f"[mv full] bf16 in turns, {arm}: decode "
-                  f"{[round(r['phase_a_ms'] + r['finish_ms'], 3) for r in rs]}"
-                  f" ms, wall {[round(r['wall_ms'], 3) for r in rs]} ms, "
-                  f"peak {[round(r['peak_gib'], 3) for r in rs]} GiB, decode "
-                  f"steps {[r['decode_steps'] for r in rs]}, K8 launches "
-                  f"{[r['k8_launches'] for r in rs]}; {smi}")
-        peak = {arm: max(r["peak_gib"] for r in rs)
-                for arm, rs in turns_mv.items()}
-        check(peak["change"] <= peak["parent"],
-              f"[mv full] the peak memory rose: {peak['change']:.3f} GiB "
-              f"against the parent's {peak['parent']:.3f}")
+        for label, c in (("bf16", cfg), ("f32", Config(sdf_res=256))):
+            turns_mv: dict = {"parent": [], "change": []}
+            for arm in ("parent", "change", "change", "parent"):
+                imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3),
+                                   dtype=np.uint8)
+                stats, _, faces = mv_object(
+                    params, imgs, trans, c, f"{label} {arm} turn",
+                    parent=PARENT_MV["mod"] if arm == "parent" else None)
+                check(np.array_equal(faces, main_mesh[1]),
+                      f"[mv full] {label} {arm} turn: the faces are not the "
+                      f"main path's")
+                turns_mv[arm].append(stats)
+            for arm, rs in turns_mv.items():
+                print(f"[mv full] {label} in turns, {arm}: decode "
+                      f"{[round(r['phase_a_ms'] + r['finish_ms'], 3) for r in rs]}"
+                      f" ms, K8 {[round(r['k8_ms'], 3) for r in rs]} ms, wall "
+                      f"{[round(r['wall_ms'], 3) for r in rs]} ms, peak "
+                      f"{[round(r['peak_gib'], 3) for r in rs]} GiB, decode "
+                      f"steps {[r['decode_steps'] for r in rs]}; {smi}")
+            peak = {arm: max(r["peak_gib"] for r in rs)
+                    for arm, rs in turns_mv.items()}
+            check(peak["change"] <= peak["parent"],
+                  f"[mv full] {label}: the peak memory rose: "
+                  f"{peak['change']:.3f} GiB against the parent's "
+                  f"{peak['parent']:.3f}")
     imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
     tdir = os.path.join(TRACE_DIR, "mv")
     k8 = mv_taps.mv_tap_mean
@@ -5445,6 +5549,40 @@ def phase_mv_full(params, main_mesh, smi: str) -> dict:
     held.clear()
     return ({label: timed[0]["k8_launches"] for label, timed in runs.items()},
             err)
+
+
+def mv_orders(params, rng, trans, smi: str) -> None:
+    """[mv full] the coarse grid of one object decoded by multiview.phase_a
+    in 4^3-block order (grids.block_order) and in the natural order, bf16
+    and f32: how many of its 274,625 values differ in their bits. Fails
+    unless none does: a point's decode depends on no other point, and both
+    orders cut the grid into steps of the same sizes, so the card runs the
+    same kernels on each."""
+    import torch
+    from disn_tpu_torch.config import Config
+    from disn_tpu_torch.core import grids
+    from disn_tpu_torch.infer import multiview, pipeline
+
+    imgs = rng.randint(0, 256, (MV_VIEWS, 137, 137, 3), dtype=np.uint8)
+    im, tr, sp = multiview._inputs(imgs, trans, pipeline.UNIT_BOX,
+                                   torch.device("cuda"))
+    block_order = grids.block_order
+    for label, cd in (("bf16", "bfloat16"), ("f32", "float32")):
+        cfg = Config(sdf_res=256, compute_dtype=cd)
+        vols = []
+        for order in (block_order,
+                      lambda rc, dev: torch.arange(rc ** 3, device=dev)):
+            grids.block_order = order
+            try:
+                vols.append(multiview.phase_a(params, im, tr, sp, cfg, 4)[1])
+            finally:
+                grids.block_order = block_order
+        n = int((vols[0].view(torch.int32) != vols[1].view(torch.int32))
+                .sum())
+        print(f"[mv full] {label} coarse grid in 4^3-block order against the "
+              f"natural order: {n} of {vols[0].numel()} values differ; {smi}")
+        check(n == 0, f"[mv full] {label}: the coarse grid's two orders "
+                      f"differ in {n} values")
 
 
 def mv_rel(got, want) -> float:
@@ -5730,10 +5868,11 @@ def phase_mv(main_mesh) -> dict:
 
 
 def mv_entries(k8: dict) -> list[dict]:
-    """K8 in the kernels line: bf16's launch at the main path's largest
-    step ([mv taps]) and launches an object ([mv full]); f32's beside."""
+    """K8 in the kernels line: bf16's launch on the main path's coarse
+    step (4^3-block order, [mv taps]) and launches an object ([mv full]);
+    its natural-order and fine steps; f32's beside."""
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "natural_ms", "fine_ms")
     return [{"name": "mv_tap_mean", "route": "cuda",
              "source": "disn_tpu_torch/csrc/mv_taps.cu",
              "replaces": "disn_tpu/infer/multiview.py:111-119",
@@ -7736,6 +7875,8 @@ def main() -> int:
             PARENT_SO["marching"] = so_parent(args.parent)
             PARENT_SO["k7"] = so_parent_k7(args.parent)
             PARENT_MV["mod"] = mv_parent(args.parent)
+            PARENT_MV["k8"] = PARENT_MV["mod"].mv_taps = k8_parent(
+                args.parent)
         launches, runs, vruns, kept, held = phase_main_path()
         main_inputs = (held["cfg"], held["params"], held["img"],
                        held["trans"])

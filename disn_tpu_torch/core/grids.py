@@ -55,6 +55,35 @@ def grid_block(sdf_params: torch.Tensor, resolution: int, start: int,
     return sp[0:3] + f * (sp[3:6] - sp[0:3])
 
 
+_BLOCK_ORDERS: dict = {}  # (resolution, device) -> block_order's perm
+
+
+def block_order(resolution: int, device) -> torch.Tensor:
+    """The flat (x fastest) indices of a resolution^3 grid in 4^3-block
+    order: [res^3] int64, a permutation. First the whole 4^3 blocks of the
+    grid's low corner (every coordinate below 4 (res // 4)), blocks z, y,
+    x with x fastest and each block's 64 points z, y, x with x fastest;
+    then the rest (on a 4k + 1 grid the three high faces) in the same block
+    order, partial blocks included. Consecutive 64 points of the first part
+    are one block: neighbours in 3D, whose projections share taps (K8,
+    ops/mv_taps, stages a run of 64 points' taps in shared memory). Built
+    on `device` once a resolution, with no copy to or from the host."""
+    dev = torch.device(device)
+    key = (resolution, dev)
+    if key not in _BLOCK_ORDERS:
+        idx = torch.arange(resolution ** 3, device=dev)
+        ix = idx % resolution
+        iy = (idx // resolution) % resolution
+        iz = idx // (resolution * resolution)
+        whole = 4 * (resolution // 4)
+        nb = -(-resolution // 4)
+        rest = (ix >= whole) | (iy >= whole) | (iz >= whole)
+        order = (((((rest.long() * nb + iz // 4) * nb + iy // 4) * nb
+                   + ix // 4) * 4 + iz % 4) * 4 + iy % 4) * 4 + ix % 4
+        _BLOCK_ORDERS[key] = torch.argsort(order)
+    return _BLOCK_ORDERS[key]
+
+
 def trilinear_sample(values: torch.Tensor, sdf_params: torch.Tensor,
                      points: torch.Tensor) -> torch.Tensor:
     """Trilinearly interpolate a [R,R,R] (z,y,x-indexed) volume at [N,3]

@@ -191,15 +191,21 @@ def _inputs(imgs, trans_mats, sdf_params, dev: torch.device):
 def phase_a(params: Params, imgs: torch.Tensor, trans_mats: torch.Tensor,
             sdf_params: torch.Tensor, cfg: Config, stride: int,
             stats: dict | None = None):
-    """Encode + fold the views, decode the coarse grid, cull it. Returns
-    (state, vol_c [rc,rc,rc] f32, cell_ids [count] int32, count). `stats`
-    receives ``encode_ms``, ``prep_ms`` and ``phase_a_ms``."""
+    """Encode + fold the views, decode the coarse grid (in
+    grids.block_order, each value scattered back to its place), cull it.
+    Returns (state, vol_c [rc,rc,rc] f32, cell_ids [count] int32, count).
+    `stats` receives ``encode_ms``, ``prep_ms`` and ``phase_a_ms``."""
     rc = cfg.sdf_res // stride + 1
     state = _mv_prep(params, imgs, cfg, stats)
     with device_mod.stage(stats, "phase_a_ms", sdf_params.device):
-        pts = grids.grid_block(sdf_params, rc, 0, rc ** 3)
-        vol_c = _decode_points(params, state, trans_mats, pts,
-                               cfg).reshape(rc, rc, rc)
+        # in 4^3-block order, so that K8 stages a block's taps
+        perm = grids.block_order(rc, sdf_params.device)
+        vol_c = torch.empty(rc ** 3, dtype=torch.float32,
+                            device=sdf_params.device)
+        vol_c[perm] = _decode_points(
+            params, state, trans_mats,
+            grids.grid_block(sdf_params, rc, 0, rc ** 3)[perm], cfg)
+        vol_c = vol_c.reshape(rc, rc, rc)
         _, cell_ids, count = sparse_mod._band_cull(
             vol_c, sdf_params, rc, BAND_FACTOR, cfg,
             mode="sign" if cfg.binary else "band")

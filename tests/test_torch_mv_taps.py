@@ -28,9 +28,10 @@ from disn_tpu.models import disn as jdisn
 from disn_tpu.ops import image as jimage
 from disn_tpu_torch import convert
 from disn_tpu_torch.config import Config
+from disn_tpu_torch.core import grids
 from disn_tpu_torch.infer import multiview
 from disn_tpu_torch.ops import mv_taps
-from mv_edge import EDGE_PTS, edge_cameras
+from mv_edge import EDGE_PTS, PLAN_STAGE_PX, edge_cameras, plan_tiles
 from torch_threads import few_threads  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -230,3 +231,85 @@ def test_mv_decode_takes_the_tap_mean_and_matches_jax(dtype, monkeypatch):
     else:
         assert np.abs(got - want).max() <= 0.02 * scale
         assert np.abs(got - want).mean() <= 0.003 * scale
+
+
+@pytest.mark.parametrize("rc", [5, 9, 17, 65])
+def test_block_order_is_a_permutation_and_scatters_back(rc):
+    """Every flat index once; a scatter through it writes back every value
+    of a gather through it; the first (4 (rc // 4))^3 points come in runs
+    of 64 that are each one 4^3 block; built once a resolution."""
+    perm = grids.block_order(rc, "cpu")
+    assert perm.dtype == torch.int64 and perm.shape == (rc ** 3,)
+    assert torch.equal(torch.sort(perm).values, torch.arange(rc ** 3))
+    vals = torch.from_numpy(np.random.RandomState(rc).randn(rc ** 3)
+                            .astype(np.float32))
+    back = torch.full_like(vals, float("nan"))
+    back[perm] = vals[perm]
+    assert torch.equal(back, vals)
+    whole = 4 * (rc // 4)
+    runs = perm[:whole ** 3].view(-1, 64)
+    for axis in (runs % rc, runs // rc % rc, runs // (rc * rc)):
+        assert (axis.amax(1) - axis.amin(1) == 3).all()
+        assert (axis.amin(1) % 4 == 0).all()
+    assert grids.block_order(rc, "cpu") is perm
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_phase_a_in_block_order_is_the_natural_order_and_matches_jax(
+        dtype, monkeypatch):
+    """The port's multi-view phase_a at sdf_res 64 (a 17^3 coarse grid)
+    and V = 3 decodes in 4^3-block order: its coarse volume matches the
+    natural order's and the JAX phase_a's within
+    tests/test_torch_multiview.py's bounds (f32: rtol 1e-4, atol 1e-4 of
+    the scale; bf16: max 2% and mean 0.3% of the scale), with the same
+    active cells. Not bit for bit on the CPU: the BLAS takes the MLPs'
+    rows in blocks whose edges move with the order, and a row at an edge
+    rounds an ulp apart (1 of 4,913 f32 values here)."""
+    kw = dict(num_classes=32, width_mult=0.125, compute_dtype=dtype,
+              sdf_res=64, sampling="tf1")
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    jp = jdisn.init(jcfg, jax.random.PRNGKey(6))
+    p = convert.params_from_jax(jax.device_get(jp))
+    imgs = np.random.RandomState(6).randint(0, 256, (3, 137, 137, 3),
+                                            dtype=np.uint8)
+    trans = ladder(3)
+    box = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    im, tr, sp = multiview._inputs(imgs, trans, box, torch.device("cpu"))
+    _, vol, ids, count = multiview.phase_a(p, im, tr, sp, cfg, 4)
+    monkeypatch.setattr(grids, "block_order",
+                        lambda rc, dev: torch.arange(rc ** 3, device=dev))
+    _, vol_n, ids_n, count_n = multiview.phase_a(p, im, tr, sp, cfg, 4)
+    assert vol.shape == (17, 17, 17)
+    assert count == count_n and torch.equal(ids, ids_n)
+    _, jvol, _, jcount = jmv._mv_parts(jcfg, 4, 32768, 0.25, 1.5)[1](
+        jp, jnp.asarray(imgs), jnp.asarray(trans), jnp.asarray(box))
+    assert count == int(jcount)
+    for want in (vol_n.numpy(), np.asarray(jvol, np.float32)):
+        got = vol.numpy()
+        scale = max(1e-3, float(np.abs(want).max()))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-4,
+                                       atol=1e-4 * scale)
+        else:
+            assert np.abs(got - want).max() <= 0.02 * scale
+            assert np.abs(got - want).mean() <= 0.003 * scale
+
+
+@pytest.mark.parametrize("views", [1, 3])
+def test_tile_plan_splits_staged_and_direct(views):
+    """tests/mv_edge.plan_tiles at 32 px a stage: an interior cell, a cell
+    on the image's last column and a NaN tile whose box covers pixel 0 are
+    staged; the NaN point in an interior cell and random points go direct;
+    a partial last tile is planned from its points alone. A stage of 3 px
+    holds none of them; one of 137^2 px holds every one."""
+    pts, want = plan_tiles()
+    pts, trans = torch.from_numpy(pts), torch.from_numpy(edge_cameras(views))
+    plan = mv_taps.tile_plan(trans, pts, stage_px=PLAN_STAGE_PX)
+    assert plan.shape == (views, 6) and plan.dtype == torch.bool
+    assert plan.tolist() == [want] * views
+    assert not mv_taps.tile_plan(trans, pts, stage_px=3).any()
+    assert mv_taps.tile_plan(trans, pts, stage_px=137 * 137).all()
+    # smaller tiles: the interior cell's 16-point quarters stay staged
+    quarters = mv_taps.tile_plan(trans, pts[:64], tile=16,
+                                 stage_px=PLAN_STAGE_PX)
+    assert quarters.shape == (views, 4) and quarters.all()
